@@ -8,7 +8,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
 (non-zero exit, no result line) on any error:
 
   1. device   the card's name and `nvidia-smi` name / power limit
-  2. build    compile csrc/paged_attention.cu with nvcc (sm_90a)
+  2. build    compile every csrc/*.cu with nvcc (sm_90a), one nvcc per
+              source, all started together
   3. check    each of the four CUDA kernels against its plain PyTorch
               version on the card, at the serving main path's shapes
               (Hkv 3, group 3, D 64, page 16, 8 sequences with contexts
@@ -27,6 +28,26 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               tokens on the card (CUDA kernels) and on the CPU (plain
               versions), stepped in lockstep: identical tokens, logits
               within 5e-3
+  7. flash    the flash-attention forward kernel (o and lse) against its
+              plain version on the card at the training shape (B 2, S 2048,
+              Hq 9, Hkv 3, D 64, causal; fp32 and bf16) and the five shapes
+              of tests/test_kernels_flash_attention.py (atol 1e-4 fp32 with
+              TF32 off, 2e-2 bf16), and the gradient of flash attention
+              (kernel forward + recompute backward) on the card against the
+              same on the CPU (fp32, atol 1e-4)
+  8. ftime    the flash kernel at B 4, S 2048, Hq 9, Hkv 3, D 64, bf16,
+              causal, beside its plain version,
+              scaled_dot_product_attention (a yardstick, never called by the
+              port) and its bound
+  9. train    full-width, full-depth smollm-135m in bf16 (random weights
+              from seed 0) takes 1 + 5 AdamW steps at batch 4 x seq 2048 on
+              Markov data (seed 1) through `trainer.train_step`; the launch
+              counters are zeroed just before and read just after: the
+              flash kernel runs 2 x 30 x 6 times (each block's forward and
+              its remat recompute), the paged kernels never
+ 10. tdiff    full width in fp32 (TF32 off): 3 train steps at batch 2 x
+              seq 256 on the card and on the CPU from the same weights and
+              batches: losses within 1e-4 relative, grad norms within 1e-3
 
 The line before the last is `nvidia-smi`'s name and power limit, the one
 before that the kernels' JSON; the last line is the result JSON.
@@ -53,9 +74,34 @@ REPLACES = {
     "segment_reduce": "src/repro/kernels/paged_attention/kernel.py:359",
     "paged_prefill_qblock": "src/repro/kernels/paged_attention/kernel.py:454",
 }
+FLASH = "flash_attention_fwd"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 DIFF_LOGIT_ATOL = 5e-3
+# flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
+# training shape, then the cases of tests/test_kernels_flash_attention.py
+FLASH_CASES = [
+    (2, 2048, 2048, 9, 3, 64, True, 0, "float32"),
+    (2, 2048, 2048, 9, 3, 64, True, 0, "bfloat16"),
+    (2, 128, 128, 4, 2, 64, True, 0, "float32"),
+    (1, 64, 64, 8, 8, 128, True, 0, "float32"),
+    (2, 32, 128, 4, 1, 64, True, 96, "float32"),
+    (1, 128, 128, 16, 2, 128, False, 0, "float32"),
+    (2, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+]
+FLASH_GRAD_CASE = (2, 256, 256, 9, 3, 64, True, 0, "float32")
+FLASH_TIME_CASE = (4, 2048, 2048, 9, 3, 64, True, 0, "bfloat16")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
+TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
+# 3 steps: the schedule gives step 0 a learning rate of 0, so step 2 is
+# the first whose loss follows an update.  The loss is a mean over 512
+# tokens and the grad norm a sum over 135M squares, each after 30 layers
+# of fp32 GEMMs summed in another order on each side (~1e-6 relative
+# expected): 1e-4 and 1e-3 leave room without hiding a wrong kernel.
+TDIFF_BATCH, TDIFF_SEQ, TDIFF_STEPS = 2, 256, 3
+TDIFF_LOSS_RTOL, TDIFF_GNORM_RTOL = 1e-4, 1e-3
 
 
 def log(msg: str) -> None:
@@ -343,7 +389,7 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
 # ---------------------------------------------------------------------------
 
 
-def phase_serve(torch, K):
+def phase_serve(torch, K, FK):
     from repro_torch import weights
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import Engine
@@ -377,6 +423,7 @@ def phase_serve(torch, K):
     for r in reqs:
         eng.add_request(r)
     K.reset_launches()
+    FK.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps = 0
@@ -393,6 +440,8 @@ def phase_serve(torch, K):
         raise AssertionError("not every request finished")
     if any(n == 0 for n in launches.values()):
         raise AssertionError(f"a kernel was never launched: {launches}")
+    if FK.LAUNCHES[FLASH]:
+        raise AssertionError("serving launched the training kernel")
     if {v for _, v in eng.dispatch_counts} != {"gqa", "segmented"}:
         raise AssertionError("expected mixed steps on gqa and decode-heavy "
                              f"steps on segmented: {eng.dispatch_counts}")
@@ -456,6 +505,210 @@ def phase_diff(torch):
 
 
 # ---------------------------------------------------------------------------
+# the training path: flash attention and the trainer
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(torch, case, seed=3):
+    """Packed kernel inputs (q [B*Hkv, nq, block_q*G, D], k / v
+    [B*Hkv, Skv, D]) and their keyword arguments, on DEVICE."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    b, sq, skv, hq, hkv, d, causal, off, dtype_name = case
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=g).to(dtype)
+    k = torch.randn((b, skv, hkv, d), generator=g).to(dtype)
+    v = torch.randn((b, skv, hkv, d), generator=g).to(dtype)
+    group = hq // hkv
+    bq = fops.pick_block_q(sq, group)
+    qp = fops.pack_q(q, hkv).reshape(b * hkv, sq // bq, bq * group, d)
+    kp, vp = (x.permute(0, 2, 1, 3).reshape(b * hkv, skv, d) for x in (k, v))
+    args = tuple(x.contiguous().to(DEVICE) for x in (qp, kp, vp))
+    kw = dict(block_q=bq, group=group, scale=d ** -0.5, causal=causal,
+              q_offset=off)
+    return args, kw, (q, k, v)
+
+
+def phase_flash_check(torch, FK):
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    worst = 0.0
+    for case in FLASH_CASES:
+        dtype_name = case[-1]
+        args, kw, _ = flash_inputs(torch, case)
+        o, lse = FK.flash_attention_fwd(*args, **kw)
+        want_o, want_lse = FK.flash_attention_fwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err_o = float((o.float() - want_o.float()).abs().max())
+        err_l = float((lse - want_lse).abs().max())
+        err = max(err_o, err_l)
+        ok = err <= ATOL[dtype_name]
+        log(f"flash check B {case[0]} Sq {case[1]} Skv {case[2]} Hq {case[3]}"
+            f" Hkv {case[4]} D {case[5]} causal {case[6]} q_offset {case[7]}"
+            f" {dtype_name}: o {err_o:.3e} lse {err_l:.3e} atol "
+            f"{ATOL[dtype_name]:g}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version at {case}")
+        worst = max(worst, err)
+    # gradient: autograd through the kernel on the card vs the plain
+    # version on the CPU, same inputs, fp32
+    *_, causal, off, _ = FLASH_GRAD_CASE
+    _, _, inputs = flash_inputs(torch, FLASH_GRAD_CASE, seed=4)
+    w = torch.randn(inputs[0].shape,
+                    generator=torch.Generator(device="cpu").manual_seed(5))
+    grads = []
+    for dev in (DEVICE, "cpu"):
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        out = fops.flash_attention(*xs, causal=causal, q_offset=off)
+        torch.sum(out * w.to(dev)).backward()
+        grads.append([x.grad.cpu() for x in xs])
+    gerr = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"flash grad  {FLASH_GRAD_CASE[:8]} fp32 card vs cpu: max_abs_err "
+        f"{gerr:.3e} atol 1e-4  {'ok' if gerr <= 1e-4 else 'FAIL'}")
+    if not gerr <= 1e-4:
+        raise AssertionError("flash attention gradient: card vs CPU differ")
+    return worst
+
+
+def flash_bound(case):
+    """(bound_ms, bound_by): causal FLOPs 4*B*Hq*D*S(S+1)/2 at the bf16
+    peak vs q, k, v, o and the fp32 lse moved once at the HBM rate."""
+    b, sq, skv, hq, hkv, d, causal, _, dtype_name = case
+    e = 2 if dtype_name == "bfloat16" else 4
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * e + 4 * b * sq * hq
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash_time(torch, FK, iters=20):
+    F = torch.nn.functional
+    case = FLASH_TIME_CASE
+    args, kw, (q, k, v) = flash_inputs(torch, case)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().to(DEVICE)
+                  for x in (q, k, v))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: FK.flash_attention_fwd(*args, **kw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(*args,
+                                                                   **kw),
+                       3, flush)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters, flush)
+    bound_ms, bound_by = flash_bound(case)
+    log(f"time  {FLASH:24s} {case[-1]} B {case[0]} S {case[1]} kernel_ms "
+        f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
+        f"bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def markov_batches(torch, cfg, n, batch_size, seq_len, device):
+    from repro_torch.training.data import DataState, MarkovDataset
+
+    ds = MarkovDataset(cfg.vocab_size, seed=1)
+    dstate, out = DataState(seed=1), []
+    for _ in range(n):
+        b, dstate = ds.batch(dstate, batch_size=batch_size, seq_len=seq_len)
+        out.append({k: torch.from_numpy(v).to(device) for k, v in b.items()})
+    return out
+
+
+def phase_train(torch, K, FK):
+    import math
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    cfg = ARCHS[ARCH]
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    state = make_train_state(model)
+    steps = 1 + TRAIN_STEPS
+    batches = markov_batches(torch, cfg, steps, TRAIN_BATCH, TRAIN_SEQ,
+                             DEVICE)
+    before = [p.detach().clone() for p in model.parameters()]
+    log(f"train {ARCH}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"{cfg.dtype}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; set-up "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    FK.reset_launches()
+    losses, gnorms, times = [], [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = train_step(model, state, batch, **TRAIN_KW)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} lr "
+            f"{float(m['lr']):.2e} {times[-1] * 1e3:.1f} ms")
+    launches = FK.LAUNCHES[FLASH]
+    paged = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[1:]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * len(timed) / sum(timed)
+    log(f"train {len(timed)} timed steps: mean_step_ms "
+        f"{sum(timed) / len(timed) * 1e3:.1f}  tokens_per_s {tok_s:.1f}  "
+        f"max_memory_allocated_gib {peak / 2**30:.2f}  flash launches "
+        f"{launches}  paged launches {paged}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{gnorms}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"step 0 loss {losses[0]} is not within 1.0 of "
+                             f"ln V = {math.log(cfg.vocab_size):.2f}")
+    # every matrix changes; bf16 norm scales near 1 may round back (the
+    # reference keeps no fp32 master copy either)
+    stuck = [n for (n, p), b in zip(model.named_parameters(), before)
+             if p.ndim == 2 and torch.equal(p.detach(), b)]
+    if stuck:
+        raise AssertionError(f"parameters did not change: {stuck[:4]}")
+    want = 2 * cfg.num_layers * steps  # each block's forward + its remat
+    if launches != want:
+        raise AssertionError(f"flash kernel launched {launches} times, "
+                             f"expected {want}")
+    if any(paged.values()):
+        raise AssertionError(f"training launched serving kernels: {paged}")
+    return launches
+
+
+def phase_train_diff(torch):
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    cfg = ARCHS[ARCH].replace(dtype="float32")
+    runs = []
+    for dev in (DEVICE, "cpu"):
+        model = weights.init_random(cfg, SEED, device=dev)
+        state = make_train_state(model)
+        out = []
+        for batch in markov_batches(torch, cfg, TDIFF_STEPS, TDIFF_BATCH,
+                                    TDIFF_SEQ, dev):
+            state, m = train_step(model, state, batch, **TRAIN_KW)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(out)
+        del model, state
+    worst_l = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(*runs))
+    worst_g = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(*runs))
+    log(f"tdiff fp32 {TDIFF_STEPS} steps batch {TDIFF_BATCH} x seq "
+        f"{TDIFF_SEQ}: card {runs[0]} cpu {runs[1]}; loss rel "
+        f"{worst_l:.3e} (bound {TDIFF_LOSS_RTOL:g}), grad_norm rel "
+        f"{worst_g:.3e} (bound {TDIFF_GNORM_RTOL:g})")
+    if not (worst_l <= TDIFF_LOSS_RTOL and worst_g <= TDIFF_GNORM_RTOL):
+        raise AssertionError("training on the card and on the CPU differ")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -465,7 +718,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc" / "paged_attention.cu").exists():
+    if not (SRC / "repro_torch" / "csrc" / "flash_attention.cu").exists():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
@@ -484,16 +737,20 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi {smi}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
+    libs = _build.build_all()
     K.library()
-    log(f"build paged_attention.cu -> {_build.library_path('paged_attention')}"
-        f" in {time.perf_counter() - t0:.1f}s (nvcc "
-        f"{_build.BUILD_SECONDS.get('paged_attention', 0.0):.1f}s)")
+    FK.library()
+    for name, path in libs.items():
+        log(f"build {name}.cu -> {path} (nvcc "
+            f"{_build.BUILD_SECONDS.get(name, 0.0):.1f}s)")
+    log(f"build all in {time.perf_counter() - t0:.1f}s")
 
     # 3. kernels against their plain versions
     errs = phase_check(torch, K, tops)
@@ -501,16 +758,31 @@ def main() -> int:
     # 4. kernel times at the main path's shapes (bf16, the serving dtype)
     times = phase_time(torch, K, tops)
 
-    # 5. end to end through the port's main path
-    launches, serve = phase_serve(torch, K)
+    # 5. end to end through the port's serving path
+    launches, serve = phase_serve(torch, K, FK)
 
     # 6. card (kernels) vs CPU (plain versions), fp32
     phase_diff(torch)
+
+    # 7. the flash kernel against its plain version; the gradient card vs CPU
+    flash_err = phase_flash_check(torch, FK)
+
+    # 8. the flash kernel's time at the training shape (bf16)
+    flash_time = phase_flash_time(torch, FK)
+
+    # 9. end to end through the port's training path
+    flash_launches = phase_train(torch, K, FK)
+
+    # 10. training on the card (kernel) vs the CPU (plain version), fp32
+    phase_train_diff(torch)
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name])
                for name in REPLACES]
+    kernels.append(dict(name=FLASH, route="cuda", source=FLASH_SOURCE,
+                        replaces=FLASH_REPLACES, launches=flash_launches,
+                        max_abs_err=flash_err, **flash_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

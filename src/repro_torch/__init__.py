@@ -3,14 +3,18 @@
 The JAX/Pallas package `repro` is the reference; this package imports none
 of it.  Layers (bottom-up):
 
-  csrc/       hand-written CUDA C++ paged-attention kernels (sm_90a).
+  csrc/       hand-written CUDA C++ kernels (sm_90a): paged attention
+              (serving) and the flash-attention forward (training).
   kernels/    ctypes wrappers + launch counters + plain PyTorch versions,
-              and the host layer (`paged_attention/ops.py`).
+              and the host layers (`paged_attention/ops.py`, the
+              differentiable `flash_attention/ops.py`).
   core/       page allocator, paged KV layout, attention backend,
               kernel-config heuristics.
-  models/     dense decoder (`Model`, unified packed step) and sampling.
+  models/     dense decoder (`Model`, unified packed step, `apply_train`)
+              and sampling.
   serving/    request / scheduler / prefix cache / packed `Engine`.
-  launch/     `python -m repro_torch.launch.serve`.
+  training/   Markov data, AdamW, the train step, checkpoints.
+  launch/     `python -m repro_torch.launch.serve` / `.train`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; a CPU
 tensor reaches each kernel's plain PyTorch version, a CUDA tensor the

@@ -23,6 +23,7 @@ import torch
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.paged_attention import kernel as K
+from repro_torch.launch.profiling import profiler, report
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request, State
 
@@ -73,7 +74,7 @@ def main() -> None:
         t_submit: dict[int, float] = {}
         t_done: dict[int, float] = {}
         K.reset_launches()
-        prof = _profiler() if profile else contextlib.nullcontext()
+        prof = profiler() if profile else contextlib.nullcontext()
         t0 = time.perf_counter()
         with prof:
             _drive(eng, list(reqs), args.rate, t_submit, t_done)
@@ -98,7 +99,7 @@ def main() -> None:
         # host several-fold): device time by kernel, idle share against
         # the unprofiled wall time above
         *_, dt_prof, prof = run(prompts[1:], profile=True)
-        _report(prof, dt, dt_prof)
+        report(prof, dt, dt_prof)
 
 
 def _drive(eng, pending, rate, t_submit, t_done) -> None:
@@ -116,35 +117,6 @@ def _drive(eng, pending, rate, t_submit, t_done) -> None:
         for r in all_reqs:
             if r.state is State.FINISHED and r.req_id not in t_done:
                 t_done[r.req_id] = now
-
-
-def _profiler():
-    return torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-
-
-def _report(prof, wall_s: float, prof_wall_s: float) -> None:
-    """Device time by kernel (summed over launches) and the device's idle
-    share of the unprofiled wall time (one stream: kernels never
-    overlap)."""
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side op; its kernels are listed on their own
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        rows.append((t / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    if not busy_ms:
-        raise RuntimeError("the profile recorded no device time")
-    print(f"profile: device busy {busy_ms:.1f} ms; unprofiled wall "
-          f"{wall_s * 1e3:.1f} ms, idle share {1 - busy_ms / (wall_s * 1e3):.3f}"
-          f" (profiled wall {prof_wall_s * 1e3:.1f} ms)")
-    for ms, n, key in rows[:16]:
-        print(f"  {ms:9.2f} ms  {ms / busy_ms:6.1%}  x{n:<6d} {key[:90]}")
 
 
 if __name__ == "__main__":

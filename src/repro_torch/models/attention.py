@@ -1,10 +1,12 @@
-"""GQA attention over the paged KV cache, unified (token-packed) mode only.
+"""GQA attention: the unified (token-packed) serving mode over the paged
+KV cache, and the dense causal training mode.
 
-One step: QKV projections, packed-position RoPE (each token rotates by its
-own absolute position), the KV page write at the host-computed
+Unified step: QKV projections, packed-position RoPE (each token rotates by
+its own absolute position), the KV page write at the host-computed
 `slot_mapping` (in place; padded tokens aim at the out-of-range trash slot
 and are dropped), one unified attention launch over decode rows and
-prefill chunks, then `wo`.
+prefill chunks, then `wo`.  Training: QKV, RoPE, causal flash attention
+over the whole sequence (no cache), then `wo`.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import backend as attn_backend
 from repro_torch.core.paged.kv_cache import scatter_kv
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 
 
@@ -63,10 +66,20 @@ class Attention(nn.Module):
         rows, dest = meta["write_rows"], meta["write_dest"]
         scatter_kv(k_pages, k[0].transpose(0, 1), rows, dest)
         scatter_kv(v_pages, v[0].transpose(0, 1), rows, dest)
-        o =attn_backend.unified_attention(
+        o = attn_backend.unified_attention(
             q[0], k_pages, v_pages, meta["page_table"],
             meta["context_lens"], meta["query_start_loc"],
             meta["query_lens"], num_decode_seqs=meta["num_decode_seqs"],
             scale=self.cfg.resolved_head_dim ** -0.5, kernel_cfg=kernel_cfg,
         )[None]
         return self.wo(o.reshape(b, t, -1).to(x.dtype))
+
+    def forward_train(self, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """x [B, S, d]; positions [B, S].  Causal self-attention over the
+        sequence (the reference's mode="train").  Returns [B, S, d]."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x, positions)
+        o = flash_attention(q, k, v, causal=True,
+                            scale=self.cfg.resolved_head_dim ** -0.5)
+        return self.wo(o.reshape(b, s, -1).to(x.dtype))

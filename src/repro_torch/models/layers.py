@@ -50,7 +50,10 @@ class RMSNorm(nn.Module):
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    """table[tokens]; `F.embedding`, whose backward on the CPU is
+    deterministic (indexing's accumulating backward is not), so a
+    restarted training run repeats the uninterrupted one bit for bit."""
+    return F.embedding(tokens.long(), table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

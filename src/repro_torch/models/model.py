@@ -1,16 +1,21 @@
-"""Dense decoder model and its unified (token-packed) serving step.
+"""Dense decoder model: its unified (token-packed) serving step and its
+training loss.
 
-`Model` is embed -> L decoder blocks (RMSNorm, GQA attention over the
-paged cache, RMSNorm, SwiGLU MLP, both residual) -> `ln_f` -> head (tied
-to the embedding for smollm).  `apply_unified` is the port of
-`repro.models.model.apply_unified`: one call covers decode rows, fresh
-prefill chunks and resumed chunks of a packed [1, T] stream, plus the
-last-token gather and, with `sample=True`, fused sampling.
+`Model` is embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
+SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
+smollm).  `apply_unified` is the port of `repro.models.model.apply_unified`:
+one call covers decode rows, fresh prefill chunks and resumed chunks of a
+packed [1, T] stream over the paged cache, plus the last-token gather and,
+with `sample=True`, fused sampling.  `apply_train` is the port of
+`repro.models.model.apply_train`: causal attention over the whole
+sequence, every block rematerialised in the backward, then the masked
+fp32 cross-entropy.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged.kv_cache import live_slots, make_kv_cache
@@ -30,6 +35,11 @@ class Block(nn.Module):
                              device=device)
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
                          fused=cfg.fused_mlp)
+
+    def forward_train(self, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn.forward_train(self.ln1(x), positions)
+        return x + self.mlp(self.ln2(x))
 
 
 class Model(nn.Module):
@@ -142,3 +152,35 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     if return_logits:
         return toks, last_logits, cache
     return toks, cache
+
+
+def default_positions(b: int, s: int, device=None) -> torch.Tensor:
+    """[B, S] int32 positions 0..S-1 of every row."""
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def apply_train(model: Model, batch: dict):
+    """batch: {'inputs': [B, S] ids, 'labels': [B, S] (< 0: ignored),
+    'positions'?: [B, S]} as tensors on the model's device.  Each block
+    runs under `torch.utils.checkpoint`, so the backward recomputes it,
+    as the reference's `jax.checkpoint` over the layer scan does.
+    Returns (loss, {"ce", "aux", "tokens"}); aux is 0 for a dense
+    model."""
+    inputs, labels = batch["inputs"], batch["labels"]
+    b, s = labels.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(b, s, labels.device)
+    x = L.embed(model.embed, inputs)
+    for blk in model.blocks:
+        x = checkpoint(blk.forward_train, x, positions, use_reentrant=False)
+    logp = torch.log_softmax(model.head(x), dim=-1)
+    mask = (labels >= 0).float()
+    ll = torch.gather(logp, -1,
+                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = -torch.sum(ll * mask) / denom
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux,
+                  "tokens": mask.sum().to(torch.int32)}

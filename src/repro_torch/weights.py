@@ -1,5 +1,5 @@
 """Model weights: carried over from the JAX reference's parameter pytree,
-or drawn at random from a seed.
+drawn at random from a seed, or handed back in the reference's layout.
 
 The JAX `M.init` pytree for a dense model is
 
@@ -11,8 +11,9 @@ The JAX `M.init` pytree for a dense model is
      ["lm_head": {"w": [d, V]}]}
 
 with the blocks stacked on a leading [L] axis by `jax.vmap`.  The bridge
-unstacks them into the port's `nn.ModuleList`.  Linear weights keep the
-[d_in, d_out] layout (`y = x @ w`), so nothing is transposed.
+unstacks them into the port's `nn.ModuleList`; `to_numpy_params` stacks
+them back.  Linear weights keep the [d_in, d_out] layout (`y = x @ w`),
+so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -106,3 +107,37 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
                     mod.b.zero_()
     model.ln_f.scale.fill_(1.0)
     return model.to(device)
+
+
+@torch.no_grad()
+def to_numpy_params(model: Model, *, grads: bool = False) -> dict:
+    """The inverse of `from_jax_params`: the model's parameters (or, with
+    `grads=True`, their `.grad`) as the reference's pytree of numpy
+    arrays, blocks stacked on a leading [L] axis, in fp32.  For tests
+    that compare the port with the reference leaf by leaf."""
+    def get(p: torch.Tensor) -> np.ndarray:
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        return t.float().cpu().numpy()  # numpy has no bfloat16
+
+    out = {"embed": {"table": get(model.embed)},
+           "ln_f": {"scale": get(model.ln_f.scale)}}
+    if model.lm_head is not None:
+        out["lm_head"] = {"w": get(model.lm_head.w)}
+    per_block = [lin for _, lin in _linear_params(model)]  # [L] dicts
+    blocks = {
+        "ln1": {"scale": np.stack([get(b.ln1.scale) for b in model.blocks])},
+        "ln2": {"scale": np.stack([get(b.ln2.scale) for b in model.blocks])},
+    }
+    for group in ("attn", "mlp"):
+        blocks[group] = {}
+        for name, mod in per_block[0][group].items():
+            leaf = {"w": np.stack([get(lin[group][name].w)
+                                   for lin in per_block])}
+            if mod.b is not None:
+                leaf["b"] = np.stack([get(lin[group][name].b)
+                                      for lin in per_block])
+            blocks[group][name] = leaf
+    out["blocks"] = blocks
+    return out

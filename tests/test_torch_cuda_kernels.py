@@ -1,5 +1,6 @@
-"""The CUDA paged-attention kernels against their plain PyTorch versions on
-the card, and the port's engine on the card against itself on the CPU.
+"""The CUDA kernels (paged attention, flash attention) against their plain
+PyTorch versions on the card, and the port's engine and the flash
+attention gradient on the card against themselves on the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked `cuda` and skips
 on a host without CUDA.  Run on the card with
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.serving.engine import Engine
@@ -180,3 +183,75 @@ def test_prefill_wide_block_uses_dynamic_shared_memory(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
                                rtol=0)
     assert (got[qb_seq < 0] == 0).all()
+
+
+FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, q_offset
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 64, 64, 8, 8, 128, True, 0),  # MHA, D 128
+    (2, 32, 128, 4, 1, 64, True, 96),  # q_offset
+    (1, 128, 128, 16, 2, 128, False, 0),  # bidirectional, 8 rows a token
+    (1, 100, 100, 6, 2, 40, True, 0),  # ragged KV tile, D 40
+    (1, 64, 64, 2, 1, 256, True, 0),  # D 256: ~219 KB of shared memory
+]
+
+
+def _flash_inputs(dev, dtype, case, seed=0):
+    b, sq, skv, hq, hkv, d = case[:6]
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(dev) for shape in
+            ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    q, k, v = _flash_inputs(cuda, dtype, case)
+    causal, off = case[6:]
+    hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+    group = hq // hkv
+    bq = fops.pick_block_q(q.shape[1], group)
+    qp = fops.pack_q(q, hkv).reshape(-1, q.shape[1] // bq, bq * group, d)
+    kp, vp = (x.permute(0, 2, 1, 3).reshape(-1, x.shape[1], d).contiguous()
+              for x in (k, v))
+    kw = dict(block_q=bq, group=group, scale=d ** -0.5, causal=causal,
+              q_offset=off)
+    n0 = FK.LAUNCHES["flash_attention_fwd"]
+    o, lse = FK.flash_attention_fwd(qp.contiguous(), kp, vp, **kw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention_fwd"] == n0 + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o.float(), atol=ATOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", [(2, 256, 256, 9, 3, 64, True, 0),
+                                  (1, 64, 160, 4, 2, 64, True, 96)])
+def test_flash_gradient_on_card_matches_cpu(cuda, case):
+    """fp32 autograd through the kernel's forward and the recompute
+    backward on the card vs the same on the CPU (plain forward)."""
+    causal, off = case[6:]
+    inputs = _flash_inputs("cpu", torch.float32, case, seed=1)
+    w = torch.randn(inputs[0].shape, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        out = fops.flash_attention(*xs, causal=causal, q_offset=off)
+        torch.sum(out * w.to(dev)).backward()
+        grads.append([x.grad.cpu() for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_flash_kernel_rejects_unsupported_shapes(cuda):
+    k = torch.zeros((1, 16, 300), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FK.flash_attention_fwd(torch.zeros((1, 1, 2, 300), device=cuda), k,
+                               k, block_q=1, group=2, scale=1.0, causal=True,
+                               q_offset=0)
+    k = torch.zeros((1, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        FK.flash_attention_fwd(torch.zeros((1, 1, 128, 64), device=cuda), k,
+                               k, block_q=16, group=8, scale=1.0,
+                               causal=True, q_offset=0)

@@ -36,6 +36,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     "serving/request.py",
     "serving/prefix_cache.py",
     "serving/scheduler.py",
+    "training/data.py",
 ])
 def test_copied_host_modules_match_reference(path):
     """The port keeps its own copies of the reference's pure-Python host
