@@ -29,8 +29,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               versions), stepped in lockstep: identical tokens, logits
               within 5e-3
   7. flash    the flash-attention forward kernel (o and lse) against its
-              plain version on the card at the training shape (B 2, S 2048,
-              Hq 9, Hkv 3, D 64, causal; fp32 and bf16) and the five shapes
+              plain version on the card at the shape the train phase gives
+              it (B 4, S 2048, Hq 9, Hkv 3, D 64, causal, packed q
+              [12, 128, 48, 64]; fp32 and bf16) and the five shapes
               of tests/test_kernels_flash_attention.py (atol 1e-4 fp32 with
               TF32 off, 2e-2 bf16), and the gradient of flash attention
               (kernel forward + recompute backward) on the card against the
@@ -59,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -80,11 +82,15 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 DIFF_LOGIT_ATOL = 5e-3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
-# training shape, then the cases of tests/test_kernels_flash_attention.py
+# shape the train phase gives the kernel (smollm-135m: Hq 9, Hkv 3, D 64),
+# then the cases of tests/test_kernels_flash_attention.py
+FLASH_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 9, 3, 64, True, 0,
+                    "bfloat16")
 FLASH_CASES = [
-    (2, 2048, 2048, 9, 3, 64, True, 0, "float32"),
-    (2, 2048, 2048, 9, 3, 64, True, 0, "bfloat16"),
+    FLASH_TRAIN_CASE[:-1] + ("float32",),
+    FLASH_TRAIN_CASE,
     (2, 128, 128, 4, 2, 64, True, 0, "float32"),
     (1, 64, 64, 8, 8, 128, True, 0, "float32"),
     (2, 32, 128, 4, 1, 64, True, 96, "float32"),
@@ -92,8 +98,6 @@ FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
 ]
 FLASH_GRAD_CASE = (2, 256, 256, 9, 3, 64, True, 0, "float32")
-FLASH_TIME_CASE = (4, 2048, 2048, 9, 3, 64, True, 0, "bfloat16")
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # 3 steps: the schedule gives step 0 a learning rate of 0, so step 2 is
 # the first whose loss follows an update.  The loss is a mean over 512
@@ -587,7 +591,7 @@ def flash_bound(case):
 
 def phase_flash_time(torch, FK, iters=20):
     F = torch.nn.functional
-    case = FLASH_TIME_CASE
+    case = FLASH_TRAIN_CASE
     args, kw, (q, k, v) = flash_inputs(torch, case)
     qt, kt, vt = (x.transpose(1, 2).contiguous().to(DEVICE)
                   for x in (q, k, v))
@@ -626,6 +630,10 @@ def phase_train(torch, K, FK):
     from repro_torch.training.trainer import make_train_state, train_step
 
     cfg = ARCHS[ARCH]
+    if (cfg.num_q_heads, cfg.num_kv_heads, cfg.resolved_head_dim) \
+            != FLASH_TRAIN_CASE[3:6]:
+        raise AssertionError("FLASH_TRAIN_CASE is not the train phase's "
+                             "attention shape")
     t0 = time.perf_counter()
     model = weights.init_random(cfg, SEED, device=DEVICE)
     state = make_train_state(model)
@@ -744,12 +752,12 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    K.library()
-    FK.library()
-    for name, path in libs.items():
-        log(f"build {name}.cu -> {path} (nvcc "
-            f"{_build.BUILD_SECONDS.get(name, 0.0):.1f}s)")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(K.library), pool.submit(FK.library)]:
+            f.result()
+    for name in sorted(_build.BUILD_SECONDS):
+        log(f"build {name}.cu -> {_build.library_path(name)} (nvcc "
+            f"{_build.BUILD_SECONDS[name]:.1f}s)")
     log(f"build all in {time.perf_counter() - t0:.1f}s")
 
     # 3. kernels against their plain versions

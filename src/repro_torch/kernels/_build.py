@@ -8,10 +8,9 @@ Each source under `repro_torch/csrc/` is compiled on first use with
 into the `build/` directory at the root of the checkout (listed in
 `.gitignore`) and loaded with `ctypes`.  The library name carries a hash
 of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  `build_all()` starts one nvcc per source, all
-at once.  `python -m repro_torch.kernels._build` builds every source and
-prints ptxas' registers / spills per kernel.  Nothing here runs at import
-time: the CPU-only test host has no `nvcc` and never calls `load()`.
+library is never loaded.  `python -m repro_torch.kernels._build` builds
+every source and prints ptxas' registers / spills per kernel.  Nothing here runs at import time: the CPU-only
+test host has no `nvcc` and never calls `load()`.
 """
 from __future__ import annotations
 
@@ -30,9 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# seconds from the start of a build_all() call to the end of each
-# library's nvcc in this process (0.0 when a library built by an earlier
-# process was reused)
+# seconds spent in nvcc per library in this process (0.0 when a library
+# built by an earlier process was reused)
 BUILD_SECONDS: dict[str, float] = {}
 
 
@@ -51,10 +49,6 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def sources() -> list[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
@@ -62,40 +56,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile each csrc/<name>.cu that has no up-to-date library, one
-    nvcc process per source, all started together; raise if any fails."""
-    names = sources() if names is None else names
-    jobs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            BUILD_SECONDS.setdefault(name, 0.0)
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        jobs[name] = (out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (out, tmp, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed for {name}.cu:\n{err}")
-            continue
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in names}
-
-
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    return build_all([name])[name]
+    out = library_path(name)
+    if out.exists():
+        BUILD_SECONDS.setdefault(name, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -108,15 +86,15 @@ def load(name: str) -> ctypes.CDLL:
 def main() -> None:
     """Build every csrc/*.cu, then print ptxas' resource use per kernel
     (registers, spills) from a second compile with -Xptxas -v."""
-    for name, out in build_all().items():
-        print(f"{name}.cu: {out} (nvcc {BUILD_SECONDS[name]:.1f}s)")
+    for src in sorted(CSRC.glob("*.cu")):
+        out = build(src.stem)
+        print(f"{src.name}: {out} (nvcc {BUILD_SECONDS[src.stem]:.1f}s)")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
             proc = subprocess.run(
                 [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-                 str(CSRC / f"{name}.cu")], capture_output=True, text=True,
-                check=True)
+                 str(src)], capture_output=True, text=True, check=True)
         finally:
             os.unlink(tmp)
         for line in proc.stderr.splitlines():

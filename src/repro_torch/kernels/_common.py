@@ -1,0 +1,72 @@
+"""What every kernel wrapper shares: the mask value, the choice between
+the CUDA kernel and the plain version, the launch plumbing, and the
+online-softmax step of the plain versions.
+
+A wrapper given CUDA tensors launches its kernel on the current stream
+and raises when the launch fails; given CPU tensors it runs its plain
+version.  `_tile_update` is the Pallas kernels' `_flash_tile_update` in
+PyTorch ops, with the same masking constants.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError_t {rc}")
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); raises on mixed or other devices."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one device, "
+                             f"got {t.device} and {dev}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _tile_update(q, k, v, mask, scale, acc, m, l):
+    """One online-softmax tile step, `_flash_tile_update` of the Pallas
+    kernel.  q [..., M, D] f32; k/v [..., tile, D]; mask [..., M, tile].
+    A fully masked step leaves (acc, m, l) exactly unchanged, so visiting
+    a tile the kernel skips changes nothing."""
+    s = torch.einsum("...md,...td->...mt", q, k.float()) * scale
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+    p = torch.exp(torch.where(mask, s - m_safe[..., None], NEG_INF))
+    alpha = torch.exp(torch.clamp(m - m_safe, max=0.0))
+    alpha = torch.where(m <= NEG_INF, 0.0, alpha)
+    l_new = l * alpha + p.sum(-1)
+    pv = torch.einsum("...mt,...td->...md", p.to(v.dtype).float(), v.float())
+    return acc * alpha[..., None] + pv, m_new, l_new
+
+
+def _init_state(shape, device):
+    *lead, d = shape
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.full(lead, NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros(lead, dtype=torch.float32, device=device))
+
+
+def _finalize(acc, l, dtype):
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    return (acc / l_safe[..., None]).to(dtype)

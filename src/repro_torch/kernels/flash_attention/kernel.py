@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.kernel import (
+from repro_torch.kernels._common import (
     NEG_INF, _finalize, _init_state, _on_card, _ptr, _raise_on, _stream,
     _tile_update,
 )

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as K
-from repro_torch.kernels.paged_attention.kernel import NEG_INF
+from repro_torch.kernels._common import NEG_INF
 
 BWD_KV_BLOCK = 1024  # keys per backward block (the reference's training kv_block)
 

@@ -24,9 +24,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._common import (
+    NEG_INF, _finalize, _init_state, _on_card, _ptr, _raise_on, _stream,
+    _tile_update,
+)
 from repro_torch.utils.misc import cdiv
 
-NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_HEAD_DIM = 256
 _LIB_NAME = "paged_attention"
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt in to (H100)
@@ -71,35 +74,6 @@ def library() -> ctypes.CDLL:
             f.restype = res
         _BOUND[id(lib)] = lib
     return lib
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError_t {rc}")
-
-
-def _on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); raises on mixed or other devices."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: all tensors must be on one device, "
-                             f"got {t.device} and {dev}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {dev}")
 
 
 def _check_common(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -157,35 +131,6 @@ def _kv_strides(k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (same masking constants and output contract)
 # ---------------------------------------------------------------------------
-
-
-def _tile_update(q, k, v, mask, scale, acc, m, l):
-    """One online-softmax tile step, `_flash_tile_update` of the Pallas
-    kernel.  q [..., M, D] f32; k/v [..., tile, D]; mask [..., M, tile].
-    A fully masked step leaves (acc, m, l) exactly unchanged, so visiting
-    a tile the kernel skips changes nothing."""
-    s = torch.einsum("...md,...td->...mt", q, k.float()) * scale
-    s = torch.where(mask, s, NEG_INF)
-    m_new = torch.maximum(m, s.amax(-1))
-    m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
-    p = torch.exp(torch.where(mask, s - m_safe[..., None], NEG_INF))
-    alpha = torch.exp(torch.clamp(m - m_safe, max=0.0))
-    alpha = torch.where(m <= NEG_INF, 0.0, alpha)
-    l_new = l * alpha + p.sum(-1)
-    pv = torch.einsum("...mt,...td->...md", p.to(v.dtype).float(), v.float())
-    return acc * alpha[..., None] + pv, m_new, l_new
-
-
-def _init_state(shape, device):
-    *lead, d = shape
-    return (torch.zeros(shape, dtype=torch.float32, device=device),
-            torch.full(lead, NEG_INF, dtype=torch.float32, device=device),
-            torch.zeros(lead, dtype=torch.float32, device=device))
-
-
-def _finalize(acc, l, dtype):
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / l_safe[..., None]).to(dtype)
 
 
 def _live_tiles(context_lens: torch.Tensor, tile: int, num_tiles: int) -> int:
