@@ -49,6 +49,30 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
  10. tdiff    full width in fp32 (TF32 off): 3 train steps at batch 2 x
               seq 256 on the card and on the CPU from the same weights and
               batches: losses within 1e-4 relative, grad norms within 1e-3
+ 11. ssd      the Mamba2 SSD kernel (y and the final state) against its
+              plain version on the card, from a nonzero initial state: at
+              the shape the hybrid serve phase gives it (B 8, L 1024, H 32,
+              P 128, N 64, G 1, chunk 128), at a short prompt (L 16, chunk
+              16) and at the cases of tests/test_kernels_mamba2.py; fp32
+              with TF32 off within 1e-5 x max |y| (sums of up to 128 x 64
+              products of values as large as |y|, in another order), bf16
+              inputs within 2e-2 (widened exactly, summed in fp32 on both
+              sides)
+ 12. ssdtime  the SSD kernel at the serve shape in bf16 beside its plain
+              version and its bound; no single PyTorch call computes the
+              SSD, so its library time is null
+ 13. hserve   full-width zamba2-1.2b (bf16, random seeded weights) serves 8
+              requests (prompts 128-1024, 32 new tokens, max_seqs 8)
+              through the padded per-kind step; the launch counters are
+              zeroed just before and read just after: the SSD runs once
+              per Mamba2 layer per prefill (32 x), the Q-Block prefill once
+              per shared-attention invocation per prefill (6 x), the decode
+              kernels 6 x per decode step (x 2 for segmented: partials +
+              merge), the flash kernel never
+ 14. hdiff    zamba2 at full width cut to 12 layers (two groups of five
+              Mamba2 blocks and the shared block), fp32 (TF32 off): 3
+              greedy requests of 8 new tokens on the card and on the CPU,
+              stepped in lockstep: identical tokens, logits within 5e-3
 
 The line before the last is `nvidia-smi`'s name and power limit, the one
 before that the kernels' JSON; the last line is the result JSON.
@@ -98,6 +122,20 @@ FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
 ]
 FLASH_GRAD_CASE = (2, 256, 256, 9, 3, 64, True, 0, "float32")
+SSD = "ssd_chunked_fwd"
+SSD_SOURCE = "src/repro_torch/csrc/mamba2_ssd.cu"
+SSD_REPLACES = "src/repro/kernels/mamba2/kernel.py:81"
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_REQUESTS, HYBRID_NEW_TOKENS = 8, 32
+# SSD check shapes (B, L, H, P, N, G, chunk): the shape the hybrid serve
+# phase gives the kernel (8 prompts of up to 1024 tokens in one prefill,
+# zamba2's widths), a short prompt, then tests/test_kernels_mamba2.py's
+SSD_SERVE_CASE = (HYBRID_REQUESTS, 1024, 32, 128, 64, 1, 128)
+SSD_CASES = [SSD_SERVE_CASE, (1, 16, 32, 128, 64, 1, 16),
+             (2, 64, 4, 32, 16, 2, 16), (1, 128, 2, 64, 64, 1, 32),
+             (2, 32, 8, 16, 8, 8, 8)]
+SSD_FP32_RTOL, SSD_BF16_ATOL = 1e-5, 2e-2
+HDIFF_LAYERS = 12
 TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # 3 steps: the schedule gives step 0 a learning rate of 0, so step 2 is
 # the first whose loss follows an update.  The loss is a mean over 512
@@ -717,6 +755,235 @@ def phase_train_diff(torch):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid path: the Mamba2 SSD kernel and zamba2 through the padded step
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(torch, case, dtype_name, seed=6):
+    """Kernel inputs (x, dt, b, c, a_cum, s0) on DEVICE, drawn like
+    tests/test_kernels_mamba2.py's, with a nonzero initial state and
+    a_cum from the port's own chunk cumsum."""
+    from repro_torch.kernels.mamba2 import ops as sops
+
+    bsz, l, h, p, n, grp, chunk = case
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((bsz, l, h, p), generator=g).to(dtype)
+    dt = torch.randn((bsz, l, h), generator=g).abs() * 0.5 + 0.01
+    a = -torch.randn((h,), generator=g).abs() - 0.1
+    bm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
+    cm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
+    s0 = torch.randn((bsz, h, n, p), generator=g)
+    a_cum = sops.chunk_cumsum(
+        (dt * a).reshape(bsz, l // chunk, chunk, h)).reshape(bsz, l, h)
+    return tuple(t.contiguous().to(DEVICE) for t in (x, dt, bm, cm, a_cum, s0))
+
+
+def ssd_err(torch, got, want, dtype_name):
+    """(error, bound, max abs error) over y and the final state: the error
+    is fp32's relative to max |y| (the state's to max |state|), bf16's
+    absolute."""
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    if dtype_name == "float32":
+        return max(e / max(1.0, float(b.abs().max()))
+                   for e, b in zip(errs, want)), SSD_FP32_RTOL, max(errs)
+    return max(errs), SSD_BF16_ATOL, max(errs)
+
+
+def phase_ssd_check(torch, SK):
+    worst = 0.0
+    for case in SSD_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            args = ssd_inputs(torch, case, dtype_name)
+            got = SK.ssd_chunked_fwd(*args, chunk=case[-1])
+            want = SK.ssd_chunked_fwd_plain(*args, chunk=case[-1])
+            torch.cuda.synchronize()
+            err, bound, abs_err = ssd_err(torch, got, want, dtype_name)
+            ok = err <= bound
+            log(f"ssd check B {case[0]} L {case[1]} H {case[2]} P {case[3]} "
+                f"N {case[4]} G {case[5]} chunk {case[6]} {dtype_name}: "
+                f"err {err:.3e} bound {bound:g} "
+                f"({'x max|y|' if dtype_name == 'float32' else 'abs'})  "
+                f"max|y| {float(want[0].abs().max()):.1f}  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"SSD kernel disagrees with its plain "
+                                     f"version at {case} {dtype_name}")
+            worst = max(worst, abs_err)
+    return worst
+
+
+def ssd_bound(case, dtype_name):
+    """(bound_ms, bound_by): FLOPs B*H*nc*(2Q^2(N+P) + 4QNP) at the peak
+    for the inputs' type vs the bytes of every input read once (x, B, C in
+    the inputs' type; dt, a_cum, s0 fp32) and y (fp32) plus the final
+    state written once."""
+    bsz, l, h, p, n, grp, q = case
+    e = 2 if dtype_name == "bfloat16" else 4
+    flops = bsz * h * (l // q) * (2 * q * q * (n + p) + 4 * q * n * p)
+    nbytes = (bsz * l * h * p * e + 2 * bsz * l * grp * n * e
+              + 2 * bsz * l * h * 4 + 2 * bsz * h * n * p * 4
+              + bsz * l * h * p * 4)
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_ssd_time(torch, SK, dtype_name="bfloat16", iters=20):
+    case = SSD_SERVE_CASE
+    args = ssd_inputs(torch, case, dtype_name)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: SK.ssd_chunked_fwd(*args, chunk=case[-1]),
+                 iters, flush)
+    plain_ms = time_ms(torch, lambda: SK.ssd_chunked_fwd_plain(
+        *args, chunk=case[-1]), 3, flush)
+    bound_ms, bound_by = ssd_bound(case, dtype_name)
+    log(f"time  {SSD:24s} {dtype_name} B {case[0]} L {case[1]} H {case[2]} "
+        f"P {case[3]} N {case[4]} chunk {case[6]} kernel_ms {ms:.4f}  "
+        f"plain_ms {plain_ms:.4f}  library_ms null (no single PyTorch call "
+        f"computes the SSD)  bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_hybrid_serve(torch, K, FK, SK):
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, State
+
+    cfg = ARCHS[HYBRID_ARCH]
+    n_mamba, n_attn, _ = hybrid_layout(cfg)
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"hserve {HYBRID_ARCH}: {n_mamba} Mamba2 + {n_attn} shared-attention "
+        f"layers, d_model {cfg.d_model}, heads {cfg.num_q_heads}/"
+        f"{cfg.num_kv_heads}, ssm H {cfg.ssm.num_heads} P {cfg.ssm.head_dim} "
+        f"N {cfg.ssm.state_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters; weights in "
+        f"{time.perf_counter() - t0:.1f}s")
+    eng_kw = dict(max_seqs=HYBRID_REQUESTS, num_pages=1024,
+                  max_model_len=2048, seed=SEED, debug_logits=True,
+                  device=DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+
+    def prompts(n, lo, hi):
+        lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+        lens[0] = hi  # the longest sets the prefill's padded length
+        return [torch.randint(1, cfg.vocab_size, (n_,), generator=g).tolist()
+                for n_ in lens]
+
+    warm = Engine(cfg, model, **eng_kw)
+    warm.generate([Request(prompt=p, max_new_tokens=4)
+                   for p in prompts(2, 40, 200)])
+    del warm
+    torch.cuda.synchronize()
+
+    eng = Engine(cfg, model, **eng_kw)
+    reqs = [Request(prompt=p, max_new_tokens=HYBRID_NEW_TOKENS)
+            for p in prompts(HYBRID_REQUESTS, 128, SSD_SERVE_CASE[1])]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.reset_peak_memory_stats()
+    for kernels in (K, FK, SK):
+        kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.sched.has_work and steps < 1000:
+        eng.step()
+        steps += 1
+        if not bool(torch.isfinite(eng.last_step_logits).all()):
+            raise AssertionError(f"non-finite logits at step {steps}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES) | dict(FK.LAUNCHES) | dict(SK.LAUNCHES)
+    calls = dict(eng.device_calls)
+    log(f"hserve launches {launches}  device_calls {calls}  dispatch "
+        f"{dict(eng.dispatch_counts)}")
+    if not all(r.state is State.FINISHED
+               and len(r.output) == HYBRID_NEW_TOKENS for r in reqs):
+        raise AssertionError("not every request finished")
+    if eng._packed or "unified" in calls:
+        raise AssertionError("the hybrid did not take the padded step")
+    n_pref, n_dec = calls.get("prefill", 0), calls.get("decode", 0)
+    prefill_rows = eng.launched_token_slots - HYBRID_REQUESTS * n_dec
+    if n_pref != 1 or prefill_rows != HYBRID_REQUESTS * SSD_SERVE_CASE[1]:
+        raise AssertionError(f"expected one prefill of {HYBRID_REQUESTS} x "
+                             f"{SSD_SERVE_CASE[1]} tokens (SSD_SERVE_CASE), "
+                             f"got {n_pref} prefill calls of {prefill_rows} "
+                             f"token rows")
+    gqa = eng.dispatch_counts[("decode", "gqa")]
+    seg = eng.dispatch_counts[("decode", "segmented")]
+    want = {SSD: n_mamba * n_pref,
+            "paged_prefill_qblock": n_attn * n_pref,
+            "paged_decode": n_attn * gqa,
+            "paged_decode_segmented": n_attn * seg,
+            "segment_reduce": n_attn * seg,
+            FLASH: 0}
+    if gqa + seg != n_dec or launches != want or not launches[SSD]:
+        raise AssertionError(f"launch counts {launches} != {want} "
+                             f"({n_pref} prefill, {n_dec} decode calls)")
+    toks = sum(len(r.output) for r in reqs)
+    prompt_toks = sum(r.num_prompt_tokens for r in reqs)
+    log(f"hserve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "
+        f"{toks}  wall_s {wall:.3f}  new_tok_per_s {toks / wall:.1f}  "
+        f"total_tok_per_s {(toks + prompt_toks) / wall:.1f}  "
+        f"max_memory_allocated_gib "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
+
+
+def phase_hybrid_diff(torch):
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    cfg = ARCHS[HYBRID_ARCH].replace(dtype="float32",
+                                     num_layers=HDIFF_LAYERS)
+    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
+                  debug_logits=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    engines, reqs = [], []
+    for dev in (DEVICE, "cpu"):
+        eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
+                     device=dev, **eng_kw)
+        rs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
+        for r in rs:
+            eng.add_request(r)
+        engines.append(eng)
+        reqs.append(rs)
+    worst, steps = 0.0, 0
+    while engines[0].sched.has_work:
+        stats = [e.step() for e in engines]
+        steps += 1
+        if stats[0]["sampled_tokens"] != stats[1]["sampled_tokens"]:
+            raise AssertionError(f"step {steps}: engines diverged")
+        a = engines[0].last_step_logits.cpu()
+        worst = max(worst, float((a - engines[1].last_step_logits).abs()
+                                 .max()))
+    gpu_out = [r.output for r in reqs[0]]
+    cpu_out = [r.output for r in reqs[1]]
+    log(f"hdiff {HYBRID_ARCH} {HDIFF_LAYERS} layers fp32, {len(prompts)} "
+        f"requests x 8 greedy tokens, {steps} steps: max_abs_logit_diff "
+        f"{worst:.3e} (bound {DIFF_LOGIT_ATOL:g})  tokens_identical "
+        f"{gpu_out == cpu_out}")
+    if gpu_out != cpu_out:
+        raise AssertionError(f"greedy tokens differ:\n cuda {gpu_out}\n "
+                             f"cpu  {cpu_out}")
+    if engines[1].sched.has_work:
+        raise AssertionError("cpu engine did not finish in lockstep")
+    if not worst <= DIFF_LOGIT_ATOL:
+        raise AssertionError(f"logit difference {worst} > {DIFF_LOGIT_ATOL}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -726,7 +993,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc" / "flash_attention.cu").exists():
+    if not (SRC / "repro_torch" / "csrc" / "mamba2_ssd.cu").exists():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
@@ -748,12 +1015,14 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.mamba2 import kernel as SK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(K.library), pool.submit(FK.library)]:
+    libraries = (K.library, FK.library, SK.library)
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        for f in [pool.submit(lib) for lib in libraries]:
             f.result()
     for name in sorted(_build.BUILD_SECONDS):
         log(f"build {name}.cu -> {_build.library_path(name)} (nvcc "
@@ -784,6 +1053,19 @@ def main() -> int:
     # 10. training on the card (kernel) vs the CPU (plain version), fp32
     phase_train_diff(torch)
 
+    # 11. the SSD kernel against its plain version
+    ssd_err_ = phase_ssd_check(torch, SK)
+
+    # 12. the SSD kernel's time at the hybrid serve shape (bf16)
+    ssd_time = phase_ssd_time(torch, SK)
+
+    # 13. end to end through the padded step: zamba2 on the SSD and paged
+    # kernels
+    hybrid_launches = phase_hybrid_serve(torch, K, FK, SK)
+
+    # 14. the hybrid on the card vs the CPU, fp32
+    phase_hybrid_diff(torch)
+
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name])
@@ -791,6 +1073,10 @@ def main() -> int:
     kernels.append(dict(name=FLASH, route="cuda", source=FLASH_SOURCE,
                         replaces=FLASH_REPLACES, launches=flash_launches,
                         max_abs_err=flash_err, **flash_time))
+    kernels.append(dict(name=SSD, route="cuda", source=SSD_SOURCE,
+                        replaces=SSD_REPLACES,
+                        launches=hybrid_launches[SSD],
+                        max_abs_err=ssd_err_, **ssd_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -49,6 +49,19 @@ def make_kv_cache(num_layers: int, num_kv_heads: int, num_pools: int,
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def physical_slots(page_table: torch.Tensor, positions: torch.Tensor,
+                   valid: torch.Tensor, page_size: int,
+                   pages_per_pool: int) -> torch.Tensor:
+    """positions [S, T] in-sequence positions -> pool-local flat slots
+    [S, T] through page_table [S, Np]; invalid entries -> the out-of-range
+    trash slot `pages_per_pool * page_size` (dropped by the writes)."""
+    pos = torch.clamp(positions.long(), min=0)
+    page = torch.clamp(pos // page_size, max=page_table.shape[1] - 1)
+    phys = torch.gather(page_table.long(), 1, page) * page_size \
+        + pos % page_size
+    return torch.where(valid, phys, pages_per_pool * page_size)
+
+
 def live_slots(slots: torch.Tensor, slots_per_pool: int):
     """Split [G, N] pool-local slots into the (row, flat slot) pairs that
     land inside a pool: out-of-range slots (the engine's trash slot

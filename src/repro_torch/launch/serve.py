@@ -1,9 +1,13 @@
-"""Serving launcher: the packed engine fed by an open-loop synthetic
-request stream (arrival-rate driven), reporting latency and throughput.
+"""Serving launcher: the engine fed by an open-loop synthetic request
+stream (arrival-rate driven), reporting latency and throughput.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
-        [--device cpu] [--chunked-prefill] [--profile]
+        [--device cpu] [--chunked-prefill] [--padded] [--profile]
+    python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
+        [--device cpu] [--profile]
 
+A dense model runs the packed step (`--padded`: the padded per-kind
+step); a hybrid model (zamba2) always runs the padded per-kind step.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths are uniform in
 [--min-prompt, --max-prompt].  `--profile` runs the measured loop under
@@ -22,6 +26,8 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.launch.profiling import profiler, report
 from repro_torch.serving.engine import Engine
@@ -45,6 +51,8 @@ def main() -> None:
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=79)
     ap.add_argument("--chunked-prefill", action="store_true")
+    ap.add_argument("--padded", action="store_true",
+                    help="a dense model takes the padded per-kind step")
     ap.add_argument("--max-prefill-tokens", type=int, default=8192)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
@@ -59,6 +67,7 @@ def main() -> None:
     eng_kw = dict(max_seqs=args.max_seqs, num_pages=args.num_pages,
                   max_model_len=args.max_model_len,
                   enable_chunked_prefill=args.chunked_prefill,
+                  packed_attention=not args.padded,
                   max_prefill_tokens=args.max_prefill_tokens,
                   seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
@@ -73,7 +82,8 @@ def main() -> None:
                 for p in prompts]
         t_submit: dict[int, float] = {}
         t_done: dict[int, float] = {}
-        K.reset_launches()
+        for kernels in (K, FK, SK):
+            kernels.reset_launches()
         prof = profiler() if profile else contextlib.nullcontext()
         t0 = time.perf_counter()
         with prof:
@@ -93,7 +103,8 @@ def main() -> None:
     print(f"latency p50={np.percentile(lat, 50):.3f}s "
           f"p95={np.percentile(lat, 95):.3f}s max={lat.max():.3f}s")
     print(f"dispatch: {dict(eng.dispatch_counts)}")
-    print(f"kernel launches: {dict(K.LAUNCHES)}")
+    print(f"device calls: {dict(eng.device_calls)}")
+    print(f"kernel launches: {K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES}")
     if args.profile:
         # the same requests again under the profiler (which slows the
         # host several-fold): device time by kernel, idle share against

@@ -1,12 +1,18 @@
-"""GQA attention: the unified (token-packed) serving mode over the paged
-KV cache, and the dense causal training mode.
+"""GQA attention: the unified (token-packed) serving mode and the padded
+prefill / decode modes over the paged KV cache, and the dense causal
+training mode.
 
 Unified step: QKV projections, packed-position RoPE (each token rotates by
 its own absolute position), the KV page write at the host-computed
 `slot_mapping` (in place; padded tokens aim at the out-of-range trash slot
 and are dropped), one unified attention launch over decode rows and
-prefill chunks, then `wo`.  Training: QKV, RoPE, causal flash attention
-over the whole sequence (no cache), then `wo`.
+prefill chunks, then `wo`.  Padded prefill ([B, S], context 0) and decode
+([B, 1]): the same write at slots from `kv_cache.physical_slots`, then the
+Q-Block prefill or the C1-C3 decode kernels.  The reference computes those
+slots in every layer; the port computes them once per step (the write
+index `write_rows` / `write_dest` in `meta`), since every layer writes the
+same positions.  Training: QKV, RoPE, causal flash attention over the
+whole sequence (no cache), then `wo`.
 """
 from __future__ import annotations
 
@@ -73,6 +79,44 @@ class Attention(nn.Module):
             scale=self.cfg.resolved_head_dim ** -0.5, kernel_cfg=kernel_cfg,
         )[None]
         return self.wo(o.reshape(b, t, -1).to(x.dtype))
+
+    def _write_kv(self, k, v, k_pages, v_pages, meta) -> None:
+        """Write the step's K / V rows [B, S, Hkv, D] into this layer's
+        pages at the step's write index (in place)."""
+        hkv, d = k.shape[2], k.shape[3]
+        rows, dest = meta["write_rows"], meta["write_dest"]
+        scatter_kv(k_pages, k.reshape(-1, hkv, d).transpose(0, 1), rows, dest)
+        scatter_kv(v_pages, v.reshape(-1, hkv, d).transpose(0, 1), rows, dest)
+
+    def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                        k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        meta: dict, kernel_cfg=None) -> torch.Tensor:
+        """Fresh prompts at context 0.  x [B, S, d]; positions [B, S];
+        meta: page_table, context_lens, query_lens and the write index.
+        Returns [B, S, d]."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x, positions)
+        self._write_kv(k, v, k_pages, v_pages, meta)
+        o = attn_backend.prefill_attention_uniform(
+            q, meta["query_lens"], k_pages, v_pages, meta["page_table"],
+            meta["context_lens"], scale=self.cfg.resolved_head_dim ** -0.5,
+            kernel_cfg=kernel_cfg)
+        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+
+    def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       meta: dict, kernel_cfg=None) -> torch.Tensor:
+        """One token per slot.  x [B, 1, d]; positions [B, 1] (-1 on dead
+        slots); meta: page_table, context_lens (0 on dead slots) and the
+        write index.  Returns [B, 1, d]."""
+        b = x.shape[0]
+        q, k, v = self.qkv(x, positions)
+        self._write_kv(k, v, k_pages, v_pages, meta)
+        o = attn_backend.decode_attention(
+            q[:, 0], k_pages, v_pages, meta["page_table"],
+            meta["context_lens"], scale=self.cfg.resolved_head_dim ** -0.5,
+            kernel_cfg=kernel_cfg)
+        return self.wo(o.reshape(b, 1, -1).to(x.dtype))
 
     def forward_train(self, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:

@@ -102,3 +102,30 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  conv_state: torch.Tensor | None = None,
+                  seq_lens: torch.Tensor | None = None):
+    """Depthwise causal conv.  x [B, S, C]; w [K, C].  Returns (y, new_state
+    [B, K-1, C]): the last K-1 *valid* inputs (seq_lens [B] marks the valid
+    right-padded prefix; None = all S valid)."""
+    k = w.shape[0]
+    b, s, c = x.shape
+    if conv_state is None:
+        pad = torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # [B, S+K-1, C]
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    if k == 1:
+        return y, torch.zeros((b, 0, c), dtype=x.dtype, device=x.device)
+    if seq_lens is None:
+        return y, xp[:, -(k - 1):]
+    # token j lives at xp row (K-1)+j; the last valid token is seq_lens-1,
+    # so the state rows are xp[seq_lens .. seq_lens+K-2]
+    idx = seq_lens.long()[:, None] + torch.arange(k - 1, device=x.device)
+    idx = torch.clamp(idx, 0, s + k - 2)
+    return y, torch.gather(xp, 1, idx[..., None].expand(b, k - 1, c))

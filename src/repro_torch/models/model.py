@@ -1,15 +1,28 @@
-"""Dense decoder model: its unified (token-packed) serving step and its
-training loss.
+"""Decoder models: the dense family and the hybrid family (zamba2), their
+serving steps and the dense training loss.
 
-`Model` is embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
+Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
-smollm).  `apply_unified` is the port of `repro.models.model.apply_unified`:
-one call covers decode rows, fresh prefill chunks and resumed chunks of a
-packed [1, T] stream over the paged cache, plus the last-token gather and,
-with `sample=True`, fused sampling.  `apply_train` is the port of
-`repro.models.model.apply_train`: causal attention over the whole
-sequence, every block rematerialised in the backward, then the masked
-fp32 cross-entropy.
+smollm).  Hybrid `Model` (family "hybrid", zamba2): embed ->
+[(period-1) Mamba2 blocks, then the ONE weight-shared decoder block] x
+n_attn, then the tail Mamba2 blocks (`hybrid_layout`) -> `ln_f` -> the
+untied `lm_head`.  Each Mamba2 block is pre-normed (`mamba_ln`) and
+residual.
+
+Entry points (ports of `repro.models.model`):
+
+  apply_unified  token-packed decode + prefill chunks over the paged cache,
+                 last-token gather and fused sampling (dense only)
+  apply_prefill  padded [B, S] fresh prompts at context 0 (dense, hybrid)
+  apply_decode   padded [B, 1] decode batch (dense, hybrid)
+  apply_train    causal attention over whole sequences, every block
+                 rematerialised in the backward, masked fp32 CE (dense)
+
+The serving cache (`make_cache`) is the reference's tree: {"attn":
+{"k_pages", "v_pages"}} for the attention layers and, for the hybrid
+family, {"mamba": {"conv", "ssm"}} indexed by [layer, slot].  The serving
+steps write it IN PLACE and return it, as the reference returns its new
+cache.
 """
 from __future__ import annotations
 
@@ -18,10 +31,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.paged.kv_cache import live_slots, make_kv_cache
+from repro_torch.core.paged.kv_cache import (
+    live_slots, make_kv_cache, physical_slots,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import Attention
+from repro_torch.models.ssm_blocks import Mamba2Block, mamba2_cache_specs
 
 
 class Block(nn.Module):
@@ -41,16 +57,47 @@ class Block(nn.Module):
         x = x + self.attn.forward_train(self.ln1(x), positions)
         return x + self.mlp(self.ln2(x))
 
+    def forward_serve(self, x: torch.Tensor, positions: torch.Tensor,
+                      k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      meta: dict, *, mode: str,
+                      kernel_cfg=None) -> torch.Tensor:
+        """Padded serving mode "prefill" or "decode" over this layer's
+        pages [Hkv, 1, P, ps, D] (written in place)."""
+        attn = (self.attn.forward_prefill if mode == "prefill"
+                else self.attn.forward_decode)
+        x = x + attn(self.ln1(x), positions, k_pages, v_pages, meta,
+                     kernel_cfg=kernel_cfg)
+        return x + self.mlp(self.ln2(x))
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """zamba2: every `shared_attn_period`-th block is the shared attention
+    block.  (n_mamba, n_attn, group) with the layout
+    [(period-1) mamba + 1 shared attention] * n_attn + tail mamba."""
+    period = cfg.ssm.shared_attn_period
+    n_attn = cfg.num_layers // period
+    return cfg.num_layers - n_attn, n_attn, period - 1
+
+
+def attn_layer_count(cfg: ModelConfig) -> int:
+    """Layers that hold KV pages: each shared-block invocation of a hybrid
+    has its own."""
+    if cfg.family == "hybrid":
+        return hybrid_layout(cfg)[1]
+    return cfg.num_layers
+
 
 class Model(nn.Module):
-    """Dense decoder (family "dense").  Parameters are allocated empty:
-    fill them with `weights.from_jax_params` or `weights.init_random`."""
+    """Dense decoder (family "dense") or zamba2 hybrid (family "hybrid").
+    Parameters are allocated empty: fill them with
+    `weights.from_jax_params` or `weights.init_random`."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.mla.kv_lora_rank:
+        if cfg.family not in ("dense", "hybrid") or cfg.mla.kv_lora_rank:
             raise NotImplementedError(
-                f"family={cfg.family!r} is not ported yet (dense only)")
+                f"family={cfg.family!r} is not ported yet (dense and "
+                "hybrid only)")
         if cfg.input_kind != "tokens":
             raise NotImplementedError("embedding inputs are not ported yet")
         self.cfg = cfg
@@ -58,8 +105,17 @@ class Model(nn.Module):
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device),
             requires_grad=False)
-        self.blocks = nn.ModuleList(
-            [Block(cfg, device=device) for _ in range(cfg.num_layers)])
+        if cfg.family == "dense":
+            self.blocks = nn.ModuleList(
+                [Block(cfg, device=device) for _ in range(cfg.num_layers)])
+        else:
+            n_mamba = hybrid_layout(cfg)[0]
+            self.mamba = nn.ModuleList(
+                [Mamba2Block(cfg, device=device) for _ in range(n_mamba)])
+            self.mamba_ln = nn.ModuleList(
+                [L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
+                           device=device) for _ in range(n_mamba)])
+            self.shared = Block(cfg, device=device)
         self.ln_f = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
                               device=device)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -74,14 +130,23 @@ class Model(nn.Module):
         return self.lm_head(x).float()
 
 
-def make_cache(cfg: ModelConfig, *, num_pages: int,
-               device) -> dict[str, torch.Tensor]:
-    """The serving KV cache {'k_pages', 'v_pages'}:
-    [L, Hkv, 1, num_pages, page_size, head_dim] in the param dtype (one
-    pool: a single device)."""
-    return make_kv_cache(cfg.num_layers, cfg.num_kv_heads, 1,
-                         num_pages, cfg.page_size, cfg.resolved_head_dim,
-                         cfg.param_dtype, device)
+def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
+               device) -> dict[str, dict[str, torch.Tensor]]:
+    """The zeroed serving cache: {"attn": {"k_pages", "v_pages"}} of
+    [n_attn, Hkv, 1, num_pages, page_size, head_dim] in the param dtype
+    (one pool: a single device) and, for the hybrid family, {"mamba":
+    {"conv": [n_mamba, max_seqs, K-1, conv_dim] param dtype, "ssm":
+    [n_mamba, max_seqs, H, N, P] fp32}}."""
+    cache = {"attn": make_kv_cache(
+        attn_layer_count(cfg), cfg.num_kv_heads, 1, num_pages,
+        cfg.page_size, cfg.resolved_head_dim, cfg.param_dtype, device)}
+    if cfg.family == "hybrid":
+        n_mamba = hybrid_layout(cfg)[0]
+        cache["mamba"] = {
+            k: torch.zeros((n_mamba,) + shape, dtype=dtype, device=device)
+            for k, (shape, dtype) in mamba2_cache_specs(cfg,
+                                                        max_seqs).items()}
+    return cache
 
 
 @torch.no_grad()
@@ -91,10 +156,12 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
                   max_draft: int = 0):
     """Token-packed unified step.
 
-    batch (tensors on the model's device): inputs [1, T] token ids,
-    positions [1, T] absolute per-token positions, page_table [S, Np],
-    context_lens [S], query_lens [S], query_start_loc [S+1], slot_mapping
-    [1, T] pool-local KV write slots (trash slot for padded tokens).
+    `cache` is the attention pages {"k_pages", "v_pages"} (the "attn"
+    entry of `make_cache`).  batch (tensors on the model's device): inputs
+    [1, T] token ids, positions [1, T] absolute per-token positions,
+    page_table [S, Np], context_lens [S], query_lens [S], query_start_loc
+    [S+1], slot_mapping [1, T] pool-local KV write slots (trash slot for
+    padded tokens).
     Sequences [0, num_decode_seqs) are the static decode region.  When
     `prev_tokens` [S] and `token_source` [1, T] are present, rows with
     `token_source >= 0` take their id from `prev_tokens[source]`.
@@ -103,7 +170,7 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     parameters as HOST arrays [S]: temperature, top_p, top_k, stream_ids
     and num_generated.  The host decides which rows draw noise (temperature
     > 0) and seeds each from (seed, stream id, num_generated), see
-    `sampling.gumbel_noise`; greedy rows need no noise at all.
+    `sampling.sample_rows`; greedy rows need no noise at all.
 
     The cache is written IN PLACE (and returned, as the reference returns
     its new cache).  Returns (last_logits [S, V] f32, cache) without
@@ -111,6 +178,9 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     inserts last_logits before the cache."""
     if max_draft:
         raise NotImplementedError("speculative verify is not ported yet")
+    if model.cfg.family != "dense":
+        raise ValueError(f"the packed step needs page-addressable context: "
+                         f"unsupported for family={model.cfg.family!r}")
     inputs = batch["inputs"]
     if "token_source" in batch:
         src = batch["token_source"]
@@ -137,21 +207,107 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     last_logits = model.head(x[0, last])
     if not sample:
         return last_logits, cache
-    dev = last_logits.device
-    temps = torch.as_tensor(batch["temperature"], dtype=torch.float32,
-                            device=dev)
-    hot = [i for i, t in enumerate(batch["temperature"]) if t > 0]
-    noise = sampling.gumbel_noise(
-        seed, batch["stream_ids"], batch["num_generated"],
-        last_logits.shape[-1], dev, rows=hot) if hot else None
-    toks = sampling.sample_tokens(
-        last_logits, temps,
-        torch.as_tensor(batch["top_p"], dtype=torch.float32, device=dev),
-        torch.as_tensor(batch["top_k"], dtype=torch.int32, device=dev),
-        noise)
+    toks = sampling.sample_rows(
+        last_logits, seed, batch["temperature"], batch["top_p"],
+        batch["top_k"], batch["stream_ids"], batch["num_generated"])
     if return_logits:
         return toks, last_logits, cache
     return toks, cache
+
+
+def _serve_masks(mode: str, meta: dict, s: int):
+    """(valid [B, S] bool, seq_lens [B]) of the padded serving modes: a
+    prefill row is valid up to its query length, a decode row where its
+    slot is live."""
+    if mode == "prefill":
+        qlens = meta["query_lens"]
+        valid = torch.arange(s, device=qlens.device)[None, :] < qlens[:, None]
+        return valid, qlens
+    live = meta["context_lens"] > 0
+    return live[:, None], live.to(torch.int32)
+
+
+def _add_write_index(meta: dict, cache: dict, positions: torch.Tensor,
+                     valid: torch.Tensor) -> None:
+    """The step's KV write index (`write_rows` / `write_dest`, shared by
+    every attention layer): slots from `physical_slots`, invalid tokens
+    aimed at the trash slot and dropped."""
+    kp = cache["attn"]["k_pages"]  # [n_attn, Hkv, 1, P, ps, D]
+    num_pages, ps = kp.shape[3], kp.shape[4]
+    slots = physical_slots(meta["page_table"], positions, valid, ps,
+                           num_pages)
+    meta["write_rows"], meta["write_dest"] = live_slots(
+        slots.reshape(1, -1), num_pages * ps)
+
+
+def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
+                   cache: dict, meta: dict, *, mode: str, kernel_cfg):
+    """The block stack of a padded serving step, writing every cache leaf
+    in place.  x [B, S, d] -> [B, S, d]."""
+    cfg = model.cfg
+    kp, vp = cache["attn"]["k_pages"], cache["attn"]["v_pages"]
+    if cfg.family == "dense":
+        for i, blk in enumerate(model.blocks):
+            x = blk.forward_serve(x, positions, kp[i], vp[i], meta,
+                                  mode=mode, kernel_cfg=kernel_cfg)
+        return x
+    valid, seq_lens = _serve_masks(mode, meta, x.shape[1])
+    conv, ssm = cache["mamba"]["conv"], cache["mamba"]["ssm"]
+
+    def mamba(i: int, x: torch.Tensor) -> torch.Tensor:
+        h, new_conv, new_ssm = model.mamba[i](
+            model.mamba_ln[i](x), mode=mode, conv_state=conv[i],
+            ssm_state=ssm[i], valid=valid, seq_lens=seq_lens)
+        conv[i].copy_(new_conv)
+        ssm[i].copy_(new_ssm)
+        return x + h
+
+    n_mamba, n_attn, group = hybrid_layout(cfg)
+    off = 0
+    for g in range(n_attn):
+        for i in range(off, off + group):
+            x = mamba(i, x)
+        off += group
+        x = model.shared.forward_serve(x, positions, kp[g], vp[g], meta,
+                                       mode=mode, kernel_cfg=kernel_cfg)
+    for i in range(off, n_mamba):  # tail
+        x = mamba(i, x)
+    return x
+
+
+@torch.no_grad()
+def apply_prefill(model: Model, cache: dict, batch: dict, *,
+                  kernel_cfg=None):
+    """Fresh prompts at context 0, padded to [B, S].  batch (tensors on the
+    model's device): inputs [B, S] ids, positions [B, S], page_table
+    [B, Np], context_lens [B] and query_lens [B] (equal).  `cache` holds
+    B slot rows of any state cache (the engine passes zeroed rows and
+    merges them back).  Returns (last_token_logits [B, V] f32, cache)."""
+    meta = {k: batch[k] for k in ("page_table", "context_lens", "query_lens")}
+    inputs, positions = batch["inputs"], batch["positions"]
+    b, s = inputs.shape
+    valid, _ = _serve_masks("prefill", meta, s)
+    _add_write_index(meta, cache, positions, valid)
+    x = _serve_forward(model, L.embed(model.embed, inputs), positions,
+                       cache, meta, mode="prefill", kernel_cfg=kernel_cfg)
+    # the head is row-wise: it runs on each row's last valid token only
+    last = torch.clamp(meta["query_lens"].long() - 1, min=0)
+    return model.head(x[torch.arange(b, device=x.device), last]), cache
+
+
+@torch.no_grad()
+def apply_decode(model: Model, cache: dict, batch: dict, *, kernel_cfg=None):
+    """One token for each of B slots.  batch: inputs [B, 1] ids, positions
+    [B, 1] (-1 on dead slots), page_table [B, Np], context_lens [B] (0 on
+    dead slots).  Returns (logits [B, V] f32, cache)."""
+    meta = {k: batch[k] for k in ("page_table", "context_lens")}
+    positions = batch["positions"]
+    valid = (positions >= 0) & (meta["context_lens"][:, None] > 0)
+    _add_write_index(meta, cache, positions, valid)
+    x = _serve_forward(model, L.embed(model.embed, batch["inputs"]),
+                       positions, cache, meta, mode="decode",
+                       kernel_cfg=kernel_cfg)
+    return model.head(x[:, 0]), cache
 
 
 def default_positions(b: int, s: int, device=None) -> torch.Tensor:
@@ -166,6 +322,9 @@ def apply_train(model: Model, batch: dict):
     as the reference's `jax.checkpoint` over the layer scan does.
     Returns (loss, {"ce", "aux", "tokens"}); aux is 0 for a dense
     model."""
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"training of family={model.cfg.family!r} is not ported yet")
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     positions = batch.get("positions")

@@ -100,3 +100,19 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     x = filter_logits(logits, temperature, top_p, top_k)
     drawn = torch.argmax(x + noise, dim=-1)
     return torch.where(temperature > 0, drawn, greedy).to(torch.int32)
+
+
+def sample_rows(logits: torch.Tensor, seed: int, temperature, top_p, top_k,
+                stream_ids, num_generated) -> torch.Tensor:
+    """`sample_tokens` with per-row parameters given as HOST arrays [S]:
+    the host decides which rows draw noise (temperature > 0) and seeds
+    each from (seed, stream id, num_generated); greedy rows need no noise.
+    Returns int32 [S] on the logits' device."""
+    dev = logits.device
+    hot = [i for i, t in enumerate(temperature) if t > 0]
+    noise = gumbel_noise(seed, stream_ids, num_generated, logits.shape[-1],
+                         dev, rows=hot) if hot else None
+    return sample_tokens(
+        logits, torch.as_tensor(temperature, dtype=torch.float32, device=dev),
+        torch.as_tensor(top_p, dtype=torch.float32, device=dev),
+        torch.as_tensor(top_k, dtype=torch.int32, device=dev), noise)

@@ -1,10 +1,12 @@
-"""Continuous-batching inference engine: the packed, fused-sampling step.
+"""Continuous-batching inference engine: the packed, fused-sampling step
+and the padded per-kind step.
 
-Port of the synchronous main path of `repro.serving.engine.Engine`
-(`packed_attention=True, fused_sampling=True`).  Every scheduled piece of
-work — decode rows (q = 1), fresh prefill chunks and resumed chunks — is
-packed into ONE [1, T] token stream and run by ONE `apply_unified` call
-per step, with the last-token gather and sampling inside it:
+Port of the synchronous paths of `repro.serving.engine.Engine`.  With
+`packed_attention=True` (the default for dense models) every scheduled
+piece of work — decode rows (q = 1), fresh prefill chunks and resumed
+chunks — is packed into ONE [1, T] token stream and run by ONE
+`apply_unified` call per step, with the last-token gather and sampling
+inside it:
 
     token row   0 .. max_seqs-1    the STATIC decode region: one row per
                                    batch slot, dead slots masked by
@@ -12,15 +14,25 @@ per step, with the last-token gather and sampling inside it:
     token row   max_seqs .. T-1    prefill chunks back-to-back, bucketed
                                    to a power-of-two total-token count
 
+The padded per-kind step (`packed_attention=False`, and always for the
+hybrid family, whose slot-indexed SSM state is not page-addressable per
+token) runs each step as `apply_prefill` over the fresh prompts, padded to
+a [pow2 batch, pow2 seq >= page] bucket, then `apply_decode` over the
+static `max_seqs` decode batch, each followed by a separate sampling
+dispatch.  Prefill starts every SSM slot from zeros and merges the rows
+back into the slot-indexed cache (`_prefill_cache_view` /
+`_merge_prefill_cache`).
+
 Metadata (page tables, context / query lengths, query start locations,
 slot mappings, positions) is built host-side in numpy and uploaded once
-per step.  The KV cache lives on the engine's device and is written in
-place.  On `cuda` the attention runs the hand-written CUDA kernels; with
-`device="cpu"` it runs their plain PyTorch versions.
+per launch.  The caches live on the engine's device and are written in
+place.  On `cuda` the attention and the SSD run the hand-written CUDA
+kernels; with `device="cpu"` they run their plain PyTorch versions.
 
 Not ported yet (see ROADMAP.md): the async `submit()/stream()/run()`
-loop, speculative decoding, prefix caching, the padded per-kind path,
-telemetry / refit, autotuned chunk budgets and the tp executor.
+loop, speculative decoding, prefix caching, resumed chunks on the padded
+step (`apply_prefill_cached`), telemetry / refit, autotuned chunk budgets
+and the tp executor.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import heuristics
 from repro_torch.core.paged.allocator import RefCountedPageAllocator
 from repro_torch.models import model as M
+from repro_torch.models import sampling
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.utils.misc import cdiv, next_power_of_2
@@ -63,6 +76,7 @@ class Engine:
         max_model_len: int = 2048,
         max_prefill_tokens: int = 8192,
         enable_chunked_prefill: bool = False,
+        packed_attention: bool = True,
         seed: int = 0,
         debug_logits: bool = False,
         device="cuda",
@@ -76,6 +90,23 @@ class Engine:
         env_tree = heuristics.maybe_load_env()
         if env_tree:
             log.info("engine: attention heuristics from %s", env_tree)
+        # the unified token-packed step needs every layer's context to be
+        # page-addressable per token: attention families only (the
+        # hybrid's recurrent state is slot-indexed), as in the reference
+        self._packed = packed_attention and cfg.family == "dense"
+        if packed_attention and not self._packed:
+            log.info("engine: packed attention unavailable for family=%r; "
+                     "using the padded per-kind step", cfg.family)
+        if enable_chunked_prefill:
+            assert cfg.family == "dense", (
+                "chunked prefill needs page-addressable context "
+                f"(unsupported for family={cfg.family!r})")
+            if not self._packed:
+                raise NotImplementedError(
+                    "chunked prefill on the padded step (resumed chunks, "
+                    "apply_prefill_cached) is not ported yet")
+        # (prefix caching, the other source of resumed chunks, is not
+        # ported: every prefill here starts at context 0)
         self.seed = seed
         self._debug_logits = debug_logits
         self._group = max(1, cfg.num_q_heads // max(cfg.num_kv_heads, 1))
@@ -86,16 +117,21 @@ class Engine:
         self.sched = Scheduler(self.alloc, max_seqs=max_seqs,
                                max_prefill_tokens=max_prefill_tokens,
                                enable_chunked_prefill=enable_chunked_prefill)
-        self.cache = M.make_cache(cfg, num_pages=num_pages, device=self.device)
+        self.cache = M.make_cache(cfg, max_seqs=max_seqs,
+                                  num_pages=num_pages, device=self.device)
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
         self.step_idx = 0
         self.prefilled_tokens = 0  # prompt tokens actually computed
         self.launched_token_slots = 0  # token rows launched (incl. padding)
-        # device calls by kind: a packed step is exactly {"unified": 1}
+        # device calls by kind: a packed step is exactly {"unified": 1}; a
+        # padded step adds "prefill" / "decode", each with its "sample"
         self.device_calls: collections.Counter = collections.Counter()
         self._emitted: list[tuple[int, int]] = []  # (req_id, token)/step
         self.last_step_stats: dict | None = None
-        self.last_step_logits: torch.Tensor | None = None  # debug_logits
+        # debug_logits: the step's logits ([S, V] of the packed launch, or
+        # the padded step's prefill rows then its decode rows)
+        self.last_step_logits: torch.Tensor | None = None
+        self._step_logits: list[torch.Tensor] = []
         self.last_generate: dict = {}
 
     # ------------------------------------------------------------------
@@ -120,12 +156,37 @@ class Engine:
             total_tokens=next_power_of_2(total),
         )
 
-    def _dispatch(self, profile: heuristics.BatchProfile) \
+    def _decode_profile(self, reqs: list[Request]) -> heuristics.BatchProfile:
+        return heuristics.BatchProfile(
+            num_seqs=len(reqs),
+            max_context=next_power_of_2(max(r.total_len for r in reqs)),
+            group=self._group, page_size=self.cfg.page_size,
+            decode_share=1.0, avg_query_len=1,
+            total_tokens=next_power_of_2(len(reqs)),
+        )
+
+    def _prefill_profile(self, reqs: list[Request]) -> heuristics.BatchProfile:
+        max_ctx = max(r.chunk_start + r.num_scheduled_tokens for r in reqs)
+        total = sum(r.num_scheduled_tokens for r in reqs)
+        return heuristics.BatchProfile(
+            num_seqs=len(reqs),
+            max_context=next_power_of_2(max_ctx),
+            group=self._group, page_size=self.cfg.page_size,
+            decode_share=0.0,
+            avg_query_len=next_power_of_2(max(total // len(reqs), 1)),
+            total_tokens=next_power_of_2(total),
+        )
+
+    def _dispatch(self, phase: str, profile: heuristics.BatchProfile) \
             -> heuristics.KernelConfig:
-        kcfg = heuristics.validate(heuristics.unified_config(profile),
-                                   self.cfg.page_size)
-        self.dispatch_counts[("unified", kcfg.variant)] += 1
-        self._last_dispatch["unified"] = {
+        """Pick this launch's KernelConfig from the (loaded or default)
+        tree of its phase and record it in the dispatch stats."""
+        pick = {"decode": heuristics.decode_config,
+                "unified": heuristics.unified_config}.get(
+                    phase, heuristics.prefill_config)
+        kcfg = heuristics.validate(pick(profile), self.cfg.page_size)
+        self.dispatch_counts[(phase, kcfg.variant)] += 1
+        self._last_dispatch[phase] = {
             "variant": kcfg.variant, "tile": kcfg.tile,
             "num_segments": kcfg.num_segments, "block_q": kcfg.block_q,
             "num_seqs": profile.num_seqs,
@@ -192,6 +253,7 @@ class Engine:
     def step(self) -> dict:
         self._last_dispatch = {}
         self._emitted = []
+        self._step_logits = []
         dec = self.sched.step(self.step_idx)
         new_tokens = dec.scheduled_prefill_tokens
         self.prefilled_tokens += new_tokens
@@ -209,11 +271,21 @@ class Engine:
         for req in dec.decode_reqs:  # page growth
             row = self.page_table[req.slot]
             row[: len(req.pages)] = req.pages
-        if dec.decode_reqs or dec.prefill_reqs:
-            batch, pack = self._pack_unified(dec.decode_reqs,
-                                             dec.prefill_reqs)
-            toks = self._launch_unified(batch, pack)
-            self._consume_unified(pack, toks)
+        if self._packed:
+            if dec.decode_reqs or dec.prefill_reqs:
+                batch, pack = self._pack_unified(dec.decode_reqs,
+                                                 dec.prefill_reqs)
+                toks = self._launch_unified(batch, pack)
+                self._consume_unified(pack, toks)
+        else:
+            # padded per-kind step: each launch samples its own rows; every
+            # prefill is fresh (context 0: no chunking on this step)
+            if dec.prefill_reqs:
+                self._run_prefill_fresh(dec.prefill_reqs)
+            if dec.decode_reqs:
+                self._run_decode(dec.decode_reqs)
+            if self._debug_logits and self._step_logits:
+                self.last_step_logits = torch.cat(self._step_logits)
         for req in list(self.sched.running):
             if req.prefill_done and req.done:
                 slot = req.slot  # finish() releases the slot
@@ -298,7 +370,7 @@ class Engine:
             cur += n
             qsl[i + 1:] = cur
 
-        kcfg = self._dispatch(profile)
+        kcfg = self._dispatch("unified", profile)
         pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t)
         dev = self.device
         batch = {
@@ -320,13 +392,13 @@ class Engine:
         """Run one packed launch and return the host token ids [S]."""
         self.device_calls["unified"] += 1
         ret = M.apply_unified(
-            self.model, self.cache, batch, kernel_cfg=pack.kcfg,
+            self.model, self.cache["attn"], batch, kernel_cfg=pack.kcfg,
             num_decode_seqs=self.max_seqs, sample=True, seed=self.seed,
             return_logits=self._debug_logits)
         if self._debug_logits:
-            toks, self.last_step_logits, self.cache = ret
+            toks, self.last_step_logits, _ = ret
         else:
-            toks, self.cache = ret
+            toks, _ = ret
         self.launched_token_slots += pack.tokens
         return toks.cpu().numpy()
 
@@ -336,3 +408,107 @@ class Engine:
             if r.state is State.FINISHED:
                 continue
             self._emit_token(r, int(toks[row]))
+
+    # ------------------------------------------------------------------
+    # the padded per-kind step
+    # ------------------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor, n: int,
+                fill: list[tuple[int, Request]]) -> np.ndarray:
+        """The padded step's separate sampling dispatch: the same
+        per-request-stream draw as the fused sampler, host token ids [n]."""
+        self.device_calls["sample"] += 1
+        temps, topp, topk, streams, ngen = self._sampling_rows(n, fill)
+        return sampling.sample_rows(logits, self.seed, temps, topp, topk,
+                                    streams, ngen).cpu().numpy()
+
+    def _finish_chunk(self, reqs: list[Request], logits: torch.Tensor) \
+            -> None:
+        """Advance progress; sample first tokens for prompts now complete."""
+        done = [(i, r) for i, r in enumerate(reqs)
+                if r.chunk_start + r.num_scheduled_tokens
+                == r.num_prompt_tokens]
+        if done:
+            toks = self._sample(logits, logits.shape[0], done)
+            for i, r in done:
+                self._emit_token(r, int(toks[i]))
+        for r in reqs:
+            r.context_len = r.chunk_start + r.num_scheduled_tokens
+
+    def _upload(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def _run_prefill_fresh(self, reqs: list[Request]) -> None:
+        b = next_power_of_2(len(reqs))
+        max_len = max(r.num_scheduled_tokens for r in reqs)
+        s = max(next_power_of_2(max_len), self.cfg.page_size)
+        tokens = np.zeros((b, s), np.int64)
+        qlens = np.zeros((b,), np.int32)
+        pt = np.zeros((b, self.pages_per_seq), np.int32)
+        pos = np.tile(np.arange(s, dtype=np.int64)[None], (b, 1))
+        for i, r in enumerate(reqs):
+            n = r.num_scheduled_tokens
+            tokens[i, :n] = r.prompt[:n]
+            qlens[i] = n
+            pt[i] = self.page_table[r.slot]
+        kcfg = self._dispatch("prefill", self._prefill_profile(reqs))
+        self.device_calls["prefill"] += 1
+        batch = self._upload({"inputs": tokens, "positions": pos,
+                              "page_table": pt, "context_lens": qlens,
+                              "query_lens": qlens})
+        logits, new_cache = M.apply_prefill(
+            self.model, self._prefill_cache_view(b), batch, kernel_cfg=kcfg)
+        if self._debug_logits:
+            self._step_logits.append(logits)
+        self.launched_token_slots += b * s
+        self._merge_prefill_cache(new_cache, [r.slot for r in reqs])
+        self._finish_chunk(reqs, logits)
+
+    def _run_decode(self, reqs: list[Request]) -> None:
+        b = self.max_seqs  # static decode batch (paper C5)
+        tokens = np.zeros((b, 1), np.int64)
+        pos = np.full((b, 1), -1, np.int64)
+        ctx = np.zeros((b,), np.int32)
+        for r in reqs:
+            tokens[r.slot, 0] = r.output[-1] if r.output else r.prompt[-1]
+            pos[r.slot, 0] = r.total_len - 1
+            ctx[r.slot] = r.total_len
+        kcfg = self._dispatch("decode", self._decode_profile(reqs))
+        self.device_calls["decode"] += 1
+        batch = self._upload({"inputs": tokens, "positions": pos,
+                              "page_table": self.page_table.copy(),
+                              "context_lens": ctx})
+        logits, _ = M.apply_decode(self.model, self.cache, batch,
+                                   kernel_cfg=kcfg)
+        if self._debug_logits:
+            self._step_logits.append(logits)
+        self.launched_token_slots += b
+        toks = self._sample(logits, b, [(r.slot, r) for r in reqs])
+        for r in reqs:
+            r.context_len = r.total_len
+            self._emit_token(r, int(toks[r.slot]))
+
+    # ------------------------------------------------------------------
+    # slot-indexed (SSM) cache plumbing
+    # ------------------------------------------------------------------
+
+    def _prefill_cache_view(self, b: int) -> dict:
+        """The attention pages are global; the SSM rows of a prefill start
+        from zeros (prefill always begins at context 0 on the padded
+        step)."""
+        view = {"attn": self.cache["attn"]}
+        for k, leaves in self.cache.items():
+            if k != "attn":
+                view[k] = {n: torch.zeros(t.shape[:1] + (b,) + t.shape[2:],
+                                          dtype=t.dtype, device=t.device)
+                           for n, t in leaves.items()}
+        return view
+
+    def _merge_prefill_cache(self, new_cache: dict, slots: list[int]) -> None:
+        """Copy the prefilled rows of each SSM leaf into their slots."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        for k, leaves in new_cache.items():
+            if k != "attn":
+                for n, t in leaves.items():
+                    self.cache[k][n].index_copy_(1, idx, t[:, :len(slots)])

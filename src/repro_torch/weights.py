@@ -1,7 +1,7 @@
 """Model weights: carried over from the JAX reference's parameter pytree,
 drawn at random from a seed, or handed back in the reference's layout.
 
-The JAX `M.init` pytree for a dense model is
+The JAX `M.init` pytree of a dense model is
 
     {"embed": {"table": [V, d]}, "ln_f": {"scale": [d]},
      "blocks": {"ln1": {"scale": [L, d]},
@@ -10,10 +10,20 @@ The JAX `M.init` pytree for a dense model is
                 "mlp": {"gate": {"w": [L, d, F]}, "up", "down"}},
      ["lm_head": {"w": [d, V]}]}
 
-with the blocks stacked on a leading [L] axis by `jax.vmap`.  The bridge
-unstacks them into the port's `nn.ModuleList`; `to_numpy_params` stacks
-them back.  Linear weights keep the [d_in, d_out] layout (`y = x @ w`),
-so nothing is transposed.
+with the blocks stacked on a leading [L] axis by `jax.vmap`.  A hybrid
+(zamba2) model has, besides embed / ln_f / lm_head,
+
+    {"mamba": {"in_proj": {"w": [n, d, in_dim]}, "conv_w": [n, K, conv],
+               "a_log": [n, H], "d_skip": [n, H], "dt_bias": [n, H],
+               "norm": {"scale": [n, d_inner]},
+               "out_proj": {"w": [n, d_inner, d]}},
+     "mamba_ln": {"scale": [n, d]},
+     "shared": one decoder block, unstacked}
+
+The bridge unstacks them into the port's `nn.ModuleList`s;
+`to_numpy_params` stacks them back.  Linear weights keep the [d_in, d_out]
+layout (`y = x @ w`), so nothing is transposed.  `a_log`, `d_skip` and
+`dt_bias` stay fp32 in a bf16 model, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Block, Model
+from repro_torch.models.ssm_blocks import Mamba2Block
 
 
 def _tensor(a) -> torch.Tensor:
@@ -41,13 +52,54 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
     dst.copy_(src.to(dst.dtype))
 
 
-def _linear_params(model: Model):
-    """(block index, {"attn": {name: Linear}, "mlp": {name: Linear}})."""
-    for i, blk in enumerate(model.blocks):
-        yield i, {"attn": {"wq": blk.attn.wq, "wk": blk.attn.wk,
-                           "wv": blk.attn.wv, "wo": blk.attn.wo},
-                  "mlp": {"gate": blk.mlp.gate, "up": blk.mlp.up,
-                          "down": blk.mlp.down}}
+def _block_leaves(blk: Block):
+    """(path, tensor) of a decoder block, in the reference's tree order."""
+    yield ("ln1", "scale"), blk.ln1.scale
+    for name in ("wq", "wk", "wv", "wo"):
+        lin = getattr(blk.attn, name)
+        yield ("attn", name, "w"), lin.w
+        if lin.b is not None:
+            yield ("attn", name, "b"), lin.b
+    yield ("ln2", "scale"), blk.ln2.scale
+    for name in ("gate", "up", "down"):
+        yield ("mlp", name, "w"), getattr(blk.mlp, name).w
+
+
+def _mamba_leaves(blk: Mamba2Block):
+    yield ("in_proj", "w"), blk.in_proj.w
+    yield ("conv_w",), blk.conv_w
+    yield ("a_log",), blk.a_log
+    yield ("d_skip",), blk.d_skip
+    yield ("dt_bias",), blk.dt_bias
+    yield ("norm", "scale"), blk.norm.scale
+    yield ("out_proj", "w"), blk.out_proj.w
+
+
+def _leaves(model: Model):
+    """(path in the reference tree, index on its stacked [L] axis or None,
+    tensor) for every parameter of the model."""
+    yield ("embed", "table"), None, model.embed
+    yield ("ln_f", "scale"), None, model.ln_f.scale
+    if model.lm_head is not None:
+        yield ("lm_head", "w"), None, model.lm_head.w
+    if model.cfg.family == "dense":
+        for i, blk in enumerate(model.blocks):
+            for path, t in _block_leaves(blk):
+                yield ("blocks",) + path, i, t
+        return
+    for i, blk in enumerate(model.mamba):
+        for path, t in _mamba_leaves(blk):
+            yield ("mamba",) + path, i, t
+    for i, ln in enumerate(model.mamba_ln):
+        yield ("mamba_ln", "scale"), i, ln.scale
+    for path, t in _block_leaves(model.shared):
+        yield ("shared",) + path, None, t
+
+
+def _check_layouts(cfg: ModelConfig) -> None:
+    if cfg.fused_qkv or cfg.fused_mlp:
+        raise NotImplementedError(
+            "fused wqkv / gate_up layouts are not ported yet")
 
 
 @torch.no_grad()
@@ -56,56 +108,40 @@ def from_jax_params(cfg: ModelConfig, params_np: dict,
     """The port's `Model` holding exactly the values of the reference's
     parameter pytree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`)."""
-    if cfg.fused_qkv or cfg.fused_mlp:
-        raise NotImplementedError(
-            "fused wqkv / gate_up layouts are not ported yet")
+    _check_layouts(cfg)
     model = Model(cfg, device="cpu")
-    _copy(model.embed, params_np["embed"]["table"], "embed.table")
-    _copy(model.ln_f.scale, params_np["ln_f"]["scale"], "ln_f.scale")
-    if model.lm_head is not None:
-        _copy(model.lm_head.w, params_np["lm_head"]["w"], "lm_head.w")
-    blocks = params_np["blocks"]
-    for i, lin in _linear_params(model):
-        blk = model.blocks[i]
-        _copy(blk.ln1.scale, blocks["ln1"]["scale"][i], f"blocks.ln1[{i}]")
-        _copy(blk.ln2.scale, blocks["ln2"]["scale"][i], f"blocks.ln2[{i}]")
-        for group, mods in lin.items():
-            for name, mod in mods.items():
-                p = blocks[group][name]
-                _copy(mod.w, p["w"][i], f"blocks.{group}.{name}.w[{i}]")
-                if mod.b is not None:
-                    _copy(mod.b, p["b"][i], f"blocks.{group}.{name}.b[{i}]")
+    for path, i, t in _leaves(model):
+        src = params_np
+        for key in path:
+            src = src[key]
+        what = ".".join(path) + ("" if i is None else f"[{i}]")
+        _copy(t, src if i is None else src[i], what)
     return model.to(device)
 
 
 @torch.no_grad()
 def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
-    """Random weights drawn like the reference's `M.init` (truncated normal
-    at +-2 std, std = d_in ** -0.5; norm scales 1) from a seeded CPU
-    `torch.Generator`, so every device gets the same values."""
+    """Random weights drawn like the reference's `M.init` from a seeded CPU
+    `torch.Generator`, so every device gets the same values: matrices (and
+    the conv kernel) truncated normal at +-2 std with std = d_in ** -0.5
+    (the embedding: d_model ** -0.5); norm scales and `d_skip` 1; biases,
+    `a_log` and `dt_bias` 0."""
+    _check_layouts(cfg)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     model = Model(cfg, device="cpu")
-
-    def draw(t: torch.Tensor, std: float) -> None:
-        tmp = torch.empty(t.shape, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
-                                    generator=gen)
-        t.copy_(tmp.to(t.dtype))
-
-    draw(model.embed, cfg.d_model ** -0.5)
-    if model.lm_head is not None:
-        draw(model.lm_head.w, cfg.d_model ** -0.5)
-    for i, lin in _linear_params(model):
-        blk = model.blocks[i]
-        blk.ln1.scale.fill_(1.0)
-        blk.ln2.scale.fill_(1.0)
-        for mods in lin.values():
-            for mod in mods.values():
-                draw(mod.w, mod.w.shape[0] ** -0.5)
-                if mod.b is not None:
-                    mod.b.zero_()
-    model.ln_f.scale.fill_(1.0)
+    for path, _, t in _leaves(model):
+        name = path[-1]
+        if name in ("scale", "d_skip"):
+            t.fill_(1.0)
+        elif name in ("b", "a_log", "dt_bias"):
+            t.zero_()
+        else:
+            std = (cfg.d_model if name == "table" else t.shape[0]) ** -0.5
+            tmp = torch.empty(t.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+            t.copy_(tmp.to(t.dtype))
     return model.to(device)
 
 
@@ -113,7 +149,7 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
 def to_numpy_params(model: Model, *, grads: bool = False) -> dict:
     """The inverse of `from_jax_params`: the model's parameters (or, with
     `grads=True`, their `.grad`) as the reference's pytree of numpy
-    arrays, blocks stacked on a leading [L] axis, in fp32.  For tests
+    arrays, stacked leaves on their leading [L] axis, in fp32.  For tests
     that compare the port with the reference leaf by leaf."""
     def get(p: torch.Tensor) -> np.ndarray:
         t = p.grad if grads else p
@@ -121,23 +157,21 @@ def to_numpy_params(model: Model, *, grads: bool = False) -> dict:
             raise ValueError("a parameter has no gradient")
         return t.float().cpu().numpy()  # numpy has no bfloat16
 
-    out = {"embed": {"table": get(model.embed)},
-           "ln_f": {"scale": get(model.ln_f.scale)}}
-    if model.lm_head is not None:
-        out["lm_head"] = {"w": get(model.lm_head.w)}
-    per_block = [lin for _, lin in _linear_params(model)]  # [L] dicts
-    blocks = {
-        "ln1": {"scale": np.stack([get(b.ln1.scale) for b in model.blocks])},
-        "ln2": {"scale": np.stack([get(b.ln2.scale) for b in model.blocks])},
-    }
-    for group in ("attn", "mlp"):
-        blocks[group] = {}
-        for name, mod in per_block[0][group].items():
-            leaf = {"w": np.stack([get(lin[group][name].w)
-                                   for lin in per_block])}
-            if mod.b is not None:
-                leaf["b"] = np.stack([get(lin[group][name].b)
-                                      for lin in per_block])
-            blocks[group][name] = leaf
-    out["blocks"] = blocks
+    out: dict = {}
+    for path, i, t in _leaves(model):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if i is None:
+            node[path[-1]] = get(t)
+        else:
+            node.setdefault(path[-1], []).append(get(t))
+
+    def stack(node):
+        for k, v in node.items():
+            if isinstance(v, list):
+                node[k] = np.stack(v)
+            elif isinstance(v, dict):
+                stack(v)
+    stack(out)
     return out

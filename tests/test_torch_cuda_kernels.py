@@ -1,6 +1,7 @@
-"""The CUDA kernels (paged attention, flash attention) against their plain
-PyTorch versions on the card, and the port's engine and the flash
-attention gradient on the card against themselves on the CPU.
+"""The CUDA kernels (paged attention, flash attention, the Mamba2 SSD)
+against their plain PyTorch versions on the card, and the port's engines
+(packed smollm, padded zamba2) and the flash attention gradient on the
+card against themselves on the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked `cuda` and skips
 on a host without CUDA.  Run on the card with
@@ -9,7 +10,10 @@ on a host without CUDA.  Run on the card with
 
 Imports neither JAX nor the JAX package.  Tolerances: fp32 atol 1e-4
 with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
-7.8e-3; p is rounded to bf16 before p.V on both sides).
+7.8e-3; p is rounded to bf16 before p.V on both sides).  The SSD sums up
+to 128 x 64 products of values as large as |y| in another order than the
+plain version's matmuls: fp32 within 1e-5 x max |y| (TF32 off); bf16
+inputs are widened exactly and summed in fp32 on both sides, within 2e-2.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mamba2 import ops as sops
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.serving.engine import Engine
@@ -255,3 +261,100 @@ def test_flash_kernel_rejects_unsupported_shapes(cuda):
         FK.flash_attention_fwd(torch.zeros((1, 1, 128, 64), device=cuda), k,
                                k, block_q=16, group=8, scale=1.0,
                                causal=True, q_offset=0)
+
+
+SSD_CASES = [  # B, L, H, P, N, G, chunk
+    (2, 64, 4, 32, 16, 2, 16),  # the cases of tests/test_kernels_mamba2.py
+    (1, 128, 2, 64, 64, 1, 32),
+    (2, 32, 8, 16, 8, 8, 8),
+    (2, 256, 4, 128, 64, 1, 128),  # zamba2's widths, two column blocks
+    (1, 16, 4, 128, 64, 1, 16),  # a short prompt: one chunk of 16
+    (1, 96, 3, 48, 24, 3, 24),  # ragged: P 48 of 64 columns, Q 24 of 32
+]
+
+
+def _ssd_inputs(dev, dtype, case, seed=0):
+    """x, dt, a, b, c, d as tests/test_kernels_mamba2.py draws them, plus
+    a nonzero initial state."""
+    b, l, h, p, n, g, _ = case
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(dt).to(dev)
+    return (t(rng.standard_normal((b, l, h, p)), dtype),
+            t(np.abs(rng.standard_normal((b, l, h))) * 0.5 + 0.01),
+            t(-np.abs(rng.standard_normal(h)) - 0.1),
+            t(rng.standard_normal((b, l, g, n)), dtype),
+            t(rng.standard_normal((b, l, g, n)), dtype),
+            t(rng.standard_normal(h)),
+            t(rng.standard_normal((b, h, n, p))))
+
+
+def _ssd_close(got, want, dtype):
+    scale = max(1.0, float(want.abs().max()))
+    atol = 1e-5 * scale if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, dtype, case):
+    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, dtype, case)
+    chunk = case[-1]
+    bsz, l, h, _ = x.shape
+    la = (dt * a).reshape(bsz, l // chunk, chunk, h)
+    a_cum = sops.chunk_cumsum(la).reshape(bsz, l, h)
+    n0 = SK.LAUNCHES["ssd_chunked_fwd"]
+    y, s = SK.ssd_chunked_fwd(x, dt, b, c, a_cum, s0, chunk=chunk)
+    want_y, want_s = SK.ssd_chunked_fwd_plain(x, dt, b, c, a_cum, s0,
+                                              chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["ssd_chunked_fwd"] == n0 + 1
+    assert y.dtype == s.dtype == torch.float32
+    _ssd_close(y, want_y, dtype)
+    _ssd_close(s, want_s, dtype)
+
+
+def test_mamba2_ssd_on_card_matches_cpu(cuda):
+    """The op (cumsum, kernel, D skip) on the card vs on the CPU, fp32."""
+    case = (2, 256, 4, 128, 64, 1, 128)
+    args = _ssd_inputs("cpu", torch.float32, case, seed=1)
+    outs = [sops.mamba2_ssd(*(t.to(dev) for t in args[:6]), chunk=case[-1],
+                            initial_state=args[6].to(dev))
+            for dev in (cuda, torch.device("cpu"))]
+    for got, want in zip(*outs):
+        _ssd_close(got.cpu(), want, torch.float32)
+
+
+def test_ssd_kernel_rejects_unsupported_shapes(cuda):
+    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, torch.float32,
+                                        (1, 256, 2, 16, 8, 1, 256))
+    a_cum = torch.zeros_like(dt)
+    with pytest.raises(ValueError, match="128"):
+        SK.ssd_chunked_fwd(x, dt, b, c, a_cum, s0, chunk=256)
+    b = torch.zeros((1, 256, 1, 80), device=cuda)
+    s0 = torch.zeros((1, 2, 80, 16), device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        SK.ssd_chunked_fwd(x, dt, b, b, a_cum, s0, chunk=128)
+
+
+def test_hybrid_engine_on_card_matches_cpu(cuda):
+    """Reduced zamba2 in fp32 through the padded step: greedy tokens with
+    the SSD and paged kernels on the card equal those of the plain versions
+    on the CPU, and the SSD ran once per Mamba2 layer per prefill."""
+    cfg = reduced(ARCHS["zamba2-1.2b"]).replace(dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
+               for n in (12, 20, 7, 40)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, weights.init_random(cfg, 0, device=dev),
+                     max_seqs=2, num_pages=32, max_model_len=128, device=dev)
+        SK.reset_launches()
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=5)
+                             for p in prompts])
+        if dev.type == "cuda":
+            n_mamba = len(eng.model.mamba)
+            assert SK.LAUNCHES["ssd_chunked_fwd"] == \
+                n_mamba * eng.device_calls["prefill"] > 0
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

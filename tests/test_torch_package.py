@@ -66,3 +66,16 @@ def test_serve_launcher_runs_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "served 5 requests" in out.stdout
     assert "on the CPU" in out.stdout
+
+
+def test_serve_launcher_runs_hybrid_on_cpu():
+    """zamba2 (reduced) through the padded per-kind step: prefill and
+    decode calls, each sampled in its own dispatch."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "zamba2-1.2b", "--reduced", "--device", "cpu", "--num-requests",
+         "4", "--max-new-tokens", "3", "--max-seqs", "2", "--rate", "2"],
+        env=ENV, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "served 4 requests" in out.stdout
+    assert "'prefill':" in out.stdout and "'decode':" in out.stdout
