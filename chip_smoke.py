@@ -11,12 +11,17 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
   2. build    compile every csrc/*.cu with nvcc (sm_90a), one nvcc per
               source, all started together
   3. check    each of the four CUDA kernels against its plain PyTorch
-              version on the card, at the serving main path's shapes
-              (Hkv 3, group 3, D 64, page 16, 8 sequences with contexts
-              0..2048, a 512-token prefill region with a resumed chunk),
-              in fp32 with TF32 off (atol 1e-4) and bf16 (atol 2e-2: a
-              bf16 output ulp near 1 is 7.8e-3, and p is rounded to bf16
-              before p.V on both sides), plus a non-power-of-two page (24)
+              version on the card, at the shapes both serve phases give
+              them: smollm-135m's packed step (Hkv 3, group 3, D 64, page
+              16, 8 sequences with contexts 0..2048, a 512-token prefill
+              region with a resumed chunk; plus a non-power-of-two page,
+              24) and zamba2-1.2b's padded step (Hkv 32, group 1, D 64,
+              page 16, 8 decode rows with contexts up to 1056 on the
+              segmented variant with 16 segments, a fresh prefill of 8 x
+              1024 rows at context 0 in the uniform layout), in fp32 with
+              TF32 off (atol 1e-4) and bf16 (atol 2e-2: a bf16 output ulp
+              near 1 is 7.8e-3, and p is rounded to bf16 before p.V on
+              both sides)
   4. time     median kernel time over CUDA events (L2 flushed before each
               launch) beside the plain version, a library yardstick and
               the bound (bytes at 3.35 TB/s or FLOPs at peak)
@@ -68,7 +73,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               per Mamba2 layer per prefill (32 x), the Q-Block prefill once
               per shared-attention invocation per prefill (6 x), the decode
               kernels 6 x per decode step (x 2 for segmented: partials +
-              merge), the flash kernel never
+              merge), the flash kernel never; the configs the engine picked
+              are the ones phase 3 checked
  14. hdiff    zamba2 at full width cut to 12 layers (two groups of five
               Mamba2 blocks and the shared block), fp32 (TF32 off): 3
               greedy requests of 8 new tokens on the card and on the CPU,
@@ -105,6 +111,27 @@ FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
+# the paged kernels' check shapes, one set per serve phase: the model whose
+# heads they are, the page sizes, the decode contexts (8 rows) and the
+# decode variant's segment count, the prefill's per-sequence query rows and
+# contexts, and its layout (`stride` None: packed back to back as in the
+# packed step's chunk region; else starts at that stride, the padded
+# step's uniform layout)
+PAGED_SHAPES = {
+    "smollm-135m": dict(
+        page_sizes=(16, 24), ctx=(0, 1, 17, 100, 511, 1000, 1500, 2048),
+        num_segments=16, qlens=(200, 312, 0, 0, 0, 0, 0, 0),
+        pf_ctx=(200, 1312, 0, 0, 0, 0, 0, 0), stride=None),
+    # phase 13: 8 prompts of 128-1024 tokens in one fresh prefill padded
+    # to 1024 rows each, then 31 decode steps (contexts up to 1055); its
+    # decode profile (8 rows, max context 2048, page 16) picks segmented
+    # with 16 segments, its prefill profile block_q 16
+    "zamba2-1.2b": dict(
+        page_sizes=(16,), ctx=(1056, 129, 300, 517, 640, 777, 901, 1033),
+        num_segments=16, qlens=(1024, 128, 517, 1000, 256, 771, 390, 1023),
+        pf_ctx=(1024, 128, 517, 1000, 256, 771, 390, 1023), stride=1024),
+}
+PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
@@ -172,25 +199,30 @@ def decode_inputs(torch, dtype, ps, *, hkv=3, group=3, d=64,
             torch.tensor(ctx, dtype=torch.int32, device=dev))
 
 
-def prefill_inputs(torch, tops, dtype, ps, *, hkv=3, group=3, d=64,
-                   ms=8, block_q=16, seed=2):
-    """The chunk region of a packed step: a fresh chunk of 200 tokens and
-    a resumed chunk of 312 tokens at context 1312 (512 tokens), six empty
-    chunk slots; q_packed / qb metadata as ops.paged_attention_prefill
-    builds them."""
+def prefill_inputs(torch, tops, dtype, ps, *, hkv, group, d, qlens, ctx,
+                   stride, block_q=PAGED_BLOCK_Q, max_model_len=2048,
+                   seed=2):
+    """Q-Block prefill inputs: sequence i has qlens[i] query rows ending at
+    context ctx[i], packed back to back (stride None: the packed step's
+    chunk region) or starting at i * stride (the padded step's uniform
+    layout); q_packed / qb metadata as ops.paged_attention_prefill builds
+    them."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    ctx = [200, 1312] + [0] * (ms - 2)
-    qlens = [200, 312] + [0] * (ms - 2)
-    t = 512
-    np_ = -(-2048 // ps)
+    ms = len(qlens)
+    qlens, ctx = list(qlens), list(ctx)
+    t = sum(qlens) if stride is None else ms * stride
+    np_ = -(-max_model_len // ps)
     p = ms * np_ + 1
     kp = torch.randn((hkv, p, ps, d), generator=g).to(dtype)
     vp = torch.randn((hkv, p, ps, d), generator=g).to(dtype)
     pt = (torch.randperm(p - 1, generator=g)[: ms * np_].reshape(ms, np_)
           + 1).to(torch.int32)
     qlens_t = torch.tensor(qlens, dtype=torch.int32)
-    qsl = torch.cat([torch.zeros(1, dtype=torch.int32),
-                     torch.cumsum(qlens_t, 0, dtype=torch.int32)])
+    if stride is None:
+        qsl = torch.cat([torch.zeros(1, dtype=torch.int32),
+                         torch.cumsum(qlens_t, 0, dtype=torch.int32)])
+    else:
+        qsl = torch.arange(ms + 1, dtype=torch.int32) * stride
     ctx_t = torch.tensor(ctx, dtype=torch.int32)
     nqb = t // block_q + ms
     qb_seq, qb_pos0, _, _ = tops.build_qblock_metadata(
@@ -214,23 +246,36 @@ def tile_view(pages, tile):
 # ---------------------------------------------------------------------------
 
 
-def kernel_calls(torch, K, dtype, ps, tile, tops):
-    """({name: (kernel_fn, plain_fn)}, inputs) at the main path's shapes;
-    both functions of a pair take the same tensors."""
-    q, kp, vp, pt, ctx = decode_inputs(torch, dtype, ps)
-    s, hq, d = q.shape
-    hkv = kp.shape[0]
-    group = hq // hkv
+def paged_heads(arch):
+    """(hkv, group, head_dim, page_size) of the model a shape set is for."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch]
+    return (cfg.num_kv_heads, cfg.num_q_heads // cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.page_size)
+
+
+def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
+    """({name: (kernel_fn, plain_fn)}, inputs) at the shapes arch's serve
+    phase gives the kernels (PAGED_SHAPES); both functions of a pair take
+    the same tensors."""
+    shp = PAGED_SHAPES[arch]
+    hkv, group, d, _ = paged_heads(arch)
+    q, kp, vp, pt, ctx = decode_inputs(torch, dtype, ps, hkv=hkv,
+                                       group=group, d=d, ctx=shp["ctx"])
+    s, hq, _ = q.shape
     kt, vt = tile_view(kp, tile), tile_view(vp, tile)
     num_tiles = pt.shape[1] * (ps // tile)
-    nseg = min(16, num_tiles)
+    nseg = min(shp["num_segments"], num_tiles)
     tps = -(-num_tiles // nseg)
     scale = d ** -0.5
     qg = q.reshape(s, hkv, group, d).contiguous()
     qb = q.reshape(s, hq, 1, d).contiguous()
     seg_kw = dict(num_segments=nseg, tiles_per_segment=tps, scale=scale)
     parts = K.paged_decode_segmented(qg, kt, vt, pt, ctx, **seg_kw)
-    pf = prefill_inputs(torch, tops, dtype, ps)
+    pf = prefill_inputs(torch, tops, dtype, ps, hkv=hkv, group=group, d=d,
+                        qlens=shp["qlens"], ctx=shp["pf_ctx"],
+                        stride=shp["stride"])
     pkt, pvt = tile_view(pf["k"], tile), tile_view(pf["v"], tile)
     pf_args = (pf["q_packed"], pkt, pvt, pf["qb_seq"], pf["qb_pos0"],
                pf["pt"], pf["ctx"])
@@ -274,30 +319,40 @@ def max_err(torch, name, got, want):
 
 
 def phase_check(torch, K, tops):
+    """Each paged kernel against its plain version at both serve phases'
+    shapes; returns each kernel's worst error over all of them."""
     errs: dict[str, float] = {}
-    for dtype_name, ps in (("float32", 16), ("bfloat16", 16),
-                           ("float32", 24), ("bfloat16", 24)):
-        dtype = getattr(torch, dtype_name)
-        tile = tops.default_tile(ps)
-        calls, _ = kernel_calls(torch, K, dtype, ps, tile, tops)
-        for name, (kfn, pfn) in calls.items():
-            got = kfn()
-            want = pfn()
-            torch.cuda.synchronize()
-            err = max_err(torch, name, got, want)
-            ok = err <= ATOL[dtype_name]
-            log(f"check {name:24s} {dtype_name:8s} page {ps:2d} tile {tile:2d}"
-                f"  max_abs_err {err:.3e}  atol {ATOL[dtype_name]:g}"
-                f"  {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version ({dtype_name}, page {ps})")
-            base = name.split("[")[0]
-            errs[base] = max(errs.get(base, 0.0), err)
-        # exact zeros for the dead decode row (context 0)
-        out = calls["paged_decode"][0]()
-        if not bool((out[0] == 0).all()):
-            raise AssertionError("context-0 decode row is not exact zeros")
+    for arch, shp in PAGED_SHAPES.items():
+        hkv, group, d, page_size = paged_heads(arch)
+        if page_size not in shp["page_sizes"]:
+            raise AssertionError(f"PAGED_SHAPES[{arch!r}] misses the "
+                                 f"model's page size {page_size}")
+        for ps in shp["page_sizes"]:
+            for dtype_name in ("float32", "bfloat16"):
+                dtype = getattr(torch, dtype_name)
+                tile = tops.default_tile(ps)
+                calls, _ = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
+                for name, (kfn, pfn) in calls.items():
+                    got = kfn()
+                    want = pfn()
+                    torch.cuda.synchronize()
+                    err = max_err(torch, name, got, want)
+                    ok = err <= ATOL[dtype_name]
+                    log(f"check {name:24s} {arch:12s} Hkv {hkv:2d} group "
+                        f"{group} D {d} {dtype_name:8s} page {ps:2d} tile "
+                        f"{tile:2d}  max_abs_err {err:.3e}  atol "
+                        f"{ATOL[dtype_name]:g}  {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version "
+                            f"({arch} shapes, {dtype_name}, page {ps})")
+                    base = name.split("[")[0]
+                    errs[base] = max(errs.get(base, 0.0), err)
+                if shp["ctx"][0] == 0:  # exact zeros for a dead decode row
+                    out = calls["paged_decode"][0]()
+                    if not bool((out[0] == 0).all()):
+                        raise AssertionError("context-0 decode row is not "
+                                             "exact zeros")
     return errs
 
 
@@ -892,8 +947,11 @@ def phase_hybrid_serve(torch, K, FK, SK):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps = 0
+    picks = set()  # (phase, variant, tile, num_segments, block_q)
     while eng.sched.has_work and steps < 1000:
-        eng.step()
+        for phase, d in eng.step()["dispatch"].items():
+            picks.add((phase, d["variant"], d["tile"], d["num_segments"],
+                       d["block_q"]))
         steps += 1
         if not bool(torch.isfinite(eng.last_step_logits).all()):
             raise AssertionError(f"non-finite logits at step {steps}")
@@ -902,7 +960,7 @@ def phase_hybrid_serve(torch, K, FK, SK):
     launches = dict(K.LAUNCHES) | dict(FK.LAUNCHES) | dict(SK.LAUNCHES)
     calls = dict(eng.device_calls)
     log(f"hserve launches {launches}  device_calls {calls}  dispatch "
-        f"{dict(eng.dispatch_counts)}")
+        f"{dict(eng.dispatch_counts)}  configs {sorted(picks)}")
     if not all(r.state is State.FINISHED
                and len(r.output) == HYBRID_NEW_TOKENS for r in reqs):
         raise AssertionError("not every request finished")
@@ -926,6 +984,15 @@ def phase_hybrid_serve(torch, K, FK, SK):
     if gqa + seg != n_dec or launches != want or not launches[SSD]:
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"({n_pref} prefill, {n_dec} decode calls)")
+    # the engine picked the configs phase 3 checked at these shapes (tile
+    # None: the page's default tile)
+    shp = PAGED_SHAPES[HYBRID_ARCH]
+    checked = {("prefill", "gqa", None, 8, PAGED_BLOCK_Q),
+               ("decode", "segmented", None, shp["num_segments"],
+                PAGED_BLOCK_Q)}
+    if picks != checked or shp["stride"] != SSD_SERVE_CASE[1]:
+        raise AssertionError(f"the engine's attention configs {picks} are "
+                             f"not those phase 3 checked: {checked}, {shp}")
     toks = sum(len(r.output) for r in reqs)
     prompt_toks = sum(r.num_prompt_tokens for r in reqs)
     log(f"hserve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "

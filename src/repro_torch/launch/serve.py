@@ -2,12 +2,12 @@
 stream (arrival-rate driven), reporting latency and throughput.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
-        [--device cpu] [--chunked-prefill] [--padded] [--profile]
+        [--device cpu] [--chunked-prefill] [--profile]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
 
-A dense model runs the packed step (`--padded`: the padded per-kind
-step); a hybrid model (zamba2) always runs the padded per-kind step.
+A dense model runs the packed step; a hybrid model (zamba2) runs the
+padded per-kind step.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths are uniform in
 [--min-prompt, --max-prompt].  `--profile` runs the measured loop under
@@ -51,8 +51,6 @@ def main() -> None:
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=79)
     ap.add_argument("--chunked-prefill", action="store_true")
-    ap.add_argument("--padded", action="store_true",
-                    help="a dense model takes the padded per-kind step")
     ap.add_argument("--max-prefill-tokens", type=int, default=8192)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
@@ -67,7 +65,6 @@ def main() -> None:
     eng_kw = dict(max_seqs=args.max_seqs, num_pages=args.num_pages,
                   max_model_len=args.max_model_len,
                   enable_chunked_prefill=args.chunked_prefill,
-                  packed_attention=not args.padded,
                   max_prefill_tokens=args.max_prefill_tokens,
                   seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
