@@ -10,9 +10,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
   1. device   the card's name and `nvidia-smi` name / power limit
   2. build    compile every csrc/*.cu with nvcc (sm_90a), one nvcc per
               source, all started together
-  3. check    each of the four CUDA kernels against its plain PyTorch
-              version on the card, at the shapes both serve phases give
-              them: smollm-135m's packed step (Hkv 3, group 3, D 64, page
+  3. check    each of the four paged-attention kernels against its plain
+              PyTorch version on the card, at the shapes both serve phases
+              give them: smollm-135m's packed step (Hkv 3, group 3, D 64, page
               16, 8 sequences with contexts 0..2048, a 512-token prefill
               region with a resumed chunk; plus a non-power-of-two page,
               24) and zamba2-1.2b's padded step (Hkv 32, group 1, D 64,
@@ -79,9 +79,36 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               Mamba2 blocks and the shared block), fp32 (TF32 off): 3
               greedy requests of 8 new tokens on the card and on the CPU,
               stepped in lockstep: identical tokens, logits within 5e-3
+ 15. mlstm    the chunked mLSTM kernel (h and the final C, n, m) against
+              its plain version on the card: at the shape the xlstm serve
+              phase gives it (B 8, L 1024, H 4, P 512, chunk 64) from the
+              empty state (m = -inf) and from a nonzero finite state, at a
+              short prompt (L 16, chunk 16), at the cases of
+              tests/test_kernels_mlstm.py with its extreme gates, and with
+              padded rows (ig -30 / fg +30 past each row's length); fp32
+              with TF32 off within 2e-5 x max |out| per output (h divides
+              sums of up to 64 + 512 products, summed in another order, by
+              a denominator that can sit at its exp(-m) floor), bf16
+              inputs within 2e-5 for the fp32 state and 8e-3 x max |h| for
+              h (rounded to bf16 on both sides: one ulp is at most 2^-7 of
+              the value)
+ 16. mltime   the mLSTM kernel at the serve shape in bf16 beside its plain
+              version and its bound; no single PyTorch call computes the
+              chunked mLSTM, so its library time is null
+ 17. xserve   full-width, full-depth xlstm-350m (bf16, random seeded
+              weights) serves 8 requests (prompts 128-1024, 32 new tokens,
+              max_seqs 8) through the padded per-kind step; the launch
+              counters are zeroed just before and read just after: the
+              mLSTM kernel runs once per mLSTM layer per prefill (21 x), the
+              paged, flash and SSD kernels never
+ 18. xdiff    xlstm at full width cut to 8 layers (one group: seven mLSTM
+              blocks and one sLSTM block), fp32 (TF32 off): 3 greedy
+              requests of 8 new tokens on the card and on the CPU, stepped
+              in lockstep: identical tokens, logits within 5e-3
 
-The line before the last is `nvidia-smi`'s name and power limit, the one
-before that the kernels' JSON; the last line is the result JSON.
+Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
+the last is `nvidia-smi`'s name and power limit, the one before that the
+kernels' JSON; the last line is the result JSON.
 """
 from __future__ import annotations
 
@@ -163,6 +190,29 @@ SSD_CASES = [SSD_SERVE_CASE, (1, 16, 32, 128, 64, 1, 16),
              (2, 32, 8, 16, 8, 8, 8)]
 SSD_FP32_RTOL, SSD_BF16_ATOL = 1e-5, 2e-2
 HDIFF_LAYERS = 12
+MLSTM = "mlstm_chunked_fwd"
+MLSTM_SOURCE = "src/repro_torch/csrc/mlstm_chunked.cu"
+MLSTM_REPLACES = "src/repro/kernels/mlstm/kernel.py:94"
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_REQUESTS, XLSTM_NEW_TOKENS = 8, 32
+# mLSTM check cases (B, L, H, P, chunk, gates, state): the shape the xlstm
+# serve phase gives the kernel (8 prompts of up to 1024 tokens in one
+# prefill, xlstm-350m's 4 heads of 512, chunk 64) from the empty and from
+# a nonzero state, a short prompt, tests/test_kernels_mlstm.py's cases and
+# extreme gates, and padded rows; gates "normal" are drawn as that test
+# file draws them (forget-gate bias 2)
+MLSTM_SERVE_CASE = (XLSTM_REQUESTS, 1024, 4, 512, 64, "normal", "empty")
+MLSTM_CASES = [MLSTM_SERVE_CASE,
+               MLSTM_SERVE_CASE[:-1] + ("nonzero",),
+               (XLSTM_REQUESTS, 16, 4, 512, 16, "normal", "empty"),
+               (2, 64, 3, 16, 16, "normal", "empty"),
+               (1, 128, 4, 64, 32, "normal", "nonzero"),
+               (2, 32, 1, 32, 8, "normal", "empty"),
+               (1, 32, 2, 16, 8, "extreme", "empty"),
+               (4, 128, 4, 512, 64, "padded", "empty")]
+MLSTM_PAD_LENS = (128, 100, 37, 0)  # valid tokens per row of "padded"
+MLSTM_FP32_RTOL, MLSTM_BF16_H_RTOL = 2e-5, 8e-3
+XDIFF_LAYERS = 8
 TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # 3 steps: the schedule gives step 0 a learning rate of 0, so step 2 is
 # the first whose loss follows an update.  The loss is a mean over 512
@@ -554,19 +604,23 @@ def phase_serve(torch, K, FK):
                           prompt_tokens=prompt_toks)
 
 
-def phase_diff(torch):
+def phase_engine_diff(torch, arch, seed, tag, layers=None):
+    """`arch` at full width (cut to `layers`, else full depth), fp32: 3
+    greedy requests of 8 new tokens on the card and on the CPU, stepped in
+    lockstep: identical tokens, logits within DIFF_LOGIT_ATOL."""
     from repro_torch import weights
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
 
-    cfg = ARCHS[ARCH].replace(dtype="float32")
+    cfg = ARCHS[arch].replace(dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
                   debug_logits=True)
-    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    lens = [37, 70, 101]
+    g = torch.Generator(device="cpu").manual_seed(seed)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
-               for n in lens]
+               for n in (37, 70, 101)]
     engines, reqs = [], []
     for dev in (DEVICE, "cpu"):
         eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
@@ -576,8 +630,7 @@ def phase_diff(torch):
             eng.add_request(r)
         engines.append(eng)
         reqs.append(rs)
-    worst = 0.0
-    steps = 0
+    worst, steps = 0.0, 0
     while engines[0].sched.has_work:
         stats = [e.step() for e in engines]
         steps += 1
@@ -588,9 +641,9 @@ def phase_diff(torch):
                                  .max()))
     gpu_out = [r.output for r in reqs[0]]
     cpu_out = [r.output for r in reqs[1]]
-    log(f"diff fp32 {len(prompts)} requests x 8 greedy tokens, {steps} "
-        f"steps: max_abs_logit_diff {worst:.3e} (bound {DIFF_LOGIT_ATOL:g})"
-        f"  tokens_identical {gpu_out == cpu_out}")
+    log(f"{tag} {arch} {cfg.num_layers} layers fp32, {len(prompts)} requests "
+        f"x 8 greedy tokens, {steps} steps: max_abs_logit_diff {worst:.3e} "
+        f"(bound {DIFF_LOGIT_ATOL:g})  tokens_identical {gpu_out == cpu_out}")
     if gpu_out != cpu_out:
         raise AssertionError(f"greedy tokens differ:\n cuda {gpu_out}\n "
                              f"cpu  {cpu_out}")
@@ -1003,51 +1056,201 @@ def phase_hybrid_serve(torch, K, FK, SK):
     return launches
 
 
-def phase_hybrid_diff(torch):
+# ---------------------------------------------------------------------------
+# the ssm path: the mLSTM kernel and xlstm through the padded step
+# ---------------------------------------------------------------------------
+
+
+def mlstm_inputs(torch, case, dtype_name, seed=7):
+    """Kernel inputs (q, k, v, ig, bcum, g, c0, n0, m0) on DEVICE: q, k, v
+    and the gate preactivations drawn like tests/test_kernels_mlstm.py's,
+    bcum and g from the port's own host layer."""
+    from repro_torch.kernels._common import chunk_cumsum
+    from repro_torch.kernels.mlstm import ops as mops
+
+    bsz, l, h, p, chunk, gates, state = case
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((bsz, l, h, p), generator=g).to(dtype)
+               for _ in range(3))
+    ig = torch.randn((bsz, l, h), generator=g)
+    fg = torch.randn((bsz, l, h), generator=g) + 2.0
+    if gates == "extreme":  # test_extreme_gates_stable's
+        ig, fg = ig * 30.0, fg - 20.0
+    elif gates == "padded":  # the mLSTM block's state-neutral padding
+        lens = torch.tensor(MLSTM_PAD_LENS)[:, None, None]
+        valid = torch.arange(l)[None, :, None] < lens
+        ig = torch.where(valid, ig, -30.0)
+        fg = torch.where(valid, fg, 30.0)
+    nc = l // chunk
+    bcum = chunk_cumsum(torch.nn.functional.logsigmoid(fg).reshape(
+        bsz, nc, chunk, h))
+    gg = torch.cummax(ig.reshape(bsz, nc, chunk, h) - bcum, 2).values
+    if state == "nonzero":
+        c0 = 0.1 * torch.randn((bsz, h, p, p), generator=g)
+        n0 = 0.1 * torch.randn((bsz, h, p), generator=g)
+        m0 = torch.randn((bsz, h), generator=g)
+    else:
+        c0, n0, m0 = mops.zero_state(bsz, h, p, "cpu")
+    return tuple(t.contiguous().to(DEVICE) for t in (
+        q, k, v, ig, bcum.reshape(bsz, l, h), gg.reshape(bsz, l, h), c0, n0,
+        m0))
+
+
+def phase_mlstm_check(torch, MK):
+    worst = 0.0
+    for case in MLSTM_CASES:
+        p, chunk = case[3], case[4]
+        for dtype_name in ("float32", "bfloat16"):
+            args = mlstm_inputs(torch, case, dtype_name)
+            got = MK.mlstm_chunked_fwd(*args, chunk=chunk, scale=p ** -0.5)
+            want = MK.mlstm_chunked_fwd_plain(*args, chunk=chunk,
+                                              scale=p ** -0.5)
+            torch.cuda.synchronize()
+            report, ok = [], True
+            for name, a, b in zip(("h", "C", "n", "m"), got, want):
+                if not bool(torch.isfinite(a.float()).all()):
+                    raise AssertionError(f"mLSTM kernel: non-finite {name} "
+                                         f"at {case} {dtype_name}")
+                err = float((a.float() - b.float()).abs().max())
+                scale_ = max(1.0, float(b.float().abs().max()))
+                rtol = (MLSTM_BF16_H_RTOL if name == "h"
+                        and dtype_name == "bfloat16" else MLSTM_FP32_RTOL)
+                ok = ok and err <= rtol * scale_
+                report.append(f"{name} {err:.2e} (bound {rtol * scale_:.2e})")
+                worst = max(worst, err)
+            log(f"mlstm check B {case[0]} L {case[1]} H {case[2]} P {p} "
+                f"chunk {chunk} gates {case[5]} state {case[6]} "
+                f"{dtype_name}: {'  '.join(report)}  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"mLSTM kernel disagrees with its plain "
+                                     f"version at {case} {dtype_name}")
+    return worst
+
+
+def mlstm_bound(case, dtype_name):
+    """(bound_ms, bound_by): FLOPs B*H*nc*(6Q^2P + 4QP^2) (q k^T, S v and
+    the decayed sum of k within the chunk; q C and the k^T v update) at
+    the peak for the inputs' type vs the bytes of q, k, v (the inputs'
+    type), the fp32 gates ig, bcum, g and the initial state read once, h
+    (the inputs' type) and the final state written once."""
+    bsz, l, h, p, q = case[:5]
+    e = 2 if dtype_name == "bfloat16" else 4
+    flops = bsz * h * (l // q) * (6 * q * q * p + 4 * q * p * p)
+    state = bsz * h * (p * p + p + 1) * 4
+    nbytes = 4 * bsz * l * h * p * e + 3 * bsz * l * h * 4 + 2 * state
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_mlstm_time(torch, MK, dtype_name="bfloat16", iters=20):
+    case = MLSTM_SERVE_CASE
+    args = mlstm_inputs(torch, case, dtype_name)
+    kw = dict(chunk=case[4], scale=case[3] ** -0.5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd(*args, **kw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd_plain(*args, **kw),
+                       3, flush)
+    bound_ms, bound_by = mlstm_bound(case, dtype_name)
+    log(f"time  {MLSTM:24s} {dtype_name} B {case[0]} L {case[1]} H {case[2]} "
+        f"P {case[3]} chunk {case[4]} kernel_ms {ms:.4f}  plain_ms "
+        f"{plain_ms:.4f}  library_ms null (no single PyTorch call computes "
+        f"the chunked mLSTM)  bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_xlstm_serve(torch, kernel_modules):
     from repro_torch import weights
     from repro_torch.configs import ARCHS
+    from repro_torch.models.model import xlstm_layout
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.request import Request
+    from repro_torch.serving.request import Request, State
 
-    cfg = ARCHS[HYBRID_ARCH].replace(dtype="float32",
-                                     num_layers=HDIFF_LAYERS)
-    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
-                  debug_logits=True)
-    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
-               for n in (37, 70, 101)]
-    engines, reqs = [], []
-    for dev in (DEVICE, "cpu"):
-        eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
-                     device=dev, **eng_kw)
-        rs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
-        for r in rs:
-            eng.add_request(r)
-        engines.append(eng)
-        reqs.append(rs)
-    worst, steps = 0.0, 0
-    while engines[0].sched.has_work:
-        stats = [e.step() for e in engines]
+    cfg = ARCHS[XLSTM_ARCH]
+    n_m, n_s, _ = xlstm_layout(cfg)
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"xserve {XLSTM_ARCH}: {n_m} mLSTM + {n_s} sLSTM layers, d_model "
+        f"{cfg.d_model}, mLSTM H {cfg.ssm.num_heads} P {cfg.ssm.head_dim} "
+        f"chunk {cfg.ssm.chunk}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters; weights in "
+        f"{time.perf_counter() - t0:.1f}s")
+    eng_kw = dict(max_seqs=XLSTM_REQUESTS, num_pages=1024,
+                  max_model_len=2048, seed=SEED, debug_logits=True,
+                  device=DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+
+    def prompts(n, lo, hi):
+        lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+        lens[0] = hi  # the longest sets the prefill's padded length
+        return [torch.randint(1, cfg.vocab_size, (n_,), generator=g).tolist()
+                for n_ in lens]
+
+    warm = Engine(cfg, model, **eng_kw)
+    warm.generate([Request(prompt=p, max_new_tokens=4)
+                   for p in prompts(2, 40, 200)])
+    del warm
+    torch.cuda.synchronize()
+
+    eng = Engine(cfg, model, **eng_kw)
+    reqs = [Request(prompt=p, max_new_tokens=XLSTM_NEW_TOKENS)
+            for p in prompts(XLSTM_REQUESTS, 128, MLSTM_SERVE_CASE[1])]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.reset_peak_memory_stats()
+    for kernels in kernel_modules:
+        kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, prefill_s = 0, 0.0
+    while eng.sched.has_work and steps < 1000:
+        t_step = time.perf_counter()
+        stats = eng.step()
+        if stats["prefill"]:
+            torch.cuda.synchronize()
+            prefill_s += time.perf_counter() - t_step
         steps += 1
-        if stats[0]["sampled_tokens"] != stats[1]["sampled_tokens"]:
-            raise AssertionError(f"step {steps}: engines diverged")
-        a = engines[0].last_step_logits.cpu()
-        worst = max(worst, float((a - engines[1].last_step_logits).abs()
-                                 .max()))
-    gpu_out = [r.output for r in reqs[0]]
-    cpu_out = [r.output for r in reqs[1]]
-    log(f"hdiff {HYBRID_ARCH} {HDIFF_LAYERS} layers fp32, {len(prompts)} "
-        f"requests x 8 greedy tokens, {steps} steps: max_abs_logit_diff "
-        f"{worst:.3e} (bound {DIFF_LOGIT_ATOL:g})  tokens_identical "
-        f"{gpu_out == cpu_out}")
-    if gpu_out != cpu_out:
-        raise AssertionError(f"greedy tokens differ:\n cuda {gpu_out}\n "
-                             f"cpu  {cpu_out}")
-    if engines[1].sched.has_work:
-        raise AssertionError("cpu engine did not finish in lockstep")
-    if not worst <= DIFF_LOGIT_ATOL:
-        raise AssertionError(f"logit difference {worst} > {DIFF_LOGIT_ATOL}")
-    return worst
+        if not bool(torch.isfinite(eng.last_step_logits).all()):
+            raise AssertionError(f"non-finite logits at step {steps}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {}
+    for kernels in kernel_modules:
+        launches.update(kernels.LAUNCHES)
+    calls = dict(eng.device_calls)
+    log(f"xserve launches {launches}  device_calls {calls}  dispatch "
+        f"{dict(eng.dispatch_counts)}")
+    if not all(r.state is State.FINISHED
+               and len(r.output) == XLSTM_NEW_TOKENS for r in reqs):
+        raise AssertionError("not every request finished")
+    if eng._packed or "unified" in calls or "attn" in eng.cache:
+        raise AssertionError("xlstm did not take the padded step")
+    n_pref, n_dec = calls.get("prefill", 0), calls.get("decode", 0)
+    prefill_rows = eng.launched_token_slots - XLSTM_REQUESTS * n_dec
+    if n_pref != 1 or prefill_rows != XLSTM_REQUESTS * MLSTM_SERVE_CASE[1]:
+        raise AssertionError(f"expected one prefill of {XLSTM_REQUESTS} x "
+                             f"{MLSTM_SERVE_CASE[1]} tokens "
+                             f"(MLSTM_SERVE_CASE), got {n_pref} prefill calls "
+                             f"of {prefill_rows} token rows")
+    want = {name: 0 for name in launches}
+    want[MLSTM] = n_m * n_pref
+    if launches != want or not launches[MLSTM] or eng.dispatch_counts:
+        raise AssertionError(f"launch counts {launches} != {want} "
+                             f"({n_pref} prefill, {n_dec} decode calls), "
+                             f"dispatch {dict(eng.dispatch_counts)}")
+    toks = sum(len(r.output) for r in reqs)
+    prompt_toks = sum(r.num_prompt_tokens for r in reqs)
+    log(f"xserve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "
+        f"{toks}  wall_s {wall:.3f}  prefill_s {prefill_s:.3f}  "
+        f"new_tok_per_s {toks / wall:.1f}  total_tok_per_s "
+        f"{(toks + prompt_toks) / wall:.1f}  max_memory_allocated_gib "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1068,6 +1271,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase: str) -> None:
+        """Log the seconds since the previous lap: one phase's duration."""
+        now = time.perf_counter()
+        log(f"phase {phase} {now - t_lap[0]:.1f}s")
+        t_lap[0] = now
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1078,16 +1288,18 @@ def main() -> int:
     log(f"device {kind}  count {torch.cuda.device_count()}  "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"nvidia-smi {smi}")
+    lap("1 device")
 
     # 2. build: one nvcc per source, all started together
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.mamba2 import kernel as SK
+    from repro_torch.kernels.mlstm import kernel as MK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
-    libraries = (K.library, FK.library, SK.library)
+    libraries = (K.library, FK.library, SK.library, MK.library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1095,43 +1307,72 @@ def main() -> int:
         log(f"build {name}.cu -> {_build.library_path(name)} (nvcc "
             f"{_build.BUILD_SECONDS[name]:.1f}s)")
     log(f"build all in {time.perf_counter() - t0:.1f}s")
+    lap("2 build")
 
     # 3. kernels against their plain versions
     errs = phase_check(torch, K, tops)
+    lap("3 check")
 
     # 4. kernel times at the main path's shapes (bf16, the serving dtype)
     times = phase_time(torch, K, tops)
+    lap("4 time")
 
     # 5. end to end through the port's serving path
     launches, serve = phase_serve(torch, K, FK)
+    lap("5 serve")
 
     # 6. card (kernels) vs CPU (plain versions), fp32
-    phase_diff(torch)
+    phase_engine_diff(torch, ARCH, SEED + 1, "diff")
+    lap("6 diff")
 
     # 7. the flash kernel against its plain version; the gradient card vs CPU
     flash_err = phase_flash_check(torch, FK)
+    lap("7 flash")
 
     # 8. the flash kernel's time at the training shape (bf16)
     flash_time = phase_flash_time(torch, FK)
+    lap("8 ftime")
 
     # 9. end to end through the port's training path
     flash_launches = phase_train(torch, K, FK)
+    lap("9 train")
 
     # 10. training on the card (kernel) vs the CPU (plain version), fp32
     phase_train_diff(torch)
+    lap("10 tdiff")
 
     # 11. the SSD kernel against its plain version
     ssd_err_ = phase_ssd_check(torch, SK)
+    lap("11 ssd")
 
     # 12. the SSD kernel's time at the hybrid serve shape (bf16)
     ssd_time = phase_ssd_time(torch, SK)
+    lap("12 ssdtime")
 
     # 13. end to end through the padded step: zamba2 on the SSD and paged
     # kernels
     hybrid_launches = phase_hybrid_serve(torch, K, FK, SK)
+    lap("13 hserve")
 
     # 14. the hybrid on the card vs the CPU, fp32
-    phase_hybrid_diff(torch)
+    phase_engine_diff(torch, HYBRID_ARCH, SEED + 3, "hdiff", HDIFF_LAYERS)
+    lap("14 hdiff")
+
+    # 15. the mLSTM kernel against its plain version
+    mlstm_err = phase_mlstm_check(torch, MK)
+    lap("15 mlstm")
+
+    # 16. the mLSTM kernel's time at the xlstm serve shape (bf16)
+    mlstm_time = phase_mlstm_time(torch, MK)
+    lap("16 mltime")
+
+    # 17. end to end through the padded step: xlstm on the mLSTM kernel
+    xlstm_launches = phase_xlstm_serve(torch, (K, FK, SK, MK))
+    lap("17 xserve")
+
+    # 18. xlstm on the card vs the CPU, fp32
+    phase_engine_diff(torch, XLSTM_ARCH, SEED + 5, "xdiff", XDIFF_LAYERS)
+    lap("18 xdiff")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
@@ -1144,6 +1385,10 @@ def main() -> int:
                         replaces=SSD_REPLACES,
                         launches=hybrid_launches[SSD],
                         max_abs_err=ssd_err_, **ssd_time))
+    kernels.append(dict(name=MLSTM, route="cuda", source=MLSTM_SOURCE,
+                        replaces=MLSTM_REPLACES,
+                        launches=xlstm_launches[MLSTM],
+                        max_abs_err=mlstm_err, **mlstm_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

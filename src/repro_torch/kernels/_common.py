@@ -1,6 +1,7 @@
 """What every kernel wrapper shares: the mask value, the choice between
-the CUDA kernel and the plain version, the launch plumbing, and the
-online-softmax step of the plain versions.
+the CUDA kernel and the plain version, the launch plumbing, the
+online-softmax step of the plain versions, and the within-chunk cumsum of
+the chunked scans' log-decays (Mamba2's dt * A, mLSTM's log forget gate).
 
 A wrapper given CUDA tensors launches its kernel on the current stream
 and raises when the launch fails; given CPU tensors it runs its plain
@@ -70,3 +71,32 @@ def _init_state(shape, device):
 def _finalize(acc, l, dtype):
     l_safe = torch.where(l == 0.0, 1.0, l)
     return (acc / l_safe[..., None]).to(dtype)
+
+
+def _running_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive fp32 prefix sum along `dim`, added strictly left to
+    right."""
+    sums = [x.select(dim, 0)]
+    for i in range(1, x.shape[dim]):
+        sums.append(sums[-1] + x.select(dim, i))
+    return torch.stack(sums, dim)
+
+
+def chunk_cumsum(la: torch.Tensor) -> torch.Tensor:
+    """Inclusive fp32 cumsum over axis 2 of la [B, nc, Q, H], added in the
+    order of the reference's `jnp.cumsum` on the CPU (XLA's reduce-window
+    rewrite): left to right within blocks of 16, each block then offset by
+    the left-to-right sum of the blocks before it.  Every decay of the SSD
+    and of the mLSTM is exp of a difference of these sums and multiplies
+    terms as large as the output, so one rounding apart shows above the
+    tests' tolerances (`torch.cumsum` adds in another order); in this
+    order the sums equal the reference's bit for bit, on the card as on
+    the CPU."""
+    q = la.shape[2]
+    if q <= 16 or q % 16:
+        return _running_sum(la, 2)
+    inner = _running_sum(la.unflatten(2, (q // 16, 16)), 3)
+    tot = inner[:, :, :, -1]
+    before = torch.cat([torch.zeros_like(tot[:, :, :1]),
+                        _running_sum(tot, 2)[:, :, :-1]], 2)
+    return (inner + before[:, :, :, None]).flatten(2, 3)

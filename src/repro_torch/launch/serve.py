@@ -5,9 +5,11 @@ stream (arrival-rate driven), reporting latency and throughput.
         [--device cpu] [--chunked-prefill] [--profile]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
+    python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
+        [--device cpu] [--profile]
 
-A dense model runs the packed step; a hybrid model (zamba2) runs the
-padded per-kind step.
+A dense model runs the packed step; a hybrid model (zamba2) and an
+xLSTM model (xlstm) run the padded per-kind step.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths are uniform in
 [--min-prompt, --max-prompt].  `--profile` runs the measured loop under
@@ -28,6 +30,7 @@ from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.launch.profiling import profiler, report
 from repro_torch.serving.engine import Engine
@@ -79,7 +82,7 @@ def main() -> None:
                 for p in prompts]
         t_submit: dict[int, float] = {}
         t_done: dict[int, float] = {}
-        for kernels in (K, FK, SK):
+        for kernels in (K, FK, SK, MK):
             kernels.reset_launches()
         prof = profiler() if profile else contextlib.nullcontext()
         t0 = time.perf_counter()
@@ -101,7 +104,8 @@ def main() -> None:
           f"p95={np.percentile(lat, 95):.3f}s max={lat.max():.3f}s")
     print(f"dispatch: {dict(eng.dispatch_counts)}")
     print(f"device calls: {dict(eng.device_calls)}")
-    print(f"kernel launches: {K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES}")
+    print(f"kernel launches: "
+          f"{K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES | MK.LAUNCHES}")
     if args.profile:
         # the same requests again under the profiler (which slows the
         # host several-fold): device time by kernel, idle share against

@@ -1,5 +1,5 @@
-"""Decoder models: the dense family and the hybrid family (zamba2), their
-serving steps and the dense training loss.
+"""Decoder models: the dense family, the hybrid family (zamba2) and the
+ssm family (xlstm), their serving steps and the dense training loss.
 
 Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
@@ -7,22 +7,27 @@ smollm).  Hybrid `Model` (family "hybrid", zamba2): embed ->
 [(period-1) Mamba2 blocks, then the ONE weight-shared decoder block] x
 n_attn, then the tail Mamba2 blocks (`hybrid_layout`) -> `ln_f` -> the
 untied `lm_head`.  Each Mamba2 block is pre-normed (`mamba_ln`) and
-residual.
+residual.  SSM `Model` (family "ssm", xlstm): embed -> [(period-1) mLSTM
+blocks, then one sLSTM block] x n_slstm, then the tail mLSTM blocks
+(`xlstm_layout`) -> `ln_f` -> the untied `lm_head`; every block is
+pre-normed (`mlstm_ln`, `slstm_ln`) and residual, and no layer holds KV
+pages.
 
 Entry points (ports of `repro.models.model`):
 
   apply_unified  token-packed decode + prefill chunks over the paged cache,
                  last-token gather and fused sampling (dense only)
-  apply_prefill  padded [B, S] fresh prompts at context 0 (dense, hybrid)
-  apply_decode   padded [B, 1] decode batch (dense, hybrid)
+  apply_prefill  padded [B, S] fresh prompts at context 0 (every family)
+  apply_decode   padded [B, 1] decode batch (every family)
   apply_train    causal attention over whole sequences, every block
                  rematerialised in the backward, masked fp32 CE (dense)
 
 The serving cache (`make_cache`) is the reference's tree: {"attn":
-{"k_pages", "v_pages"}} for the attention layers and, for the hybrid
-family, {"mamba": {"conv", "ssm"}} indexed by [layer, slot].  The serving
-steps write it IN PLACE and return it, as the reference returns its new
-cache.
+{"k_pages", "v_pages"}} for the attention layers (none for xlstm), for
+the hybrid family {"mamba": {"conv", "ssm"}}, and for the ssm family
+{"mlstm": {"conv", "c", "n", "m"}, "slstm": {"h", "c", "n", "m"}}, the
+recurrent leaves indexed by [layer, slot].  The serving steps write it
+IN PLACE and return it, as the reference returns its new cache.
 """
 from __future__ import annotations
 
@@ -37,7 +42,10 @@ from repro_torch.core.paged.kv_cache import (
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import Attention
-from repro_torch.models.ssm_blocks import Mamba2Block, mamba2_cache_specs
+from repro_torch.models.ssm_blocks import (
+    Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
+    mlstm_cache_specs, slstm_cache_specs,
+)
 
 
 class Block(nn.Module):
@@ -79,25 +87,37 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.num_layers - n_attn, n_attn, period - 1
 
 
+def xlstm_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """xlstm: every `slstm_period`-th block is an sLSTM block.  (n_mlstm,
+    n_slstm, group) with the layout [(period-1) mLSTM + 1 sLSTM] *
+    n_slstm + tail mLSTM."""
+    period = cfg.ssm.slstm_period
+    n_s = cfg.num_layers // period
+    return cfg.num_layers - n_s, n_s, period - 1
+
+
 def attn_layer_count(cfg: ModelConfig) -> int:
     """Layers that hold KV pages: each shared-block invocation of a hybrid
-    has its own."""
+    has its own; xlstm has none."""
     if cfg.family == "hybrid":
         return hybrid_layout(cfg)[1]
+    if cfg.family == "ssm":
+        return 0
     return cfg.num_layers
 
 
 class Model(nn.Module):
-    """Dense decoder (family "dense") or zamba2 hybrid (family "hybrid").
-    Parameters are allocated empty: fill them with
+    """Dense decoder (family "dense"), zamba2 hybrid (family "hybrid") or
+    xlstm (family "ssm").  Parameters are allocated empty: fill them with
     `weights.from_jax_params` or `weights.init_random`."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "hybrid") or cfg.mla.kv_lora_rank:
+        if cfg.family not in ("dense", "hybrid", "ssm") \
+                or cfg.mla.kv_lora_rank:
             raise NotImplementedError(
-                f"family={cfg.family!r} is not ported yet (dense and "
-                "hybrid only)")
+                f"family={cfg.family!r} is not ported yet (dense, hybrid "
+                "and ssm only)")
         if cfg.input_kind != "tokens":
             raise NotImplementedError("embedding inputs are not ported yet")
         self.cfg = cfg
@@ -108,19 +128,31 @@ class Model(nn.Module):
         if cfg.family == "dense":
             self.blocks = nn.ModuleList(
                 [Block(cfg, device=device) for _ in range(cfg.num_layers)])
-        else:
+        elif cfg.family == "hybrid":
             n_mamba = hybrid_layout(cfg)[0]
             self.mamba = nn.ModuleList(
                 [Mamba2Block(cfg, device=device) for _ in range(n_mamba)])
-            self.mamba_ln = nn.ModuleList(
-                [L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
-                           device=device) for _ in range(n_mamba)])
+            self.mamba_ln = self._norms(n_mamba, device)
             self.shared = Block(cfg, device=device)
+        else:
+            n_m, n_s, _ = xlstm_layout(cfg)
+            self.mlstm = nn.ModuleList(
+                [MLSTMBlock(cfg, device=device) for _ in range(n_m)])
+            self.mlstm_ln = self._norms(n_m, device)
+            self.slstm = nn.ModuleList(
+                [SLSTMBlock(cfg, device=device) for _ in range(n_s)])
+            self.slstm_ln = self._norms(n_s, device)
         self.ln_f = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
                               device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         L.Linear(cfg.d_model, cfg.vocab_size, dtype=dt,
                                  device=device))
+
+    def _norms(self, n: int, device) -> nn.ModuleList:
+        cfg = self.cfg
+        return nn.ModuleList(
+            [L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=cfg.param_dtype,
+                       device=device) for _ in range(n)])
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + output projection; fp32 logits."""
@@ -132,20 +164,34 @@ class Model(nn.Module):
 
 def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
                device) -> dict[str, dict[str, torch.Tensor]]:
-    """The zeroed serving cache: {"attn": {"k_pages", "v_pages"}} of
+    """The empty serving cache: {"attn": {"k_pages", "v_pages"}} of
     [n_attn, Hkv, 1, num_pages, page_size, head_dim] in the param dtype
-    (one pool: a single device) and, for the hybrid family, {"mamba":
-    {"conv": [n_mamba, max_seqs, K-1, conv_dim] param dtype, "ssm":
-    [n_mamba, max_seqs, H, N, P] fp32}}."""
-    cache = {"attn": make_kv_cache(
-        attn_layer_count(cfg), cfg.num_kv_heads, 1, num_pages,
-        cfg.page_size, cfg.resolved_head_dim, cfg.param_dtype, device)}
+    (one pool: a single device) when the model has attention layers; for
+    the hybrid family {"mamba": {"conv": [n_mamba, max_seqs, K-1,
+    conv_dim] param dtype, "ssm": [n_mamba, max_seqs, H, N, P] fp32}}; for
+    the ssm family {"mlstm": {"conv", "c", "n", "m"}, "slstm": {"h", "c",
+    "n", "m"}} (`mlstm_cache_specs` / `slstm_cache_specs` with a leading
+    layer axis), zeros but for both stabilisers `m`, which start at
+    -inf."""
+    cache = {}
+    if attn_layer_count(cfg):
+        cache["attn"] = make_kv_cache(
+            attn_layer_count(cfg), cfg.num_kv_heads, 1, num_pages,
+            cfg.page_size, cfg.resolved_head_dim, cfg.param_dtype, device)
     if cfg.family == "hybrid":
-        n_mamba = hybrid_layout(cfg)[0]
-        cache["mamba"] = {
-            k: torch.zeros((n_mamba,) + shape, dtype=dtype, device=device)
-            for k, (shape, dtype) in mamba2_cache_specs(cfg,
-                                                        max_seqs).items()}
+        groups = {"mamba": (hybrid_layout(cfg)[0], mamba2_cache_specs)}
+    elif cfg.family == "ssm":
+        n_m, n_s, _ = xlstm_layout(cfg)
+        groups = {"mlstm": (n_m, mlstm_cache_specs),
+                  "slstm": (n_s, slstm_cache_specs)}
+    else:
+        groups = {}
+    for group, (n, specs) in groups.items():
+        cache[group] = {
+            k: torch.zeros((n,) + shape, dtype=dtype, device=device)
+            for k, (shape, dtype) in specs(cfg, max_seqs).items()}
+        if "m" in cache[group]:  # the xLSTM stabilisers start at -inf
+            cache[group]["m"].fill_(-torch.inf)
     return cache
 
 
@@ -231,7 +277,10 @@ def _add_write_index(meta: dict, cache: dict, positions: torch.Tensor,
                      valid: torch.Tensor) -> None:
     """The step's KV write index (`write_rows` / `write_dest`, shared by
     every attention layer): slots from `physical_slots`, invalid tokens
-    aimed at the trash slot and dropped."""
+    aimed at the trash slot and dropped.  Nothing for a model without
+    attention layers."""
+    if "attn" not in cache:
+        return
     kp = cache["attn"]["k_pages"]  # [n_attn, Hkv, 1, P, ps, D]
     num_pages, ps = kp.shape[3], kp.shape[4]
     slots = physical_slots(meta["page_table"], positions, valid, ps,
@@ -245,6 +294,8 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
     """The block stack of a padded serving step, writing every cache leaf
     in place.  x [B, S, d] -> [B, S, d]."""
     cfg = model.cfg
+    if cfg.family == "ssm":
+        return _xlstm_forward(model, x, cache, meta, mode=mode)
     kp, vp = cache["attn"]["k_pages"], cache["attn"]["v_pages"]
     if cfg.family == "dense":
         for i, blk in enumerate(model.blocks):
@@ -272,6 +323,35 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
                                        mode=mode, kernel_cfg=kernel_cfg)
     for i in range(off, n_mamba):  # tail
         x = mamba(i, x)
+    return x
+
+
+def _xlstm_forward(model: Model, x: torch.Tensor, cache: dict, meta: dict,
+                   *, mode: str) -> torch.Tensor:
+    """The xlstm block stack (position-free: the recurrence carries the
+    order), writing the mLSTM / sLSTM cache rows in place."""
+    valid, seq_lens = _serve_masks(mode, meta, x.shape[1])
+    mc, sc = cache["mlstm"], cache["slstm"]
+
+    def run(blk, ln, leaves: dict, i: int, x: torch.Tensor, **kw):
+        h, new = blk(ln(x), mode=mode, cache={k: t[i] for k, t in
+                                               leaves.items()},
+                     valid=valid, **kw)
+        for k, t in new.items():
+            leaves[k][i].copy_(t)
+        return x + h
+
+    n_m, n_s, group = xlstm_layout(model.cfg)
+    off = 0
+    for g in range(n_s):
+        for i in range(off, off + group):
+            x = run(model.mlstm[i], model.mlstm_ln[i], mc, i, x,
+                    seq_lens=seq_lens)
+        off += group
+        x = run(model.slstm[g], model.slstm_ln[g], sc, g, x)
+    for i in range(off, n_m):  # tail
+        x = run(model.mlstm[i], model.mlstm_ln[i], mc, i, x,
+                seq_lens=seq_lens)
     return x
 
 

@@ -1,16 +1,20 @@
-"""The Mamba2 block of the hybrid family (zamba2), in its serving modes.
+"""The recurrent blocks in their serving modes: Mamba2 (the hybrid
+family, zamba2) and the xLSTM pair mLSTM + sLSTM (the ssm family,
+xlstm).
 
-Port of `repro/models/ssm_blocks.py` (`mamba2_block`,
-`mamba2_cache_specs`).  The block keeps a *state cache* beside the KV
-pages: per slot, the last K-1 conv inputs and the fp32 SSM state
-[H, N, P].  Ragged and dead positions are neutralised through the gate,
-dt = 0 where not valid, which leaves the state exactly unchanged (the SSM
-analog of the paged kernels' static-grid masking).
+Port of `repro/models/ssm_blocks.py` (`mamba2_block`, `mlstm_block`,
+`slstm_block` and their cache specs).  The blocks keep a *state cache*
+instead of KV pages, one row per slot.  Ragged and dead positions are
+neutralised through the gates, which leaves the state exactly unchanged
+(the SSM analog of the paged kernels' static-grid masking): dt = 0 for
+Mamba2, ig = -30 / fg = +30 for the mLSTM, and a `where` that keeps the
+old state for the sLSTM.
 
-Prefill runs the chunked SSD on the CUDA kernel (`kernels/mamba2/ops.py:
-mamba2_ssd`); decode runs the one-token recurrence in PyTorch ops, as the
-reference does outside any Pallas kernel.  Training of the hybrid family
-is not ported: mode "train" raises.
+Prefill runs the chunked scans on the CUDA kernels (`kernels/mamba2/ops.py:
+mamba2_ssd`, `kernels/mlstm/ops.py:mlstm_chunked`); the one-token decode
+steps and the sLSTM's per-token recurrence run in PyTorch ops, as the
+reference runs them outside any Pallas kernel.  Training of these
+families is not ported: mode "train" raises.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2 import ops as m2
+from repro_torch.kernels.mlstm import ops as mlk
 from repro_torch.models import layers as L
 
 
@@ -43,9 +48,19 @@ def mamba2_cache_specs(cfg: ModelConfig, batch: int) \
                     torch.float32)}
 
 
+def _check_mode(mode: str, cfg: ModelConfig) -> None:
+    """The serving modes; training of the recurrent families is not
+    ported."""
+    if mode == "train":
+        raise NotImplementedError(
+            f"training of the {cfg.family} family is not ported yet")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(mode)
+
+
 def prefill_chunk(cfg: ModelConfig, slen: int) -> int:
-    """The SSD chunk of an S-token prefill: min(chunk, S), halved until
-    it divides S."""
+    """The scan chunk of an S-token prefill (SSD and mLSTM): min(chunk,
+    S), halved until it divides S."""
     chunk = min(cfg.ssm.chunk, slen)
     while slen % chunk:
         chunk //= 2
@@ -87,11 +102,7 @@ class Mamba2Block(nn.Module):
         fp32; valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens
         from the given state) or "decode" (S = 1).  Returns (out [B, S, d],
         new conv state, new ssm state)."""
-        if mode == "train":
-            raise NotImplementedError(
-                "training of the hybrid family is not ported yet")
-        if mode not in ("prefill", "decode"):
-            raise ValueError(mode)
+        _check_mode(mode, self.cfg)
         s = self.cfg.ssm
         b, slen, _ = u.shape
         d_inner, conv_dim = mamba2_dims(self.cfg)
@@ -125,3 +136,177 @@ class Mamba2Block(nn.Module):
         y = y.reshape(b, slen, d_inner)
         y = self.norm(y * F.silu(z))
         return self.out_proj(y), new_conv, new_ssm
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+def xlstm_inner(cfg: ModelConfig) -> int:
+    """The mLSTM's d_inner = expand * d_model = heads x head_dim."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    if s.num_heads * s.head_dim != d_inner:
+        raise ValueError(f"ssm heads x head_dim != d_inner ({s}, {d_inner})")
+    return d_inner
+
+
+def mlstm_cache_specs(cfg: ModelConfig, batch: int) \
+        -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """{'conv': [B, K-1, d_inner] param dtype, 'c': [B, H, P, P], 'n':
+    [B, H, P], 'm': [B, H] fp32}."""
+    s = cfg.ssm
+    f32 = torch.float32
+    return {"conv": ((batch, s.conv_kernel - 1, xlstm_inner(cfg)),
+                     cfg.param_dtype),
+            "c": ((batch, s.num_heads, s.head_dim, s.head_dim), f32),
+            "n": ((batch, s.num_heads, s.head_dim), f32),
+            "m": ((batch, s.num_heads), f32)}
+
+
+def slstm_cache_specs(cfg: ModelConfig, batch: int) \
+        -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """{'h', 'c', 'n', 'm'}: each [B, d_model] fp32."""
+    return {k: ((batch, cfg.d_model), torch.float32)
+            for k in ("h", "c", "n", "m")}
+
+
+class MLSTMBlock(nn.Module):
+    """in_proj -> (x_in, z); causal depthwise conv of x_in -> SiLU ->
+    x_conv; q, k from x_conv and v from x_in; the input / forget gates
+    from x_conv in fp32 (`w_gates`, fp32 with a bias) -> the chunked
+    mLSTM -> RMSNorm(h) * SiLU(z) -> out_proj."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        s = cfg.ssm
+        dt = cfg.param_dtype
+        d_inner = xlstm_inner(cfg)
+        self.cfg = cfg
+        self.in_proj = L.Linear(cfg.d_model, 2 * d_inner, dtype=dt,
+                                device=device)
+        self.conv_w = nn.Parameter(
+            torch.empty(s.conv_kernel, d_inner, dtype=dt, device=device),
+            requires_grad=False)
+        self.wq = L.Linear(d_inner, d_inner, dtype=dt, device=device)
+        self.wk = L.Linear(d_inner, d_inner, dtype=dt, device=device)
+        self.wv = L.Linear(d_inner, d_inner, dtype=dt, device=device)
+        self.w_gates = L.Linear(d_inner, 2 * s.num_heads, bias=True,
+                                dtype=torch.float32, device=device)
+        self.norm = L.RMSNorm(d_inner, eps=cfg.norm_eps, dtype=dt,
+                              device=device)
+        self.out_proj = L.Linear(d_inner, cfg.d_model, dtype=dt,
+                                 device=device)
+
+    def forward(self, u: torch.Tensor, *, mode: str,
+                cache: dict[str, torch.Tensor],
+                valid: torch.Tensor | None = None,
+                seq_lens: torch.Tensor | None = None):
+        """u [B, S, d]; cache {'conv', 'c', 'n', 'm'} (`mlstm_cache_specs`);
+        valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens from
+        the given state) or "decode" (S = 1).  Returns (out [B, S, d], the
+        new cache)."""
+        _check_mode(mode, self.cfg)
+        s = self.cfg.ssm
+        b, slen, _ = u.shape
+        d_inner = xlstm_inner(self.cfg)
+        xz = self.in_proj(u)
+        x_in, z = xz[..., :d_inner], xz[..., d_inner:]
+        x_conv, new_conv = L.causal_conv1d(x_in, self.conv_w, cache["conv"],
+                                           seq_lens=seq_lens)
+        x_conv = F.silu(x_conv)
+
+        def heads(t):
+            return t.reshape(b, slen, s.num_heads, s.head_dim)
+
+        q = heads(self.wq(x_conv))
+        k = heads(self.wk(x_conv))
+        v = heads(self.wv(x_in))
+        gates = self.w_gates(x_conv.float())
+        ig, fg = gates[..., :s.num_heads], gates[..., s.num_heads:]
+        if valid is not None:  # state-neutral padding: f -> 1, i -> 0
+            ig = torch.where(valid[..., None], ig, -30.0)
+            fg = torch.where(valid[..., None], fg, 30.0)
+        state = (cache["c"], cache["n"], cache["m"])
+        if mode == "prefill":
+            h, (c, n, m) = mlk.mlstm_chunked(
+                q, k, v, ig, fg, chunk=prefill_chunk(self.cfg, slen),
+                initial_state=state)
+        else:
+            h, (c, n, m) = mlk.decode_step(q[:, 0], k[:, 0], v[:, 0],
+                                           ig[:, 0], fg[:, 0], state)
+            h = h[:, None]
+        h = h.reshape(b, slen, d_inner).to(u.dtype)
+        h = self.norm(h) * F.silu(z)
+        return self.out_proj(h), {"conv": new_conv, "c": c, "n": n, "m": m}
+
+
+def _slstm_cell(x_pre: torch.Tensor, r: torch.Tensor, state, nh: int):
+    """One sLSTM step.  x_pre [B, 4, d] fp32 input preactivations; r
+    [4, nh, d/nh, d/nh] fp32 block-diagonal recurrent weights; state
+    (h, c, n, m) each [B, d] fp32."""
+    h_prev, c_prev, n_prev, m_prev = state
+    b, d = h_prev.shape
+    hh = h_prev.reshape(b, nh, d // nh)
+    rec = torch.einsum("bhp,ghpq->bghq", hh, r).reshape(b, 4, d)
+    pre = x_pre + rec
+    z_t = torch.tanh(pre[:, 0])
+    i_t = pre[:, 1]
+    f_t = pre[:, 2]
+    o_t = torch.sigmoid(pre[:, 3])
+    lf = F.logsigmoid(f_t)
+    m_new = torch.maximum(lf + m_prev, i_t)
+    ip = torch.exp(i_t - m_new)
+    fp = torch.exp(lf + m_prev - m_new)
+    c_new = fp * c_prev + ip * z_t
+    n_new = fp * n_prev + ip
+    h_new = o_t * c_new / torch.clamp(n_new, min=1e-6)
+    return h_new, c_new, n_new, m_new
+
+
+class SLSTMBlock(nn.Module):
+    """w_in -> the per-token sLSTM recurrence with block-diagonal
+    recurrent weights `r` [4, H, d/H, d/H] -> RMSNorm -> up -> GELU (tanh
+    form, `jax.nn.gelu`'s default) gated -> down."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        s = cfg.ssm
+        dt = cfg.param_dtype
+        d = cfg.d_model
+        self.cfg = cfg
+        self.w_in = L.Linear(d, 4 * d, bias=True, dtype=dt, device=device)
+        self.r = nn.Parameter(
+            torch.empty(4, s.num_heads, d // s.num_heads, d // s.num_heads,
+                        dtype=dt, device=device), requires_grad=False)
+        self.norm = L.RMSNorm(d, eps=cfg.norm_eps, dtype=dt, device=device)
+        self.up = L.Linear(d, 2 * d, dtype=dt, device=device)
+        self.down = L.Linear(d, cfg.d_model, dtype=dt, device=device)
+
+    def forward(self, u: torch.Tensor, *, mode: str,
+                cache: dict[str, torch.Tensor],
+                valid: torch.Tensor | None = None):
+        """u [B, S, d]; cache {'h', 'c', 'n', 'm'} each [B, d] fp32; valid
+        [B, S] bool.  A step where a row is not valid leaves all four
+        state leaves of that row untouched.  Returns (out [B, S, d], the
+        new cache)."""
+        _check_mode(mode, self.cfg)
+        b, slen, d = u.shape
+        nh = self.cfg.ssm.num_heads
+        x_pre = self.w_in(u).float().reshape(b, slen, 4, d)
+        r = self.r.float()
+        if valid is None:
+            valid = torch.ones((b, slen), dtype=torch.bool, device=u.device)
+        st = (cache["h"], cache["c"], cache["n"], cache["m"])
+        hs = []
+        for t in range(slen):
+            new = _slstm_cell(x_pre[:, t], r, st, nh)
+            keep = valid[:, t, None]
+            st = tuple(torch.where(keep, nv, ov) for nv, ov in zip(new, st))
+            hs.append(st[0])
+        y = torch.stack(hs, 1).to(u.dtype)
+        y = self.norm(y)
+        gu = self.up(y)
+        y = self.down(F.gelu(gu[..., :d], approximate="tanh") * gu[..., d:])
+        return y, dict(zip(("h", "c", "n", "m"), st))

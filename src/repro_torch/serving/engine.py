@@ -15,19 +15,22 @@ inside it:
                                    to a power-of-two total-token count
 
 The padded per-kind step (`packed_attention=False`, and always for the
-hybrid family, whose slot-indexed SSM state is not page-addressable per
-token) runs each step as `apply_prefill` over the fresh prompts, padded to
-a [pow2 batch, pow2 seq >= page] bucket, then `apply_decode` over the
-static `max_seqs` decode batch, each followed by a separate sampling
-dispatch.  Prefill starts every SSM slot from zeros and merges the rows
-back into the slot-indexed cache (`_prefill_cache_view` /
-`_merge_prefill_cache`).
+hybrid and ssm families, whose slot-indexed recurrent state is not
+page-addressable per token) runs each step as `apply_prefill` over the
+fresh prompts, padded to a [pow2 batch, pow2 seq >= page] bucket, then
+`apply_decode` over the static `max_seqs` decode batch, each followed by
+a separate sampling dispatch.  Prefill starts every recurrent slot from
+the empty state (zeros, the xLSTM stabilisers at -inf) and merges the
+rows back into the slot-indexed cache (`_prefill_cache_view` /
+`_merge_prefill_cache`).  A model without attention layers (xlstm) has
+no KV pages to address and no attention kernel to configure.
 
 Metadata (page tables, context / query lengths, query start locations,
 slot mappings, positions) is built host-side in numpy and uploaded once
 per launch.  The caches live on the engine's device and are written in
-place.  On `cuda` the attention and the SSD run the hand-written CUDA
-kernels; with `device="cpu"` they run their plain PyTorch versions.
+place.  On `cuda` the attention and the SSD (hybrid) and mLSTM (xlstm)
+prefill scans run the hand-written CUDA kernels; with `device="cpu"`
+they run their plain PyTorch versions.
 
 Not ported yet (see ROADMAP.md): the async `submit()/stream()/run()`
 loop, speculative decoding, prefix caching, resumed chunks on the padded
@@ -90,9 +93,13 @@ class Engine:
         env_tree = heuristics.maybe_load_env()
         if env_tree:
             log.info("engine: attention heuristics from %s", env_tree)
+        # kernel-config dispatch steers the paged-attention kernels: none
+        # for a model without attention layers (xlstm)
+        self._dispatch_enabled = M.attn_layer_count(cfg) > 0
         # the unified token-packed step needs every layer's context to be
         # page-addressable per token: attention families only (the
-        # hybrid's recurrent state is slot-indexed), as in the reference
+        # recurrent state of hybrid / ssm models is slot-indexed), as in
+        # the reference
         self._packed = packed_attention and cfg.family == "dense"
         if packed_attention and not self._packed:
             log.info("engine: packed attention unavailable for family=%r; "
@@ -178,9 +185,12 @@ class Engine:
         )
 
     def _dispatch(self, phase: str, profile: heuristics.BatchProfile) \
-            -> heuristics.KernelConfig:
+            -> heuristics.KernelConfig | None:
         """Pick this launch's KernelConfig from the (loaded or default)
-        tree of its phase and record it in the dispatch stats."""
+        tree of its phase and record it in the dispatch stats; None for a
+        model without attention layers."""
+        if not self._dispatch_enabled:
+            return None
         pick = {"decode": heuristics.decode_config,
                 "unified": heuristics.unified_config}.get(
                     phase, heuristics.prefill_config)
@@ -494,19 +504,26 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _prefill_cache_view(self, b: int) -> dict:
-        """The attention pages are global; the SSM rows of a prefill start
-        from zeros (prefill always begins at context 0 on the padded
-        step)."""
-        view = {"attn": self.cache["attn"]}
+        """The attention pages (where the model has any) are global; the
+        recurrent rows of a prefill start from the empty state, zeros with
+        the mLSTM / sLSTM stabilisers `m` at -inf, as `M.make_cache` makes
+        them (prefill always begins at context 0 on the padded step)."""
+        view = {}
         for k, leaves in self.cache.items():
-            if k != "attn":
-                view[k] = {n: torch.zeros(t.shape[:1] + (b,) + t.shape[2:],
-                                          dtype=t.dtype, device=t.device)
-                           for n, t in leaves.items()}
+            if k == "attn":
+                view[k] = leaves
+                continue
+            view[k] = {n: torch.zeros(t.shape[:1] + (b,) + t.shape[2:],
+                                      dtype=t.dtype, device=t.device)
+                       for n, t in leaves.items()}
+            if k in ("mlstm", "slstm"):
+                view[k]["m"].fill_(-torch.inf)
         return view
 
     def _merge_prefill_cache(self, new_cache: dict, slots: list[int]) -> None:
-        """Copy the prefilled rows of each SSM leaf into their slots."""
+        """Copy the prefilled rows of each recurrent leaf (Mamba2's conv /
+        ssm, the mLSTM's conv / c / n / m, the sLSTM's h / c / n / m) into
+        their slots."""
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         for k, leaves in new_cache.items():
             if k != "attn":

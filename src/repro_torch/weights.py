@@ -20,10 +20,25 @@ with the blocks stacked on a leading [L] axis by `jax.vmap`.  A hybrid
      "mamba_ln": {"scale": [n, d]},
      "shared": one decoder block, unstacked}
 
+and an xlstm (family "ssm") model, with m mLSTM and s sLSTM blocks and
+d_inner = H * P,
+
+    {"mlstm": {"in_proj": {"w": [m, d, 2 d_inner]}, "conv_w": [m, K, d_inner],
+               "wq": {"w": [m, d_inner, d_inner]}, "wk", "wv",
+               "w_gates": {"w": [m, d_inner, 2H], "b": [m, 2H]},
+               "norm": {"scale": [m, d_inner]},
+               "out_proj": {"w": [m, d_inner, d]}},
+     "mlstm_ln": {"scale": [m, d]},
+     "slstm": {"w_in": {"w": [s, d, 4d], "b": [s, 4d]},
+               "r": [s, 4, H, d/H, d/H], "norm": {"scale": [s, d]},
+               "up": {"w": [s, d, 2d]}, "down": {"w": [s, d, d]}},
+     "slstm_ln": {"scale": [s, d]}}
+
 The bridge unstacks them into the port's `nn.ModuleList`s;
 `to_numpy_params` stacks them back.  Linear weights keep the [d_in, d_out]
-layout (`y = x @ w`), so nothing is transposed.  `a_log`, `d_skip` and
-`dt_bias` stay fp32 in a bf16 model, as in the reference.
+layout (`y = x @ w`), so nothing is transposed.  `a_log`, `d_skip`,
+`dt_bias` and the mLSTM's `w_gates` stay fp32 in a bf16 model, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,7 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Block, Model
-from repro_torch.models.ssm_blocks import Mamba2Block
+from repro_torch.models.ssm_blocks import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 
 def _tensor(a) -> torch.Tensor:
@@ -75,6 +90,29 @@ def _mamba_leaves(blk: Mamba2Block):
     yield ("out_proj", "w"), blk.out_proj.w
 
 
+def _linear_leaves(blk, names):
+    for name in names:
+        lin = getattr(blk, name)
+        yield (name, "w"), lin.w
+        if lin.b is not None:
+            yield (name, "b"), lin.b
+
+
+def _mlstm_leaves(blk: MLSTMBlock):
+    yield from _linear_leaves(blk, ("in_proj",))
+    yield ("conv_w",), blk.conv_w
+    yield from _linear_leaves(blk, ("wq", "wk", "wv", "w_gates"))
+    yield ("norm", "scale"), blk.norm.scale
+    yield from _linear_leaves(blk, ("out_proj",))
+
+
+def _slstm_leaves(blk: SLSTMBlock):
+    yield from _linear_leaves(blk, ("w_in",))
+    yield ("r",), blk.r
+    yield ("norm", "scale"), blk.norm.scale
+    yield from _linear_leaves(blk, ("up", "down"))
+
+
 def _leaves(model: Model):
     """(path in the reference tree, index on its stacked [L] axis or None,
     tensor) for every parameter of the model."""
@@ -86,6 +124,15 @@ def _leaves(model: Model):
         for i, blk in enumerate(model.blocks):
             for path, t in _block_leaves(blk):
                 yield ("blocks",) + path, i, t
+        return
+    if model.cfg.family == "ssm":
+        for group, per_block in (("mlstm", _mlstm_leaves),
+                                 ("slstm", _slstm_leaves)):
+            for i, blk in enumerate(getattr(model, group)):
+                for path, t in per_block(blk):
+                    yield (group,) + path, i, t
+            for i, ln in enumerate(getattr(model, group + "_ln")):
+                yield (group + "_ln", "scale"), i, ln.scale
         return
     for i, blk in enumerate(model.mamba):
         for path, t in _mamba_leaves(blk):
@@ -124,8 +171,9 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
     """Random weights drawn like the reference's `M.init` from a seeded CPU
     `torch.Generator`, so every device gets the same values: matrices (and
     the conv kernel) truncated normal at +-2 std with std = d_in ** -0.5
-    (the embedding: d_model ** -0.5); norm scales and `d_skip` 1; biases,
-    `a_log` and `dt_bias` 0."""
+    (the embedding: d_model ** -0.5; the sLSTM's recurrent blocks `r`:
+    (d / H) ** -0.5); norm scales and `d_skip` 1; biases, `a_log` and
+    `dt_bias` 0."""
     _check_layouts(cfg)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
@@ -137,7 +185,9 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
         elif name in ("b", "a_log", "dt_bias"):
             t.zero_()
         else:
-            std = (cfg.d_model if name == "table" else t.shape[0]) ** -0.5
+            fan_in = {"table": cfg.d_model, "r": t.shape[-1]}.get(
+                name, t.shape[0])
+            std = fan_in ** -0.5
             tmp = torch.empty(t.shape, dtype=torch.float32)
             torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
                                         generator=gen)

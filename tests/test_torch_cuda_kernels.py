@@ -1,7 +1,7 @@
-"""The CUDA kernels (paged attention, flash attention, the Mamba2 SSD)
-against their plain PyTorch versions on the card, and the port's engines
-(packed smollm, padded zamba2) and the flash attention gradient on the
-card against themselves on the CPU.
+"""The CUDA kernels (paged attention, flash attention, the Mamba2 SSD, the
+chunked mLSTM) against their plain PyTorch versions on the card, and the
+port's engines (packed smollm, padded zamba2 and xlstm) and the flash
+attention gradient on the card against themselves on the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked `cuda` and skips
 on a host without CUDA.  Run on the card with
@@ -14,6 +14,11 @@ with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
 to 128 x 64 products of values as large as |y| in another order than the
 plain version's matmuls: fp32 within 1e-5 x max |y| (TF32 off); bf16
 inputs are widened exactly and summed in fp32 on both sides, within 2e-2.
+The mLSTM divides sums of up to 64 + 512 products (another order than the
+plain version's) by a denominator that can sit at its exp(-m) floor:
+fp32 within 2e-5 x max |out|; with bf16 inputs the fp32 state within the
+same and h, rounded to bf16 on both sides, within 8e-3 x max |h| (one
+bf16 ulp is at most 2^-7 of the value).
 """
 import numpy as np
 import pytest
@@ -21,10 +26,13 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels._common import chunk_cumsum
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mamba2 import ops as sops
+from repro_torch.kernels.mlstm import kernel as MK
+from repro_torch.kernels.mlstm import ops as mops
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.serving.engine import Engine
@@ -356,5 +364,104 @@ def test_hybrid_engine_on_card_matches_cpu(cuda):
             n_mamba = len(eng.model.mamba)
             assert SK.LAUNCHES["ssd_chunked_fwd"] == \
                 n_mamba * eng.device_calls["prefill"] > 0
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+# (B, L, H, P, chunk): tests/test_kernels_mlstm.py's cases, a short prompt
+# and xlstm-350m's serve shape
+MLSTM_CASES = [(2, 64, 3, 16, 16), (1, 128, 4, 64, 32), (2, 32, 1, 32, 8),
+               (8, 16, 4, 512, 16), (8, 1024, 4, 512, 64)]
+
+
+def _mlstm_inputs(dev, dtype, case, *, state, seed=0):
+    b, l, h, p, chunk = case
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(dt).to(dev)
+    q, k, v = (t(rng.standard_normal((b, l, h, p)), dtype) for _ in range(3))
+    ig = rng.standard_normal((b, l, h))
+    fg = rng.standard_normal((b, l, h)) + 2.0
+    st = ((t(0.1 * rng.standard_normal((b, h, p, p))),
+           t(0.1 * rng.standard_normal((b, h, p))),
+           t(rng.standard_normal((b, h)))) if state
+          else mops.zero_state(b, h, p, dev))
+    return q, k, v, t(ig), t(fg), st
+
+
+def _mlstm_close(got, want, rtol):
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=rtol * scale,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_mlstm_kernel_matches_plain(cuda, dtype, case, state):
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, dtype, case, state=state)
+    b, l, h, p, chunk = case
+    lf = torch.nn.functional.logsigmoid(fg)
+    bcum = chunk_cumsum(lf.reshape(b, l // chunk, chunk, h))
+    g = torch.cummax(ig.reshape(b, l // chunk, chunk, h) - bcum, 2).values
+    args = (q, k, v, ig, bcum.reshape(b, l, h), g.reshape(b, l, h), *st)
+    n0 = MK.LAUNCHES["mlstm_chunked_fwd"]
+    got = MK.mlstm_chunked_fwd(*args, chunk=chunk, scale=p ** -0.5)
+    want = MK.mlstm_chunked_fwd_plain(*args, chunk=chunk, scale=p ** -0.5)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["mlstm_chunked_fwd"] == n0 + 1
+    assert got[0].dtype == dtype
+    _mlstm_close(got[0], want[0], 2e-5 if dtype == torch.float32 else 8e-3)
+    for a, w in zip(got[1:], want[1:]):
+        _mlstm_close(a, w, 2e-5)
+
+
+def test_mlstm_on_card_matches_cpu(cuda):
+    """The op (gates, cumsum, kernel) on the card vs on the CPU, fp32, with
+    the extreme gates of tests/test_kernels_mlstm.py."""
+    q, k, v, ig, fg, st = _mlstm_inputs("cpu", torch.float32,
+                                        (1, 32, 2, 16, 8), state=False,
+                                        seed=31)
+    ig, fg = ig * 30.0, fg - 20.0
+    outs = [mops.mlstm_chunked(*(x.to(dev) for x in (q, k, v, ig, fg)),
+                               chunk=8)
+            for dev in (cuda, torch.device("cpu"))]
+    assert torch.isfinite(outs[0][0]).all()
+    _mlstm_close(outs[0][0].cpu(), outs[1][0], 2e-5)
+    for a, w in zip(outs[0][1], outs[1][1]):
+        _mlstm_close(a.cpu(), w, 2e-5)
+
+
+def test_mlstm_kernel_rejects_unsupported_shapes(cuda):
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, torch.float32,
+                                        (1, 128, 1, 16, 128), state=False)
+    gates = (ig, ig, ig)
+    with pytest.raises(ValueError, match="64"):
+        MK.mlstm_chunked_fwd(q, k, v, *gates, *st, chunk=128, scale=1.0)
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, torch.float32,
+                                        (1, 16, 1, 640, 16), state=False)
+    gates = (ig, ig, ig)
+    with pytest.raises(ValueError, match="512"):
+        MK.mlstm_chunked_fwd(q, k, v, *gates, *st, chunk=16, scale=1.0)
+
+
+def test_xlstm_engine_on_card_matches_cpu(cuda):
+    """Reduced xlstm in fp32 through the padded step: greedy tokens with
+    the mLSTM kernel on the card equal those of the plain version on the
+    CPU, and the kernel ran once per mLSTM layer per prefill."""
+    cfg = reduced(ARCHS["xlstm-350m"]).replace(dtype="float32")
+    rng = np.random.default_rng(2)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
+               for n in (12, 20, 7, 40)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, weights.init_random(cfg, 0, device=dev),
+                     max_seqs=2, num_pages=32, max_model_len=128, device=dev)
+        MK.reset_launches()
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=5)
+                             for p in prompts])
+        if dev.type == "cuda":
+            assert MK.LAUNCHES["mlstm_chunked_fwd"] == \
+                len(eng.model.mlstm) * eng.device_calls["prefill"] > 0
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
