@@ -18,13 +18,18 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               24) and zamba2-1.2b's padded step (Hkv 32, group 1, D 64,
               page 16, 8 decode rows with contexts up to 1056 on the
               segmented variant with 16 segments, a fresh prefill of 8 x
-              1024 rows at context 0 in the uniform layout), in fp32 with
-              TF32 off (atol 1e-4) and bf16 (atol 2e-2: a bf16 output ulp
-              near 1 is 7.8e-3, and p is rounded to bf16 before p.V on
-              both sides)
+              1024 rows at context 0 in the uniform layout), and at
+              qwen2.5-3b's heads (Hkv 2, group 8, D 128: the D 128
+              instantiation of the tensor-core prefill, and 128 rows a
+              Q-Block, over 64), in fp32 with TF32 off (atol 1e-4) and
+              bf16 (atol 2e-2: a bf16 output ulp near 1 is 7.8e-3, and p
+              is rounded to bf16 before p.V on both sides; bf16 prefill
+              runs the tensor-core kernel, fp32 the scalar one)
   4. time     median kernel time over CUDA events (L2 flushed before each
               launch) beside the plain version, a library yardstick and
-              the bound (bytes at 3.35 TB/s or FLOPs at peak)
+              the bound (bytes at 3.35 TB/s or FLOPs at peak); the Q-Block
+              prefill also at zamba2-1.2b's padded prefill shape (a second
+              `time` row, logged only)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
               8 requests (prompts 128-1024, 32 new tokens, max_seqs 8,
               chunked prefill) through the packed fused step; the kernel
@@ -36,9 +41,12 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
   7. flash    the flash-attention forward kernel (o and lse) against its
               plain version on the card at the shape the train phase gives
               it (B 4, S 2048, Hq 9, Hkv 3, D 64, causal, packed q
-              [12, 128, 48, 64]; fp32 and bf16) and the five shapes
-              of tests/test_kernels_flash_attention.py (atol 1e-4 fp32 with
-              TF32 off, 2e-2 bf16), and the gradient of flash attention
+              [12, 128, 48, 64]; fp32 and bf16), at qwen2.5-3b's heads
+              (Hq 16, Hkv 2, D 128: the D 128 tensor-core instantiation;
+              fp32 and bf16) and the five shapes of
+              tests/test_kernels_flash_attention.py (atol 1e-4 fp32 with
+              TF32 off, 2e-2 bf16; bf16 runs the tensor-core kernel, fp32
+              the scalar one), and the gradient of flash attention
               (kernel forward + recompute backward) on the card against the
               same on the CPU (fp32, atol 1e-4)
   8. ftime    the flash kernel at B 4, S 2048, Hq 9, Hkv 3, D 64, bf16,
@@ -157,13 +165,20 @@ PAGED_SHAPES = {
         page_sizes=(16,), ctx=(1056, 129, 300, 517, 640, 777, 901, 1033),
         num_segments=16, qlens=(1024, 128, 517, 1000, 256, 771, 390, 1023),
         pf_ctx=(1024, 128, 517, 1000, 256, 771, 390, 1023), stride=1024),
+    # no serve phase: qwen2.5-3b's heads (Hkv 2, group 8, D 128) hold the
+    # D 128 kernels, and a Q-Block of 16 x 8 = 128 rows, against their
+    # plain versions; a resumed and a fresh chunk, dead Q-blocks
+    "qwen2.5-3b": dict(
+        page_sizes=(16,), ctx=(0, 1, 33, 300, 777, 1024, 1500, 2048),
+        num_segments=16, qlens=(100, 37, 0, 0, 0, 0, 0, 0),
+        pf_ctx=(900, 37, 0, 0, 0, 0, 0, 0), stride=None),
 }
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
 # shape the train phase gives the kernel (smollm-135m: Hq 9, Hkv 3, D 64),
-# then the cases of tests/test_kernels_flash_attention.py
+# then the cases of tests/test_kernels_flash_attention.py, then D 128
 FLASH_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 9, 3, 64, True, 0,
                     "bfloat16")
 FLASH_CASES = [
@@ -174,6 +189,8 @@ FLASH_CASES = [
     (2, 32, 128, 4, 1, 64, True, 96, "float32"),
     (1, 128, 128, 16, 2, 128, False, 0, "float32"),
     (2, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+    (1, 512, 512, 16, 2, 128, True, 0, "float32"),  # qwen2.5-3b's heads
+    (1, 512, 512, 16, 2, 128, True, 0, "bfloat16"),
 ]
 FLASH_GRAD_CASE = (2, 256, 256, 9, 3, 64, True, 0, "float32")
 SSD = "ssd_chunked_fwd"
@@ -508,26 +525,34 @@ def library_calls(torch, x):
 
 
 def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
+    """Each paged kernel at smollm's serve shapes (the rows of the kernels'
+    JSON), then the Q-Block prefill at zamba2's padded prefill shape."""
     dtype = getattr(torch, dtype_name)
     ps = 16
     tile = tops.default_tile(ps)
-    calls, x = kernel_calls(torch, K, dtype, ps, tile, tops)
-    lib = library_calls(torch, x)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rows = {}
-    for name in REPLACES:
+
+    def row(name, calls, lib, x, arch):
         kfn, pfn = calls[name]
         ms = time_ms(torch, kfn, iters, flush)
         plain_ms = time_ms(torch, pfn, 3, flush)
         lib_ms = time_ms(torch, lib[name], iters, flush) if name in lib \
             else None
         bound_ms, bound_by = bounds(name, x, dtype_name)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"time  {name:24s} {dtype_name} kernel_ms {ms:.4f}  plain_ms "
-            f"{plain_ms:.4f}  library_ms "
+        log(f"time  {name:24s} {arch:12s} {dtype_name} kernel_ms {ms:.4f}  "
+            f"plain_ms {plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{bound_ms:.5f} ({bound_by})")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+    calls, x = kernel_calls(torch, K, dtype, ps, tile, tops)
+    lib = library_calls(torch, x)
+    rows = {name: row(name, calls, lib, x, ARCH) for name in REPLACES}
+    del calls, x, lib
+    calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, HYBRID_ARCH)
+    row("paged_prefill_qblock", calls, library_calls(torch, x), x,
+        HYBRID_ARCH)
     return rows
 
 

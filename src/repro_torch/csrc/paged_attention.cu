@@ -8,12 +8,13 @@
 //   segment_reduce          C3 merge of the segment partials (Listing 5)
 //   paged_prefill_qblock    Q-Block chunked prefill over the paged cache
 //
-// What bounds them on the card: bytes.  Every kernel reads each live K/V
-// row of its (sequence, KV head) once per block and does 4*D FLOPs per
-// (query row, key) pair, far below the ~295 FLOP/byte the H100 needs
-// before its tensor cores would be the limit.  So the design streams
-// K/V through shared memory once per block and keeps everything else
-// (scores, the online-softmax state, the fp32 accumulator) on chip:
+// Decode (the three decode kernels, both dtypes): bounded by bytes.  Every
+// kernel reads each live K/V row of its (sequence, KV head) once per block
+// and does 4*D FLOPs per (query row, key) pair, far below the ~295
+// FLOP/byte the H100 needs before its tensor cores would be the limit.
+// So the design streams K/V through shared memory once per block and
+// keeps everything else (scores, the online-softmax state, the fp32
+// accumulator) on chip:
 //
 //   * one thread block per output cell; a loop INSIDE the block walks
 //     the KV tiles (the Pallas grid's sequential "arbitrary" axis), and
@@ -24,7 +25,27 @@
 //     lies inside one page, found through the page table by the block
 //     itself (no scalar prefetch on a GPU);
 //   * K and V rows are staged through shared memory kChunk rows at a
-//     time, so the shared-memory footprint does not grow with the tile.
+//     time, so the shared-memory footprint does not grow with the tile;
+//   * scalar fp32 FMAs on the CUDA cores (`attend`).
+//
+// Prefill in bf16 (`prefill_mma_kernel`): a Q-Block of block_q * group
+// rows does up to block_q * group FLOP-pairs per key byte, so at the
+// serving shapes it is bounded by operations, and runs on the tensor
+// cores through the tile of attention_tile.cuh.  The rows of every
+// Q-block of one KV head are cut into 16-row warp slabs; a block of 4
+// warps takes 4 consecutive slabs, so M = block_q * group of any size up
+// to 512 keeps its accumulator in registers (no shared-memory limit on
+// M), and where M < 64 one block spans several consecutive Q-blocks,
+// which share their K/V tiles whenever they belong to one sequence.  The
+// block walks its warps' runs of equal sequence one after another, each
+// run's 64-key tiles up to the last live key of its rows, and finds each
+// key row's page through the page table itself (page = pt[key / ps], row
+// = key % ps), so a tile may span pages of any size, 24 included.  The
+// config's `tile` (C4) stays the decode kernels' knob: the prefill entry
+// point still validates it, but this kernel's key tile is its own 64.
+// Prefill in fp32 (`prefill_kernel`, the card-versus-CPU checks) stays on
+// `attend`: the tensor cores cannot give fp32 at 1e-4.  The entry point
+// picks the kernel by dtype, a choice by type and never a fallback.
 //
 // Semantics kept exactly from the Pallas kernels: the mask value is
 // -0.7 * FLT_MAX (not -inf), the m_safe guard and alpha = 0 while a row
@@ -32,16 +53,19 @@
 // finaliser's l == 0 -> 1 (so dead rows, blocks and segments give exact
 // zeros), and segment_reduce's dead-segment test m <= NEG / 2.
 //
-// Simple and right first: scalar fp32 FMAs on the CUDA cores, no
-// wgmma/TMA/cp.async pipelines yet.  Each entry point is a plain C
-// function (device pointers, shapes, strides in elements, the stream)
-// returning cudaGetLastError(), loaded from Python with ctypes.
+// Each entry point is a plain C function (device pointers, shapes,
+// strides in elements, the stream) returning cudaGetLastError(), loaded
+// from Python with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+
+#include "attention_tile.cuh"
+
+namespace AT = attn_tile;
 
 namespace {
 
@@ -358,6 +382,96 @@ __global__ void __launch_bounds__(kThreads)
   finalize<T>(out + (long long)b * M * D, M, D, tile, smem);
 }
 
+// ---------------------------------------------------------------------------
+// paged_prefill_qblock in bf16, on the tensor cores.  Block (x, h) takes
+// warp slabs L = 4 x' + w (x' = gridDim.x - 1 - x: the later slabs, whose
+// rows sit deeper in their sequence, go first) of KV head h; slab L is
+// rows 16 (L % nslab) .. of Q-block L / nslab.  Row r of a live Q-block
+// sees keys < min(ctx, pos0 + r / group + 1).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(AT::kThreads)
+    prefill_mma_kernel(const AT::bf16* __restrict__ q,
+                       const AT::bf16* __restrict__ k,
+                       const AT::bf16* __restrict__ v,
+                       const int* __restrict__ qb_seq,
+                       const int* __restrict__ qb_pos0,
+                       const int* __restrict__ page_table,
+                       const int* __restrict__ context_lens,
+                       AT::bf16* __restrict__ out, int NQB, int Hkv, int M,
+                       int group, long long k_head_stride,
+                       long long k_page_stride, long long v_head_stride,
+                       long long v_page_stride, int ps, int Np, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  AT::bf16* smem = reinterpret_cast<AT::bf16*>(smem_raw);
+  const int nslab = (M + AT::kSlab - 1) / AT::kSlab;
+  const int total = NQB * nslab;
+  const int first = (gridDim.x - 1 - blockIdx.x) * AT::kWarps;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int max_ctx = Np * ps;
+
+  // every warp's sequence (-1 dead Q-block, -2 no slab) and tile count,
+  // known to every thread: the runs of equal sequence are walked together
+  int seqs[AT::kWarps], tiles[AT::kWarps];
+#pragma unroll
+  for (int i = 0; i < AT::kWarps; ++i) {
+    const int L = first + i;
+    seqs[i] = L < total ? qb_seq[L / nslab] : -2;
+    tiles[i] = 0;
+    if (seqs[i] < 0) continue;
+    const int r_last = min((L % nslab) * AT::kSlab + AT::kSlab, M) - 1;
+    const int lim_last = min(min(context_lens[seqs[i]], max_ctx),
+                             qb_pos0[L / nslab] + r_last / group + 1);
+    tiles[i] = lim_last > 0 ? (lim_last + AT::kKeys - 1) / AT::kKeys : 0;
+  }
+
+  // this warp's slab: rows r0 .. r0 + valid - 1 of Q-block qb
+  const int L = first + warp;
+  const int qb = L < total ? L / nslab : 0;
+  const int r0 = L < total ? (L % nslab) * AT::kSlab : 0;
+  const int valid = L < total ? min(AT::kSlab, M - r0) : 0;
+  const long long row0 = ((long long)qb * Hkv + h) * M + r0;
+  const bool live = L < total && qb_seq[qb] >= 0;
+  const int pos0 = live ? qb_pos0[qb] : 0;
+  const int ctx = live ? min(context_lens[qb_seq[qb]], max_ctx) : 0;
+  const int g = lane >> 2;
+  const int lim[2] = {min(ctx, pos0 + (r0 + g) / group + 1),
+                      min(ctx, pos0 + (r0 + g + 8) / group + 1)};
+  const int all_live = min(ctx, pos0 + r0 / group + 1);
+
+  AT::load_q_slab<D>(AT::Layout<D>::q(smem, warp), q + row0 * D, valid);
+  AT::cp_async_commit();
+  AT::cp_async_wait<0>();
+  __syncwarp();
+  AT::Warp<D> w;
+  w.init(AT::Layout<D>::q(smem, warp));
+
+  const AT::bf16* kh = k + h * k_head_stride;
+  const AT::bf16* vh = v + h * v_head_stride;
+  for (int a = 0; a < AT::kWarps;) {  // block-uniform
+    int b = a + 1, n_tiles = tiles[a];
+    while (b < AT::kWarps && seqs[b] == seqs[a])
+      n_tiles = max(n_tiles, tiles[b++]);
+    if (seqs[a] >= 0) {
+      const int* pt_row = page_table + (long long)seqs[a] * Np;
+      auto key_rows = [&](int key, const AT::bf16*& kr,
+                          const AT::bf16*& vr) {
+        const int pi = key / ps;
+        const long long row = (long long)(key - pi * ps) * D;
+        const long long page = pt_row[pi];
+        kr = kh + page * k_page_stride + row;
+        vr = vh + page * v_page_stride + row;
+      };
+      AT::walk<D>(w, smem, n_tiles, min(context_lens[seqs[a]], max_ctx), kh,
+                  key_rows, warp >= a && warp < b, tiles[warp], all_live,
+                  lim, scale);
+    }
+    a = b;
+  }
+  if (valid > 0) w.store(out + row0 * D, nullptr, valid);
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
@@ -424,7 +538,6 @@ int reduce_impl(const void* o_seg, const void* m_seg, const void* l_seg,
   return cudaGetLastError();
 }
 
-template <typename T>
 int prefill_impl(const void* q, const void* k, const void* v,
                  const void* qb_seq, const void* qb_pos0,
                  const void* page_table, const void* context_lens, void* out,
@@ -435,14 +548,57 @@ int prefill_impl(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (NQB * Hkv == 0) return cudaSuccess;
   const size_t smem = attend_smem_floats(M, D, tile) * sizeof(float);
-  cudaError_t err = prepare(prefill_kernel<T>, smem);
+  cudaError_t err = prepare(prefill_kernel<float>, smem);
   if (err != cudaSuccess) return err;
-  prefill_kernel<T><<<NQB * Hkv, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)qb_seq,
+  prefill_kernel<float><<<NQB * Hkv, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)qb_seq,
       (const int*)qb_pos0, (const int*)page_table, (const int*)context_lens,
-      (T*)out, Hkv, M, D, block_q, group, khs, kps, vhs, vps, ps, tile, Np,
-      scale);
+      (float*)out, Hkv, M, D, block_q, group, khs, kps, vhs, vps, ps, tile,
+      Np, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+int prefill_mma_launch(const void* q, const void* k, const void* v,
+                       const void* qb_seq, const void* qb_pos0,
+                       const void* page_table, const void* context_lens,
+                       void* out, int NQB, int Hkv, int M, int group,
+                       long long khs, long long kps, long long vhs,
+                       long long vps, int ps, int Np, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = AT::prepare<D>(prefill_mma_kernel<D>);
+  if (err != cudaSuccess) return err;
+  const int slabs = NQB * ((M + AT::kSlab - 1) / AT::kSlab);
+  const dim3 grid((slabs + AT::kWarps - 1) / AT::kWarps, Hkv);
+  prefill_mma_kernel<D>
+      <<<grid, AT::kThreads, AT::Layout<D>::kBytes, stream>>>(
+          (const AT::bf16*)q, (const AT::bf16*)k, (const AT::bf16*)v,
+          (const int*)qb_seq, (const int*)qb_pos0, (const int*)page_table,
+          (const int*)context_lens, (AT::bf16*)out, NQB, Hkv, M, group, khs,
+          kps, vhs, vps, ps, Np, scale);
+  return cudaGetLastError();
+}
+
+int prefill_mma_impl(const void* q, const void* k, const void* v,
+                     const void* qb_seq, const void* qb_pos0,
+                     const void* page_table, const void* context_lens,
+                     void* out, int NQB, int Hkv, int M, int D, int block_q,
+                     int group, long long khs, long long kps, long long vhs,
+                     long long vps, int ps, int tile, int Np, float scale,
+                     cudaStream_t stream) {
+  if (bad_dims(M, D, ps, tile) || (D != 64 && D != 128) || group <= 0 ||
+      block_q <= 0 || block_q * group != M)
+    return cudaErrorInvalidValue;
+  if (NQB * Hkv == 0) return cudaSuccess;
+  return D == 64
+             ? prefill_mma_launch<64>(q, k, v, qb_seq, qb_pos0, page_table,
+                                      context_lens, out, NQB, Hkv, M, group,
+                                      khs, kps, vhs, vps, ps, Np, scale,
+                                      stream)
+             : prefill_mma_launch<128>(q, k, v, qb_seq, qb_pos0, page_table,
+                                       context_lens, out, NQB, Hkv, M, group,
+                                       khs, kps, vhs, vps, ps, Np, scale,
+                                       stream);
 }
 
 }  // namespace
@@ -511,14 +667,14 @@ int pa_paged_prefill_qblock(const void* q, const void* k, const void* v,
                             int ps, int tile, int Np, float scale, int bf16,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? prefill_impl<__nv_bfloat16>(
-                    q, k, v, qb_seq, qb_pos0, page_table, context_lens, out,
-                    NQB, Hkv, M, D, block_q, group, khs, kps, vhs, vps, ps,
-                    tile, Np, scale, st)
-              : prefill_impl<float>(q, k, v, qb_seq, qb_pos0, page_table,
-                                    context_lens, out, NQB, Hkv, M, D, block_q,
-                                    group, khs, kps, vhs, vps, ps, tile, Np,
-                                    scale, st);
+  return bf16 ? prefill_mma_impl(q, k, v, qb_seq, qb_pos0, page_table,
+                                 context_lens, out, NQB, Hkv, M, D, block_q,
+                                 group, khs, kps, vhs, vps, ps, tile, Np,
+                                 scale, st)
+              : prefill_impl(q, k, v, qb_seq, qb_pos0, page_table,
+                             context_lens, out, NQB, Hkv, M, D, block_q,
+                             group, khs, kps, vhs, vps, ps, tile, Np, scale,
+                             st);
 }
 
 }  // extern "C"

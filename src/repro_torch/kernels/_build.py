@@ -7,8 +7,9 @@ Each source under `repro_torch/csrc/` is compiled on first use with
 
 into the `build/` directory at the root of the checkout (listed in
 `.gitignore`) and loaded with `ctypes`.  The library name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  `python -m repro_torch.kernels._build` builds
+of the source, of every header `csrc/*.cuh` (which any source may
+include) and of the flags, so an edited source or header is rebuilt and
+a stale library is never loaded.  `python -m repro_torch.kernels._build` builds
 every source and prints ptxas' registers / spills per kernel.  Nothing here runs at import time: the CPU-only
 test host has no `nvcc` and never calls `load()`.
 """
@@ -50,10 +51,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

@@ -13,6 +13,9 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# head dims of the bf16 tensor-core attention kernels (flash forward, paged
+# prefill): every head dim of the registry's attention models
+MMA_HEAD_DIMS = (64, 128)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -42,6 +45,19 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _check_mma(name: str, d: int, *tensors: torch.Tensor) -> None:
+    """What the bf16 tensor-core attention kernels take: head dim 64 or
+    128, and 16-byte aligned rows for their cp.async copies."""
+    if d not in MMA_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} has no bf16 tensor-core "
+                         f"kernel (head dims {MMA_HEAD_DIMS}); it is not "
+                         f"sent to a slower one")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned "
+                             f"tensors (data_ptr {t.data_ptr():#x})")
 
 
 def _tile_update(q, k, v, mask, scale, acc, m, l):

@@ -10,7 +10,9 @@ backward needs.  KV is walked in tiles of `KV_TILE` keys; since p is
 rounded to V's dtype under the running max of its tile, the plain
 version uses the same tile, so in bf16 the two agree to the rounding of
 the output.  A CUDA tensor launches the kernel on the current stream (or
-raises); a CPU tensor runs the plain version.  Each kernel launch adds
+raises): the tensor-core kernel in bf16 (head dim 64 or 128; another
+head dim raises), the scalar fp32 kernel in fp32.  A CPU tensor runs the
+plain version.  Each kernel launch adds
 one to `LAUNCHES["flash_attention_fwd"]`.
 """
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    NEG_INF, _finalize, _init_state, _on_card, _ptr, _raise_on, _stream,
-    _tile_update,
+    NEG_INF, _check_mma, _finalize, _init_state, _on_card, _ptr, _raise_on,
+    _stream, _tile_update,
 )
 from repro_torch.utils.misc import cdiv
 
@@ -117,6 +119,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM or d % 8:
         raise ValueError(f"{name}: head_dim {d} unsupported by the CUDA "
                          f"kernel (multiples of 8 up to {MAX_HEAD_DIM})")
+    if q.dtype == torch.bfloat16:
+        _check_mma(name, d, q, k, v)
     if bm > MAX_ROWS:
         raise ValueError(f"{name}: block_q * group = {bm} rows exceeds the "
                          f"kernel's {MAX_ROWS}")

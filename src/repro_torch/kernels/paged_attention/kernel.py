@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    NEG_INF, _finalize, _init_state, _on_card, _ptr, _raise_on, _stream,
-    _tile_update,
+    NEG_INF, _check_mma, _finalize, _init_state, _on_card, _ptr, _raise_on,
+    _stream, _tile_update,
 )
 from repro_torch.utils.misc import cdiv
 
@@ -108,11 +108,16 @@ def _check_table(name: str, page_table: torch.Tensor,
 
 
 def _check_kernel(name: str, d: int, m: int, tile: int,
-                  *tensors: torch.Tensor) -> None:
+                  *tensors: torch.Tensor, mma: bool = False) -> None:
+    """Contiguity, then (mma) what the bf16 tensor-core prefill takes, or
+    the head dim and shared memory of the scalar `attend` kernels."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "
                              f"tensors (got strides {t.stride()})")
+    if mma:
+        _check_mma(name, d, *tensors[:3])
+        return
     if d > MAX_HEAD_DIM or d % 8:
         raise ValueError(f"{name}: head_dim {d} unsupported by the CUDA "
                          f"kernel (multiples of 8 up to {MAX_HEAD_DIM})")
@@ -346,7 +351,10 @@ def paged_prefill_qblock(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
                          group: int, scale: float) -> torch.Tensor:
     """§6.1 Q-Block prefill.  q_packed [NQB, Hkv, block_q*group, D] (row =
     tok * group + g); qb_seq / qb_pos0 [NQB] i32 (seq -1 = dead block).
-    Returns q_packed's shape and dtype; dead blocks are exact zeros."""
+    Returns q_packed's shape and dtype; dead blocks are exact zeros.  On
+    the card bf16 runs the tensor-core kernel (head dim 64 or 128, any
+    block_q * group, its own 64-key tile; `tile` is still validated) and
+    fp32 the scalar one."""
     name = "paged_prefill_qblock"
     _check_common(name, q_packed, k_pages, v_pages,
                   (qb_seq, qb_pos0, page_table, context_lens))
@@ -367,7 +375,8 @@ def paged_prefill_qblock(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
     nqb, hkv, bm, d = q_packed.shape
     _, _, tpp, tile, _ = k_pages.shape
     _check_kernel(name, d, bm, tile, q_packed, k_pages, v_pages, qb_seq,
-                  qb_pos0, page_table, context_lens)
+                  qb_pos0, page_table, context_lens,
+                  mma=q_packed.dtype == torch.bfloat16)
     out = torch.empty_like(q_packed)
     with torch.cuda.device(q_packed.device):
         rc = library().pa_paged_prefill_qblock(

@@ -10,7 +10,10 @@ on a host without CUDA.  Run on the card with
 
 Imports neither JAX nor the JAX package.  Tolerances: fp32 atol 1e-4
 with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
-7.8e-3; p is rounded to bf16 before p.V on both sides).  The SSD sums up
+7.8e-3; p is rounded to bf16 before p.V on both sides).  In bf16 the
+flash forward and the Q-Block prefill run on the tensor-core kernels
+(head dim 64 or 128; another head dim raises), in fp32 on the scalar
+ones.  The SSD sums up
 to 128 x 64 products of values as large as |y| in another order than the
 plain version's matmuls: fp32 within 1e-5 x max |y| (TF32 off); bf16
 inputs are widened exactly and summed in fp32 on both sides, within 2e-2.
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
-from repro_torch.kernels._common import chunk_cumsum
+from repro_torch.kernels._common import MMA_HEAD_DIMS, NEG_INF, chunk_cumsum
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.mamba2 import kernel as SK
@@ -172,12 +175,21 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         K.paged_decode(q.transpose(2, 3).contiguous().transpose(2, 3), kt,
                        kt, pt, cl, cells_per_kv=1, scale=1.0)
+    # the bf16 tensor-core prefill has no D 40 kernel, and refuses it
+    qb = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kt = torch.zeros((1, kp.shape[1], 1, 16, 40), device=cuda,
+                     dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.paged_prefill_qblock(kt[:1, :1, 0, :2], kt, kt, qb, qb, pt, cl,
+                               block_q=1, group=2, scale=1.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_wide_block_uses_dynamic_shared_memory(cuda, dtype):
-    """block_q 32 x group 4 rows at head_dim 128 need ~149 KB of shared
-    memory per block: above the 48 KB default, so the launch opts in."""
+    """block_q 32 x group 4 rows at head_dim 128: the scalar fp32 kernel
+    needs ~149 KB of shared memory per block, above the 48 KB default, so
+    the launch opts in; in bf16 the tensor-core kernel takes the 128 rows
+    as 8 warp slabs."""
     hkv, group, ps, d, block_q = 2, 4, 16, 128, 32
     ctx, qlens = [70, 300, 0], [70, 41, 0]
     _, kp, vp, pt, cl = _case(cuda, dtype, hkv, group, ps, ctx, d=d, seed=3)
@@ -199,6 +211,48 @@ def test_prefill_wide_block_uses_dynamic_shared_memory(cuda, dtype):
     assert (got[qb_seq < 0] == 0).all()
 
 
+MMA_PREFILL_CASES = [  # hkv, group, page, D, block_q, contexts, query lens
+    # 128 rows a Q-Block (over 64), D 128, page 24, an empty slot (context
+    # 0), a resumed chunk
+    (2, 8, 24, 128, 16, [0, 70, 300, 37], [0, 70, 41, 37]),
+    # group 1, 16 rows a Q-Block: a block's 4 warps straddle sequences
+    (4, 1, 16, 64, 16, [50, 17, 100, 3, 64], [50, 17, 100, 3, 64]),
+    # smollm's 48 rows, page 24, resumed chunks
+    (3, 3, 24, 64, 16, [200, 1312, 5], [200, 312, 5]),
+    # 24 rows a Q-Block: the second warp slab is half empty
+    (2, 3, 16, 64, 8, [33, 90, 0], [33, 20, 0]),
+]
+
+
+@pytest.mark.parametrize("case", MMA_PREFILL_CASES)
+def test_prefill_mma_kernel_matches_plain(cuda, case):
+    """The bf16 tensor-core Q-Block prefill against its plain version:
+    dead Q-blocks are exact zeros; the launch is counted."""
+    hkv, group, ps, d, block_q, ctx, qlens = case
+    _, kp, vp, pt, cl = _case(cuda, torch.bfloat16, hkv, group, ps, ctx,
+                              d=d, seed=5)
+    qlens = torch.tensor(qlens, dtype=torch.int32, device=cuda)
+    qsl = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda),
+                     torch.cumsum(qlens, 0, dtype=torch.int32)])
+    nqb = int(qsl[-1]) // block_q + len(ctx) + 2  # static max: dead blocks
+    qb_seq, qb_pos0, _, _ = ops.build_qblock_metadata(
+        qsl, qlens, cl, block_q=block_q, num_q_blocks=nqb)
+    qp = torch.randn((nqb, hkv, block_q * group, d),
+                     generator=torch.Generator().manual_seed(6)).to(
+                         torch.bfloat16).to(cuda)
+    kt = kp.reshape(hkv, -1, 1, ps, d)
+    vt = vp.reshape(hkv, -1, 1, ps, d)
+    args = (qp, kt, vt, qb_seq, qb_pos0, pt, cl)
+    kw = dict(block_q=block_q, group=group, scale=d ** -0.5)
+    n0 = K.LAUNCHES["paged_prefill_qblock"]
+    got = K.paged_prefill_qblock(*args, **kw)
+    want = K.paged_prefill_qblock_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["paged_prefill_qblock"] == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    assert (qb_seq < 0).any() and (got[qb_seq < 0] == 0).all()
+
+
 FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, q_offset
     (2, 128, 128, 4, 2, 64, True, 0),
     (1, 64, 64, 8, 8, 128, True, 0),  # MHA, D 128
@@ -216,19 +270,33 @@ def _flash_inputs(dev, dtype, case, seed=0):
             ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_kernel_matches_plain(cuda, dtype, case):
-    q, k, v = _flash_inputs(cuda, dtype, case)
-    causal, off = case[6:]
+def _flash_packed(q, k, v, causal, off):
+    """The kernel's packed inputs and keyword arguments, as ops builds
+    them."""
     hq, hkv, d = q.shape[2], k.shape[2], q.shape[3]
     group = hq // hkv
     bq = fops.pick_block_q(q.shape[1], group)
     qp = fops.pack_q(q, hkv).reshape(-1, q.shape[1] // bq, bq * group, d)
-    kp, vp = (x.permute(0, 2, 1, 3).reshape(-1, x.shape[1], d).contiguous()
+    kp, vp = (x.permute(0, 2, 1, 3).reshape(x.shape[0] * hkv, x.shape[1],
+                                             d).contiguous()
               for x in (k, v))
-    kw = dict(block_q=bq, group=group, scale=d ** -0.5, causal=causal,
-              q_offset=off)
+    return qp, kp, vp, dict(block_q=bq, group=group, scale=d ** -0.5,
+                            causal=causal, q_offset=off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    """fp32 on the scalar kernel (any head dim, multiple of 8, up to 256);
+    bf16 on the tensor-core kernel, which refuses a head dim other than 64
+    or 128 rather than send it to a slower kernel."""
+    q, k, v = _flash_inputs(cuda, dtype, case)
+    causal, off = case[6:]
+    qp, kp, vp, kw = _flash_packed(q, k, v, causal, off)
+    if dtype == torch.bfloat16 and q.shape[3] not in MMA_HEAD_DIMS:
+        with pytest.raises(ValueError, match="head_dim"):
+            FK.flash_attention_fwd(qp.contiguous(), kp, vp, **kw)
+        return
     n0 = FK.LAUNCHES["flash_attention_fwd"]
     o, lse = FK.flash_attention_fwd(qp.contiguous(), kp, vp, **kw)
     want_o, want_lse = FK.flash_attention_fwd_plain(qp, kp, vp, **kw)
@@ -238,6 +306,34 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(o.float(), want_o.float(), atol=ATOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+MMA_FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, q_offset
+    (1, 5, 5, 9, 3, 64, True, 0),  # 15 rows: one partial warp slab
+    (2, 24, 24, 6, 2, 64, True, 0),  # 24 rows a q-block, 72 a slice
+    (1, 40, 136, 16, 2, 128, True, 96),  # D 128, group 8, q_offset
+    (1, 64, 100, 8, 2, 128, False, 0),  # bidirectional, ragged KV tile
+    (2, 192, 192, 4, 4, 64, True, 0),  # MHA, three 64-key tiles
+    (1, 16, 0, 4, 2, 64, False, 0),  # no keys: every row dead
+]
+
+
+@pytest.mark.parametrize("case", MMA_FLASH_CASES)
+def test_flash_mma_kernel_matches_plain(cuda, case):
+    """The bf16 tensor-core flash forward against its plain version at
+    row counts that are not multiples of 16, D 128, q_offset > 0, a ragged
+    last tile, and no keys at all (o exact zeros, lse -0.7 * f32 max)."""
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, case, seed=7)
+    qp, kp, vp, kw = _flash_packed(q, k, v, *case[6:])
+    n0 = FK.LAUNCHES["flash_attention_fwd"]
+    o, lse = FK.flash_attention_fwd(qp.contiguous(), kp, vp, **kw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention_fwd"] == n0 + 1
+    torch.testing.assert_close(o.float(), want_o.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    if k.shape[1] == 0:
+        assert (o == 0).all() and (lse == NEG_INF).all()
 
 
 @pytest.mark.parametrize("case", [(2, 256, 256, 9, 3, 64, True, 0),
@@ -263,6 +359,11 @@ def test_flash_kernel_rejects_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         FK.flash_attention_fwd(torch.zeros((1, 1, 2, 300), device=cuda), k,
                                k, block_q=1, group=2, scale=1.0, causal=True,
+                               q_offset=0)
+    k = torch.zeros((1, 16, 40), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):  # no bf16 D 40 kernel
+        FK.flash_attention_fwd(torch.zeros_like(k[:, None, :6]), k, k,
+                               block_q=2, group=3, scale=1.0, causal=True,
                                q_offset=0)
     k = torch.zeros((1, 16, 64), device=cuda)
     with pytest.raises(ValueError, match="rows"):

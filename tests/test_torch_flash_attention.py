@@ -55,6 +55,31 @@ def test_forward_matches_pallas(case):
                                rtol=tol)
 
 
+# the shapes the bf16 tensor-core kernel is held to on the card, against
+# the Pallas op (its block_q / kv_block must divide Sq / Skv):
+# (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype, tol, jax block)
+MMA_CASES = [
+    (1, 24, 24, 9, 3, 64, True, 0, "bfloat16", 3e-2, 8),  # 24-row blocks
+    (1, 40, 136, 16, 2, 128, True, 96, "bfloat16", 3e-2, 8),  # D 128
+    (1, 40, 136, 16, 2, 128, True, 96, "float32", 2e-5, 8),
+]
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_forward_matches_pallas_at_tensor_core_shapes(case):
+    *_, causal, off, dt, tol, blk = case
+    q, k, v = _inputs(case, seed=5)
+    jd, td = getattr(jnp, dt), getattr(torch, dt)
+    want = jflash(*(jnp.asarray(x, jd) for x in (q, k, v)), causal=causal,
+                  q_offset=off, block_q=blk, kv_block=blk)
+    got = tops.flash_attention(*(torch.from_numpy(x).to(td)
+                                 for x in (q, k, v)),
+                               causal=causal, q_offset=off)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
 @pytest.mark.parametrize("case", CASES[:4])
 def test_lse_matches_reference(case):
     b, sq, _, hq, hkv, d, causal, off, _, tol = case

@@ -1,7 +1,8 @@
 """Package-level contracts of the port: it imports neither JAX nor the JAX
 package, its copied host modules stay identical to the reference's,
-`chip_smoke.py` fails without the rest of the repository, and the serving
-launcher runs on the CPU."""
+`chip_smoke.py` fails without the rest of the repository, a kernel
+library's name follows every header its source may include, and the
+serving launcher runs on the CPU."""
 import os
 import pathlib
 import shutil
@@ -54,6 +55,24 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_library_name_hashes_every_header(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header renames every library, so a library
+    built from the old header is never loaded."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "tile.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no include\n")
+    (tmp_path / "tile.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    assert before["a"] != before["b"]
+    assert _build.library_path("a") == before["a"]  # deterministic
+    (tmp_path / "tile.cuh").write_text("// v2\n")
+    for n in ("a", "b"):
+        assert _build.library_path(n) != before[n]
+        assert _build.library_path(n).name.startswith(f"lib{n}-")
 
 
 def test_serve_launcher_runs_on_cpu():

@@ -144,12 +144,30 @@ PREFILL_CASES = [
 ]
 
 
+# the shapes the bf16 tensor-core prefill is held to on the card: qwen2.5-3b's
+# heads (group 8, D 128) with 128 rows a Q-Block, page 24, an empty slot;
+# group 1 with Q-blocks of four sequences back to back
+MMA_PREFILL_CASES = [
+    # hq, hkv, ps, tile, np_, ctx, qlens, block_q, d
+    (16, 2, 24, 24, 4, [0, 70, 37], [0, 41, 37], 16, 128),
+    (4, 4, 16, 16, 4, [50, 17, 40, 3], [50, 17, 40, 3], 16, 64),
+]
+
+
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_prefill_qblock_plain_matches_pallas(case):
-    hq, hkv, ps, tile, np_, ctx, qlens, block_q = case
-    d = 64
+    _prefill_vs_pallas(*case, d=64)
+
+
+@pytest.mark.parametrize("case", MMA_PREFILL_CASES)
+def test_prefill_qblock_plain_matches_pallas_at_tensor_core_shapes(case):
+    _prefill_vs_pallas(*case)
+
+
+def _prefill_vs_pallas(hq, hkv, ps, tile, np_, ctx, qlens, block_q, d):
     group = hq // hkv
-    qt, kp, vp, pt, ctx, qsl, qlens = _ragged(3, ctx, qlens, hq, hkv, ps, np_)
+    qt, kp, vp, pt, ctx, qsl, qlens = _ragged(3, ctx, qlens, hq, hkv, ps, np_,
+                                              d=d)
     nqb = qt.shape[0] // block_q + len(ctx) + 1  # static max: dead blocks
     meta = jops.build_qblock_metadata(
         jnp.asarray(qsl), jnp.asarray(qlens), jnp.asarray(ctx),
