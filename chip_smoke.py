@@ -18,18 +18,26 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               24) and zamba2-1.2b's padded step (Hkv 32, group 1, D 64,
               page 16, 8 decode rows with contexts up to 1056 on the
               segmented variant with 16 segments, a fresh prefill of 8 x
-              1024 rows at context 0 in the uniform layout), and at
+              1024 rows at context 0 in the uniform layout), at
               qwen2.5-3b's heads (Hkv 2, group 8, D 128: the D 128
               instantiation of the tensor-core prefill, and 128 rows a
-              Q-Block, over 64), in fp32 with TF32 off (atol 1e-4) and
-              bf16 (atol 2e-2: a bf16 output ulp near 1 is 7.8e-3, and p
-              is rounded to bf16 before p.V on both sides; bf16 prefill
-              runs the tensor-core kernel, fp32 the scalar one)
+              Q-Block, over 64) and, for the decode kernels only, at
+              glm4-9b's heads (Hkv 2, group 16, D 128: the largest group
+              the repo's models give them), in fp32 with TF32 off (atol
+              1e-4) and bf16 (atol 2e-2: a bf16 output ulp near 1 is
+              7.8e-3, and p is rounded to bf16 before p.V on both sides;
+              bf16 prefill runs the tensor-core kernel, fp32 the scalar
+              one); a context-0 decode row is exact zeros and every
+              segment without a live key exactly (acc 0, m NEG, l 0)
   4. time     median kernel time over CUDA events (L2 flushed before each
-              launch) beside the plain version, a library yardstick and
-              the bound (bytes at 3.35 TB/s or FLOPs at peak); the Q-Block
-              prefill also at zamba2-1.2b's padded prefill shape (a second
-              `time` row, logged only)
+              launch; the events also time the wrapper's host enqueue
+              where it outlasts the flush, so the wrapper's host time is
+              logged beside it as host_us) beside the plain version, a
+              library yardstick and the bound (bytes at 3.35 TB/s or
+              FLOPs at peak); further `time` rows, logged only: the
+              Q-Block prefill and both decode kernels at zamba2-1.2b's
+              shapes (padded prefill; Hkv 32, group 1 decode), both
+              decode kernels at qwen2.5-3b's heads (D 128, group 8)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
               8 requests (prompts 128-1024, 32 new tokens, max_seqs 8,
               chunked prefill) through the packed fused step; the kernel
@@ -149,9 +157,9 @@ DEVICE = "cuda"
 # the paged kernels' check shapes, one set per serve phase: the model whose
 # heads they are, the page sizes, the decode contexts (8 rows) and the
 # decode variant's segment count, the prefill's per-sequence query rows and
-# contexts, and its layout (`stride` None: packed back to back as in the
-# packed step's chunk region; else starts at that stride, the padded
-# step's uniform layout)
+# contexts (qlens None: the decode kernels only), and its layout (`stride`
+# None: packed back to back as in the packed step's chunk region; else
+# starts at that stride, the padded step's uniform layout)
 PAGED_SHAPES = {
     "smollm-135m": dict(
         page_sizes=(16, 24), ctx=(0, 1, 17, 100, 511, 1000, 1500, 2048),
@@ -172,6 +180,13 @@ PAGED_SHAPES = {
         page_sizes=(16,), ctx=(0, 1, 33, 300, 777, 1024, 1500, 2048),
         num_segments=16, qlens=(100, 37, 0, 0, 0, 0, 0, 0),
         pf_ctx=(900, 37, 0, 0, 0, 0, 0, 0), stride=None),
+    # no serve phase: glm4-9b's heads (Hkv 2, group 16, D 128), the largest
+    # group the repo's models give the decode kernels (two blocks of 8
+    # rows); contexts on a segment (640) and a page boundary (1024), and at
+    # the full 2048; the prefill is held at 128 rows by qwen2.5-3b's set
+    "glm4-9b": dict(
+        page_sizes=(16,), ctx=(0, 1, 33, 640, 1024, 1500, 2047, 2048),
+        num_segments=16, qlens=None, pf_ctx=None, stride=None),
 }
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
@@ -340,14 +355,7 @@ def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
     qb = q.reshape(s, hq, 1, d).contiguous()
     seg_kw = dict(num_segments=nseg, tiles_per_segment=tps, scale=scale)
     parts = K.paged_decode_segmented(qg, kt, vt, pt, ctx, **seg_kw)
-    pf = prefill_inputs(torch, tops, dtype, ps, hkv=hkv, group=group, d=d,
-                        qlens=shp["qlens"], ctx=shp["pf_ctx"],
-                        stride=shp["stride"])
-    pkt, pvt = tile_view(pf["k"], tile), tile_view(pf["v"], tile)
-    pf_args = (pf["q_packed"], pkt, pvt, pf["qb_seq"], pf["qb_pos0"],
-               pf["pt"], pf["ctx"])
-    pf_kw = dict(block_q=pf["block_q"], group=pf["group"], scale=scale)
-    return {
+    calls = {
         "paged_decode": (
             lambda: K.paged_decode(qg, kt, vt, pt, ctx, cells_per_kv=1,
                                    scale=scale),
@@ -365,11 +373,21 @@ def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
         "segment_reduce": (
             lambda: K.segment_reduce(*parts, dtype),
             lambda: K.segment_reduce_plain(*parts, dtype)),
-        "paged_prefill_qblock": (
+    }
+    pf = None
+    if shp["qlens"] is not None:
+        pf = prefill_inputs(torch, tops, dtype, ps, hkv=hkv, group=group,
+                            d=d, qlens=shp["qlens"], ctx=shp["pf_ctx"],
+                            stride=shp["stride"])
+        pkt, pvt = tile_view(pf["k"], tile), tile_view(pf["v"], tile)
+        pf_args = (pf["q_packed"], pkt, pvt, pf["qb_seq"], pf["qb_pos0"],
+                   pf["pt"], pf["ctx"])
+        pf_kw = dict(block_q=pf["block_q"], group=pf["group"], scale=scale)
+        calls["paged_prefill_qblock"] = (
             lambda: K.paged_prefill_qblock(*pf_args, **pf_kw),
-            lambda: K.paged_prefill_qblock_plain(*pf_args, **pf_kw)),
-    }, dict(q=q, kp=kp, vp=vp, pt=pt, ctx=ctx, nseg=nseg, tps=tps, pf=pf,
-            parts=parts, tile=tile, ps=ps)
+            lambda: K.paged_prefill_qblock_plain(*pf_args, **pf_kw))
+    return calls, dict(q=q, kp=kp, vp=vp, pt=pt, ctx=ctx, nseg=nseg,
+                       tps=tps, pf=pf, parts=parts, tile=tile, ps=ps)
 
 
 def max_err(torch, name, got, want):
@@ -385,9 +403,25 @@ def max_err(torch, name, got, want):
     return float((got.float() - want.float()).abs().max())
 
 
+def dead_segments_exact(torch, x):
+    """True when every segment without a live key holds exactly m = NEG,
+    l = 0 and acc = 0 (segment_reduce's dead test m <= NEG / 2 and its
+    exact zeros rely on it); fails too if the shape has no dead segment."""
+    from repro_torch.kernels._common import NEG_INF
+
+    o, m, l = x["parts"]
+    start = torch.arange(x["nseg"], device=m.device) * x["tps"] * x["tile"]
+    dead = start[None, :] >= x["ctx"][:, None]  # [S, nseg]
+    return bool(dead.any()) \
+        and bool((m.permute(0, 2, 1, 3)[dead] == NEG_INF).all()) \
+        and bool((l.permute(0, 2, 1, 3)[dead] == 0).all()) \
+        and bool((o.permute(0, 2, 1, 3, 4)[dead] == 0).all())
+
+
 def phase_check(torch, K, tops):
     """Each paged kernel against its plain version at both serve phases'
-    shapes; returns each kernel's worst error over all of them."""
+    shapes and at qwen2.5-3b's and glm4-9b's heads; returns each kernel's
+    worst error over all of them."""
     errs: dict[str, float] = {}
     for arch, shp in PAGED_SHAPES.items():
         hkv, group, d, page_size = paged_heads(arch)
@@ -398,7 +432,7 @@ def phase_check(torch, K, tops):
             for dtype_name in ("float32", "bfloat16"):
                 dtype = getattr(torch, dtype_name)
                 tile = tops.default_tile(ps)
-                calls, _ = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
+                calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
                 for name, (kfn, pfn) in calls.items():
                     got = kfn()
                     want = pfn()
@@ -420,6 +454,10 @@ def phase_check(torch, K, tops):
                     if not bool((out[0] == 0).all()):
                         raise AssertionError("context-0 decode row is not "
                                              "exact zeros")
+                if not dead_segments_exact(torch, x):
+                    raise AssertionError(f"a dead segment is not exactly "
+                                         f"(acc 0, m NEG, l 0): {arch}, "
+                                         f"{dtype_name}, page {ps}")
     return errs
 
 
@@ -442,6 +480,18 @@ def time_ms(torch, fn, iters, flush):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def host_us(torch, fn, iters=20):
+    """Mean host time of one call of `fn` (enqueue only, no sync)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bounds(name, x, dtype_name):
@@ -526,7 +576,8 @@ def library_calls(torch, x):
 
 def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
     """Each paged kernel at smollm's serve shapes (the rows of the kernels'
-    JSON), then the Q-Block prefill at zamba2's padded prefill shape."""
+    JSON), then, logged only, the Q-Block prefill and both decode kernels
+    at zamba2's shapes and the decode kernels at qwen2.5-3b's heads."""
     dtype = getattr(torch, dtype_name)
     ps = 16
     tile = tops.default_tile(ps)
@@ -542,7 +593,8 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
         log(f"time  {name:24s} {arch:12s} {dtype_name} kernel_ms {ms:.4f}  "
             f"plain_ms {plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
-            f"{bound_ms:.5f} ({bound_by})")
+            f"{bound_ms:.5f} ({bound_by})  host_us "
+            f"{host_us(torch, kfn):.1f}")
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, bound_by=bound_by)
 
@@ -550,9 +602,15 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
     lib = library_calls(torch, x)
     rows = {name: row(name, calls, lib, x, ARCH) for name in REPLACES}
     del calls, x, lib
-    calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, HYBRID_ARCH)
-    row("paged_prefill_qblock", calls, library_calls(torch, x), x,
-        HYBRID_ARCH)
+    for arch, names in ((HYBRID_ARCH, ("paged_prefill_qblock", "paged_decode",
+                                       "paged_decode_segmented")),
+                        ("qwen2.5-3b", ("paged_decode",
+                                        "paged_decode_segmented"))):
+        calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
+        lib = library_calls(torch, x)
+        for name in names:
+            row(name, calls, lib, x, arch)
+        del calls, x, lib
     return rows
 
 

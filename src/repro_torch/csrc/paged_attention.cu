@@ -8,25 +8,48 @@
 //   segment_reduce          C3 merge of the segment partials (Listing 5)
 //   paged_prefill_qblock    Q-Block chunked prefill over the paged cache
 //
-// Decode (the three decode kernels, both dtypes): bounded by bytes.  Every
-// kernel reads each live K/V row of its (sequence, KV head) once per block
-// and does 4*D FLOPs per (query row, key) pair, far below the ~295
-// FLOP/byte the H100 needs before its tensor cores would be the limit.
-// So the design streams K/V through shared memory once per block and
-// keeps everything else (scores, the online-softmax state, the fp32
-// accumulator) on chip:
+// Decode (paged_decode, paged_decode_segmented, both dtypes): bounded by
+// bytes.  A key costs 4*M*D FLOPs against 4*D bytes of bf16 K and V: 3
+// FLOP/byte at smollm's M = 3, far below the ~295 at which the H100's
+// tensor cores would be the limit.  So the design (`decode_stream_kernel`)
+// spends nothing on tensor cores and everything on keeping many 16-byte
+// loads in flight:
 //
-//   * one thread block per output cell; a loop INSIDE the block walks
-//     the KV tiles (the Pallas grid's sequential "arbitrary" axis), and
-//     the loop bound `ceil(context / tile)` replaces the Pallas index-map
-//     clamp: dead tiles are never visited, so a short sequence in a
-//     full-width page table costs nothing past its context;
-//   * a tile (any divisor of page_size, including non-powers of two)
-//     lies inside one page, found through the page table by the block
-//     itself (no scalar prefetch on a GPU);
-//   * K and V rows are staged through shared memory kChunk rows at a
-//     time, so the shared-memory footprint does not grow with the tile;
-//   * scalar fp32 FMAs on the CUDA cores (`attend`).
+//   * a lane holds 8 consecutive head-dim elements of a key row (one
+//     16-byte load in bf16, two in fp32); D / 8 lanes, rounded up to a
+//     power of two, read one whole row, so a warp reads 32 * 8 / D rows
+//     a load, coalesced, and completes its dots with log2(D / 8)
+//     xor-shuffles.  A head dim whose row is no power-of-two multiple of
+//     16 bytes (D 40, 24) runs with masked lanes;
+//   * each lane keeps two steps of kU keys' K and V loads in flight (16
+//     x 16 bytes; 8 at 8 rows a block): a step's loads are issued before
+//     the step before it is consumed, and the pages of the step after
+//     are fetched with them, so the loads never wait on the page-table
+//     lookup; no page-table entry at or past ceil(context / page) is
+//     read;
+//   * the keys are split over the block's 4 warps, and within a warp over
+//     its lane groups; each keeps its own running (m, l) and fp32
+//     accumulator in registers; the key loop has no barrier.  After the
+//     loop the lane groups merge by shuffles and the warps through shared
+//     memory, with the same m_safe / alpha rules.  A block whose range
+//     holds no live key skips all of it and writes the dead partial;
+//   * a block takes up to RB in {1, 4, 8} query rows (more rows are
+//     more blocks over the same keys, read again from L2), so M = 16 keeps
+//     its accumulator in registers: there is no limit on M.  The cells of
+//     one KV head are rows of one block, so the baseline (C1) reads each
+//     page once, as C2 does;
+//   * paged_decode takes one block per (sequence, KV head, row group)
+//     over the whole context and normalises in it.  At smollm's 24 such
+//     blocks on 132 SMs it is still well under gathering the pages for
+//     scaled_dot_product_attention (PERF.md, section 6), so a context is
+//     not split over a thread-block cluster.  The config's `tile` is
+//     validated only: the kernel groups keys its own way.
+//     paged_decode_segmented takes one block per segment, whose bounds
+//     [g * tps * tile, min((g + 1) * tps * tile, ctx)) are part of its
+//     contract, since segment_reduce merges the partials.
+//
+// `attend` (the scalar routine that stages K/V through shared memory) is
+// left only for the fp32 prefill.
 //
 // Prefill in bf16 (`prefill_mma_kernel`): a Q-Block of block_q * group
 // rows does up to block_q * group FLOP-pairs per key byte, so at the
@@ -240,77 +263,345 @@ __device__ void finalize(T* __restrict__ out, int M, int D, int tile,
 }
 
 // ---------------------------------------------------------------------------
-// paged_decode — replaces kernel.py:paged_decode (C1/C2).
-// One block per (sequence, cell).  C2 (gqa): a cell is a KV head with its
-// `group` query rows, so each K/V page is read once per KV head.  C1
-// (baseline): a cell is a query head (M = 1) reading KV head
-// cell / cells_per_kv.
+// paged_decode (C1/C2) and paged_decode_segmented (C3): the streaming
+// decode kernel, replacing kernel.py:paged_decode and
+// kernel.py:paged_decode_segmented (design in the note at the top).
 // ---------------------------------------------------------------------------
+constexpr int kStreamWarps = 4;   // warps of a streaming block
+constexpr int kStreamThreads = 32 * kStreamWarps;
+
+// 8 consecutive head-dim elements of one K or V row, as loaded: one
+// 16-byte vector in bf16, two in fp32.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ page_table,
-                  const int* __restrict__ context_lens, T* __restrict__ out,
-                  int n_cells, int M, int D, int cells_per_kv,
-                  long long k_head_stride, long long k_page_stride,
-                  long long v_head_stride, long long v_page_stride, int ps,
-                  int tile, int Np, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int s = b / n_cells;
-  const int kvh = (b - s * n_cells) / cells_per_kv;
-  const int ctx = context_lens[s];
-  const int num_tiles = Np * (ps / tile);
-  const int n_t = ctx > 0 ? min((ctx + tile - 1) / tile, num_tiles) : 0;
-  attend<T>(q + (long long)b * M * D, k + kvh * k_head_stride,
-            v + kvh * v_head_stride, k_page_stride, v_page_stride,
-            page_table + (long long)s * Np, ps, tile, 0, n_t, ctx, false, 0,
-            1, M, D, scale, smem);
-  finalize<T>(out + (long long)b * M * D, M, D, tile, smem);
+struct Chunk {
+  static constexpr int kVecs = sizeof(T) / 2;
+  uint4 w[kVecs];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_chunk(Chunk<T>& c, const T* p) {
+  const uint4* s = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < Chunk<T>::kVecs; ++i) c.w[i] = __ldg(s + i);
 }
 
-// ---------------------------------------------------------------------------
-// paged_decode_segmented — replaces kernel.py:paged_decode_segmented (C3).
-// One block per (sequence, KV head, segment) over tiles
-// [seg * tps, (seg + 1) * tps) that lie below the context; writes the
-// UNNORMALISED fp32 accumulator, running max and exp-sum.
-// ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_segmented_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ page_table,
-                            const int* __restrict__ context_lens,
-                            float* __restrict__ o_seg, float* __restrict__ m_seg,
-                            float* __restrict__ l_seg, int Hkv, int nseg,
-                            int tps, int M, int D, long long k_head_stride,
-                            long long k_page_stride, long long v_head_stride,
-                            long long v_page_stride, int ps, int tile, int Np,
-                            float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;  // (s * Hkv + h) * nseg + g
-  const int g = b % nseg;
-  const int sh = b / nseg;
-  const int s = sh / Hkv;
-  const int h = sh - s * Hkv;
-  const int ctx = context_lens[s];
-  const int num_tiles = Np * (ps / tile);
-  const int live_tiles =
-      ctx > 0 ? min((ctx + tile - 1) / tile, num_tiles) : 0;
-  const int t0 = g * tps;
-  const int t1 = max(t0, min(t0 + tps, live_tiles));
-  attend<T>(q + (long long)sh * M * D, k + h * k_head_stride,
-            v + h * v_head_stride, k_page_stride, v_page_stride,
-            page_table + (long long)s * Np, ps, tile, t0, t1, ctx, false, 0,
-            1, M, D, scale, smem);
-  const float* acc_s = smem + M * D;
-  const float* m_s = acc_s + M * D + M * tile;
-  const float* l_s = m_s + M;
-  for (int e = threadIdx.x; e < M * D; e += kThreads)
-    o_seg[(long long)b * M * D + e] = acc_s[e];
-  for (int r = threadIdx.x; r < M; r += kThreads) {
-    m_seg[(long long)b * M + r] = m_s[r];
-    l_seg[(long long)b * M + r] = l_s[r];
+__device__ __forceinline__ void zero_chunk(Chunk<T>& c) {
+#pragma unroll
+  for (int i = 0; i < Chunk<T>::kVecs; ++i) c.w[i] = make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ void widen(const Chunk<float>& c, float (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    x[4 * i] = __uint_as_float(c.w[i].x);
+    x[4 * i + 1] = __uint_as_float(c.w[i].y);
+    x[4 * i + 2] = __uint_as_float(c.w[i].z);
+    x[4 * i + 3] = __uint_as_float(c.w[i].w);
+  }
+}
+
+// bf16 -> fp32 is exact: the bf16 bits are the fp32's upper half
+__device__ __forceinline__ void widen(const Chunk<__nv_bfloat16>& c,
+                                      float (&x)[8]) {
+  const unsigned u[4] = {c.w[0].x, c.w[0].y, c.w[0].z, c.w[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// D / 8 lanes rounded up to a power of two read one key row
+__host__ __device__ inline int lanes_per_key(int D) {
+  int lanes = 1;
+  while (lanes * 8 < D) lanes <<= 1;
+  return lanes;
+}
+
+// Query rows a block takes: 1 (group 1, the baseline variant), up to 4 in
+// one block of 4 (smollm's 3), more in blocks of 8 (qwen2.5-3b's 8,
+// glm4-9b's 16).
+inline int rows_per_block(int R) {
+  return R <= 1 ? 1 : R <= 4 ? 4 : 8;
+}
+
+// Shared-memory carve-up (floats) of a streaming block of RB rows:
+// q [RB][8 * lanes] (scaled, zero past D and past the live rows) | the
+// warps' partials m [W][RB] | l [W][RB] | acc [W][RB][D].  At most 41 KB
+// (RB 8, D 256): every head dim the kernel takes fits.
+inline size_t stream_smem_bytes(int RB, int D) {
+  const size_t dq = 8 * lanes_per_key(D);
+  return sizeof(float) * (RB * dq + 2 * kStreamWarps * RB +
+                          (size_t)kStreamWarps * RB * D);
+}
+
+struct StreamArgs {
+  const void* q;  // [S * Hkv * R, D]: the R rows of (s, h) back to back
+  const void* k;  // tile view of the pages; strides in elements
+  const void* v;
+  const int* page_table;    // [S, Np]
+  const int* context_lens;  // [S]
+  void* out;                // paged_decode: q's layout and dtype
+  float* o_seg;             // segmented: [S, Hkv, nseg, R, D]
+  float* m_seg;             // [S, Hkv, nseg, R]
+  float* l_seg;
+  int Hkv, R, D;
+  int nseg;    // segments (1 for paged_decode)
+  int span;    // keys of a segment (tps * tile); unused by paged_decode
+  int ps, Np;
+  long long khs, kps, vhs, vps;
+  float scale;
+};
+
+// Block (x = (s * Hkv + h) * nseg + g, y) takes rows y * RB .. of
+// (sequence s, KV head h) over one key range [k0, k1): the segment g
+// (kSeg), or the whole context.  Keys at or past min(context, Np * ps) are
+// never read.
+template <typename T, int RB, bool kSeg>
+__global__ void __launch_bounds__(kStreamThreads, 2)
+    decode_stream_kernel(const StreamArgs a) {
+  // keys a lane loads per step: 8 x 16 bytes of K and V in flight over
+  // two steps (4 at RB 8, whose accumulator takes the registers)
+  constexpr int kU = (RB >= 8 ? 2 : 4) / Chunk<T>::kVecs;
+  extern __shared__ __align__(16) float dsm[];
+  const int D = a.D, R = a.R;
+  const int lanes = lanes_per_key(D);
+  const int dq = 8 * lanes;
+  float* q_s = dsm;
+  float* wm_s = q_s + RB * dq;
+  float* wl_s = wm_s + kStreamWarps * RB;
+  float* wacc_s = wl_s + kStreamWarps * RB;
+
+  const int sh = blockIdx.x / a.nseg;
+  const int g = blockIdx.x - sh * a.nseg;
+  const int s = sh / a.Hkv, h = sh - s * a.Hkv;
+  const int r0 = blockIdx.y * RB;
+  const int nrows = min(RB, R - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int lim = max(0, min(a.context_lens[s], a.Np * a.ps));
+  int k0 = 0, k1 = lim;
+  if constexpr (kSeg) {
+    const long long b = (long long)g * a.span;
+    k0 = (int)min(b, (long long)lim);
+    k1 = (int)min(b + a.span, (long long)lim);
+  }
+
+  // a range without a live key (most of a long page table's segments)
+  // skips to its partial: exactly m = kNeg, l = 0, acc = 0, which
+  // segment_reduce's dead test relies on; in paged_decode a context-0
+  // row, which the l == 0 -> 1 guard turns into exact zeros
+  const bool has_keys = k0 < k1;  // block-uniform
+  const long long row_base = (long long)sh * R + r0;
+  if (has_keys) {
+    const T* qb = static_cast<const T*>(a.q) + row_base * D;
+    for (int e = tid; e < RB * dq; e += kStreamThreads) {
+      const int r = e / dq, d = e - r * dq;
+      q_s[e] = r < nrows && d < D ? to_f<T>(qb[r * D + d]) * a.scale : 0.f;
+    }
+    __syncthreads();
+
+    // lane = kg * lanes + c: key group kg, elements 8c .. 8c + 7 of a row
+    const int c = lane & (lanes - 1), kg = lane / lanes;
+    const int kpw = 32 / lanes;  // keys a warp reads per load
+    const int step = kpw * kU;   // keys a warp takes per step
+    const bool has = 8 * c < D;
+    const T* kh = static_cast<const T*>(a.k) + h * a.khs + 8 * c;
+    const T* vh = static_cast<const T*>(a.v) + h * a.vhs + 8 * c;
+    const int* pt_row = a.page_table + (long long)s * a.Np;
+
+    float acc[RB][8], m[RB], l[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      m[r] = kNeg;
+      l[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+    }
+
+    // page and row of this lane's keys of the step at `base`, fetched one
+    // step ahead of their loads
+    int page[kU], prow[kU];
+    auto fetch = [&](int base) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int key = base + u * kpw + kg;
+        const int pi = key / a.ps;
+        page[u] = key < k1 ? __ldg(pt_row + pi) : 0;
+        prow[u] = key - pi * a.ps;
+      }
+    };
+    // K and V of this lane's keys of the step at `base` (fetched); zeros
+    // past k1 and past the head dim
+    auto issue = [&](Chunk<T>(&kc)[kU], Chunk<T>(&vc)[kU], int base) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (base + u * kpw + kg < k1 && has) {
+          const long long row = (long long)prow[u] * D;
+          load_chunk(kc[u], kh + page[u] * a.kps + row);
+          load_chunk(vc[u], vh + page[u] * a.vps + row);
+        } else {
+          zero_chunk(kc[u]);
+          zero_chunk(vc[u]);
+        }
+      }
+    };
+    // the online-softmax update of the step at `base` from its K and V
+    auto consume = [&](const Chunk<T>(&kc)[kU], const Chunk<T>(&vc)[kU],
+                       int base) {
+      bool live[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) live[u] = base + u * kpw + kg < k1;
+
+      // this lane's share of q_r . k_u, completed across the key's lanes
+      float sc[RB][kU];
+      {
+        float kf[kU][8];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) widen(kc[u], kf[u]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float* qp = q_s + r * dq + 8 * c;
+          const float4 qa = *reinterpret_cast<const float4*>(qp);
+          const float4 qz = *reinterpret_cast<const float4*>(qp + 4);
+          const float qr[8] = {qa.x, qa.y, qa.z, qa.w, qz.x, qz.y, qz.z, qz.w};
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) dot = fmaf(qr[e], kf[u][e], dot);
+            sc[r][u] = dot;
+          }
+        }
+      }
+      for (int o = lanes >> 1; o > 0; o >>= 1) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int u = 0; u < kU; ++u)
+            sc[r][u] += __shfl_xor_sync(0xffffffffu, sc[r][u], o);
+      }
+
+      // online softmax over this step's keys; p rounded to the value dtype
+      // for p.V, l sums the fp32 p
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float mc = kNeg;
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          if (live[u]) mc = fmaxf(mc, sc[r][u]);
+        const float m_new = fmaxf(m[r], mc);
+        const float m_safe = m_new <= kNeg ? 0.f : m_new;
+        const float alpha =
+            m[r] <= kNeg ? 0.f : __expf(fminf(m[r] - m_safe, 0.f));
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const float p = live[u] ? __expf(sc[r][u] - m_safe) : 0.f;
+          sum += p;
+          sc[r][u] = to_f<T>(from_f<T>(p));
+        }
+        l[r] = l[r] * alpha + sum;
+        m[r] = m_new;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        float vf[8];
+        widen(vc[u], vf);
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[r][e] = fmaf(sc[r][u], vf[e], acc[r][e]);
+      }
+    };
+
+    // two steps in flight: a step's loads are issued before the one before
+    // it is consumed (buffers a and b in turn); warp-uniform, no barrier
+    const int stride = kStreamWarps * step;
+    int base = k0 + warp * step;
+    Chunk<T> ka[kU], va[kU], kb[kU], vb[kU];
+    fetch(base);
+    issue(ka, va, base);
+    fetch(base + stride);
+    for (; base < k1; base += 2 * stride) {
+      issue(kb, vb, base + stride);
+      fetch(base + 2 * stride);
+      consume(ka, va, base);
+      if (base + stride >= k1) break;
+      issue(ka, va, base + 2 * stride);
+      fetch(base + 3 * stride);
+      consume(kb, vb, base + stride);
+    }
+
+    // merge the warp's key groups (a state without keys has weight 0)
+    for (int o = lanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+        const float mn = fmaxf(m[r], mo);
+        const float wa = m[r] <= kNeg ? 0.f : __expf(m[r] - mn);
+        const float wb = mo <= kNeg ? 0.f : __expf(mo - mn);
+        l[r] = l[r] * wa + lo * wb;
+        m[r] = mn;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[r][e] = acc[r][e] * wa +
+                      __shfl_xor_sync(0xffffffffu, acc[r][e], o) * wb;
+      }
+    }
+    if (kg == 0 && has) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float* dst = wacc_s + (warp * RB + r) * D + 8 * c;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        wm_s[warp * RB + r] = m[r];
+        wl_s[warp * RB + r] = l[r];
+      }
+    }
+    __syncthreads();
+  }  // has_keys
+
+  // merge the warps (a warp without keys has weight 0) into the segment's
+  // partial, or normalise with the l == 0 -> 1 guard (context 0 gives
+  // exact zeros)
+  for (int e = tid; e < nrows * D; e += kStreamThreads) {
+    const int r = e / D, d = e - r * D;
+    float mx = kNeg, lt = 0.f, at = 0.f;
+    if (has_keys) {
+#pragma unroll
+      for (int w = 0; w < kStreamWarps; ++w) mx = fmaxf(mx, wm_s[w * RB + r]);
+#pragma unroll
+      for (int w = 0; w < kStreamWarps; ++w) {
+        const float mw = wm_s[w * RB + r];
+        const float wt = mw <= kNeg ? 0.f : __expf(mw - mx);
+        lt += wl_s[w * RB + r] * wt;
+        at += wacc_s[(w * RB + r) * D + d] * wt;
+      }
+    }
+    if constexpr (kSeg) {
+      const long long row = ((long long)sh * a.nseg + g) * R + r0 + r;
+      a.o_seg[row * D + d] = at;
+      if (d == 0) {
+        a.m_seg[row] = mx;
+        a.l_seg[row] = lt;
+      }
+    } else {
+      static_cast<T*>(a.out)[row_base * D + e] =
+          from_f<T>(at / (lt == 0.f ? 1.f : lt));
+    }
   }
 }
 
@@ -487,42 +778,29 @@ bool bad_dims(int M, int D, int ps, int tile) {
          ps % tile != 0;
 }
 
-template <typename T>
-int decode_impl(const void* q, const void* k, const void* v,
-                const void* page_table, const void* context_lens, void* out,
-                int S, int n_cells, int M, int D, int cells_per_kv,
-                long long khs, long long kps, long long vhs, long long vps,
-                int ps, int tile, int Np, float scale, cudaStream_t stream) {
-  if (bad_dims(M, D, ps, tile) || cells_per_kv <= 0) return cudaErrorInvalidValue;
-  if (S * n_cells == 0) return cudaSuccess;
-  const size_t smem = attend_smem_floats(M, D, tile) * sizeof(float);
-  cudaError_t err = prepare(decode_kernel<T>, smem);
+template <typename T, int RB, bool kSeg>
+cudaError_t stream_launch(const StreamArgs& a, dim3 grid,
+                          cudaStream_t stream) {
+  auto kernel = decode_stream_kernel<T, RB, kSeg>;
+  const size_t smem = stream_smem_bytes(RB, a.D);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  decode_kernel<T><<<S * n_cells, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)page_table,
-      (const int*)context_lens, (T*)out, n_cells, M, D, cells_per_kv, khs,
-      kps, vhs, vps, ps, tile, Np, scale);
+  kernel<<<grid, kStreamThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-int segmented_impl(const void* q, const void* k, const void* v,
-                   const void* page_table, const void* context_lens,
-                   void* o_seg, void* m_seg, void* l_seg, int S, int Hkv,
-                   int nseg, int tps, int M, int D, long long khs,
-                   long long kps, long long vhs, long long vps, int ps,
-                   int tile, int Np, float scale, cudaStream_t stream) {
-  if (bad_dims(M, D, ps, tile) || nseg <= 0 || tps <= 0)
-    return cudaErrorInvalidValue;
-  if (S * Hkv == 0) return cudaSuccess;
-  const size_t smem = attend_smem_floats(M, D, tile) * sizeof(float);
-  cudaError_t err = prepare(decode_segmented_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  decode_segmented_kernel<T><<<S * Hkv * nseg, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)page_table,
-      (const int*)context_lens, (float*)o_seg, (float*)m_seg, (float*)l_seg,
-      Hkv, nseg, tps, M, D, khs, kps, vhs, vps, ps, tile, Np, scale);
-  return cudaGetLastError();
+// One launch: S * Hkv * nseg blocks along x times ceil(R / RB) row groups
+// along y.
+template <typename T, bool kSeg>
+int stream_impl(const StreamArgs& a, int S, cudaStream_t stream) {
+  if (S * a.Hkv == 0) return cudaSuccess;
+  const int RB = rows_per_block(a.R);
+  const dim3 grid(S * a.Hkv * a.nseg, (a.R + RB - 1) / RB);
+  switch (RB) {
+    case 1: return stream_launch<T, 1, kSeg>(a, grid, stream);
+    case 4: return stream_launch<T, 4, kSeg>(a, grid, stream);
+    default: return stream_launch<T, 8, kSeg>(a, grid, stream);
+  }
 }
 
 template <typename T>
@@ -620,14 +898,18 @@ int pa_paged_decode(const void* q, const void* k, const void* v,
                     int cells_per_kv, long long khs, long long kps,
                     long long vhs, long long vps, int ps, int tile, int Np,
                     float scale, int bf16, void* stream) {
+  if (bad_dims(M, D, ps, tile) || cells_per_kv <= 0 ||
+      n_cells % cells_per_kv != 0 || Np < 0)
+    return cudaErrorInvalidValue;
+  // the cells of one KV head are M * cells_per_kv rows back to back
+  const int R = M * cells_per_kv, Hkv = n_cells / cells_per_kv;
+  const StreamArgs a{q, k, v, (const int*)page_table,
+                     (const int*)context_lens, out, nullptr, nullptr,
+                     nullptr, Hkv, R, D, 1, 0, ps, Np, khs, kps, vhs, vps,
+                     scale};
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? decode_impl<__nv_bfloat16>(q, k, v, page_table, context_lens,
-                                           out, S, n_cells, M, D, cells_per_kv,
-                                           khs, kps, vhs, vps, ps, tile, Np,
-                                           scale, st)
-              : decode_impl<float>(q, k, v, page_table, context_lens, out, S,
-                                   n_cells, M, D, cells_per_kv, khs, kps, vhs,
-                                   vps, ps, tile, Np, scale, st);
+  return bf16 ? stream_impl<__nv_bfloat16, false>(a, S, st)
+              : stream_impl<float, false>(a, S, st);
 }
 
 int pa_paged_decode_segmented(const void* q, const void* k, const void* v,
@@ -637,15 +919,16 @@ int pa_paged_decode_segmented(const void* q, const void* k, const void* v,
                               long long khs, long long kps, long long vhs,
                               long long vps, int ps, int tile, int Np,
                               float scale, int bf16, void* stream) {
+  if (bad_dims(M, D, ps, tile) || nseg <= 0 || tps <= 0 || Np < 0 ||
+      (long long)tps * tile > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const StreamArgs a{q, k, v, (const int*)page_table,
+                     (const int*)context_lens, nullptr, (float*)o_seg,
+                     (float*)m_seg, (float*)l_seg, Hkv, M, D, nseg,
+                     tps * tile, ps, Np, khs, kps, vhs, vps, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? segmented_impl<__nv_bfloat16>(
-                    q, k, v, page_table, context_lens, o_seg, m_seg, l_seg, S,
-                    Hkv, nseg, tps, M, D, khs, kps, vhs, vps, ps, tile, Np,
-                    scale, st)
-              : segmented_impl<float>(q, k, v, page_table, context_lens, o_seg,
-                                      m_seg, l_seg, S, Hkv, nseg, tps, M, D,
-                                      khs, kps, vhs, vps, ps, tile, Np, scale,
-                                      st);
+  return bf16 ? stream_impl<__nv_bfloat16, true>(a, S, st)
+              : stream_impl<float, true>(a, S, st);
 }
 
 int pa_segment_reduce(const void* o_seg, const void* m_seg, const void* l_seg,

@@ -107,10 +107,16 @@ def _check_table(name: str, page_table: torch.Tensor,
                          f"describe the {rows} sequences of q")
 
 
-def _check_kernel(name: str, d: int, m: int, tile: int,
-                  *tensors: torch.Tensor, mma: bool = False) -> None:
+def _check_kernel(name: str, d: int, *tensors: torch.Tensor,
+                  mma: bool = False, attend: tuple[int, int] | None = None,
+                  vectors: tuple[torch.Tensor, ...] = ()) -> None:
     """Contiguity, then (mma) what the bf16 tensor-core prefill takes, or
-    the head dim and shared memory of the scalar `attend` kernels."""
+    the head dim of the other kernels (multiples of 8 up to MAX_HEAD_DIM).
+    `vectors`: tensors the kernel reads in 16-byte loads (the streaming
+    decode's K and V pages), which must be 16-byte aligned.  `attend` =
+    (rows, tile) of a block of the scalar fp32 prefill, whose shared
+    memory grows with both; the streaming decode needs at most 41.2 KB a
+    block at any head dim it takes, so its shape has no other limit."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "
@@ -121,11 +127,18 @@ def _check_kernel(name: str, d: int, m: int, tile: int,
     if d > MAX_HEAD_DIM or d % 8:
         raise ValueError(f"{name}: head_dim {d} unsupported by the CUDA "
                          f"kernel (multiples of 8 up to {MAX_HEAD_DIM})")
-    smem = library().pa_attend_smem_bytes(m, d, tile)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: {m} rows x head_dim {d} x tile {tile} "
-                         f"needs {smem} B of shared memory per block "
-                         f"(limit {_SMEM_LIMIT})")
+    for t in vectors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernel reads K/V in 16-byte "
+                             f"vectors and needs them 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
+    if attend is not None:
+        m, tile = attend
+        smem = library().pa_attend_smem_bytes(m, d, tile)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"{name}: {m} rows x head_dim {d} x tile "
+                             f"{tile} needs {smem} B of shared memory per "
+                             f"block (limit {_SMEM_LIMIT})")
 
 
 def _kv_strides(k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
@@ -248,7 +261,9 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     [Hkv, P, ps//tile, tile, D]; page_table [S, Np] i32; context_lens [S]
     i32.  Cell c reads KV head c // cells_per_kv (1 for gqa, group for
     baseline).  Returns [S, n_cells, M, D] in q's dtype; rows with
-    context 0 are exact zeros."""
+    context 0 are exact zeros.  On the card one launch of the streaming
+    decode kernel (a KV head's cells are one block's rows; `tile` is
+    validated only, the kernel groups keys its own way)."""
     name = "paged_decode"
     _check_common(name, q, k_pages, v_pages, (page_table, context_lens))
     if q.ndim != 4 or q.shape[1] != k_pages.shape[0] * cells_per_kv:
@@ -262,8 +277,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                   scale=scale)
     s_, n_cells, m, d = q.shape
     _, _, tpp, tile, _ = k_pages.shape
-    _check_kernel(name, d, m, tile, q, k_pages, v_pages, page_table,
-                  context_lens)
+    _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
+                  vectors=(k_pages, v_pages))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = library().pa_paged_decode(
@@ -282,7 +297,9 @@ def paged_decode_segmented(q, k_pages, v_pages, page_table, context_lens, *,
                            scale: float):
     """C3 decode partials.  q [S, Hkv, M, D].  Returns (o_seg
     [S, Hkv, nseg, M, D] f32 unnormalised, m_seg [S, Hkv, nseg, M] f32,
-    l_seg [S, Hkv, nseg, M] f32)."""
+    l_seg [S, Hkv, nseg, M] f32); segment g covers the keys
+    [g * tps * tile, min((g + 1) * tps * tile, ctx)), and one without a
+    live key is exactly (0, NEG_INF, 0)."""
     name = "paged_decode_segmented"
     _check_common(name, q, k_pages, v_pages, (page_table, context_lens))
     if q.ndim != 4 or q.shape[1] != k_pages.shape[0]:
@@ -299,8 +316,8 @@ def paged_decode_segmented(q, k_pages, v_pages, page_table, context_lens, *,
             scale=scale)
     s_, hkv, m, d = q.shape
     _, _, tpp, tile, _ = k_pages.shape
-    _check_kernel(name, d, m, tile, q, k_pages, v_pages, page_table,
-                  context_lens)
+    _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
+                  vectors=(k_pages, v_pages))
     f32 = dict(dtype=torch.float32, device=q.device)
     o_seg = torch.empty((s_, hkv, num_segments, m, d), **f32)
     m_seg = torch.empty((s_, hkv, num_segments, m), **f32)
@@ -335,7 +352,7 @@ def segment_reduce(o_seg: torch.Tensor, m_seg: torch.Tensor,
     if not _on_card(name, o_seg, m_seg, l_seg):
         return segment_reduce_plain(o_seg, m_seg, l_seg, out_dtype)
     s_, hkv, nseg, m, d = o_seg.shape
-    _check_kernel(name, d, 1, 8, o_seg, m_seg, l_seg)
+    _check_kernel(name, d, o_seg, m_seg, l_seg)
     out = torch.empty((s_, hkv, m, d), dtype=out_dtype, device=o_seg.device)
     with torch.cuda.device(o_seg.device):
         rc = library().pa_segment_reduce(
@@ -374,9 +391,10 @@ def paged_prefill_qblock(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
             context_lens, block_q=block_q, group=group, scale=scale)
     nqb, hkv, bm, d = q_packed.shape
     _, _, tpp, tile, _ = k_pages.shape
-    _check_kernel(name, d, bm, tile, q_packed, k_pages, v_pages, qb_seq,
-                  qb_pos0, page_table, context_lens,
-                  mma=q_packed.dtype == torch.bfloat16)
+    bf16 = q_packed.dtype == torch.bfloat16
+    _check_kernel(name, d, q_packed, k_pages, v_pages, qb_seq, qb_pos0,
+                  page_table, context_lens, mma=bf16,
+                  attend=None if bf16 else (bm, tile))
     out = torch.empty_like(q_packed)
     with torch.cuda.device(q_packed.device):
         rc = library().pa_paged_prefill_qblock(

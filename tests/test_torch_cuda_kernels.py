@@ -69,19 +69,40 @@ def _case(dev, dtype, hkv, group, ps, ctx, d=64, seed=0):
     return [t.to(dev) for t in (q, kp, vp, pt, ctx)]
 
 
-CASES = [  # hkv, group, page, tile, contexts
-    (3, 3, 16, 16, [0, 1, 17, 300, 77]),
-    (2, 1, 16, 8, [40, 0, 5]),
-    (1, 4, 24, 24, [95, 24, 0, 1]),
-    (2, 2, 24, 8, [13, 200]),
+CASES = [  # hkv, group, page, tile, contexts, head dim
+    (3, 3, 16, 16, [0, 1, 17, 300, 77], 64),
+    (2, 1, 16, 8, [40, 0, 5], 64),
+    (1, 4, 24, 24, [95, 24, 0, 1], 64),
+    (2, 2, 24, 8, [13, 200], 64),
+    # qwen2.5-3b's heads (group 8, D 128) and glm4-9b's (group 16: two
+    # blocks of 8 rows over the same keys)
+    (2, 8, 16, 16, [0, 1, 33, 300, 777], 128),
+    (2, 16, 16, 16, [129, 0, 64, 1000], 128),
+    # zamba2's decode: Hkv 32, group 1
+    (32, 1, 16, 16, [1056, 129, 300, 0, 517], 64),
+    # a 2048-token context: at 16 segments of 144 keys, 14 live, one partly
+    # live, one dead; 1024 ends on a page, 1008 on a segment boundary
+    (3, 3, 16, 16, [2048, 1024, 1008, 1000, 0], 64),
+    # head dims whose rows are no power-of-two multiple of 16 bytes (lanes
+    # masked), and the extremes: one lane a key (D 8), a warp a key (D 256)
+    (2, 2, 24, 8, [13, 200, 48], 40),
+    (1, 3, 16, 16, [5, 77, 0], 24),
+    (2, 1, 16, 16, [70, 3, 0], 8),
+    (1, 2, 16, 8, [100, 0, 31], 256),
+    # 12 rows: a block of 8 and a block of 4 live rows out of 8
+    (1, 12, 16, 8, [90, 0, 47], 64),
 ]
+# the unified op's prefill half takes head dims 64 and 128 in bf16 (the
+# tensor-core kernel) and, in fp32, Q-blocks of 16 x group rows that fit
+# the scalar kernel's shared memory (glm4's 256 rows at D 128 do not)
+UNIFIED_CASES = [c for c in CASES if c[5] in MMA_HEAD_DIMS and c[1] <= 8]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
 def test_decode_kernels_match_plain(cuda, dtype, case):
-    hkv, group, ps, tile, ctx = case
-    q, kp, vp, pt, cl = _case(cuda, dtype, hkv, group, ps, ctx)
+    hkv, group, ps, tile, ctx, d = case
+    q, kp, vp, pt, cl = _case(cuda, dtype, hkv, group, ps, ctx, d=d)
     s, hq, d = q.shape
     kt = kp.reshape(hkv, -1, ps // tile, tile, d)
     vt = vp.reshape(hkv, -1, ps // tile, tile, d)
@@ -95,10 +116,10 @@ def test_decode_kernels_match_plain(cuda, dtype, case):
                                    atol=ATOL[dtype], rtol=0)
         assert (got[cl == 0] == 0).all()
     num_tiles = pt.shape[1] * (ps // tile)
-    for nseg in (1, 3, num_tiles + 2):
+    for nseg in (1, 3, 16, num_tiles + 2):
         nseg = min(nseg, num_tiles)
-        kw = dict(num_segments=nseg, tiles_per_segment=-(-num_tiles // nseg),
-                  scale=0.125)
+        tps = -(-num_tiles // nseg)
+        kw = dict(num_segments=nseg, tiles_per_segment=tps, scale=0.125)
         qg = q.reshape(s, hkv, group, d)
         parts = K.paged_decode_segmented(qg, kt, vt, pt, cl, **kw)
         ref = K.paged_decode_segmented_plain(qg, kt, vt, pt, cl, **kw)
@@ -109,23 +130,32 @@ def test_decode_kernels_match_plain(cuda, dtype, case):
         torch.testing.assert_close(norm(parts[0], parts[2]),
                                    norm(ref[0], ref[2]), atol=ATOL[dtype],
                                    rtol=0)
+        # a segment without live keys is exactly (acc 0, m NEG_INF, l 0):
+        # segment_reduce's dead test relies on it
+        start = torch.arange(nseg, device=cuda) * tps * tile
+        dead = start[None, :] >= cl[:, None]  # [S, nseg]
+        assert (parts[1].permute(0, 2, 1, 3)[dead] == NEG_INF).all()
+        assert (parts[2].permute(0, 2, 1, 3)[dead] == 0).all()
+        assert (parts[0].permute(0, 2, 1, 3, 4)[dead] == 0).all()
         got = K.segment_reduce(*parts, dtype)
         torch.testing.assert_close(
             got.float(), K.segment_reduce_plain(*parts, dtype).float(),
             atol=ATOL[dtype], rtol=0)
     assert K.LAUNCHES["paged_decode"] == n0["paged_decode"] + 2
-    assert K.LAUNCHES["segment_reduce"] == n0["segment_reduce"] + 3
+    assert K.LAUNCHES["paged_decode_segmented"] == \
+        n0["paged_decode_segmented"] + 4
+    assert K.LAUNCHES["segment_reduce"] == n0["segment_reduce"] + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", UNIFIED_CASES)
 def test_unified_op_matches_plain(cuda, dtype, case):
     """Decode region + a fresh and a resumed chunk through ops on the card
     vs the same call on the CPU (plain versions)."""
-    hkv, group, ps, tile, ctx = case
+    hkv, group, ps, tile, ctx, d = case
     ms = len(ctx)
     q, kp, vp, pt, cl = _case(cuda, dtype, hkv, group, ps, ctx + [40, 90],
-                              seed=1)
+                              d=d, seed=1)
     qlens = torch.tensor([1] * ms + [40, 33], dtype=torch.int32)
     qsl = torch.cat([torch.zeros(1, dtype=torch.int32),
                      torch.cumsum(qlens, 0, dtype=torch.int32)])
@@ -182,6 +212,22 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         K.paged_prefill_qblock(kt[:1, :1, 0, :2], kt, kt, qb, qb, pt, cl,
                                block_q=1, group=2, scale=1.0)
+
+
+def test_decode_kernels_reject_misaligned_pages(cuda):
+    """The streaming decode kernels read K/V in 16-byte vectors: pages that
+    start off a 16-byte boundary raise before the launch."""
+    q, kp, _, pt, cl = _case(cuda, torch.bfloat16, 1, 2, 16, [5])
+    flat = torch.zeros(kp.numel() + 4, dtype=torch.bfloat16, device=cuda)
+    kt = flat[4:].view(1, -1, 1, 16, 64)  # 8 bytes past the allocation
+    qg = q.reshape(1, 1, 2, 64)
+    n0 = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.paged_decode(qg, kt, kt, pt, cl, cells_per_kv=1, scale=1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.paged_decode_segmented(qg, kt, kt, pt, cl, num_segments=1,
+                                 tiles_per_segment=kt.shape[1], scale=1.0)
+    assert K.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -15,6 +15,7 @@ import torch
 from repro.kernels.paged_attention import kernel as JK
 from repro.kernels.paged_attention import ops as jops
 from repro_torch.core.paged.kv_cache import ShardingError
+from repro_torch.kernels._common import NEG_INF
 from repro_torch.kernels.paged_attention import kernel as TK
 from repro_torch.kernels.paged_attention import ops as tops
 
@@ -43,22 +44,31 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
-# (hq, hkv, ps, tile, pages_per_seq, context_lens): group 1/2/3, page 16
-# with tiles 8/16, non-power-of-two page 24 with tiles 8/24, ragged
-# contexts with ctx = 0 rows
+# (hq, hkv, ps, tile, pages_per_seq, context_lens, head_dim): group 1/2/3,
+# page 16 with tiles 8/16, non-power-of-two page 24 with tiles 8/24,
+# ragged contexts with ctx = 0 rows; then the shapes the card holds the
+# streaming decode kernels to: D 128 at group 8 (qwen2.5-3b) and 16
+# (glm4-9b), group 1 over 8 KV heads (zamba2's decode), and contexts that
+# end on a page (32) and on a segment boundary (at 4 segments of 2 tiles
+# of 8: 16 keys a segment, 48)
 CASES = [
-    (2, 2, 16, 8, 4, [37, 0, 64, 1]),
-    (4, 2, 16, 16, 4, [0, 13, 50, 64]),
-    (3, 1, 24, 8, 3, [72, 5, 0, 30]),
-    (6, 2, 24, 24, 3, [49, 0, 24, 1]),
+    (2, 2, 16, 8, 4, [37, 0, 64, 1], 64),
+    (4, 2, 16, 16, 4, [0, 13, 50, 64], 64),
+    (3, 1, 24, 8, 3, [72, 5, 0, 30], 64),
+    (6, 2, 24, 24, 3, [49, 0, 24, 1], 64),
+    (16, 2, 16, 16, 3, [33, 0, 48, 1], 128),
+    (32, 2, 16, 16, 2, [17, 32, 0], 128),
+    (8, 8, 16, 16, 3, [40, 1, 0, 48], 64),
+    (6, 2, 16, 8, 4, [48, 32, 0, 64], 64),
 ]
+SEG_CASES = CASES[1:3] + CASES[4:]
 
 
 @pytest.mark.parametrize("variant", ["gqa", "baseline"])
 @pytest.mark.parametrize("case", CASES)
 def test_paged_decode_plain_matches_pallas(variant, case):
-    hq, hkv, ps, tile, np_, ctx = case
-    d, s = 64, len(ctx)
+    hq, hkv, ps, tile, np_, ctx, d = case
+    s = len(ctx)
     group = hq // hkv
     q, kp, vp, pt = make_case(1, s, hq, hkv, d, ps, np_)
     ctx = np.asarray(ctx, np.int32)
@@ -83,13 +93,13 @@ def test_paged_decode_plain_matches_pallas(variant, case):
     assert (got.numpy()[dead] == 0).all() and m >= 1
 
 
-@pytest.mark.parametrize("nseg", [1, 3, 8])
-@pytest.mark.parametrize("case", CASES[1:3])
+@pytest.mark.parametrize("nseg", [1, 3, 4, 8])
+@pytest.mark.parametrize("case", SEG_CASES)
 def test_segmented_and_reduce_plain_match_pallas(nseg, case):
     """nseg = 8 exceeds the live tiles of every short row (dead segments
-    must give exact zeros in the partials' accumulator and l)."""
-    hq, hkv, ps, tile, np_, ctx = case
-    d, s = 64, len(ctx)
+    must give exact (acc 0, m NEG_INF, l 0) in the partials)."""
+    hq, hkv, ps, tile, np_, ctx, d = case
+    s = len(ctx)
     group = hq // hkv
     q, kp, vp, pt = make_case(2, s, hq, hkv, d, ps, np_)
     ctx = np.asarray(ctx, np.int32)
@@ -113,6 +123,7 @@ def test_segmented_and_reduce_plain_match_pallas(nseg, case):
         for gi in range(nseg):
             if gi * tps >= live_tiles[si]:  # dead segment
                 assert (got[0][si, :, gi] == 0).all()
+                assert (got[1][si, :, gi] == NEG_INF).all()
                 assert (got[2][si, :, gi] == 0).all()
     # the merge, on the Pallas partials
     red_want = JK.segment_reduce(*want, jnp.float32, interpret=True)
