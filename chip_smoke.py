@@ -74,11 +74,14 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               plain version on the card, from a nonzero initial state: at
               the shape the hybrid serve phase gives it (B 8, L 1024, H 32,
               P 128, N 64, G 1, chunk 128), at a short prompt (L 16, chunk
-              16) and at the cases of tests/test_kernels_mamba2.py; fp32
+              16), at the cases of tests/test_kernels_mamba2.py, at the
+              card tests' cases across the bf16 kernel's MMA tiles (P 48 /
+              N 24 / Q 24, P 40 / N 8 / Q 40, P 20 / N 12 / Q 12) and from
+              a state of ~100 under x of ~0.01; fp32 (the scalar kernel)
               with TF32 off within 1e-5 x max |y| (sums of up to 128 x 64
               products of values as large as |y|, in another order), bf16
-              inputs within 2e-2 (widened exactly, summed in fp32 on both
-              sides)
+              (the tensor-core kernel, fp32 operands as bf16 hi + lo
+              halves) within 2e-2
  12. ssdtime  the SSD kernel at the serve shape in bf16 beside its plain
               version and its bound; no single PyTorch call computes the
               SSD, so its library time is null
@@ -86,7 +89,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               requests (prompts 128-1024, 32 new tokens, max_seqs 8)
               through the padded per-kind step; the launch counters are
               zeroed just before and read just after: the SSD runs once
-              per Mamba2 layer per prefill (32 x), the Q-Block prefill once
+              per Mamba2 layer per prefill (32 x, every launch the
+              tensor-core kernel), the Q-Block prefill once
               per shared-attention invocation per prefill (6 x), the decode
               kernels 6 x per decode step (x 2 for segmented: partials +
               merge), the flash kernel never; the configs the engine picked
@@ -94,7 +98,11 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
  14. hdiff    zamba2 at full width cut to 12 layers (two groups of five
               Mamba2 blocks and the shared block), fp32 (TF32 off): 3
               greedy requests of 8 new tokens on the card and on the CPU,
-              stepped in lockstep: identical tokens, logits within 5e-3
+              stepped in lockstep: identical tokens, logits within 5e-3;
+              then one prefill of the same 3 requests in bf16 on the card
+              (the tensor-core SSD) and on the CPU: the last-token logits'
+              max abs gap within 2 x the CPU's own bf16-vs-fp32 gap in the
+              same run, argmax agreement logged
  15. mlstm    the chunked mLSTM kernel (h and the final C, n, m) against
               its plain version on the card: at the shape the xlstm serve
               phase gives it (B 8, L 1024, H 4, P 512, chunk 64) from the
@@ -105,9 +113,12 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               with TF32 off within 2e-5 x max |out| per output (h divides
               sums of up to 64 + 512 products, summed in another order, by
               a denominator that can sit at its exp(-m) floor), bf16
-              inputs within 2e-5 for the fp32 state and 8e-3 x max |h| for
-              h (rounded to bf16 on both sides: one ulp is at most 2^-7 of
-              the value)
+              inputs (the tensor-core kernel) within 2e-5 for the fp32
+              state and 8e-3 x max |h| for h (rounded to bf16 on both
+              sides: one ulp is at most 2^-7 of the value); also the card
+              tests' cases across the MMA tiles (P 16 / Q 8, P 40 / Q 24,
+              P 20 / Q 12, P 136) and a state of ~100 under q, k, v of
+              ~0.01 ("large")
  16. mltime   the mLSTM kernel at the serve shape in bf16 beside its plain
               version and its bound; no single PyTorch call computes the
               chunked mLSTM, so its library time is null
@@ -115,12 +126,14 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               weights) serves 8 requests (prompts 128-1024, 32 new tokens,
               max_seqs 8) through the padded per-kind step; the launch
               counters are zeroed just before and read just after: the
-              mLSTM kernel runs once per mLSTM layer per prefill (21 x), the
-              paged, flash and SSD kernels never
+              mLSTM kernel runs once per mLSTM layer per prefill (21 x,
+              every launch the tensor-core kernel), the paged, flash and
+              SSD kernels never
  18. xdiff    xlstm at full width cut to 8 layers (one group: seven mLSTM
               blocks and one sLSTM block), fp32 (TF32 off): 3 greedy
               requests of 8 new tokens on the card and on the CPU, stepped
-              in lockstep: identical tokens, logits within 5e-3
+              in lockstep: identical tokens, logits within 5e-3; then the
+              bf16 leg of phase 14 (the tensor-core mLSTM)
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -219,7 +232,16 @@ HYBRID_REQUESTS, HYBRID_NEW_TOKENS = 8, 32
 SSD_SERVE_CASE = (HYBRID_REQUESTS, 1024, 32, 128, 64, 1, 128)
 SSD_CASES = [SSD_SERVE_CASE, (1, 16, 32, 128, 64, 1, 16),
              (2, 64, 4, 32, 16, 2, 16), (1, 128, 2, 64, 64, 1, 32),
-             (2, 32, 8, 16, 8, 8, 8)]
+             (2, 32, 8, 16, 8, 8, 8),
+             # the card tests' cases across the bf16 kernel's MMA tiles:
+             # P 48 / N 24 / Q 24, P 40 / N 8 / Q 40, and P 20 / N 12 / Q 12
+             # (rows that are no multiple of 16 bytes: element-wise copies)
+             (1, 96, 3, 48, 24, 3, 24), (2, 80, 2, 40, 8, 1, 40),
+             (1, 36, 2, 20, 12, 2, 12)]
+# an initial state of ~100 under x of ~0.01: y ~ exp(a) C S_in up to ~10^3,
+# where one bf16 rounding of S_in would miss the absolute 2e-2 (the bf16
+# kernel's hi + lo halves keep ~2^-17)
+SSD_LARGE_STATE_CASE = (2, 256, 4, 128, 64, 1, 128)
 SSD_FP32_RTOL, SSD_BF16_ATOL = 1e-5, 2e-2
 HDIFF_LAYERS = 12
 MLSTM = "mlstm_chunked_fwd"
@@ -241,10 +263,22 @@ MLSTM_CASES = [MLSTM_SERVE_CASE,
                (1, 128, 4, 64, 32, "normal", "nonzero"),
                (2, 32, 1, 32, 8, "normal", "empty"),
                (1, 32, 2, 16, 8, "extreme", "empty"),
-               (4, 128, 4, 512, 64, "padded", "empty")]
+               (4, 128, 4, 512, 64, "padded", "empty"),
+               # the card tests' cases across the bf16 kernel's MMA tiles:
+               # P 16 / Q 8, P 40 / Q 24, P 20 / Q 12 (element-wise
+               # copies), P 136 (a ragged third column block); and a state
+               # of ~100 under q, k, v of ~0.01 ("large")
+               (2, 24, 2, 16, 8, "normal", "empty"),
+               (1, 48, 2, 40, 24, "normal", "nonzero"),
+               (1, 24, 1, 20, 12, "normal", "empty"),
+               (1, 64, 2, 136, 32, "normal", "nonzero"),
+               (2, 128, 2, 64, 32, "normal", "large")]
 MLSTM_PAD_LENS = (128, 100, 37, 0)  # valid tokens per row of "padded"
 MLSTM_FP32_RTOL, MLSTM_BF16_H_RTOL = 2e-5, 8e-3
 XDIFF_LAYERS = 8
+# the bf16 legs of phases 14 and 18: the card's bf16 prefill logits within
+# this multiple of the CPU's own bf16-vs-fp32 gap, measured in the same run
+BF16_GAP_FACTOR = 2.0
 TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # 3 steps: the schedule gives step 0 a learning rate of 0, so step 2 is
 # the first whose loss follows an update.  The loss is a mean over 512
@@ -687,10 +721,12 @@ def phase_serve(torch, K, FK):
                           prompt_tokens=prompt_toks)
 
 
-def phase_engine_diff(torch, arch, seed, tag, layers=None):
+def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
     """`arch` at full width (cut to `layers`, else full depth), fp32: 3
     greedy requests of 8 new tokens on the card and on the CPU, stepped in
-    lockstep: identical tokens, logits within DIFF_LOGIT_ATOL."""
+    lockstep: identical tokens, logits within DIFF_LOGIT_ATOL.  With
+    `bf16_kernels` (kernel module, tensor-core kernel name), then the bf16
+    leg (`engine_bf16_leg`) on the same prompts."""
     from repro_torch import weights
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import Engine
@@ -719,6 +755,8 @@ def phase_engine_diff(torch, arch, seed, tag, layers=None):
         steps += 1
         if stats[0]["sampled_tokens"] != stats[1]["sampled_tokens"]:
             raise AssertionError(f"step {steps}: engines diverged")
+        if steps == 1:  # the prefill of every prompt: the bf16 leg's ruler
+            cpu_fp32_prefill = engines[1].last_step_logits[:len(prompts)]
         a = engines[0].last_step_logits.cpu()
         worst = max(worst, float((a - engines[1].last_step_logits).abs()
                                  .max()))
@@ -734,7 +772,56 @@ def phase_engine_diff(torch, arch, seed, tag, layers=None):
         raise AssertionError("cpu engine did not finish in lockstep")
     if not worst <= DIFF_LOGIT_ATOL:
         raise AssertionError(f"logit difference {worst} > {DIFF_LOGIT_ATOL}")
+    if bf16_kernels is not None:
+        engine_bf16_leg(torch, cfg, prompts, cpu_fp32_prefill, tag,
+                        eng_kw, *bf16_kernels)
     return worst
+
+
+def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
+                    mma_name):
+    """One prefill of `prompts` with the model in bf16 on the card (the
+    tensor-core kernels) and on the CPU (plain versions), same seed: the
+    max abs gap of the prefill's last-token logits within BF16_GAP_FACTOR
+    x the gap between the CPU's own bf16 and fp32 (`cpu_fp32`) logits;
+    the argmax agreement is logged.  `kernels.KERNEL_LAUNCHES[mma_name]`
+    must count the card's launches."""
+    from repro_torch import weights
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    cfg = cfg32.replace(dtype="bfloat16")
+    n = len(prompts)
+    logits = []
+    for dev in (DEVICE, "cpu"):
+        eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
+                     device=dev, **eng_kw)
+        for p in prompts:
+            eng.add_request(Request(prompt=list(p), max_new_tokens=8))
+        kernels.reset_launches()
+        stats = eng.step()
+        if stats["prefill"] != n or stats["decode"]:
+            raise AssertionError(f"{tag} bf16: the first step was not one "
+                                 f"prefill of {n} prompts: {stats}")
+        logits.append(eng.last_step_logits[:n].float().cpu())
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            mma_launches = kernels.KERNEL_LAUNCHES[mma_name]
+    card, cpu = logits
+    gap = float((card - cpu).abs().max())
+    own = float((cpu - cpu_fp32.float()).abs().max())
+    agree = int((card.argmax(-1) == cpu.argmax(-1)).sum())
+    agree32 = int((cpu.argmax(-1) == cpu_fp32.argmax(-1)).sum())
+    log(f"{tag} bf16 {cfg.name} {cfg.num_layers} layers, prefill of {n} "
+        f"prompts: max_abs_logit_gap card-vs-cpu {gap:.3e}  cpu bf16-vs-fp32 "
+        f"{own:.3e}  bound {BF16_GAP_FACTOR:g} x {own:.3e}  argmax agree "
+        f"card-vs-cpu {agree}/{n}, cpu bf16-vs-fp32 {agree32}/{n}  "
+        f"{mma_name} launches {mma_launches}")
+    if not mma_launches:
+        raise AssertionError(f"{tag} bf16: {mma_name} never launched")
+    if not gap <= BF16_GAP_FACTOR * own:
+        raise AssertionError(f"{tag} bf16: logit gap {gap} > "
+                             f"{BF16_GAP_FACTOR} x {own}")
 
 
 # ---------------------------------------------------------------------------
@@ -950,21 +1037,23 @@ def phase_train_diff(torch):
 # ---------------------------------------------------------------------------
 
 
-def ssd_inputs(torch, case, dtype_name, seed=6):
+def ssd_inputs(torch, case, dtype_name, seed=6, large_state=False):
     """Kernel inputs (x, dt, b, c, a_cum, s0) on DEVICE, drawn like
-    tests/test_kernels_mamba2.py's, with a nonzero initial state and
-    a_cum from the port's own chunk cumsum."""
+    tests/test_kernels_mamba2.py's, with a nonzero initial state (~100
+    under x of ~0.01 if large_state) and a_cum from the port's own chunk
+    cumsum."""
     from repro_torch.kernels.mamba2 import ops as sops
 
     bsz, l, h, p, n, grp, chunk = case
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn((bsz, l, h, p), generator=g).to(dtype)
+    x_scale, s_scale = (0.01, 100.0) if large_state else (1.0, 1.0)
+    x = (x_scale * torch.randn((bsz, l, h, p), generator=g)).to(dtype)
     dt = torch.randn((bsz, l, h), generator=g).abs() * 0.5 + 0.01
     a = -torch.randn((h,), generator=g).abs() - 0.1
     bm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
     cm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
-    s0 = torch.randn((bsz, h, n, p), generator=g)
+    s0 = s_scale * torch.randn((bsz, h, n, p), generator=g)
     a_cum = sops.chunk_cumsum(
         (dt * a).reshape(bsz, l // chunk, chunk, h)).reshape(bsz, l, h)
     return tuple(t.contiguous().to(DEVICE) for t in (x, dt, bm, cm, a_cum, s0))
@@ -983,16 +1072,18 @@ def ssd_err(torch, got, want, dtype_name):
 
 def phase_ssd_check(torch, SK):
     worst = 0.0
-    for case in SSD_CASES:
+    cases = [(c, False) for c in SSD_CASES] + [(SSD_LARGE_STATE_CASE, True)]
+    for case, large in cases:
         for dtype_name in ("float32", "bfloat16"):
-            args = ssd_inputs(torch, case, dtype_name)
+            args = ssd_inputs(torch, case, dtype_name, large_state=large)
             got = SK.ssd_chunked_fwd(*args, chunk=case[-1])
             want = SK.ssd_chunked_fwd_plain(*args, chunk=case[-1])
             torch.cuda.synchronize()
             err, bound, abs_err = ssd_err(torch, got, want, dtype_name)
             ok = err <= bound
             log(f"ssd check B {case[0]} L {case[1]} H {case[2]} P {case[3]} "
-                f"N {case[4]} G {case[5]} chunk {case[6]} {dtype_name}: "
+                f"N {case[4]} G {case[5]} chunk {case[6]}"
+                f"{' large state' if large else ''} {dtype_name}: "
                 f"err {err:.3e} bound {bound:g} "
                 f"({'x max|y|' if dtype_name == 'float32' else 'abs'})  "
                 f"max|y| {float(want[0].abs().max()):.1f}  "
@@ -1120,6 +1211,11 @@ def phase_hybrid_serve(torch, K, FK, SK):
     if gqa + seg != n_dec or launches != want or not launches[SSD]:
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"({n_pref} prefill, {n_dec} decode calls)")
+    # bf16 serving: every SSD launch was the tensor-core kernel
+    routes = {"ssd_mma_kernel": want[SSD], "ssd_fwd_kernel": 0}
+    log(f"hserve ssd kernels {SK.KERNEL_LAUNCHES}")
+    if SK.KERNEL_LAUNCHES != routes:
+        raise AssertionError(f"SSD kernels {SK.KERNEL_LAUNCHES} != {routes}")
     # the engine picked the configs phase 3 checked at these shapes (tile
     # None: the page's default tile)
     shp = PAGED_SHAPES[HYBRID_ARCH]
@@ -1154,7 +1250,8 @@ def mlstm_inputs(torch, case, dtype_name, seed=7):
     bsz, l, h, p, chunk, gates, state = case
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn((bsz, l, h, p), generator=g).to(dtype)
+    qkv_scale = 0.01 if state == "large" else 1.0
+    q, k, v = ((qkv_scale * torch.randn((bsz, l, h, p), generator=g)).to(dtype)
                for _ in range(3))
     ig = torch.randn((bsz, l, h), generator=g)
     fg = torch.randn((bsz, l, h), generator=g) + 2.0
@@ -1169,10 +1266,16 @@ def mlstm_inputs(torch, case, dtype_name, seed=7):
     bcum = chunk_cumsum(torch.nn.functional.logsigmoid(fg).reshape(
         bsz, nc, chunk, h))
     gg = torch.cummax(ig.reshape(bsz, nc, chunk, h) - bcum, 2).values
-    if state == "nonzero":
-        c0 = 0.1 * torch.randn((bsz, h, p, p), generator=g)
-        n0 = 0.1 * torch.randn((bsz, h, p), generator=g)
-        m0 = torch.randn((bsz, h), generator=g)
+    if state in ("nonzero", "large"):
+        # "large": m0 ~30 keeps decay = 1 (m_in above every chunk's gate
+        # max), so C and n stay ~100 through the chunks; q and n0 positive,
+        # so no denominator q . n_in cancels towards 0
+        s_scale, m_shift = (100.0, 30.0) if state == "large" else (0.1, 0.0)
+        c0 = s_scale * torch.randn((bsz, h, p, p), generator=g)
+        n0 = s_scale * torch.randn((bsz, h, p), generator=g)
+        m0 = m_shift + torch.randn((bsz, h), generator=g)
+        if state == "large":
+            q, n0 = q.abs(), n0.abs()
     else:
         c0, n0, m0 = mops.zero_state(bsz, h, p, "cpu")
     return tuple(t.contiguous().to(DEVICE) for t in (
@@ -1326,6 +1429,13 @@ def phase_xlstm_serve(torch, kernel_modules):
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"({n_pref} prefill, {n_dec} decode calls), "
                              f"dispatch {dict(eng.dispatch_counts)}")
+    # bf16 serving: every mLSTM launch was the tensor-core kernel
+    MK = next(m for m in kernel_modules if MLSTM in m.LAUNCHES)
+    routes = {"mlstm_mma_kernel": want[MLSTM], "mlstm_fwd_kernel": 0}
+    log(f"xserve mlstm kernels {MK.KERNEL_LAUNCHES}")
+    if MK.KERNEL_LAUNCHES != routes:
+        raise AssertionError(f"mLSTM kernels {MK.KERNEL_LAUNCHES} != "
+                             f"{routes}")
     toks = sum(len(r.output) for r in reqs)
     prompt_toks = sum(r.num_prompt_tokens for r in reqs)
     log(f"xserve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "
@@ -1437,8 +1547,9 @@ def main() -> int:
     hybrid_launches = phase_hybrid_serve(torch, K, FK, SK)
     lap("13 hserve")
 
-    # 14. the hybrid on the card vs the CPU, fp32
-    phase_engine_diff(torch, HYBRID_ARCH, SEED + 3, "hdiff", HDIFF_LAYERS)
+    # 14. the hybrid on the card vs the CPU, fp32; then one bf16 prefill
+    phase_engine_diff(torch, HYBRID_ARCH, SEED + 3, "hdiff", HDIFF_LAYERS,
+                      (SK, "ssd_mma_kernel"))
     lap("14 hdiff")
 
     # 15. the mLSTM kernel against its plain version
@@ -1453,8 +1564,9 @@ def main() -> int:
     xlstm_launches = phase_xlstm_serve(torch, (K, FK, SK, MK))
     lap("17 xserve")
 
-    # 18. xlstm on the card vs the CPU, fp32
-    phase_engine_diff(torch, XLSTM_ARCH, SEED + 5, "xdiff", XDIFF_LAYERS)
+    # 18. xlstm on the card vs the CPU, fp32; then one bf16 prefill
+    phase_engine_diff(torch, XLSTM_ARCH, SEED + 5, "xdiff", XDIFF_LAYERS,
+                      (MK, "mlstm_mma_kernel"))
     lap("18 xdiff")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,

@@ -47,6 +47,15 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {dev}")
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels copy their operands with 16-byte
+    cp.async: each must start on a 16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned "
+                             f"tensors (data_ptr {t.data_ptr():#x})")
+
+
 def _check_mma(name: str, d: int, *tensors: torch.Tensor) -> None:
     """What the bf16 tensor-core attention kernels take: head dim 64 or
     128, and 16-byte aligned rows for their cp.async copies."""
@@ -54,10 +63,7 @@ def _check_mma(name: str, d: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: head_dim {d} has no bf16 tensor-core "
                          f"kernel (head dims {MMA_HEAD_DIMS}); it is not "
                          f"sent to a slower one")
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned "
-                             f"tensors (data_ptr {t.data_ptr():#x})")
+    _check_aligned(name, *tensors)
 
 
 def _tile_update(q, k, v, mask, scale, acc, m, l):

@@ -10,8 +10,12 @@ inclusive cumsum of dt * A within each chunk of `chunk` tokens), s0
 B / C are read through the group h // (H / G) rather than repeated per
 head.  Returns (y [B, L, H, P] fp32 without the D skip, final state
 [B, H, N, P] fp32).  A CUDA tensor launches the kernel on the current
-stream (or raises); a CPU tensor runs the plain version.  Each kernel
-launch adds one to `LAUNCHES["ssd_chunked_fwd"]`.
+stream (or raises); a CPU tensor runs the plain version.  bf16 runs the
+tensor-core kernel (`ssd_mma_kernel`: x, B and C must be 16-byte aligned,
+else ValueError before the launch), fp32 the scalar one
+(`ssd_fwd_kernel`); both take every shape below the limits.  Each kernel
+launch adds one to `LAUNCHES["ssd_chunked_fwd"]` and one to the launched
+kernel's `KERNEL_LAUNCHES` entry.
 """
 from __future__ import annotations
 
@@ -20,18 +24,24 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import _on_card, _ptr, _raise_on, _stream
+from repro_torch.kernels._common import (_check_aligned, _on_card, _ptr,
+                                         _raise_on, _stream)
 
 MAX_CHUNK = 128  # tokens per chunk (rows of the in-block score tile)
 MAX_STATE = 64   # state size N
 _LIB_NAME = "mamba2_ssd"
 
 LAUNCHES: dict[str, int] = {"ssd_chunked_fwd": 0}
+# the same launches by CUDA kernel: the entry point sends bf16 to the
+# tensor-core kernel and fp32 to the scalar one (by dtype, never as a
+# fallback); the library says which (`ssd_chunked_fwd_uses_mma`)
+KERNEL_LAUNCHES: dict[str, int] = {"ssd_mma_kernel": 0, "ssd_fwd_kernel": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 _P = ctypes.c_void_p
@@ -46,6 +56,8 @@ def library() -> ctypes.CDLL:
         f = lib.ssd_chunked_fwd
         f.argtypes = [_P] * 8 + [_I] * 8 + [_P]
         f.restype = _I
+        lib.ssd_chunked_fwd_uses_mma.argtypes = [_I]
+        lib.ssd_chunked_fwd_uses_mma.restype = _I
         _BOUND[id(lib)] = lib
     return lib
 
@@ -128,13 +140,19 @@ def ssd_chunked_fwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if n > MAX_STATE:
         raise ValueError(f"{name}: state size N = {n} exceeds the CUDA "
                          f"kernel's {MAX_STATE}")
+    bf16 = int(x.dtype == torch.bfloat16)
+    if bf16:  # the tensor-core kernel copies x, B and C with cp.async
+        _check_aligned(name, x, b, c)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     s_fin = torch.empty_like(s0)
     with torch.cuda.device(x.device):
-        rc = library().ssd_chunked_fwd(
+        lib = library()
+        rc = lib.ssd_chunked_fwd(
             _ptr(x), _ptr(dt), _ptr(b), _ptr(c), _ptr(a_cum), _ptr(s0),
-            _ptr(y), _ptr(s_fin), bsz, l, h, p, n, b.shape[2], chunk,
-            int(x.dtype == torch.bfloat16), _stream(x))
+            _ptr(y), _ptr(s_fin), bsz, l, h, p, n, b.shape[2], chunk, bf16,
+            _stream(x))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["ssd_mma_kernel" if lib.ssd_chunked_fwd_uses_mma(bf16)
+                    else "ssd_fwd_kernel"] += 1
     return y, s_fin

@@ -14,8 +14,12 @@ tokens, and cummax(ig - bcum) within the chunk); the initial state c0
 [B, H, P, P], n0 [B, H, P], m0 [B, H] fp32 (m0 = -inf: the zero state).
 Returns (h [B, L, H, P] in q's dtype, C [B, H, P, P], n [B, H, P],
 m [B, H] fp32).  A CUDA tensor launches the kernel on the current stream
-(or raises); a CPU tensor runs the plain version.  Each kernel launch adds
-one to `LAUNCHES["mlstm_chunked_fwd"]`.
+(or raises); a CPU tensor runs the plain version.  bf16 runs the
+tensor-core kernel (`mlstm_mma_kernel`: q, k and v must be 16-byte
+aligned, else ValueError before the launch), fp32 the scalar one
+(`mlstm_fwd_kernel`); both take every shape below the limits.  Each
+kernel launch adds one to `LAUNCHES["mlstm_chunked_fwd"]` and one to the
+launched kernel's `KERNEL_LAUNCHES` entry.
 """
 from __future__ import annotations
 
@@ -24,18 +28,25 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import _on_card, _ptr, _raise_on, _stream
+from repro_torch.kernels._common import (_check_aligned, _on_card, _ptr,
+                                         _raise_on, _stream)
 
 MAX_CHUNK = 64  # tokens per chunk (rows of the in-block score tile)
-MAX_HEAD_DIM = 512  # P: the C tile [P, 64] lives in shared memory
+MAX_HEAD_DIM = 512  # P: a block's C tile [P, 64] (shared memory or registers)
 _LIB_NAME = "mlstm_chunked"
 
 LAUNCHES: dict[str, int] = {"mlstm_chunked_fwd": 0}
+# the same launches by CUDA kernel: the entry point sends bf16 to the
+# tensor-core kernel and fp32 to the scalar one (by dtype, never as a
+# fallback); the library says which (`mlstm_chunked_fwd_uses_mma`)
+KERNEL_LAUNCHES: dict[str, int] = {"mlstm_mma_kernel": 0,
+                                   "mlstm_fwd_kernel": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 _P = ctypes.c_void_p
@@ -50,6 +61,8 @@ def library() -> ctypes.CDLL:
         f = lib.mlstm_chunked_fwd
         f.argtypes = [_P] * 13 + [_I] * 5 + [ctypes.c_float, _I, _P]
         f.restype = _I
+        lib.mlstm_chunked_fwd_uses_mma.argtypes = [_I]
+        lib.mlstm_chunked_fwd_uses_mma.restype = _I
         _BOUND[id(lib)] = lib
     return lib
 
@@ -152,13 +165,19 @@ def mlstm_chunked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if p > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim P = {p} exceeds the CUDA "
                          f"kernel's {MAX_HEAD_DIM}")
+    bf16 = int(q.dtype == torch.bfloat16)
+    if bf16:  # the tensor-core kernel copies q, k and v with cp.async
+        _check_aligned(name, q, k, v)
     hout = torch.empty_like(q)
     c_fin, n_fin, m_fin = (torch.empty_like(t) for t in (c0, n0, m0))
     with torch.cuda.device(q.device):
-        rc = library().mlstm_chunked_fwd(
+        lib = library()
+        rc = lib.mlstm_chunked_fwd(
             *(_ptr(t) for t in args), _ptr(hout), _ptr(c_fin), _ptr(n_fin),
-            _ptr(m_fin), bsz, l, h, p, chunk, float(scale),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            _ptr(m_fin), bsz, l, h, p, chunk, float(scale), bf16, _stream(q))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["mlstm_mma_kernel"
+                    if lib.mlstm_chunked_fwd_uses_mma(bf16)
+                    else "mlstm_fwd_kernel"] += 1
     return hout, c_fin, n_fin, m_fin

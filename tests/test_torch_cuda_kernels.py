@@ -13,10 +13,12 @@ with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
 7.8e-3; p is rounded to bf16 before p.V on both sides).  In bf16 the
 flash forward and the Q-Block prefill run on the tensor-core kernels
 (head dim 64 or 128; another head dim raises), in fp32 on the scalar
-ones.  The SSD sums up
+ones; so do the SSD and the mLSTM (every shape; bf16 operands must be
+16-byte aligned).  The SSD sums up
 to 128 x 64 products of values as large as |y| in another order than the
 plain version's matmuls: fp32 within 1e-5 x max |y| (TF32 off); bf16
-inputs are widened exactly and summed in fp32 on both sides, within 2e-2.
+within 2e-2 (the bf16 inputs are exact on both sides; the tensor-core
+kernel's fp32 operands go in as bf16 hi + lo halves, ~2^-17 of a term).
 The mLSTM divides sums of up to 64 + 512 products (another order than the
 plain version's) by a denominator that can sit at its exp(-m) floor:
 fp32 within 2e-5 x max |out|; with bf16 inputs the fp32 state within the
@@ -425,23 +427,29 @@ SSD_CASES = [  # B, L, H, P, N, G, chunk
     (2, 256, 4, 128, 64, 1, 128),  # zamba2's widths, two column blocks
     (1, 16, 4, 128, 64, 1, 16),  # a short prompt: one chunk of 16
     (1, 96, 3, 48, 24, 3, 24),  # ragged: P 48 of 64 columns, Q 24 of 32
+    # across the bf16 kernel's MMA tiles: P 40 (two and a half n-tile
+    # pairs), N 8 (half a k-block), Q 40 (two and a half warp slabs); P 20
+    # and N 12 (rows of 40 and 24 bytes: copied element-wise, not by
+    # 16-byte cp.async), Q 12
+    (2, 80, 2, 40, 8, 1, 40),
+    (1, 36, 2, 20, 12, 2, 12),
 ]
 
 
-def _ssd_inputs(dev, dtype, case, seed=0):
+def _ssd_inputs(dev, dtype, case, seed=0, *, x_scale=1.0, state_scale=1.0):
     """x, dt, a, b, c, d as tests/test_kernels_mamba2.py draws them, plus
-    a nonzero initial state."""
+    a nonzero initial state (x and the state scaled as given)."""
     b, l, h, p, n, g, _ = case
     rng = np.random.default_rng(seed)
     t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
         np.asarray(a, np.float32)).to(dt).to(dev)
-    return (t(rng.standard_normal((b, l, h, p)), dtype),
+    return (t(x_scale * rng.standard_normal((b, l, h, p)), dtype),
             t(np.abs(rng.standard_normal((b, l, h))) * 0.5 + 0.01),
             t(-np.abs(rng.standard_normal(h)) - 0.1),
             t(rng.standard_normal((b, l, g, n)), dtype),
             t(rng.standard_normal((b, l, g, n)), dtype),
             t(rng.standard_normal(h)),
-            t(rng.standard_normal((b, h, n, p))))
+            t(state_scale * rng.standard_normal((b, h, n, p))))
 
 
 def _ssd_close(got, want, dtype):
@@ -469,6 +477,26 @@ def test_ssd_kernel_matches_plain(cuda, dtype, case):
     _ssd_close(s, want_s, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_large_state(cuda, dtype):
+    """An initial state of ~100 under small x: y is ~exp(a) C S_in, up to
+    ~10^3.  The bf16 kernel feeds S_in to the tensor cores as bf16 hi + lo
+    halves: one rounding of S_in (2^-9 of ~100 a term, over 64 terms)
+    would miss the absolute 2e-2; the two halves keep ~2^-17."""
+    case = (2, 256, 4, 128, 64, 1, 128)
+    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, dtype, case, seed=4,
+                                        x_scale=0.01, state_scale=100.0)
+    bsz, l, h, _ = x.shape
+    a_cum = sops.chunk_cumsum((dt * a).reshape(bsz, l // 128, 128, h)
+                              ).reshape(bsz, l, h)
+    y, s = SK.ssd_chunked_fwd(x, dt, b, c, a_cum, s0, chunk=128)
+    want_y, want_s = SK.ssd_chunked_fwd_plain(x, dt, b, c, a_cum, s0,
+                                              chunk=128)
+    assert float(want_y.abs().max()) > 100.0
+    _ssd_close(y, want_y, dtype)
+    _ssd_close(s, want_s, dtype)
+
+
 def test_mamba2_ssd_on_card_matches_cpu(cuda):
     """The op (cumsum, kernel, D skip) on the card vs on the CPU, fp32."""
     case = (2, 256, 4, 128, 64, 1, 128)
@@ -480,16 +508,38 @@ def test_mamba2_ssd_on_card_matches_cpu(cuda):
         _ssd_close(got.cpu(), want, torch.float32)
 
 
-def test_ssd_kernel_rejects_unsupported_shapes(cuda):
-    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, torch.float32,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_rejects_unsupported_shapes(cuda, dtype):
+    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, dtype,
                                         (1, 256, 2, 16, 8, 1, 256))
     a_cum = torch.zeros_like(dt)
+    n0 = SK.LAUNCHES["ssd_chunked_fwd"]
     with pytest.raises(ValueError, match="128"):
         SK.ssd_chunked_fwd(x, dt, b, c, a_cum, s0, chunk=256)
-    b = torch.zeros((1, 256, 1, 80), device=cuda)
+    b = torch.zeros((1, 256, 1, 80), device=cuda, dtype=dtype)
     s0 = torch.zeros((1, 2, 80, 16), device=cuda)
     with pytest.raises(ValueError, match="64"):
         SK.ssd_chunked_fwd(x, dt, b, b, a_cum, s0, chunk=128)
+    assert SK.LAUNCHES["ssd_chunked_fwd"] == n0
+
+
+def test_ssd_bf16_rejects_misaligned(cuda):
+    """The tensor-core SSD copies x, B and C with 16-byte cp.async: an
+    operand 2 bytes off a 16-byte boundary raises before the launch (and is
+    not sent to the scalar kernel)."""
+    case = (1, 32, 2, 16, 8, 1, 16)
+    x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, torch.bfloat16, case)
+    a_cum = torch.zeros_like(dt)
+    for which in range(3):
+        args = [x, b, c]
+        flat = torch.zeros(args[which].numel() + 1, dtype=torch.bfloat16,
+                           device=cuda)
+        args[which] = flat[1:].view(args[which].shape)
+        n0 = dict(SK.KERNEL_LAUNCHES)
+        with pytest.raises(ValueError, match="16-byte"):
+            SK.ssd_chunked_fwd(args[0], dt, args[1], args[2], a_cum, s0,
+                               chunk=16)
+        assert SK.KERNEL_LAUNCHES == n0
 
 
 def test_hybrid_engine_on_card_matches_cpu(cuda):
@@ -518,22 +568,40 @@ def test_hybrid_engine_on_card_matches_cpu(cuda):
 # (B, L, H, P, chunk): tests/test_kernels_mlstm.py's cases, a short prompt
 # and xlstm-350m's serve shape
 MLSTM_CASES = [(2, 64, 3, 16, 16), (1, 128, 4, 64, 32), (2, 32, 1, 32, 8),
-               (8, 16, 4, 512, 16), (8, 1024, 4, 512, 64)]
+               (8, 16, 4, 512, 16), (8, 1024, 4, 512, 64),
+               # across the bf16 kernel's MMA tiles: P 16 (C^T halves of one
+               # k-block), Q 8 (half a 16-row slab); P 40 and Q 24; P 20
+               # (rows of 40 bytes: copied element-wise), Q 12; P 136 (a
+               # second, ragged column block)
+               (2, 24, 2, 16, 8), (1, 48, 2, 40, 24), (1, 24, 1, 20, 12),
+               (1, 64, 2, 136, 32)]
 
 
-def _mlstm_inputs(dev, dtype, case, *, state, seed=0):
+def _mlstm_inputs(dev, dtype, case, *, state, seed=0, qkv_scale=1.0,
+                  state_scale=0.1):
     b, l, h, p, chunk = case
     rng = np.random.default_rng(seed)
     t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
         np.asarray(a, np.float32)).to(dt).to(dev)
-    q, k, v = (t(rng.standard_normal((b, l, h, p)), dtype) for _ in range(3))
+    q, k, v = (t(qkv_scale * rng.standard_normal((b, l, h, p)), dtype)
+               for _ in range(3))
     ig = rng.standard_normal((b, l, h))
     fg = rng.standard_normal((b, l, h)) + 2.0
-    st = ((t(0.1 * rng.standard_normal((b, h, p, p))),
-           t(0.1 * rng.standard_normal((b, h, p))),
+    st = ((t(state_scale * rng.standard_normal((b, h, p, p))),
+           t(state_scale * rng.standard_normal((b, h, p))),
            t(rng.standard_normal((b, h)))) if state
           else mops.zero_state(b, h, p, dev))
     return q, k, v, t(ig), t(fg), st
+
+
+def _mlstm_gates(ig, fg, case):
+    """(bcum, g) [B, L, H] from the gate preactivations, as the op forms
+    them."""
+    b, l, h, _, chunk = case
+    lf = torch.nn.functional.logsigmoid(fg)
+    bcum = chunk_cumsum(lf.reshape(b, l // chunk, chunk, h))
+    g = torch.cummax(ig.reshape(b, l // chunk, chunk, h) - bcum, 2).values
+    return bcum.reshape(b, l, h), g.reshape(b, l, h)
 
 
 def _mlstm_close(got, want, rtol):
@@ -547,11 +615,8 @@ def _mlstm_close(got, want, rtol):
 @pytest.mark.parametrize("case", MLSTM_CASES)
 def test_mlstm_kernel_matches_plain(cuda, dtype, case, state):
     q, k, v, ig, fg, st = _mlstm_inputs(cuda, dtype, case, state=state)
-    b, l, h, p, chunk = case
-    lf = torch.nn.functional.logsigmoid(fg)
-    bcum = chunk_cumsum(lf.reshape(b, l // chunk, chunk, h))
-    g = torch.cummax(ig.reshape(b, l // chunk, chunk, h) - bcum, 2).values
-    args = (q, k, v, ig, bcum.reshape(b, l, h), g.reshape(b, l, h), *st)
+    p, chunk = case[3], case[4]
+    args = (q, k, v, ig, *_mlstm_gates(ig, fg, case), *st)
     n0 = MK.LAUNCHES["mlstm_chunked_fwd"]
     got = MK.mlstm_chunked_fwd(*args, chunk=chunk, scale=p ** -0.5)
     want = MK.mlstm_chunked_fwd_plain(*args, chunk=chunk, scale=p ** -0.5)
@@ -561,6 +626,53 @@ def test_mlstm_kernel_matches_plain(cuda, dtype, case, state):
     _mlstm_close(got[0], want[0], 2e-5 if dtype == torch.float32 else 8e-3)
     for a, w in zip(got[1:], want[1:]):
         _mlstm_close(a, w, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_large_state(cuda, dtype):
+    """An initial C and n of ~100 under small q, k, v, and m0 ~30 (above
+    every chunk's gate max, so decay = 1 and the state stays ~100): h is
+    ~(q C_in) / (q . n_in).  q and n0 are positive, so no row's
+    denominator cancels towards 0 (where h would be ill-conditioned in any
+    summation order).  The bf16 kernel feeds C_in to the tensor cores as
+    bf16 hi + lo halves; the state keeps the fp32 bound (2e-5 x max)."""
+    case = (2, 128, 2, 64, 32)
+    q, k, v, ig, fg, (c0, n0, m0) = _mlstm_inputs(
+        cuda, dtype, case, state=True, seed=5, qkv_scale=0.01,
+        state_scale=100.0)
+    args = (q.abs(), k, v, ig, *_mlstm_gates(ig, fg, case), c0, n0.abs(),
+            m0 + 30.0)
+    got = MK.mlstm_chunked_fwd(*args, chunk=32, scale=64 ** -0.5)
+    want = MK.mlstm_chunked_fwd_plain(*args, chunk=32, scale=64 ** -0.5)
+    assert float(want[1].abs().max()) > 100.0
+    _mlstm_close(got[0], want[0], 2e-5 if dtype == torch.float32 else 8e-3)
+    for a, w in zip(got[1:], want[1:]):
+        _mlstm_close(a, w, 2e-5)
+
+
+def test_ssm_kernels_choose_by_dtype(cuda):
+    """bf16 reaches the tensor-core kernels, fp32 the scalar ones: the
+    wrappers count each launch under the kernel the library launched."""
+    ssd_case = (1, 32, 2, 16, 8, 1, 16)
+    ml_case = (1, 32, 2, 16, 16)
+    for dtype, ssd_k, ml_k in ((torch.bfloat16, "ssd_mma_kernel",
+                                "mlstm_mma_kernel"),
+                               (torch.float32, "ssd_fwd_kernel",
+                                "mlstm_fwd_kernel")):
+        x, dt, a, b, c, _, s0 = _ssd_inputs(cuda, dtype, ssd_case)
+        q, k, v, ig, fg, st = _mlstm_inputs(cuda, dtype, ml_case, state=False)
+        SK.reset_launches()
+        MK.reset_launches()
+        SK.ssd_chunked_fwd(x, dt, b, c, torch.zeros_like(dt), s0, chunk=16)
+        MK.mlstm_chunked_fwd(q, k, v, ig, *_mlstm_gates(ig, fg, ml_case),
+                             *st, chunk=16, scale=0.25)
+        torch.cuda.synchronize()
+        assert SK.KERNEL_LAUNCHES == {k_: int(k_ == ssd_k)
+                                      for k_ in SK.KERNEL_LAUNCHES}
+        assert MK.KERNEL_LAUNCHES == {k_: int(k_ == ml_k)
+                                      for k_ in MK.KERNEL_LAUNCHES}
+        assert SK.LAUNCHES == {"ssd_chunked_fwd": 1}
+        assert MK.LAUNCHES == {"mlstm_chunked_fwd": 1}
 
 
 def test_mlstm_on_card_matches_cpu(cuda):
@@ -579,17 +691,40 @@ def test_mlstm_on_card_matches_cpu(cuda):
         _mlstm_close(a.cpu(), w, 2e-5)
 
 
-def test_mlstm_kernel_rejects_unsupported_shapes(cuda):
-    q, k, v, ig, fg, st = _mlstm_inputs(cuda, torch.float32,
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_rejects_unsupported_shapes(cuda, dtype):
+    n0 = MK.LAUNCHES["mlstm_chunked_fwd"]
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, dtype,
                                         (1, 128, 1, 16, 128), state=False)
     gates = (ig, ig, ig)
     with pytest.raises(ValueError, match="64"):
         MK.mlstm_chunked_fwd(q, k, v, *gates, *st, chunk=128, scale=1.0)
-    q, k, v, ig, fg, st = _mlstm_inputs(cuda, torch.float32,
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, dtype,
                                         (1, 16, 1, 640, 16), state=False)
     gates = (ig, ig, ig)
     with pytest.raises(ValueError, match="512"):
         MK.mlstm_chunked_fwd(q, k, v, *gates, *st, chunk=16, scale=1.0)
+    assert MK.LAUNCHES["mlstm_chunked_fwd"] == n0
+
+
+def test_mlstm_bf16_rejects_misaligned(cuda):
+    """The tensor-core mLSTM copies q, k and v with 16-byte cp.async: an
+    operand 2 bytes off a 16-byte boundary raises before the launch (and
+    is not sent to the scalar kernel)."""
+    case = (1, 32, 2, 16, 16)
+    q, k, v, ig, fg, st = _mlstm_inputs(cuda, torch.bfloat16, case,
+                                        state=False)
+    gates = _mlstm_gates(ig, fg, case)
+    for which in range(3):
+        args = [q, k, v]
+        flat = torch.zeros(args[which].numel() + 1, dtype=torch.bfloat16,
+                           device=cuda)
+        args[which] = flat[1:].view(args[which].shape)
+        n0 = dict(MK.KERNEL_LAUNCHES)
+        with pytest.raises(ValueError, match="16-byte"):
+            MK.mlstm_chunked_fwd(*args, ig, *gates, *st, chunk=16,
+                                 scale=0.25)
+        assert MK.KERNEL_LAUNCHES == n0
 
 
 def test_xlstm_engine_on_card_matches_cpu(cuda):
