@@ -10,7 +10,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
   1. device   the card's name and `nvidia-smi` name / power limit
   2. build    compile every csrc/*.cu with nvcc (sm_90a), one nvcc per
               source, all started together
-  3. check    each of the four paged-attention kernels against its plain
+  3. check    each of the four paged-attention kernels, and the segmented
+              decode with the merge folded into its launch (the serving
+              path's C3 decode), against its plain
               PyTorch version on the card, at the shapes both serve phases
               give them: smollm-135m's packed step (Hkv 3, group 3, D 64, page
               16, 8 sequences with contexts 0..2048, a 512-token prefill
@@ -28,7 +30,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               7.8e-3, and p is rounded to bf16 before p.V on both sides;
               bf16 prefill runs the tensor-core kernel, fp32 the scalar
               one); a context-0 decode row is exact zeros and every
-              segment without a live key exactly (acc 0, m NEG, l 0)
+              segment without a live key exactly (acc 0, m NEG, l 0); the
+              folded launch gives the bits of the segmented kernel
+              followed by the standalone merge
   4. time     median kernel time over CUDA events (L2 flushed before each
               launch; the events also time the wrapper's host enqueue
               where it outlasts the flush, so the wrapper's host time is
@@ -37,11 +41,17 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               FLOPs at peak); further `time` rows, logged only: the
               Q-Block prefill and both decode kernels at zamba2-1.2b's
               shapes (padded prefill; Hkv 32, group 1 decode), both
-              decode kernels at qwen2.5-3b's heads (D 128, group 8)
+              decode kernels at qwen2.5-3b's heads (D 128, group 8); the
+              folded C3 launch beside the two launches it replaces (the
+              `segment_reduce` row of the kernels' JSON is the folded
+              launch)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
               8 requests (prompts 128-1024, 32 new tokens, max_seqs 8,
               chunked prefill) through the packed fused step; the kernel
-              launch counters are zeroed just before and read just after
+              launch counters are zeroed just before and read just after:
+              every paged kernel launched, each C3 decode one launch of
+              the folded kernel (`KERNEL_LAUNCHES`: the partial-only
+              kernel and the standalone merge never)
   6. diff     full width in fp32 (TF32 off): 3 greedy requests of 8 new
               tokens on the card (CUDA kernels) and on the CPU (plain
               versions), stepped in lockstep: identical tokens, logits
@@ -92,9 +102,10 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               per Mamba2 layer per prefill (32 x, every launch the
               tensor-core kernel), the Q-Block prefill once
               per shared-attention invocation per prefill (6 x), the decode
-              kernels 6 x per decode step (x 2 for segmented: partials +
-              merge), the flash kernel never; the configs the engine picked
-              are the ones phase 3 checked
+              kernels 6 x per decode step (one launch: a segmented step's
+              partials and merge are one folded kernel), the flash kernel
+              never; the configs the engine picked are the ones phase 3
+              checked
  14. hdiff    zamba2 at full width cut to 12 layers (two groups of five
               Mamba2 blocks and the shared block), fp32 (TF32 off): 3
               greedy requests of 8 new tokens on the card and on the CPU,
@@ -162,6 +173,10 @@ REPLACES = {
     "segment_reduce": "src/repro/kernels/paged_attention/kernel.py:359",
     "paged_prefill_qblock": "src/repro/kernels/paged_attention/kernel.py:454",
 }
+# the serving path's C3 decode (segmented partials and merge in one
+# launch), and the two launches it replaces, timed as one call
+MERGED = "paged_decode_segmented_merged"
+PAIR = "paged_decode_segmented+segment_reduce"
 FLASH = "flash_attention_fwd"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
@@ -407,6 +422,11 @@ def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
         "segment_reduce": (
             lambda: K.segment_reduce(*parts, dtype),
             lambda: K.segment_reduce_plain(*parts, dtype)),
+        MERGED: (
+            lambda: K.paged_decode_segmented_merged(qg, kt, vt, pt, ctx,
+                                                    **seg_kw),
+            lambda: K.paged_decode_segmented_merged_plain(qg, kt, vt, pt, ctx,
+                                                          **seg_kw)),
     }
     pf = None
     if shp["qlens"] is not None:
@@ -452,10 +472,17 @@ def dead_segments_exact(torch, x):
         and bool((o.permute(0, 2, 1, 3, 4)[dead] == 0).all())
 
 
+def same_bits(torch, a, b):
+    """True when a and b hold the same bits (not merely equal values)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
 def phase_check(torch, K, tops):
     """Each paged kernel against its plain version at both serve phases'
-    shapes and at qwen2.5-3b's and glm4-9b's heads; returns each kernel's
-    worst error over all of them."""
+    shapes and at qwen2.5-3b's and glm4-9b's heads, and the folded C3
+    launch against the two launches it replaces, bit for bit; returns
+    each kernel's worst error over all of them."""
     errs: dict[str, float] = {}
     for arch, shp in PAGED_SHAPES.items():
         hkv, group, d, page_size = paged_heads(arch)
@@ -473,7 +500,7 @@ def phase_check(torch, K, tops):
                     torch.cuda.synchronize()
                     err = max_err(torch, name, got, want)
                     ok = err <= ATOL[dtype_name]
-                    log(f"check {name:24s} {arch:12s} Hkv {hkv:2d} group "
+                    log(f"check {name:29s} {arch:12s} Hkv {hkv:2d} group "
                         f"{group} D {d} {dtype_name:8s} page {ps:2d} tile "
                         f"{tile:2d}  max_abs_err {err:.3e}  atol "
                         f"{ATOL[dtype_name]:g}  {'ok' if ok else 'FAIL'}")
@@ -483,11 +510,23 @@ def phase_check(torch, K, tops):
                             f"({arch} shapes, {dtype_name}, page {ps})")
                     base = name.split("[")[0]
                     errs[base] = max(errs.get(base, 0.0), err)
+                merged = calls[MERGED][0]()
+                pair = K.segment_reduce(*calls["paged_decode_segmented"][0](),
+                                        dtype)
+                torch.cuda.synchronize()
+                if not same_bits(torch, merged, pair):
+                    raise AssertionError(
+                        f"{MERGED} differs from paged_decode_segmented + "
+                        f"segment_reduce ({arch}, {dtype_name}, page {ps}): "
+                        f"max abs diff "
+                        f"{float((merged.float() - pair.float()).abs().max())}")
+                log(f"check {MERGED} {arch} {dtype_name} page {ps}: the bits "
+                    f"of paged_decode_segmented + segment_reduce")
                 if shp["ctx"][0] == 0:  # exact zeros for a dead decode row
-                    out = calls["paged_decode"][0]()
-                    if not bool((out[0] == 0).all()):
-                        raise AssertionError("context-0 decode row is not "
-                                             "exact zeros")
+                    for out in (calls["paged_decode"][0](), merged):
+                        if not bool((out[0] == 0).all()):
+                            raise AssertionError("context-0 decode row is "
+                                                 "not exact zeros")
                 if not dead_segments_exact(torch, x):
                     raise AssertionError(f"a dead segment is not exactly "
                                          f"(acc 0, m NEG, l 0): {arch}, "
@@ -551,6 +590,9 @@ def bounds(name, x, dtype_name):
     elif name == "segment_reduce":
         nbytes = seg_out + q.numel() * e
         flops = 3 * s * hkv * nseg * m * d
+    elif name in (MERGED, PAIR):  # the partials are workspace
+        nbytes = 2 * q.numel() * e + 2 * live_kv * hkv * d * e + meta
+        flops = 4 * hq * d * sum(ctx_l) + 3 * s * hkv * nseg * m * d
     else:  # paged_prefill_qblock
         pf = x["pf"]
         pctx = [int(c) for c in pf["ctx"].tolist()]
@@ -605,13 +647,17 @@ def library_calls(torch, x):
         v = pf["v"][:, ppt].reshape(hkv, nqb, length, d).transpose(0, 1)
         return F.scaled_dot_product_attention(qp, k, v, attn_mask=pmask)
 
-    return {"paged_decode": decode, "paged_prefill_qblock": prefill}
+    # the folded C3 launch, alone or as two, computes decode's function
+    return {"paged_decode": decode, MERGED: decode, PAIR: decode,
+            "paged_prefill_qblock": prefill}
 
 
 def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
-    """Each paged kernel at smollm's serve shapes (the rows of the kernels'
-    JSON), then, logged only, the Q-Block prefill and both decode kernels
-    at zamba2's shapes and the decode kernels at qwen2.5-3b's heads."""
+    """Each paged kernel and the folded C3 launch at smollm's serve shapes
+    (the rows of the kernels' JSON), the two launches it folds timed as
+    one call, then, logged only, the Q-Block prefill and the decode
+    kernels at zamba2's shapes and the decode kernels at qwen2.5-3b's
+    heads."""
     dtype = getattr(torch, dtype_name)
     ps = 16
     tile = tops.default_tile(ps)
@@ -624,7 +670,7 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
         lib_ms = time_ms(torch, lib[name], iters, flush) if name in lib \
             else None
         bound_ms, bound_by = bounds(name, x, dtype_name)
-        log(f"time  {name:24s} {arch:12s} {dtype_name} kernel_ms {ms:.4f}  "
+        log(f"time  {name:37s} {arch:12s} {dtype_name} kernel_ms {ms:.4f}  "
             f"plain_ms {plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{bound_ms:.5f} ({bound_by})  host_us "
@@ -633,13 +679,16 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
                     bound_ms=bound_ms, bound_by=bound_by)
 
     calls, x = kernel_calls(torch, K, dtype, ps, tile, tops)
+    calls[PAIR] = (lambda: K.segment_reduce(
+        *calls["paged_decode_segmented"][0](), dtype), calls[MERGED][1])
     lib = library_calls(torch, x)
-    rows = {name: row(name, calls, lib, x, ARCH) for name in REPLACES}
+    rows = {name: row(name, calls, lib, x, ARCH)
+            for name in (*REPLACES, MERGED, PAIR)}
     del calls, x, lib
     for arch, names in ((HYBRID_ARCH, ("paged_prefill_qblock", "paged_decode",
-                                       "paged_decode_segmented")),
+                                       "paged_decode_segmented", MERGED)),
                         ("qwen2.5-3b", ("paged_decode",
-                                        "paged_decode_segmented"))):
+                                        "paged_decode_segmented", MERGED))):
         calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
         lib = library_calls(torch, x)
         for name in names:
@@ -651,6 +700,25 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------
+
+
+def check_paged_routes(K, launches, tag, dtype):
+    """The paged kernels a serving run launched, by device kernel: every
+    C3 decode one folded launch (the partial-only kernel and the
+    standalone merge never), every prefill the kernel of the model's dtype
+    (bf16: the tensor-core kernel)."""
+    mma = dtype == "bfloat16"
+    want = {"decode_stream_kernel": launches["paged_decode"],
+            "decode_stream_seg_kernel": 0,
+            "decode_stream_seg_merge_kernel": launches["segment_reduce"],
+            "segment_reduce_kernel": 0,
+            "prefill_mma_kernel": launches["paged_prefill_qblock"] * mma,
+            "prefill_kernel": launches["paged_prefill_qblock"] * (not mma)}
+    log(f"{tag} paged kernels {K.KERNEL_LAUNCHES}")
+    if K.KERNEL_LAUNCHES != want \
+            or launches["paged_decode_segmented"] != launches["segment_reduce"]:
+        raise AssertionError(f"paged kernels {K.KERNEL_LAUNCHES} != {want} "
+                             f"(launches {launches})")
 
 
 def phase_serve(torch, K, FK):
@@ -706,6 +774,7 @@ def phase_serve(torch, K, FK):
         raise AssertionError(f"a kernel was never launched: {launches}")
     if FK.LAUNCHES[FLASH]:
         raise AssertionError("serving launched the training kernel")
+    check_paged_routes(K, launches, "serve", cfg.dtype)
     if {v for _, v in eng.dispatch_counts} != {"gqa", "segmented"}:
         raise AssertionError("expected mixed steps on gqa and decode-heavy "
                              f"steps on segmented: {eng.dispatch_counts}")
@@ -1211,6 +1280,7 @@ def phase_hybrid_serve(torch, K, FK, SK):
     if gqa + seg != n_dec or launches != want or not launches[SSD]:
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"({n_pref} prefill, {n_dec} decode calls)")
+    check_paged_routes(K, launches, "hserve", cfg.dtype)
     # bf16 serving: every SSD launch was the tensor-core kernel
     routes = {"ssd_mma_kernel": want[SSD], "ssd_fwd_kernel": 0}
     log(f"hserve ssd kernels {SK.KERNEL_LAUNCHES}")
@@ -1569,6 +1639,10 @@ def main() -> int:
                       (MK, "mlstm_mma_kernel"))
     lap("18 xdiff")
 
+    # the segment_reduce row is the folded launch that computes it on the
+    # main path (its standalone kernel is checked and timed, never served)
+    times["segment_reduce"] = times[MERGED]
+    errs["segment_reduce"] = max(errs["segment_reduce"], errs[MERGED])
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=errs[name], **times[name])

@@ -48,6 +48,20 @@
 //     [g * tps * tile, min((g + 1) * tps * tile, ctx)) are part of its
 //     contract, since segment_reduce merges the partials.
 //
+// segment_reduce (the C3 merge) is folded into the segmented launch on the
+// serving path (`pa_paged_decode_segmented_merged`): a merge kernel of its
+// own reads a few KB and costs a launch and its host enqueue a layer a
+// decode step, most of its time on a host-bound path.  Each segment block
+// writes its partial as before, then arrives on a counter of its
+// (sequence, KV head, row group); the last of the nseg blocks to arrive
+// merges every partial (from L2, with __ldcg) and writes the normalised
+// output.  No block waits for another, so residency cannot deadlock the
+// grid, and the last block re-arms its counter to 0, so no memset is
+// launched and the next launch (or a graph replay) finds it zeroed.  The
+// merge is one device function (`merge_segments`) shared with the
+// standalone `segment_reduce_kernel`: on the same partials the two give
+// the same bits.
+//
 // `attend` (the scalar routine that stages K/V through shared memory) is
 // left only for the fp32 prefill.
 //
@@ -336,16 +350,50 @@ inline size_t stream_smem_bytes(int RB, int D) {
                           (size_t)kStreamWarps * RB * D);
 }
 
+// The C3 merge (paper Listing 5) of rows r0 .. r0 + nrows - 1 of one
+// (sequence, KV head): o [nseg][M][D], m / l [nseg][M] its partials, out
+// [M][D].  Each segment is rescaled by exp(m_g - max m), a dead one (m <=
+// NEG / 2) dropped, the segments summed in order 0 .. nseg - 1 and the sum
+// normalised with l == 0 -> 1 (all-dead rows give exact zeros).  Both the
+// standalone kernel and the fused epilogue call it, so on the same
+// partials they give the same bits.  Loads bypass L1 (__ldcg): in the
+// fused kernel other blocks wrote the partials.  The segment loops are
+// unrolled so that 8 segments' loads are in flight at once (the sums keep
+// their order): rolled, the last block's merge was a chain of dependent
+// L2 round trips that outlasted the standalone kernel.
+template <typename T>
+__device__ void merge_segments(const float* o, const float* m, const float* l,
+                               T* out, int nseg, int M, int D, int r0,
+                               int nrows) {
+  for (int e = threadIdx.x; e < nrows * D; e += blockDim.x) {
+    const int r = r0 + e / D, d = e % D;
+    float m_star = -FLT_MAX;
+#pragma unroll 8
+    for (int g = 0; g < nseg; ++g) m_star = fmaxf(m_star, __ldcg(m + g * M + r));
+    const float m_safe = m_star > kNeg / 2 ? m_star : 0.f;
+    float l_tot = 0.f, o_tot = 0.f;
+#pragma unroll 8
+    for (int g = 0; g < nseg; ++g) {
+      const float mg = __ldcg(m + g * M + r);
+      const float w = mg > kNeg / 2 ? expf(mg - m_safe) : 0.f;
+      l_tot = fmaf(__ldcg(l + g * M + r), w, l_tot);
+      o_tot = fmaf(__ldcg(o + ((long long)g * M + r) * D + d), w, o_tot);
+    }
+    out[(long long)r * D + d] = from_f<T>(o_tot / (l_tot == 0.f ? 1.f : l_tot));
+  }
+}
+
 struct StreamArgs {
   const void* q;  // [S * Hkv * R, D]: the R rows of (s, h) back to back
   const void* k;  // tile view of the pages; strides in elements
   const void* v;
   const int* page_table;    // [S, Np]
   const int* context_lens;  // [S]
-  void* out;                // paged_decode: q's layout and dtype
+  void* out;                // paged_decode, merged: q's layout and dtype
   float* o_seg;             // segmented: [S, Hkv, nseg, R, D]
   float* m_seg;             // [S, Hkv, nseg, R]
   float* l_seg;
+  int* counters;            // merged: [S * Hkv * row groups], all 0
   int Hkv, R, D;
   int nseg;    // segments (1 for paged_decode)
   int span;    // keys of a segment (tps * tile); unused by paged_decode
@@ -357,10 +405,12 @@ struct StreamArgs {
 // Block (x = (s * Hkv + h) * nseg + g, y) takes rows y * RB .. of
 // (sequence s, KV head h) over one key range [k0, k1): the segment g
 // (kSeg), or the whole context.  Keys at or past min(context, Np * ps) are
-// never read.
-template <typename T, int RB, bool kSeg>
+// never read.  kMerge (with kSeg): the last segment block of (s, h, y)
+// also merges the segments into `out`.
+template <typename T, int RB, bool kSeg, bool kMerge>
 __global__ void __launch_bounds__(kStreamThreads, 2)
     decode_stream_kernel(const StreamArgs a) {
+  static_assert(kSeg || !kMerge, "the merge follows the segment partials");
   // keys a lane loads per step: 8 x 16 bytes of K and V in flight over
   // two steps (4 at RB 8, whose accumulator takes the registers)
   constexpr int kU = (RB >= 8 ? 2 : 4) / Chunk<T>::kVecs;
@@ -603,12 +653,30 @@ __global__ void __launch_bounds__(kStreamThreads, 2)
           from_f<T>(at / (lt == 0.f ? 1.f : lt));
     }
   }
+
+  if constexpr (kMerge) {
+    // publish the partial (every thread's stores, then one arrival);
+    // the last of the nseg arrivals merges and re-arms the counter
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    int* counter = a.counters + (long long)sh * gridDim.y + blockIdx.y;
+    if (tid == 0) last = atomicAdd(counter, 1) == a.nseg - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const long long seg0 = (long long)sh * a.nseg * R;  // (s, h, g 0, row 0)
+    merge_segments<T>(a.o_seg + seg0 * D, a.m_seg + seg0, a.l_seg + seg0,
+                      static_cast<T*>(a.out) + (long long)sh * R * D, a.nseg,
+                      R, D, r0, nrows);
+    if (tid == 0) *counter = 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// segment_reduce — replaces kernel.py:segment_reduce (paper Listing 5).
-// One block per (sequence, KV head): rescale each segment by
-// exp(m_seg - max m), drop dead segments (m <= NEG / 2), sum, normalise.
+// segment_reduce — replaces kernel.py:segment_reduce (paper Listing 5) as
+// a launch of its own, one block per (sequence, KV head).  The serving
+// path runs the same merge in the segmented launch instead (kMerge).
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -616,24 +684,9 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ m_seg,
                           const float* __restrict__ l_seg, T* __restrict__ out,
                           int nseg, int M, int D) {
-  const int b = blockIdx.x;  // s * Hkv + h
-  const float* o = o_seg + (long long)b * nseg * M * D;
-  const float* m = m_seg + (long long)b * nseg * M;
-  const float* l = l_seg + (long long)b * nseg * M;
-  for (int e = threadIdx.x; e < M * D; e += kThreads) {
-    const int r = e / D;
-    float m_star = -FLT_MAX;
-    for (int g = 0; g < nseg; ++g) m_star = fmaxf(m_star, m[g * M + r]);
-    const float m_safe = m_star > kNeg / 2 ? m_star : 0.f;
-    float l_tot = 0.f, o_tot = 0.f;
-    for (int g = 0; g < nseg; ++g) {
-      const float mg = m[g * M + r];
-      const float w = mg > kNeg / 2 ? expf(mg - m_safe) : 0.f;
-      l_tot += l[g * M + r] * w;
-      o_tot += o[(long long)g * M * D + e] * w;
-    }
-    out[(long long)b * M * D + e] = from_f<T>(o_tot / (l_tot == 0.f ? 1.f : l_tot));
-  }
+  const long long b = blockIdx.x;  // s * Hkv + h
+  merge_segments<T>(o_seg + b * nseg * M * D, m_seg + b * nseg * M,
+                    l_seg + b * nseg * M, out + b * M * D, nseg, M, D, 0, M);
 }
 
 // ---------------------------------------------------------------------------
@@ -778,10 +831,10 @@ bool bad_dims(int M, int D, int ps, int tile) {
          ps % tile != 0;
 }
 
-template <typename T, int RB, bool kSeg>
+template <typename T, int RB, bool kSeg, bool kMerge>
 cudaError_t stream_launch(const StreamArgs& a, dim3 grid,
                           cudaStream_t stream) {
-  auto kernel = decode_stream_kernel<T, RB, kSeg>;
+  auto kernel = decode_stream_kernel<T, RB, kSeg, kMerge>;
   const size_t smem = stream_smem_bytes(RB, a.D);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -789,18 +842,26 @@ cudaError_t stream_launch(const StreamArgs& a, dim3 grid,
   return cudaGetLastError();
 }
 
-// One launch: S * Hkv * nseg blocks along x times ceil(R / RB) row groups
-// along y.
-template <typename T, bool kSeg>
+inline int row_groups(int R) {
+  const int RB = rows_per_block(R);
+  return (R + RB - 1) / RB;
+}
+
+// One launch: S * Hkv * nseg blocks along x times the row groups along y.
+template <typename T, bool kSeg, bool kMerge = false>
 int stream_impl(const StreamArgs& a, int S, cudaStream_t stream) {
   if (S * a.Hkv == 0) return cudaSuccess;
-  const int RB = rows_per_block(a.R);
-  const dim3 grid(S * a.Hkv * a.nseg, (a.R + RB - 1) / RB);
-  switch (RB) {
-    case 1: return stream_launch<T, 1, kSeg>(a, grid, stream);
-    case 4: return stream_launch<T, 4, kSeg>(a, grid, stream);
-    default: return stream_launch<T, 8, kSeg>(a, grid, stream);
+  const dim3 grid(S * a.Hkv * a.nseg, row_groups(a.R));
+  switch (rows_per_block(a.R)) {
+    case 1: return stream_launch<T, 1, kSeg, kMerge>(a, grid, stream);
+    case 4: return stream_launch<T, 4, kSeg, kMerge>(a, grid, stream);
+    default: return stream_launch<T, 8, kSeg, kMerge>(a, grid, stream);
   }
+}
+
+bool bad_segments(int M, int D, int ps, int tile, int nseg, int tps, int Np) {
+  return bad_dims(M, D, ps, tile) || nseg <= 0 || tps <= 0 || Np < 0 ||
+         (long long)tps * tile > 0x7fffffffLL;
 }
 
 template <typename T>
@@ -905,8 +966,8 @@ int pa_paged_decode(const void* q, const void* k, const void* v,
   const int R = M * cells_per_kv, Hkv = n_cells / cells_per_kv;
   const StreamArgs a{q, k, v, (const int*)page_table,
                      (const int*)context_lens, out, nullptr, nullptr,
-                     nullptr, Hkv, R, D, 1, 0, ps, Np, khs, kps, vhs, vps,
-                     scale};
+                     nullptr, nullptr, Hkv, R, D, 1, 0, ps, Np, khs, kps,
+                     vhs, vps, scale};
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? stream_impl<__nv_bfloat16, false>(a, S, st)
               : stream_impl<float, false>(a, S, st);
@@ -919,16 +980,37 @@ int pa_paged_decode_segmented(const void* q, const void* k, const void* v,
                               long long khs, long long kps, long long vhs,
                               long long vps, int ps, int tile, int Np,
                               float scale, int bf16, void* stream) {
-  if (bad_dims(M, D, ps, tile) || nseg <= 0 || tps <= 0 || Np < 0 ||
-      (long long)tps * tile > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  if (bad_segments(M, D, ps, tile, nseg, tps, Np)) return cudaErrorInvalidValue;
   const StreamArgs a{q, k, v, (const int*)page_table,
                      (const int*)context_lens, nullptr, (float*)o_seg,
-                     (float*)m_seg, (float*)l_seg, Hkv, M, D, nseg,
+                     (float*)m_seg, (float*)l_seg, nullptr, Hkv, M, D, nseg,
                      tps * tile, ps, Np, khs, kps, vhs, vps, scale};
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? stream_impl<__nv_bfloat16, true>(a, S, st)
               : stream_impl<float, true>(a, S, st);
+}
+
+// paged_decode_segmented followed by segment_reduce in one launch: the
+// partials (o_seg, m_seg, l_seg as above) are workspace, `out` [S, Hkv, M,
+// D] in q's dtype; `counters` holds at least S * Hkv * row groups int32
+// zeros and is left zeroed.
+int pa_paged_decode_segmented_merged(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* context_lens, void* o_seg, void* m_seg, void* l_seg,
+    void* out, void* counters, long long n_counters, int S, int Hkv, int nseg,
+    int tps, int M, int D, long long khs, long long kps, long long vhs,
+    long long vps, int ps, int tile, int Np, float scale, int bf16,
+    void* stream) {
+  if (bad_segments(M, D, ps, tile, nseg, tps, Np) ||
+      n_counters < (long long)S * Hkv * row_groups(M))
+    return cudaErrorInvalidValue;
+  const StreamArgs a{q, k, v, (const int*)page_table,
+                     (const int*)context_lens, out, (float*)o_seg,
+                     (float*)m_seg, (float*)l_seg, (int*)counters, Hkv, M, D,
+                     nseg, tps * tile, ps, Np, khs, kps, vhs, vps, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? stream_impl<__nv_bfloat16, true, true>(a, S, st)
+              : stream_impl<float, true, true>(a, S, st);
 }
 
 int pa_segment_reduce(const void* o_seg, const void* m_seg, const void* l_seg,

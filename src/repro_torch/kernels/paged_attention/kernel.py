@@ -9,13 +9,16 @@ One wrapper per Pallas kernel of `repro/kernels/paged_attention/kernel.py`:
   segment_reduce          C3 merge (paper Listing 5)
   paged_prefill_qblock    §6.1 Q-Block chunked prefill
 
-The wrappers take the Pallas kernels' inputs (the KV cache in the tile
-view [Hkv, P, ps // tile, tile, D], Q pre-packed by `ops.py`) and give the
-same outputs.  A CUDA tensor launches the hand-written kernel on the
-current stream (or raises); a CPU tensor runs the plain version below,
-which is what the CPU tests hold against the JAX kernels.  Each launch of
-a CUDA kernel adds one to `LAUNCHES[name]`, so a run can show that its
-main path went through the kernels.
+and `paged_decode_segmented_merged`, the last two of C3 in one launch (the
+serving path's C3 decode).  The wrappers take the Pallas kernels' inputs
+(the KV cache in the tile view [Hkv, P, ps // tile, tile, D], Q pre-packed
+by `ops.py`) and give the same outputs.  A CUDA tensor launches the
+hand-written kernel on the current stream (or raises); a CPU tensor runs
+the plain version below, which is what the CPU tests hold against the JAX
+kernels.  Each launch of a CUDA kernel adds one to `LAUNCHES[name]` for
+each Pallas function it computes (the merged launch counts both of C3's)
+and one to `KERNEL_LAUNCHES` of the device kernel it ran, so a run can
+show that its main path went through the kernels, and through which.
 """
 from __future__ import annotations
 
@@ -36,11 +39,20 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt in to (H100)
 
 LAUNCHES: dict[str, int] = {"paged_decode": 0, "paged_decode_segmented": 0,
                             "segment_reduce": 0, "paged_prefill_qblock": 0}
+# the same launches by CUDA kernel: the streaming decode kernel's three
+# instantiations (whole context; segment partials; partials and merge),
+# the standalone merge, and the prefill by dtype (bf16 tensor cores, fp32
+# scalar)
+KERNEL_LAUNCHES: dict[str, int] = {
+    "decode_stream_kernel": 0, "decode_stream_seg_kernel": 0,
+    "decode_stream_seg_merge_kernel": 0, "segment_reduce_kernel": 0,
+    "prefill_mma_kernel": 0, "prefill_kernel": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -57,11 +69,17 @@ _SIGNATURES = {
                         + [_F, _I, _P], _I),
     "pa_paged_decode_segmented": ([_P] * 8 + [_I] * 6 + [_L] * 4 + [_I] * 3
                                   + [_F, _I, _P], _I),
+    "pa_paged_decode_segmented_merged": ([_P] * 10 + [_L] + [_I] * 6
+                                         + [_L] * 4 + [_I] * 3
+                                         + [_F, _I, _P], _I),
     "pa_segment_reduce": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "pa_paged_prefill_qblock": ([_P] * 8 + [_I] * 6 + [_L] * 4 + [_I] * 3
                                 + [_F, _I, _P], _I),
 }
 _BOUND: dict[int, ctypes.CDLL] = {}
+# the merged launch's arrival counters, one int32 buffer per (device,
+# stream): zeroed when allocated, left zeroed by every launch
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def library() -> ctypes.CDLL:
@@ -141,6 +159,33 @@ def _check_kernel(name: str, d: int, *tensors: torch.Tensor,
                              f"block (limit {_SMEM_LIMIT})")
 
 
+def _check_segmented(name: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, page_table: torch.Tensor,
+                     context_lens: torch.Tensor, num_segments: int,
+                     tiles_per_segment: int) -> None:
+    _check_common(name, q, k, v, (page_table, context_lens))
+    if q.ndim != 4 or q.shape[1] != k.shape[0]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be "
+                         f"[S, Hkv={k.shape[0]}, M, D]")
+    _check_table(name, page_table, context_lens, q.shape[0])
+    if num_segments < 1 or tiles_per_segment < 1:
+        raise ValueError(f"{name}: need num_segments, tiles_per_segment "
+                         f">= 1, got {num_segments}, {tiles_per_segment}")
+
+
+def _merge_counters(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least n zeroed counters for the merged launch on `stream`; the
+    buffer keeps its address until a launch needs more (a graph replay
+    finds it where the capture left it), and no two streams share one."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def _kv_strides(k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
     """(k head, k page, v head, v page) strides in elements."""
     return k.stride(0), k.stride(1), v.stride(0), v.stride(1)
@@ -216,6 +261,16 @@ def segment_reduce_plain(o_seg, m_seg, l_seg, out_dtype) -> torch.Tensor:
     return (o_tot / l_safe[..., None]).to(out_dtype)
 
 
+def paged_decode_segmented_merged_plain(q, k_pages, v_pages, page_table,
+                                        context_lens, *, num_segments: int,
+                                        tiles_per_segment: int,
+                                        scale: float) -> torch.Tensor:
+    return segment_reduce_plain(*paged_decode_segmented_plain(
+        q, k_pages, v_pages, page_table, context_lens,
+        num_segments=num_segments, tiles_per_segment=tiles_per_segment,
+        scale=scale), q.dtype)
+
+
 def paged_prefill_qblock_plain(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
                                page_table, context_lens, *, block_q: int,
                                group: int, scale: float) -> torch.Tensor:
@@ -289,6 +344,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
             _stream(q))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["decode_stream_kernel"] += 1
     return out
 
 
@@ -299,16 +355,11 @@ def paged_decode_segmented(q, k_pages, v_pages, page_table, context_lens, *,
     [S, Hkv, nseg, M, D] f32 unnormalised, m_seg [S, Hkv, nseg, M] f32,
     l_seg [S, Hkv, nseg, M] f32); segment g covers the keys
     [g * tps * tile, min((g + 1) * tps * tile, ctx)), and one without a
-    live key is exactly (0, NEG_INF, 0)."""
+    live key is exactly (0, NEG_INF, 0).  The serving path takes
+    `paged_decode_segmented_merged` instead."""
     name = "paged_decode_segmented"
-    _check_common(name, q, k_pages, v_pages, (page_table, context_lens))
-    if q.ndim != 4 or q.shape[1] != k_pages.shape[0]:
-        raise ValueError(f"{name}: q {tuple(q.shape)} must be "
-                         f"[S, Hkv={k_pages.shape[0]}, M, D]")
-    _check_table(name, page_table, context_lens, q.shape[0])
-    if num_segments < 1 or tiles_per_segment < 1:
-        raise ValueError(f"{name}: need num_segments, tiles_per_segment "
-                         f">= 1, got {num_segments}, {tiles_per_segment}")
+    _check_segmented(name, q, k_pages, v_pages, page_table, context_lens,
+                     num_segments, tiles_per_segment)
     if not _on_card(name, q, k_pages, v_pages, page_table, context_lens):
         return paged_decode_segmented_plain(
             q, k_pages, v_pages, page_table, context_lens,
@@ -332,13 +383,59 @@ def paged_decode_segmented(q, k_pages, v_pages, page_table, context_lens, *,
             _stream(q))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["decode_stream_seg_kernel"] += 1
     return o_seg, m_seg, l_seg
+
+
+def paged_decode_segmented_merged(q, k_pages, v_pages, page_table,
+                                  context_lens, *, num_segments: int,
+                                  tiles_per_segment: int,
+                                  scale: float) -> torch.Tensor:
+    """C3 decode in one launch: `segment_reduce` of the partials of
+    `paged_decode_segmented` (same inputs) -> [S, Hkv, M, D] in q's dtype;
+    rows with context 0 are exact zeros.  On the card the last segment
+    block of each (sequence, KV head, row group) to finish merges the
+    segments, with the standalone merge's arithmetic (the same bits on the
+    same partials); the partials are workspace."""
+    name = "paged_decode_segmented_merged"
+    _check_segmented(name, q, k_pages, v_pages, page_table, context_lens,
+                     num_segments, tiles_per_segment)
+    if not _on_card(name, q, k_pages, v_pages, page_table, context_lens):
+        return paged_decode_segmented_merged_plain(
+            q, k_pages, v_pages, page_table, context_lens,
+            num_segments=num_segments, tiles_per_segment=tiles_per_segment,
+            scale=scale)
+    s_, hkv, m, d = q.shape
+    _, _, tpp, tile, _ = k_pages.shape
+    _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
+                  vectors=(k_pages, v_pages))
+    rows = s_ * hkv * num_segments * m  # partial rows: o_seg | m_seg | l_seg
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    stream = _stream(q)
+    counters = _merge_counters(q.device, stream, s_ * hkv * m)
+    o_seg = _ptr(ws)
+    with torch.cuda.device(q.device):
+        rc = library().pa_paged_decode_segmented_merged(
+            _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
+            _ptr(context_lens), o_seg, o_seg + 4 * rows * d,
+            o_seg + 4 * rows * (d + 1), _ptr(out), _ptr(counters),
+            counters.numel(), s_, hkv, num_segments, tiles_per_segment, m, d,
+            *_kv_strides(k_pages, v_pages), tpp * tile, tile,
+            page_table.shape[1], scale, int(q.dtype == torch.bfloat16),
+            stream)
+    _raise_on(rc, name)
+    LAUNCHES["paged_decode_segmented"] += 1
+    LAUNCHES["segment_reduce"] += 1
+    KERNEL_LAUNCHES["decode_stream_seg_merge_kernel"] += 1
+    return out
 
 
 def segment_reduce(o_seg: torch.Tensor, m_seg: torch.Tensor,
                    l_seg: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """Merge C3 partials -> [S, Hkv, M, D] in `out_dtype`; all-dead rows are
-    exact zeros."""
+    exact zeros.  The serving path merges inside the segmented launch
+    (`paged_decode_segmented_merged`)."""
     name = "segment_reduce"
     for t in (o_seg, m_seg, l_seg):
         if t.dtype != torch.float32:
@@ -360,6 +457,7 @@ def segment_reduce(o_seg: torch.Tensor, m_seg: torch.Tensor,
             m, d, int(out_dtype == torch.bfloat16), _stream(o_seg))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["segment_reduce_kernel"] += 1
     return out
 
 
@@ -402,7 +500,8 @@ def paged_prefill_qblock(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
             _ptr(qb_pos0), _ptr(page_table), _ptr(context_lens), _ptr(out),
             nqb, hkv, bm, d, block_q, group, *_kv_strides(k_pages, v_pages),
             tpp * tile, tile, page_table.shape[1], scale,
-            int(q_packed.dtype == torch.bfloat16), _stream(q_packed))
+            int(bf16), _stream(q_packed))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["prefill_mma_kernel" if bf16 else "prefill_kernel"] += 1
     return out

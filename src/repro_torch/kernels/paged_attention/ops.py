@@ -82,14 +82,13 @@ def paged_attention_decode(
             q.reshape(s_, hkv, group, d).contiguous(), kt, vt, page_table,
             context_lens, cells_per_kv=1, scale=scale)
     elif variant == "segmented":
-        # paper §4.5: parallel tiled softmax + reduction kernel.
+        # paper §4.5: parallel tiled softmax + reduction, one launch (the
+        # last segment block of a (sequence, KV head) merges).
         nseg = min(num_segments, num_tiles)
-        tps = cdiv(num_tiles, nseg)
-        o_seg, m_seg, l_seg = K.paged_decode_segmented(
+        out = K.paged_decode_segmented_merged(
             q.reshape(s_, hkv, group, d).contiguous(), kt, vt, page_table,
-            context_lens, num_segments=nseg, tiles_per_segment=tps,
-            scale=scale)
-        out = K.segment_reduce(o_seg, m_seg, l_seg, q.dtype)
+            context_lens, num_segments=nseg,
+            tiles_per_segment=cdiv(num_tiles, nseg), scale=scale)
     else:
         raise ValueError(f"unknown variant {variant!r}")
     return out.reshape(s_, hq, d)

@@ -149,6 +149,80 @@ def test_decode_kernels_match_plain(cuda, dtype, case):
     assert K.LAUNCHES["segment_reduce"] == n0["segment_reduce"] + 4
 
 
+def _bits(x):
+    """x's bits as integers: equal bits, not merely equal values."""
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_segmented_merged_kernel_matches_two_launches(cuda, dtype, case):
+    """The serving path's C3 launch (partials and merge in one kernel)
+    gives the bits of paged_decode_segmented + segment_reduce, is within
+    ATOL of its plain version, and is one decode_stream_seg_merge_kernel
+    launch."""
+    hkv, group, ps, tile, ctx, d = case
+    q, kp, vp, pt, cl = _case(cuda, dtype, hkv, group, ps, ctx, d=d)
+    s = q.shape[0]
+    kt = kp.reshape(hkv, -1, ps // tile, tile, d)
+    vt = vp.reshape(hkv, -1, ps // tile, tile, d)
+    qg = q.reshape(s, hkv, group, d)
+    num_tiles = pt.shape[1] * (ps // tile)
+    for nseg in (1, 3, 16, num_tiles + 2):
+        nseg = min(nseg, num_tiles)
+        kw = dict(num_segments=nseg, tiles_per_segment=-(-num_tiles // nseg),
+                  scale=0.125)
+        n0 = dict(K.KERNEL_LAUNCHES)
+        got = K.paged_decode_segmented_merged(qg, kt, vt, pt, cl, **kw)
+        assert K.KERNEL_LAUNCHES == n0 | {
+            "decode_stream_seg_merge_kernel":
+                n0["decode_stream_seg_merge_kernel"] + 1}
+        pair = K.segment_reduce(*K.paged_decode_segmented(qg, kt, vt, pt, cl,
+                                                          **kw), dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == qg.shape
+        assert torch.equal(_bits(got), _bits(pair))
+        want = K.paged_decode_segmented_merged_plain(qg, kt, vt, pt, cl, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=ATOL[dtype], rtol=0)
+        assert (got[cl == 0] == 0).all()
+
+
+def test_segmented_merged_counters_rearm(cuda):
+    """The merged launch's arrival counters reset themselves: three
+    launches in a row, one at a larger grid (more sequences: the buffer
+    grows), then the first shape again all give the two-launch bits, and
+    the counters are zero after each."""
+    hkv, group, ps, tile = 3, 3, 16, 16
+
+    def inputs(ctx, seed):
+        q, kp, vp, pt, cl = _case(cuda, torch.bfloat16, hkv, group, ps, ctx,
+                                  seed=seed)
+        num_tiles = pt.shape[1] * (ps // tile)
+        kw = dict(num_segments=16, tiles_per_segment=-(-num_tiles // 16),
+                  scale=0.125)
+        return (q.reshape(len(ctx), hkv, group, 64),
+                kp.reshape(hkv, -1, 1, ps, 64),
+                vp.reshape(hkv, -1, 1, ps, 64), pt, cl), kw
+
+    def check(args, kw):
+        got = K.paged_decode_segmented_merged(*args, **kw)
+        pair = K.segment_reduce(*K.paged_decode_segmented(*args, **kw),
+                                torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(pair))
+        assert not any(c.any() for c in K._COUNTERS.values())
+        return got
+
+    small = inputs([2048, 0, 300, 17], 7)
+    large = inputs([2048, 1000, 0, 1, 517, 64, 999, 2047, 33], 8)
+    first = check(*small)
+    for _ in range(2):
+        assert torch.equal(_bits(check(*small)), _bits(first))
+    check(*large)
+    assert torch.equal(_bits(check(*small)), _bits(first))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", UNIFIED_CASES)
 def test_unified_op_matches_plain(cuda, dtype, case):
@@ -229,7 +303,12 @@ def test_decode_kernels_reject_misaligned_pages(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         K.paged_decode_segmented(qg, kt, kt, pt, cl, num_segments=1,
                                  tiles_per_segment=kt.shape[1], scale=1.0)
-    assert K.LAUNCHES == n0
+    k0 = dict(K.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.paged_decode_segmented_merged(qg, kt, kt, pt, cl, num_segments=1,
+                                        tiles_per_segment=kt.shape[1],
+                                        scale=1.0)
+    assert K.LAUNCHES == n0 and K.KERNEL_LAUNCHES == k0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -132,6 +132,34 @@ def test_segmented_and_reduce_plain_match_pallas(nseg, case):
     assert (red_got.numpy()[ctx == 0] == 0).all()
 
 
+@pytest.mark.parametrize("nseg", [1, 3, 4, 8])
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segmented_merged_plain_matches_pallas(nseg, case):
+    """C3 in one call (the serving path's form) against the Pallas
+    segmented kernel followed by the Pallas merge."""
+    hq, hkv, ps, tile, np_, ctx, d = case
+    s = len(ctx)
+    q, kp, vp, pt = make_case(9, s, hq, hkv, d, ps, np_)
+    ctx = np.asarray(ctx, np.int32)
+    tpp = ps // tile
+    num_tiles = np_ * tpp
+    nseg = min(nseg, num_tiles)
+    tps = -(-num_tiles // nseg)
+    qq = q.reshape(s, hkv, hq // hkv, d)
+    parts = JK.paged_decode_segmented(
+        jnp.asarray(qq), tview(kp, tile, "jax"), tview(vp, tile, "jax"),
+        jnp.asarray(pt), jnp.asarray(ctx), tile=tile, tiles_per_page=tpp,
+        num_segments=nseg, tiles_per_segment=tps, scale=d ** -0.5,
+        interpret=True)
+    want = JK.segment_reduce(*parts, jnp.float32, interpret=True)
+    got = TK.paged_decode_segmented_merged(
+        t(qq), tview(kp, tile, "torch"), tview(vp, tile, "torch"), t(pt),
+        t(ctx), num_segments=nseg, tiles_per_segment=tps, scale=d ** -0.5)
+    assert got.dtype == torch.float32 and got.shape == qq.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert (ctx == 0).any() and (got.numpy()[ctx == 0] == 0).all()
+
+
 def _ragged(seed, ctx, qlens, hq, hkv, ps, np_, d=64):
     """A packed prefill batch: each sequence's chunk of qlens[i] tokens at
     positions ctx[i]-qlens[i] .. ctx[i]-1, back to back, then 3 padded
@@ -296,6 +324,15 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         TK.paged_decode(q, kv[..., :32], kv[..., :32], pt, ctx,
                         cells_per_kv=1, scale=1.0)
+    seg = dict(num_segments=1, tiles_per_segment=2, scale=1.0)
+    with pytest.raises(TypeError):
+        TK.paged_decode_segmented_merged(q.double(), kv.double(),
+                                         kv.double(), pt, ctx, **seg)
+    with pytest.raises(TypeError):
+        TK.paged_decode_segmented_merged(q, kv, kv, pt, ctx.long(), **seg)
+    with pytest.raises(ValueError, match="head_dim"):
+        TK.paged_decode_segmented_merged(q, kv[..., :32], kv[..., :32], pt,
+                                         ctx, **seg)
 
 
 def test_wrappers_reject_inconsistent_shapes():
@@ -314,6 +351,16 @@ def test_wrappers_reject_inconsistent_shapes():
         TK.paged_decode_segmented(torch.zeros((2, 2, 3, 64)), kv, kv, pt,
                                   ctx, num_segments=0, tiles_per_segment=1,
                                   scale=1.0)
+    merged = TK.paged_decode_segmented_merged
+    with pytest.raises(ValueError, match="tiles_per_segment"):
+        merged(torch.zeros((2, 2, 3, 64)), kv, kv, pt, ctx, num_segments=2,
+               tiles_per_segment=0, scale=1.0)
+    with pytest.raises(ValueError, match="Hkv"):
+        merged(torch.zeros((2, 4, 3, 64)), kv, kv, pt, ctx, num_segments=2,
+               tiles_per_segment=2, scale=1.0)
+    with pytest.raises(ValueError, match="context_lens"):
+        merged(torch.zeros((2, 2, 3, 64)), kv, kv, pt, ctx[:1],
+               num_segments=2, tiles_per_segment=2, scale=1.0)
     qb = torch.zeros((4,), dtype=torch.int32)
     with pytest.raises(ValueError, match="qb_seq"):
         TK.paged_prefill_qblock(torch.zeros((4, 2, 6, 64)), kv, kv, qb[:3],
