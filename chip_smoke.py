@@ -47,15 +47,26 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               launch)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
               8 requests (prompts 128-1024, 32 new tokens, max_seqs 8,
-              chunked prefill) through the packed fused step; the kernel
-              launch counters are zeroed just before and read just after:
-              every paged kernel launched, each C3 decode one launch of
-              the folded kernel (`KERNEL_LAUNCHES`: the partial-only
-              kernel and the standalone merge never)
+              chunked prefill; one request sampled with temperature,
+              top-k and top-p) through the packed fused step, captured
+              into CUDA graphs and replayed (the engine's default); the
+              kernel launch counters are zeroed just before and read just
+              after: every paged kernel launched, each C3 decode one
+              launch of the folded kernel (`KERNEL_LAUNCHES`: the
+              partial-only kernel and the standalone merge never).  Then
+              the same requests eagerly (`cuda_graphs=False`): identical
+              tokens, launch counters and `compile_events`, logits bit for
+              bit (else within one bf16 ulp of the largest logit), both
+              walls, the captures and replays and the steps' walls by kind
+              logged (`graphs_vs_eager`); and the same differential on a
+              preempting trace (4 requests on 13 pages)
   6. diff     full width in fp32 (TF32 off): 3 greedy requests of 8 new
-              tokens on the card (CUDA kernels) and on the CPU (plain
-              versions), stepped in lockstep: identical tokens, logits
-              within 5e-3
+              tokens on the card (CUDA kernels, CUDA graphs) and on the
+              CPU (plain versions), stepped in lockstep: identical tokens,
+              logits within 5e-3; then one bf16 prefill of the same 3
+              prompts on the card, replaying the packed step's graph (the
+              prompts are served once before to capture it), and on the
+              CPU: the logit gap within 2 x the CPU's own bf16-vs-fp32 gap
   7. flash    the flash-attention forward kernel (o and lse) against its
               plain version on the card at the shape the train phase gives
               it (B 4, S 2048, Hq 9, Hkv 3, D 64, causal, packed q
@@ -103,9 +114,11 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               tensor-core kernel), the Q-Block prefill once
               per shared-attention invocation per prefill (6 x), the decode
               kernels 6 x per decode step (one launch: a segmented step's
-              partials and merge are one folded kernel), the flash kernel
+              partials and merge are one folded kernel; the decode step is
+              a replayed CUDA graph, the prefill eager), the flash kernel
               never; the configs the engine picked are the ones phase 3
-              checked
+              checked; then phase 5's differential against the same
+              requests served eagerly
  14. hdiff    zamba2 at full width cut to 12 layers (two groups of five
               Mamba2 blocks and the shared block), fp32 (TF32 off): 3
               greedy requests of 8 new tokens on the card and on the CPU,
@@ -139,7 +152,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               counters are zeroed just before and read just after: the
               mLSTM kernel runs once per mLSTM layer per prefill (21 x,
               every launch the tensor-core kernel), the paged, flash and
-              SSD kernels never
+              SSD kernels never (the decode step a replayed CUDA graph);
+              then phase 5's differential against the same requests
+              served eagerly
  18. xdiff    xlstm at full width cut to 8 layers (one group: seven mLSTM
               blocks and one sLSTM block), fp32 (TF32 off): 3 greedy
               requests of 8 new tokens on the card and on the CPU, stepped
@@ -153,6 +168,7 @@ kernels' JSON; the last line is the result JSON.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -218,6 +234,18 @@ PAGED_SHAPES = {
 }
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
+# graphed against eager steps of one engine configuration: the same kernels
+# on the same inputs, so bit-equal logits are expected; a cuBLAS algorithm
+# chosen differently under capture would show as a difference, allowed up
+# to this (fp32) or one bf16 ulp of the largest logit (bf16)
+GRAPH_LOGIT_ATOL = 1e-5
+# the sampled request pins its RNG stream (else its request id, which
+# differs between the two runs)
+SERVE_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3)
+# phase 5's preempting trace: 13 pages of 16 (12 usable) for four requests
+# that need ~18, as in tests/test_torch_engine.py
+PREEMPT_LENS, PREEMPT_NEW_TOKENS = (40, 33, 47, 20), 24
+PREEMPT_ENGINE = dict(max_seqs=4, num_pages=13, max_model_len=128)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
 # shape the train phase gives the kernel (smollm-135m: Hq 9, Hkv 3, D 64),
@@ -721,6 +749,134 @@ def check_paged_routes(K, launches, tag, dtype):
                              f"(launches {launches})")
 
 
+def serve_run(torch, eng, reqs, tag):
+    """Serve `reqs` on `eng` to the end.  Every kernel launch counter is
+    zeroed just before and read just after.  Each step ends in the host
+    copy of its sampled ids (a synchronisation), so its host wall is its
+    time; a step is "captured" when it captured a CUDA graph, "replayed"
+    when it replayed one and captured none, else "eager".  Returns the
+    steps' stats, their logits (the engine's debug copies, kept on the
+    card), the wall, each step's wall, the walls by kind and the
+    counters."""
+    from repro_torch.serving.cuda_graphs import kernel_counters
+
+    for r in reqs:
+        eng.add_request(r)
+    for counts in kernel_counters():
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    stats, logits, walls = [], [], []
+    split = {kind: [0, 0.0] for kind in ("captured", "replayed", "eager")}
+    t0 = time.perf_counter()
+    while eng.sched.has_work and len(stats) < 1000:
+        before = dict(eng.graph_stats)
+        t_step = time.perf_counter()
+        stats.append(eng.step())
+        dt = time.perf_counter() - t_step
+        walls.append(dt)
+        kind = ("captured" if eng.graph_stats["captures"] > before["captures"]
+                else "replayed" if eng.graph_stats["replays"]
+                > before["replays"] else "eager")
+        split[kind][0] += 1
+        split[kind][1] += dt
+        logits.append(eng.last_step_logits)
+        if not bool(torch.isfinite(eng.last_step_logits).all()):
+            raise AssertionError(f"{tag}: non-finite logits at step "
+                                 f"{len(stats)}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(eng=eng, reqs=reqs, stats=stats, logits=logits, wall=wall,
+                step_walls=walls, split=split,
+                counts=[dict(c) for c in kernel_counters()])
+
+
+def graphs_vs_eager(torch, tag, g, e, dtype):
+    """The graphed run `g` (the engine's default) against the eager run `e`
+    (`cuda_graphs=False`) of the same requests: identical tokens (prompts
+    too: a preemption folds the output into the prompt), launch counters
+    and compile_events, and graphs that replayed.  The logits are expected
+    bit-equal (a replay runs the captured eager kernels on the same
+    inputs); a difference must stay within GRAPH_LOGIT_ATOL (fp32 model)
+    or one bf16 ulp of the largest logit (bf16 model).  Logs both walls,
+    the captures and replays, and the steps' walls by kind."""
+    geng, eeng = g["eng"], e["eng"]
+    same_tokens = [(r.prompt, r.output) for r in g["reqs"]] \
+        == [(r.prompt, r.output) for r in e["reqs"]]
+    same_counts = g["counts"] == e["counts"]
+    same_events = geng.compile_events == eeng.compile_events
+    bit_equal, worst, top = len(g["logits"]) == len(e["logits"]), 0.0, 0.0
+    for a, b in zip(g["logits"], e["logits"]):
+        top = max(top, float(b.abs().max()))
+        if a.shape != b.shape:
+            bit_equal, worst = False, float("inf")
+        elif not torch.equal(a, b):
+            bit_equal = False
+            worst = max(worst, float((a - b).abs().max()))
+    bound = GRAPH_LOGIT_ATOL
+    if dtype == "bfloat16" and top > 0:
+        bound = max(bound, 2.0 ** (math.floor(math.log2(top)) - 7))
+    split = " ".join(f"{k} {n} steps {s:.3f}s"
+                     for k, (n, s) in g["split"].items())
+    log(f"{tag} graphs-vs-eager: wall graphs {g['wall']:.3f}s eager "
+        f"{e['wall']:.3f}s  steps {len(g['stats'])}  captures "
+        f"{geng.graph_stats['captures']} ({geng.graph_stats['capture_s']:.3f}"
+        f"s capturing) replays {geng.graph_stats['replays']}  graphed "
+        f"run's steps: {split}  "
+        f"eager run's steps {e['split']['eager'][1]:.3f}s")
+    log(f"{tag} graphs-vs-eager: tokens_identical {same_tokens}  "
+        f"counters_identical {same_counts}  compile_events_identical "
+        f"{same_events} ({len(geng.compile_events)})  logits bit_equal "
+        f"{bit_equal} max_abs_diff {worst:.3e} (bound {bound:.3e})")
+    if not (same_tokens and same_counts and same_events):
+        raise AssertionError(f"{tag}: graphs and eager differ: tokens "
+                             f"{same_tokens}, counters {same_counts}, "
+                             f"compile_events {same_events}")
+    if not worst <= bound:
+        raise AssertionError(f"{tag}: logits of graphs and eager differ by "
+                             f"{worst} > {bound}")
+    if not geng.graph_stats["replays"] or eeng.graph_stats["captures"]:
+        raise AssertionError(f"{tag}: the graphed run replayed nothing or "
+                             f"the eager run captured: {geng.graph_stats}, "
+                             f"{eeng.graph_stats}")
+    return dict(wall_graphs=g["wall"], wall_eager=e["wall"])
+
+
+def sampler_cost(torch, s, v, iters=50):
+    """What sharing one graph between greedy and sampling steps costs: the
+    device time of the packed step's sampler at [S, V], each version
+    captured into a CUDA graph and its replays timed over CUDA events (no
+    L2 flush: the logits come hot from the head): the filter and draw that
+    every graphed step runs, against greedy argmax alone."""
+    from repro_torch.models.sampling import sample_tokens
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    logits = torch.randn((s, v), generator=g, device=DEVICE) * 4
+    temps = torch.zeros((s,), device=DEVICE)
+    temps[3] = SERVE_SAMPLED["temperature"]
+    top_p = torch.full((s,), SERVE_SAMPLED["top_p"], device=DEVICE)
+    top_k = torch.full((s,), SERVE_SAMPLED["top_k"], dtype=torch.int32,
+                       device=DEVICE)
+    noise = torch.rand((s, v), generator=g, device=DEVICE)
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    ms = {}
+    for name, nz in (("filter_and_draw", noise), ("greedy", None)):
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            sample_tokens(logits, temps, top_p, top_k, nz)  # warm-up
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            sample_tokens(logits, temps, top_p, top_k, nz)
+        ms[name] = time_ms(torch, graph.replay, iters,
+                           torch.empty(1, device=DEVICE))
+        del graph
+    log(f"serve sampler in a graph at [{s}, {v}]: filter_and_draw "
+        f"{ms['filter_and_draw']:.4f} ms, greedy argmax "
+        f"{ms['greedy']:.4f} ms a step")
+    return ms
+
+
 def phase_serve(torch, K, FK):
     from repro_torch import weights
     from repro_torch.configs import ARCHS
@@ -750,22 +906,16 @@ def phase_serve(torch, K, FK):
     del warm
     torch.cuda.synchronize()
 
+    served = prompts(8, 128, 1024)
+
+    def requests():  # request 3 samples: temperature, top-k and top-p
+        return [Request(prompt=list(p), max_new_tokens=32,
+                        **(SERVE_SAMPLED if i == 3 else {}))
+                for i, p in enumerate(served)]
+
     eng = Engine(cfg, model, **eng_kw)
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts(8, 128, 1024)]
-    for r in reqs:
-        eng.add_request(r)
-    K.reset_launches()
-    FK.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 0
-    while eng.sched.has_work and steps < 1000:
-        eng.step()
-        steps += 1
-        if not bool(torch.isfinite(eng.last_step_logits).all()):
-            raise AssertionError(f"non-finite logits at step {steps}")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, requests(), "serve")
+    reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
     launches = dict(K.LAUNCHES)
     if not all(r.state is State.FINISHED and len(r.output) == 32
                for r in reqs):
@@ -786,8 +936,32 @@ def phase_serve(torch, K, FK):
     log(f"serve dispatch_counts {dict(eng.dispatch_counts)}")
     log(f"serve launches {launches}  launched_token_slots "
         f"{eng.launched_token_slots}")
+    del eng
+    # the same requests on the eager step
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **eng_kw),
+                      requests(), "serve eager")
+    walls = graphs_vs_eager(torch, "serve", run, eager, cfg.dtype)
+    del run, eager
+    # a preempting trace: preemption rewrites the page tables the graphs
+    # read from their static buffers
+    pre_kw = eng_kw | dict(PREEMPT_ENGINE)
+    pre_prompts = [torch.randint(1, cfg.vocab_size, (n,),
+                                 generator=g).tolist() for n in PREEMPT_LENS]
+    runs = [serve_run(torch, Engine(cfg, model, cuda_graphs=graphs,
+                                    **pre_kw),
+                      [Request(prompt=list(p),
+                               max_new_tokens=PREEMPT_NEW_TOKENS)
+                       for p in pre_prompts], f"preempt graphs={graphs}")
+            for graphs in (True, False)]
+    preempted = sum(st["preempted"] for st in runs[0]["stats"])
+    log(f"serve preempt: {len(PREEMPT_LENS)} requests on "
+        f"{PREEMPT_ENGINE['num_pages']} pages, {preempted} preemptions")
+    if not preempted:
+        raise AssertionError("the preempting trace preempted nothing")
+    graphs_vs_eager(torch, "serve preempt", *runs, cfg.dtype)
+    sampler_cost(torch, 2 * eng_kw["max_seqs"], cfg.vocab_size)
     return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
-                          prompt_tokens=prompt_toks)
+                          prompt_tokens=prompt_toks, **walls)
 
 
 def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
@@ -825,7 +999,7 @@ def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
         if stats[0]["sampled_tokens"] != stats[1]["sampled_tokens"]:
             raise AssertionError(f"step {steps}: engines diverged")
         if steps == 1:  # the prefill of every prompt: the bf16 leg's ruler
-            cpu_fp32_prefill = engines[1].last_step_logits[:len(prompts)]
+            cpu_fp32_prefill = prefill_logits(engines[1], len(prompts))
         a = engines[0].last_step_logits.cpu()
         worst = max(worst, float((a - engines[1].last_step_logits).abs()
                                  .max()))
@@ -847,6 +1021,14 @@ def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
     return worst
 
 
+def prefill_logits(eng, n):
+    """The last-token logits of a first step that prefilled n prompts:
+    the packed step's rows follow its static decode region of max_seqs
+    rows; the padded step's prefill rows come first."""
+    first = eng.max_seqs if eng._packed else 0
+    return eng.last_step_logits[first:first + n]
+
+
 def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
                     mma_name):
     """One prefill of `prompts` with the model in bf16 on the card (the
@@ -854,7 +1036,10 @@ def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
     max abs gap of the prefill's last-token logits within BF16_GAP_FACTOR
     x the gap between the CPU's own bf16 and fp32 (`cpu_fp32`) logits;
     the argmax agreement is logged.  `kernels.KERNEL_LAUNCHES[mma_name]`
-    must count the card's launches."""
+    must count the card's launches.  The packed step (smollm) runs the
+    leg through its CUDA graph: the same prompts are served once before
+    (one new token each, which captures the key), so the leg's prefill
+    replays the graph."""
     from repro_torch import weights
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
@@ -865,6 +1050,11 @@ def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
     for dev in (DEVICE, "cpu"):
         eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
                      device=dev, **eng_kw)
+        graphed = eng._packed and eng._graphs
+        if graphed:
+            eng.generate([Request(prompt=list(p), max_new_tokens=1)
+                          for p in prompts])
+        replays = eng.graph_stats["replays"]
         for p in prompts:
             eng.add_request(Request(prompt=list(p), max_new_tokens=8))
         kernels.reset_launches()
@@ -872,10 +1062,14 @@ def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
         if stats["prefill"] != n or stats["decode"]:
             raise AssertionError(f"{tag} bf16: the first step was not one "
                                  f"prefill of {n} prompts: {stats}")
-        logits.append(eng.last_step_logits[:n].float().cpu())
+        if graphed and eng.graph_stats["replays"] != replays + 1:
+            raise AssertionError(f"{tag} bf16: the prefill did not replay "
+                                 f"a graph: {eng.graph_stats}")
+        logits.append(prefill_logits(eng, n).float().cpu())
         if dev == DEVICE:
             torch.cuda.synchronize()
             mma_launches = kernels.KERNEL_LAUNCHES[mma_name]
+            via = "graph replay" if graphed else "eager step"
     card, cpu = logits
     gap = float((card - cpu).abs().max())
     own = float((cpu - cpu_fp32.float()).abs().max())
@@ -885,7 +1079,7 @@ def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
         f"prompts: max_abs_logit_gap card-vs-cpu {gap:.3e}  cpu bf16-vs-fp32 "
         f"{own:.3e}  bound {BF16_GAP_FACTOR:g} x {own:.3e}  argmax agree "
         f"card-vs-cpu {agree}/{n}, cpu bf16-vs-fp32 {agree32}/{n}  "
-        f"{mma_name} launches {mma_launches}")
+        f"{mma_name} launches {mma_launches} (card: {via})")
     if not mma_launches:
         raise AssertionError(f"{tag} bf16: {mma_name} never launched")
     if not gap <= BF16_GAP_FACTOR * own:
@@ -1232,27 +1426,18 @@ def phase_hybrid_serve(torch, K, FK, SK):
     del warm
     torch.cuda.synchronize()
 
+    served = prompts(HYBRID_REQUESTS, 128, SSD_SERVE_CASE[1])
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=HYBRID_NEW_TOKENS)
+                for p in served]
+
     eng = Engine(cfg, model, **eng_kw)
-    reqs = [Request(prompt=p, max_new_tokens=HYBRID_NEW_TOKENS)
-            for p in prompts(HYBRID_REQUESTS, 128, SSD_SERVE_CASE[1])]
-    for r in reqs:
-        eng.add_request(r)
     torch.cuda.reset_peak_memory_stats()
-    for kernels in (K, FK, SK):
-        kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 0
-    picks = set()  # (phase, variant, tile, num_segments, block_q)
-    while eng.sched.has_work and steps < 1000:
-        for phase, d in eng.step()["dispatch"].items():
-            picks.add((phase, d["variant"], d["tile"], d["num_segments"],
-                       d["block_q"]))
-        steps += 1
-        if not bool(torch.isfinite(eng.last_step_logits).all()):
-            raise AssertionError(f"non-finite logits at step {steps}")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, requests(), "hserve")
+    reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
+    picks = {(phase, d["variant"], d["tile"], d["num_segments"], d["block_q"])
+             for st in run["stats"] for phase, d in st["dispatch"].items()}
     launches = dict(K.LAUNCHES) | dict(FK.LAUNCHES) | dict(SK.LAUNCHES)
     calls = dict(eng.device_calls)
     log(f"hserve launches {launches}  device_calls {calls}  dispatch "
@@ -1302,6 +1487,10 @@ def phase_hybrid_serve(torch, K, FK, SK):
         f"total_tok_per_s {(toks + prompt_toks) / wall:.1f}  "
         f"max_memory_allocated_gib "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del eng
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **eng_kw),
+                      requests(), "hserve eager")
+    graphs_vs_eager(torch, "hserve", run, eager, cfg.dtype)
     return launches
 
 
@@ -1453,28 +1642,18 @@ def phase_xlstm_serve(torch, kernel_modules):
     del warm
     torch.cuda.synchronize()
 
+    served = prompts(XLSTM_REQUESTS, 128, MLSTM_SERVE_CASE[1])
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=XLSTM_NEW_TOKENS)
+                for p in served]
+
     eng = Engine(cfg, model, **eng_kw)
-    reqs = [Request(prompt=p, max_new_tokens=XLSTM_NEW_TOKENS)
-            for p in prompts(XLSTM_REQUESTS, 128, MLSTM_SERVE_CASE[1])]
-    for r in reqs:
-        eng.add_request(r)
     torch.cuda.reset_peak_memory_stats()
-    for kernels in kernel_modules:
-        kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps, prefill_s = 0, 0.0
-    while eng.sched.has_work and steps < 1000:
-        t_step = time.perf_counter()
-        stats = eng.step()
-        if stats["prefill"]:
-            torch.cuda.synchronize()
-            prefill_s += time.perf_counter() - t_step
-        steps += 1
-        if not bool(torch.isfinite(eng.last_step_logits).all()):
-            raise AssertionError(f"non-finite logits at step {steps}")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, requests(), "xserve")
+    reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
+    prefill_s = sum(w for w, st in zip(run["step_walls"], run["stats"])
+                    if st["prefill"])
     launches = {}
     for kernels in kernel_modules:
         launches.update(kernels.LAUNCHES)
@@ -1513,6 +1692,10 @@ def phase_xlstm_serve(torch, kernel_modules):
         f"new_tok_per_s {toks / wall:.1f}  total_tok_per_s "
         f"{(toks + prompt_toks) / wall:.1f}  max_memory_allocated_gib "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del eng
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **eng_kw),
+                      requests(), "xserve eager")
+    graphs_vs_eager(torch, "xserve", run, eager, cfg.dtype)
     return launches
 
 
@@ -1584,8 +1767,10 @@ def main() -> int:
     launches, serve = phase_serve(torch, K, FK)
     lap("5 serve")
 
-    # 6. card (kernels) vs CPU (plain versions), fp32
-    phase_engine_diff(torch, ARCH, SEED + 1, "diff")
+    # 6. card (kernels, graphs) vs CPU (plain versions), fp32; then one
+    # bf16 prefill through the graphed packed step
+    phase_engine_diff(torch, ARCH, SEED + 1, "diff", None,
+                      (K, "prefill_mma_kernel"))
     lap("6 diff")
 
     # 7. the flash kernel against its plain version; the gradient card vs CPU

@@ -62,31 +62,45 @@ def physical_slots(page_table: torch.Tensor, positions: torch.Tensor,
     return torch.where(valid, phys, pages_per_pool * page_size)
 
 
-def live_slots(slots: torch.Tensor, slots_per_pool: int):
-    """Split [G, N] pool-local slots into the (row, flat slot) pairs that
-    land inside a pool: out-of-range slots (the engine's trash slot
-    `num_pages * page_size` for padded tokens, or anything negative) are
-    DROPPED, the JAX reference's `mode="drop"`.  Returns (rows [n] index
-    into the flattened [G*N] updates, dest [n] index into the flattened
-    [G * slots_per_pool] pool rows).  Computed once per step and reused
-    by every layer's `scatter_kv` (the index selection synchronises with
-    the device once)."""
+def write_index(slots: torch.Tensor, slots_per_pool: int):
+    """The KV write index of [G, N] pool-local slots, with shapes that
+    depend on the input shape alone (no host sync, so a CUDA graph can
+    capture it).  A negative slot counts from the pool's end, as numpy
+    indexing does (the reference's `.at[]` normalises it so); slots that
+    stay out of range (the engine's trash slot `num_pages * page_size`
+    for padded tokens, or below `-slots_per_pool`) are DROPPED, the JAX
+    reference's `mode="drop"`: a dropped row repeats the
+    first live row's write (the same slot, the same value), and with no
+    live row at all every row rewrites slot 0 of the NULL page 0 with the
+    value already there.  So the pages end exactly as the reference
+    leaves them.  Returns (src [G*N] the update row each row writes, dest
+    [G*N] its flat pool row in [G * slots_per_pool], live [G*N] whether
+    it writes an update, not the old value).  Computed once per step and
+    reused by every layer's `scatter_kv`."""
     g, n = slots.shape
     slots = slots.long()
-    keep = (slots >= 0) & (slots < slots_per_pool)
-    pool = torch.arange(g, device=slots.device)[:, None].expand(g, n)
-    dest = (pool * slots_per_pool + slots).reshape(-1)
-    rows = torch.nonzero(keep.reshape(-1), as_tuple=True)[0]
-    return rows, dest[rows]
+    slots = torch.where(slots < 0, slots + slots_per_pool, slots)
+    keep = ((slots >= 0) & (slots < slots_per_pool)).reshape(-1)
+    pool = torch.arange(g, device=slots.device)[:, None] * slots_per_pool
+    dest = (pool + slots).reshape(-1)
+    rows = torch.arange(g * n, device=slots.device)
+    src = torch.where(keep, rows, torch.argmax(keep.to(torch.int32)))
+    live = keep[src]
+    return src, torch.where(live, dest[src], 0), live
 
 
-def scatter_kv(pages: torch.Tensor, upd: torch.Tensor, rows: torch.Tensor,
-               dest: torch.Tensor) -> torch.Tensor:
+def scatter_kv(pages: torch.Tensor, upd: torch.Tensor,
+               index: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) \
+        -> torch.Tensor:
     """In-place row scatter: pages [Hkv, G, P, ps, D] (contiguous),
-    upd [Hkv, G*N, D]; writes upd[:, rows] to flat pool rows `dest`."""
+    upd [Hkv, G*N, D]; `index` = `write_index` of the slots."""
+    src, dest, live = index
     hkv, g, p, ps, d = pages.shape
     flat = pages.view(hkv, g * p * ps, d)
-    flat.index_copy_(1, dest, upd[:, rows].to(pages.dtype))
+    vals = torch.where(live[None, :, None],
+                       upd.index_select(1, src).to(pages.dtype),
+                       flat[:, :1])
+    flat.index_copy_(1, dest, vals)
     return pages
 
 
@@ -99,8 +113,8 @@ def write_pages(pages: torch.Tensor, new: torch.Tensor,
     s, t = slots.shape
     b_loc = s // g
     upd = new.permute(2, 0, 1, 3).reshape(hkv, g * b_loc * t, d)
-    rows, dest = live_slots(slots.reshape(g, b_loc * t), p * ps)
-    return scatter_kv(pages, upd, rows, dest)
+    return scatter_kv(pages, upd,
+                      write_index(slots.reshape(g, b_loc * t), p * ps))
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

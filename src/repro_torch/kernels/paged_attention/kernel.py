@@ -78,8 +78,12 @@ _SIGNATURES = {
 }
 _BOUND: dict[int, ctypes.CDLL] = {}
 # the merged launch's arrival counters, one int32 buffer per (device,
-# stream): zeroed when allocated, left zeroed by every launch
+# stream): zeroed when allocated, left zeroed by every launch.  A CUDA
+# graph is captured on a stream of its own, so the graphs get their own
+# buffer.  A buffer that a larger launch supersedes moves to _RETIRED and
+# stays alive: a captured graph keeps reading it at its address.
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
 
 
 def library() -> ctypes.CDLL:
@@ -175,12 +179,15 @@ def _check_segmented(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def _merge_counters(device: torch.device, stream: int,
                     n: int) -> torch.Tensor:
-    """At least n zeroed counters for the merged launch on `stream`; the
-    buffer keeps its address until a launch needs more (a graph replay
-    finds it where the capture left it), and no two streams share one."""
+    """At least n zeroed counters for the merged launch on `stream`; no
+    two streams share one.  The buffer keeps its address until a launch
+    needs more; the one it replaces is kept alive (`_RETIRED`), zeroed as
+    every launch leaves it, so a graph that captured it replays on it."""
     key = (device.index, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
                                            device=device)
     return buf

@@ -2,14 +2,18 @@
 stream (arrival-rate driven), reporting latency and throughput.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
-        [--device cpu] [--chunked-prefill] [--profile]
+        [--device cpu] [--chunked-prefill] [--eager] [--profile]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
         [--device cpu] [--profile]
 
 A dense model runs the packed step; a hybrid model (zamba2) and an
-xLSTM model (xlstm) run the padded per-kind step.
+xLSTM model (xlstm) run the padded per-kind step.  On the card the packed
+step and the padded decode step are captured into CUDA graphs and
+replayed (`--eager`: `Engine(cuda_graphs=False)`, every step eager); the
+run prints its `compile_events` (one per executable-cache key) and its
+captures and replays.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths are uniform in
 [--min-prompt, --max-prompt].  `--profile` runs the measured loop under
@@ -55,6 +59,8 @@ def main() -> None:
     ap.add_argument("--max-prompt", type=int, default=79)
     ap.add_argument("--chunked-prefill", action="store_true")
     ap.add_argument("--max-prefill-tokens", type=int, default=8192)
+    ap.add_argument("--eager", action="store_true",
+                    help="no CUDA graphs: every step runs eagerly")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
@@ -69,7 +75,7 @@ def main() -> None:
                   max_model_len=args.max_model_len,
                   enable_chunked_prefill=args.chunked_prefill,
                   max_prefill_tokens=args.max_prefill_tokens,
-                  seed=SEED, device=dev)
+                  cuda_graphs=not args.eager, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
     prompts = [list(map(int, rng.integers(
         1, cfg.vocab_size,
@@ -106,6 +112,10 @@ def main() -> None:
     print(f"device calls: {dict(eng.device_calls)}")
     print(f"kernel launches: "
           f"{K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES | MK.LAUNCHES}")
+    gs = eng.graph_stats
+    print(f"compile_events: {len(eng.compile_events)}  cuda graphs: "
+          f"{gs['captures']} captured ({gs['capture_s']:.3f}s capturing), "
+          f"{gs['replays']} replays")
     if args.profile:
         # the same requests again under the profiler (which slows the
         # host several-fold): device time by kernel, idle share against

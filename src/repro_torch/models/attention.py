@@ -10,8 +10,8 @@ prefill chunks, then `wo`.  Padded prefill ([B, S], context 0) and decode
 ([B, 1]): the same write at slots from `kv_cache.physical_slots`, then the
 Q-Block prefill or the C1-C3 decode kernels.  The reference computes those
 slots in every layer; the port computes them once per step (the write
-index `write_rows` / `write_dest` in `meta`), since every layer writes the
-same positions.  Training: QKV, RoPE, causal flash attention over the
+index `write_index` in `meta`, `kv_cache.write_index`), since every
+layer writes the same positions.  Training: QKV, RoPE, causal flash attention over the
 whole sequence (no cache), then `wo`.
 """
 from __future__ import annotations
@@ -64,14 +64,12 @@ class Attention(nn.Module):
                 kernel_cfg=None) -> torch.Tensor:
         """x [1, T, d]; k/v_pages this layer's [Hkv, 1, P, ps, D] cache
         (written in place).  meta: page_table, context_lens, query_lens,
-        query_start_loc, num_decode_seqs, and the step's live write index
-        `write_rows` / `write_dest` (`kv_cache.live_slots` of
-        slot_mapping).  Returns [1, T, d]."""
+        query_start_loc, num_decode_seqs, and the step's write index
+        `write_index` (`kv_cache.write_index` of slot_mapping).  Returns [1, T, d]."""
         b, t, _ = x.shape
         q, k, v = self.qkv(x, positions)
-        rows, dest = meta["write_rows"], meta["write_dest"]
-        scatter_kv(k_pages, k[0].transpose(0, 1), rows, dest)
-        scatter_kv(v_pages, v[0].transpose(0, 1), rows, dest)
+        scatter_kv(k_pages, k[0].transpose(0, 1), meta["write_index"])
+        scatter_kv(v_pages, v[0].transpose(0, 1), meta["write_index"])
         o = attn_backend.unified_attention(
             q[0], k_pages, v_pages, meta["page_table"],
             meta["context_lens"], meta["query_start_loc"],
@@ -84,9 +82,9 @@ class Attention(nn.Module):
         """Write the step's K / V rows [B, S, Hkv, D] into this layer's
         pages at the step's write index (in place)."""
         hkv, d = k.shape[2], k.shape[3]
-        rows, dest = meta["write_rows"], meta["write_dest"]
-        scatter_kv(k_pages, k.reshape(-1, hkv, d).transpose(0, 1), rows, dest)
-        scatter_kv(v_pages, v.reshape(-1, hkv, d).transpose(0, 1), rows, dest)
+        index = meta["write_index"]
+        scatter_kv(k_pages, k.reshape(-1, hkv, d).transpose(0, 1), index)
+        scatter_kv(v_pages, v.reshape(-1, hkv, d).transpose(0, 1), index)
 
     def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
                         k_pages: torch.Tensor, v_pages: torch.Tensor,

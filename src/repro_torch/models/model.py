@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged.kv_cache import (
-    live_slots, make_kv_cache, physical_slots,
+    make_kv_cache, physical_slots, write_index,
 )
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
@@ -198,8 +198,7 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
 @torch.no_grad()
 def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
                   num_decode_seqs: int = 0, sample: bool = False,
-                  seed: int = 0, return_logits: bool = False,
-                  max_draft: int = 0):
+                  return_logits: bool = False, max_draft: int = 0):
     """Token-packed unified step.
 
     `cache` is the attention pages {"k_pages", "v_pages"} (the "attn"
@@ -213,15 +212,17 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     `token_source >= 0` take their id from `prev_tokens[source]`.
 
     With `sample=True` the batch also carries the per-sequence sampling
-    parameters as HOST arrays [S]: temperature, top_p, top_k, stream_ids
-    and num_generated.  The host decides which rows draw noise (temperature
-    > 0) and seeds each from (seed, stream id, num_generated), see
-    `sampling.sample_rows`; greedy rows need no noise at all.
+    parameters as device tensors [S] (temperature, top_p, top_k) and
+    `noise` [S, V]: each sampling row's Gumbel draw, zero elsewhere (the
+    host part, `sampling.gumbel_noise`, runs before the step); `noise`
+    None is only valid when every row is greedy.
 
-    The cache is written IN PLACE (and returned, as the reference returns
-    its new cache).  Returns (last_logits [S, V] f32, cache) without
-    sampling; (tokens [S] i32, cache) with it; `return_logits=True`
-    inserts last_logits before the cache."""
+    Every shape inside depends on the batch's shapes alone, and nothing
+    reads device data back to the host, so the engine can capture the
+    step into a CUDA graph.  The cache is written IN PLACE (and returned,
+    as the reference returns its new cache).  Returns (last_logits [S, V]
+    f32, cache) without sampling; (tokens [S] i32, cache) with it;
+    `return_logits=True` inserts last_logits before the cache."""
     if max_draft:
         raise NotImplementedError("speculative verify is not ported yet")
     if model.cfg.family != "dense":
@@ -235,11 +236,10 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
             inputs)
     positions = batch["positions"]
     kp, vp = cache["k_pages"], cache["v_pages"]
-    rows, dest = live_slots(batch["slot_mapping"], kp.shape[3] * kp.shape[4])
     meta = {k: batch[k] for k in ("page_table", "context_lens", "query_lens",
                                   "query_start_loc")}
-    meta.update(num_decode_seqs=num_decode_seqs, write_rows=rows,
-                write_dest=dest)
+    meta.update(num_decode_seqs=num_decode_seqs, write_index=write_index(
+        batch["slot_mapping"], kp.shape[3] * kp.shape[4]))
     x = L.embed(model.embed, inputs)  # [1, T, d]
     for i, blk in enumerate(model.blocks):
         x = x + blk.attn(blk.ln1(x), positions, kp[i], vp[i], meta,
@@ -253,9 +253,9 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     last_logits = model.head(x[0, last])
     if not sample:
         return last_logits, cache
-    toks = sampling.sample_rows(
-        last_logits, seed, batch["temperature"], batch["top_p"],
-        batch["top_k"], batch["stream_ids"], batch["num_generated"])
+    toks = sampling.sample_tokens(
+        last_logits, batch["temperature"], batch["top_p"], batch["top_k"],
+        batch.get("noise"))
     if return_logits:
         return toks, last_logits, cache
     return toks, cache
@@ -275,18 +275,16 @@ def _serve_masks(mode: str, meta: dict, s: int):
 
 def _add_write_index(meta: dict, cache: dict, positions: torch.Tensor,
                      valid: torch.Tensor) -> None:
-    """The step's KV write index (`write_rows` / `write_dest`, shared by
-    every attention layer): slots from `physical_slots`, invalid tokens
-    aimed at the trash slot and dropped.  Nothing for a model without
-    attention layers."""
+    """The step's KV write index (`write_index`, shared by every attention
+    layer): slots from `physical_slots`, invalid tokens aimed at the trash
+    slot and dropped.  Nothing for a model without attention layers."""
     if "attn" not in cache:
         return
     kp = cache["attn"]["k_pages"]  # [n_attn, Hkv, 1, P, ps, D]
     num_pages, ps = kp.shape[3], kp.shape[4]
     slots = physical_slots(meta["page_table"], positions, valid, ps,
                            num_pages)
-    meta["write_rows"], meta["write_dest"] = live_slots(
-        slots.reshape(1, -1), num_pages * ps)
+    meta["write_index"] = write_index(slots.reshape(1, -1), num_pages * ps)
 
 
 def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
@@ -379,7 +377,8 @@ def apply_prefill(model: Model, cache: dict, batch: dict, *,
 def apply_decode(model: Model, cache: dict, batch: dict, *, kernel_cfg=None):
     """One token for each of B slots.  batch: inputs [B, 1] ids, positions
     [B, 1] (-1 on dead slots), page_table [B, Np], context_lens [B] (0 on
-    dead slots).  Returns (logits [B, V] f32, cache)."""
+    dead slots).  No host read of device data: the engine captures it
+    into a CUDA graph.  Returns (logits [B, V] f32, cache)."""
     meta = {k: batch[k] for k in ("page_table", "context_lens")}
     positions = batch["positions"]
     valid = (positions >= 0) & (meta["context_lens"][:, None] > 0)

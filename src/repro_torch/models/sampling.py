@@ -33,20 +33,31 @@ def row_seed(seed: int, stream: int, n_generated: int) -> int:
     return (int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1)
 
 
+def hot_rows(temperature) -> list[int]:
+    """The rows that draw noise: temperature > 0 (host array [S])."""
+    return [i for i, t in enumerate(temperature) if t > 0]
+
+
 def gumbel_noise(seed: int, stream_ids, num_generated, vocab: int,
-                 device, rows=None) -> torch.Tensor:
+                 device, rows=None, out: torch.Tensor | None = None) \
+        -> torch.Tensor:
     """[S, vocab] fp32 Gumbel(0, 1) noise, row i drawn from the generator
     seeded by (seed, stream_ids[i], num_generated[i]).  Only the rows in
-    `rows` (default all) are drawn; the others are zero."""
+    `rows` (default all) are drawn; the others are zero.  The host part
+    of the sampler: it runs outside any captured step, into `out` when
+    given (the engine's static noise buffer, zeroed first)."""
     n = len(stream_ids)
-    noise = torch.zeros((n, vocab), dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.zeros((n, vocab), dtype=torch.float32, device=device)
+    else:
+        out.zero_()
     tiny = torch.finfo(torch.float32).tiny
     for i in (range(n) if rows is None else rows):
         g = torch.Generator(device=device)
         g.manual_seed(row_seed(seed, stream_ids[i], num_generated[i]))
         u = torch.rand(vocab, generator=g, device=device).clamp_min_(tiny)
-        noise[i] = -torch.log(-torch.log(u))
-    return noise
+        out[i] = -torch.log(-torch.log(u))
+    return out
 
 
 def scaled_logits(logits: torch.Tensor, temperature: torch.Tensor):
@@ -93,7 +104,8 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     """One token per row of `logits` [S, V]: greedy rows take argmax of the
     RAW logits; sampled rows take argmax(filter_logits + noise), noise
     being that row's Gumbel draw (`gumbel_noise`).  `noise=None` is only
-    valid when every row is greedy.  Returns int32 [S]."""
+    valid when every row is greedy.  The device part of the sampler: no
+    host read, so the packed step captures it.  Returns int32 [S]."""
     greedy = torch.argmax(logits, dim=-1)
     if noise is None:
         return greedy.to(torch.int32)
@@ -107,9 +119,10 @@ def sample_rows(logits: torch.Tensor, seed: int, temperature, top_p, top_k,
     """`sample_tokens` with per-row parameters given as HOST arrays [S]:
     the host decides which rows draw noise (temperature > 0) and seeds
     each from (seed, stream id, num_generated); greedy rows need no noise.
-    Returns int32 [S] on the logits' device."""
+    The padded step's eager sampling dispatch.  Returns int32 [S] on the
+    logits' device."""
     dev = logits.device
-    hot = [i for i, t in enumerate(temperature) if t > 0]
+    hot = hot_rows(temperature)
     noise = gumbel_noise(seed, stream_ids, num_generated, logits.shape[-1],
                          dev, rows=hot) if hot else None
     return sample_tokens(

@@ -1,0 +1,172 @@
+"""The entries of the engine's executable cache: a serving step run
+eagerly, or captured into a CUDA graph and replayed.
+
+Port of the reference's static-shape executable cache
+(`repro.serving.engine.Engine._get_fn`, which its docstring calls "the TPU
+analog of CUDA-graph capture").  An entry takes the step's host metadata
+as numpy arrays and returns the step's device outputs (a tuple):
+
+  EagerStep    uploads the arrays and runs the step's body: the CPU, the
+               padded prefill, and `Engine(cuda_graphs=False)` on the card
+  GraphedStep  on the card: the first call copies the arrays into static
+               device buffers and runs the body eagerly (the warm-up; its
+               result is the step's), then captures the body over those
+               buffers into a `torch.cuda.CUDAGraph`, which does not
+               execute; every later call copies the arrays into the same
+               buffers and replays the graph.  Its outputs are static
+               buffers that the next replay overwrites.
+
+A capture that fails raises; nothing carries on eagerly.
+
+The kernel wrappers count their launches on the host as they enqueue
+them (`LAUNCHES`, `KERNEL_LAUNCHES`), so a capture counts launches that
+never ran and a replay counts none.  `counted` records what the capture
+added and takes it back; each replay adds it again (`add_counts`), so a
+graphed run counts what an eager run of the same steps counts.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mlstm import kernel as MK
+from repro_torch.kernels.paged_attention import kernel as K
+
+Counts = list[dict[str, int]]
+
+
+def kernel_counters() -> Counts:
+    """Every launch counter of the kernel wrappers."""
+    return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, SK.LAUNCHES,
+            SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES]
+
+
+def counted(fn: Callable, counters: Counts | None = None):
+    """Run `fn()` and return (its result, the counts it added), leaving
+    the counters as they were before the call, even when it raises."""
+    counters = kernel_counters() if counters is None else counters
+    before = [dict(c) for c in counters]
+    try:
+        out = fn()
+    finally:
+        delta = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+                 for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.clear()
+            c.update(b)
+    return out, delta
+
+
+def add_counts(delta: Counts, counters: Counts | None = None) -> None:
+    """Add a `counted` delta to the counters (one replay)."""
+    counters = kernel_counters() if counters is None else counters
+    for c, d in zip(counters, delta):
+        for k, n in d.items():
+            c[k] += n
+
+
+class EagerStep:
+    """An entry that uploads the host arrays and runs the body."""
+
+    def __init__(self, body: Callable[[dict], tuple], device: torch.device):
+        self.body = body
+        self.device = device
+
+    def __call__(self, arrays: dict[str, np.ndarray]) -> tuple:
+        return self.body({k: torch.from_numpy(v).to(self.device)
+                          for k, v in arrays.items()})
+
+
+class StaticInputs:
+    """Static device buffers for a step's host arrays: one byte buffer on
+    the card, each array a 16-byte aligned view of it, filled from one
+    pinned host buffer by one asynchronous copy.  The pinned buffer is
+    rewritten only after the previous copy out of it has finished."""
+
+    ALIGN = 16
+
+    def __init__(self, arrays: dict[str, np.ndarray], device: torch.device):
+        spans, off = {}, 0
+        for name, a in arrays.items():
+            spans[name] = (off, a.nbytes, a.dtype, a.shape)
+            off += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        self._host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+        self._dev = torch.empty(off, dtype=torch.uint8, device=device)
+        host = self._host.numpy()
+        self.host = {n: host[o:o + nb].view(dt).reshape(shape)
+                     for n, (o, nb, dt, shape) in spans.items()}
+        self.tensors = {
+            n: self._dev[o:o + nb].view(torch.from_numpy(
+                np.empty(0, dt)).dtype).view(shape)
+            for n, (o, nb, dt, shape) in spans.items()}
+        self._copied = torch.cuda.Event()
+
+    def upload(self, arrays: dict[str, np.ndarray]) -> None:
+        self._copied.synchronize()
+        for name, a in arrays.items():
+            dst = self.host[name]
+            if a.shape != dst.shape or a.dtype != dst.dtype:
+                raise ValueError(f"static input {name!r}: {a.dtype}"
+                                 f"{a.shape} does not fit the captured "
+                                 f"{dst.dtype}{dst.shape}")
+            np.copyto(dst, a)
+        self._dev.copy_(self._host, non_blocking=True)
+        self._copied.record()
+
+
+class GraphedStep:
+    """An entry captured into a CUDA graph at its first call and replayed
+    after.  `pool` is the engine's graph memory pool, shared by all its
+    graphs (they replay one at a time); `stream` the engine's side stream,
+    on which the warm-up and the capture run (the cuBLAS workspace and the
+    merged decode's arrival counters of that stream exist before the
+    capture).  `stats` counts "captures" and "replays", and sums the host
+    seconds of the captures themselves ("capture_s": recording and
+    instantiating the graph, after the warm-up)."""
+
+    def __init__(self, body: Callable[[dict], tuple], device: torch.device,
+                 pool, stream: torch.cuda.Stream, stats: dict):
+        self.body = body
+        self.device = device
+        self.pool = pool
+        self.stream = stream
+        self.stats = stats
+        self.inputs: StaticInputs | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple = ()
+        self.delta: Counts = []
+
+    def __call__(self, arrays: dict[str, np.ndarray]) -> tuple:
+        if self.inputs is None:
+            self.inputs = StaticInputs(arrays, self.device)
+        self.inputs.upload(arrays)
+        if self.graph is not None:
+            self.graph.replay()
+            add_counts(self.delta)
+            self.stats["replays"] += 1
+            return self.outputs
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = self.body(self.inputs.tensors)  # the warm-up: the result
+        cur.wait_stream(self.stream)
+        for t in out:
+            t.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                return self.body(self.inputs.tensors)
+
+        t0 = time.perf_counter()
+        self.outputs, self.delta = counted(capture)
+        self.stats["capture_s"] += time.perf_counter() - t0
+        cur.wait_stream(self.stream)
+        self.graph = graph
+        self.stats["captures"] += 1
+        return out

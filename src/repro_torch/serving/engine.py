@@ -32,6 +32,22 @@ place.  On `cuda` the attention and the SSD (hybrid) and mLSTM (xlstm)
 prefill scans run the hand-written CUDA kernels; with `device="cpu"`
 they run their plain PyTorch versions.
 
+The executable cache (`_get_fn` / `_compiled` / `compile_events`, the
+reference's names and key) holds one entry per (kind, batch bucket, seq
+bucket, KernelConfig): ("unified", 2 * max_seqs, token bucket, kcfg),
+("decode", max_seqs, 1, kcfg) and ("prefill", b, s, kcfg).  On the card
+(`cuda_graphs=True`, the default) a unified or decode entry is a CUDA
+graph (`serving/cuda_graphs.py`): the first step with its key runs
+eagerly and captures it, later ones copy their metadata into its static
+input buffers and replay it.  The padded prefill's entry stays eager
+(each of its (b, s) buckets recurs rarely, so a capture would seldom pay
+back), as does the padded step's sampling dispatch.  On the CPU, and on
+the card with `cuda_graphs=False`, every entry runs eagerly;
+`compile_events` is recorded all the same.  The packed step's sampler is
+split: the host draws each sampling row's seeded Gumbel noise into a
+static [2 * max_seqs, V] buffer before the step, and the step (captured)
+filters and draws.
+
 Not ported yet (see ROADMAP.md): the async `submit()/stream()/run()`
 loop, speculative decoding, prefix caching, resumed chunks on the padded
 step (`apply_prefill_cached`), telemetry / refit, autotuned chunk budgets
@@ -41,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 from typing import Sequence
 
@@ -52,6 +69,7 @@ from repro_torch.core.attention import heuristics
 from repro_torch.core.paged.allocator import RefCountedPageAllocator
 from repro_torch.models import model as M
 from repro_torch.models import sampling
+from repro_torch.serving import cuda_graphs
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.utils.misc import cdiv, next_power_of_2
@@ -66,6 +84,9 @@ class _PackedLaunch:
     rows: list[tuple[Request, int]]  # (request, packed row) of sampling rows
     kcfg: heuristics.KernelConfig
     tokens: int  # launched token-bucket width
+    # per-row host arrays [S] that seed the noise: temperature, stream
+    # ids, tokens generated so far
+    noise_seeds: tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
 class Engine:
@@ -82,6 +103,7 @@ class Engine:
         packed_attention: bool = True,
         seed: int = 0,
         debug_logits: bool = False,
+        cuda_graphs: bool = True,
         device="cuda",
     ):
         self.cfg = cfg
@@ -140,6 +162,71 @@ class Engine:
         self.last_step_logits: torch.Tensor | None = None
         self._step_logits: list[torch.Tensor] = []
         self.last_generate: dict = {}
+        # the executable cache: key -> entry, one compile event a key
+        self.compile_events: list[tuple] = []  # (kind, b, s, kcfg)/capture
+        self._compiled: dict[tuple, object] = {}
+        # CUDA graphs: the card only; one memory pool and one capture
+        # stream for all of the engine's graphs
+        self._graphs = cuda_graphs and self.device.type == "cuda"
+        self.graph_stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
+        if self._graphs:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        # the packed step's static noise buffer (zero on greedy rows)
+        self._noise = (torch.zeros((2 * max_seqs, cfg.vocab_size),
+                                   dtype=torch.float32, device=self.device)
+                       if self._packed else None)
+        self._noisy = False  # the buffer holds a nonzero row
+
+    # ------------------------------------------------------------------
+    # the executable cache ("graphs")
+    # ------------------------------------------------------------------
+
+    def _get_fn(self, kind: str, b: int, s: int,
+                kcfg: heuristics.KernelConfig | None = None):
+        """Executable cache keyed by (kind, batch bucket, seq bucket,
+        KernelConfig), as the reference's: a heuristics tree that switches
+        variants by batch shape replays the capture for that config
+        (`compile_events` grows one entry per bucket x config, never per
+        step).  A unified (b = 2 * max_seqs, s = token bucket) or decode
+        entry is a `GraphedStep` on the card with graphs on; a prefill
+        entry is always eager (`EagerStep`)."""
+        key = (kind, b, s, kcfg)
+        if key not in self._compiled:
+            self.compile_events.append(key)
+            if kind == "unified":
+                body = functools.partial(self._unified_body, kcfg)
+            elif kind == "decode":
+                body = functools.partial(self._decode_body, kcfg)
+            elif kind == "prefill":
+                body = functools.partial(self._prefill_body, kcfg, b)
+            else:
+                raise ValueError(kind)
+            if self._graphs and kind != "prefill":
+                self._compiled[key] = cuda_graphs.GraphedStep(
+                    body, self.device, self._graph_pool, self._graph_stream,
+                    self.graph_stats)
+            else:
+                self._compiled[key] = cuda_graphs.EagerStep(body, self.device)
+        return self._compiled[key]
+
+    def _unified_body(self, kcfg, batch: dict) -> tuple:
+        # a graph always reads the noise buffer (greedy rows ignore it); an
+        # eager all-greedy step skips the filter, as the one-call sampler did
+        noise = self._noise if self._graphs or self._noisy else None
+        toks, logits, _ = M.apply_unified(
+            self.model, self.cache["attn"], dict(batch, noise=noise),
+            kernel_cfg=kcfg, num_decode_seqs=self.max_seqs, sample=True,
+            return_logits=True)
+        return toks, logits
+
+    def _decode_body(self, kcfg, batch: dict) -> tuple:
+        return M.apply_decode(self.model, self.cache, batch,
+                              kernel_cfg=kcfg)[:1]
+
+    def _prefill_body(self, kcfg, b: int, batch: dict) -> tuple:
+        return M.apply_prefill(self.model, self._prefill_cache_view(b),
+                               batch, kernel_cfg=kcfg)
 
     # ------------------------------------------------------------------
     # kernel-config dispatch (paper Fig. 5: profile -> tree -> config)
@@ -381,34 +468,39 @@ class Engine:
             qsl[i + 1:] = cur
 
         kcfg = self._dispatch("unified", profile)
-        pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t)
-        dev = self.device
-        batch = {
-            "inputs": torch.from_numpy(tokens).to(dev),
-            "positions": torch.from_numpy(pos).to(dev),
-            "page_table": torch.from_numpy(pt).to(dev),
-            "context_lens": torch.from_numpy(ctx).to(dev),
-            "query_lens": torch.from_numpy(qlens).to(dev),
-            "query_start_loc": torch.from_numpy(qsl).to(dev),
-            "slot_mapping": torch.from_numpy(slots).to(dev),
-        }
         temps, topp, topk, streams, ngen = self._sampling_rows(
             s, [(i, r) for r, i in rows])
-        batch.update(temperature=temps, top_p=topp, top_k=topk,
-                     stream_ids=streams, num_generated=ngen)
+        pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t,
+                             noise_seeds=(temps, streams, ngen))
+        batch = {"inputs": tokens, "positions": pos, "page_table": pt,
+                 "context_lens": ctx, "query_lens": qlens,
+                 "query_start_loc": qsl, "slot_mapping": slots,
+                 "temperature": temps, "top_p": topp, "top_k": topk}
         return batch, pack
 
+    def _draw_noise(self, pack: _PackedLaunch) -> None:
+        """The sampler's host part: each sampling row's Gumbel noise,
+        seeded from (seed, stream id, tokens generated), into the static
+        buffer (zeroed where no row samples; untouched while it stays
+        all zero)."""
+        temps, streams, ngen = pack.noise_seeds
+        hot = sampling.hot_rows(temps)
+        if hot or self._noisy:
+            sampling.gumbel_noise(self.seed, streams, ngen,
+                                  self.cfg.vocab_size, self.device, rows=hot,
+                                  out=self._noise)
+        self._noisy = bool(hot)
+
     def _launch_unified(self, batch: dict, pack: _PackedLaunch) -> np.ndarray:
-        """Run one packed launch and return the host token ids [S]."""
+        """Run one packed launch (host arrays in, through the executable
+        cache) and return the host token ids [S]."""
+        fn = self._get_fn("unified", 2 * self.max_seqs, pack.tokens,
+                          pack.kcfg)
         self.device_calls["unified"] += 1
-        ret = M.apply_unified(
-            self.model, self.cache["attn"], batch, kernel_cfg=pack.kcfg,
-            num_decode_seqs=self.max_seqs, sample=True, seed=self.seed,
-            return_logits=self._debug_logits)
-        if self._debug_logits:
-            toks, self.last_step_logits, _ = ret
-        else:
-            toks, _ = ret
+        self._draw_noise(pack)
+        toks, logits = fn(batch)
+        if self._debug_logits:  # a copy: a replay overwrites the buffer
+            self.last_step_logits = logits.clone()
         self.launched_token_slots += pack.tokens
         return toks.cpu().numpy()
 
@@ -445,11 +537,11 @@ class Engine:
         for r in reqs:
             r.context_len = r.chunk_start + r.num_scheduled_tokens
 
-    def _upload(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
-
     def _run_prefill_fresh(self, reqs: list[Request]) -> None:
+        """The padded prefill of fresh prompts, [pow2 batch, pow2 seq]: its
+        ("prefill", b, s, kcfg) key is recorded in `compile_events`, but
+        its entry stays eager, also on the card (each bucket recurs
+        rarely, so a capture would seldom pay back)."""
         b = next_power_of_2(len(reqs))
         max_len = max(r.num_scheduled_tokens for r in reqs)
         s = max(next_power_of_2(max_len), self.cfg.page_size)
@@ -463,12 +555,11 @@ class Engine:
             qlens[i] = n
             pt[i] = self.page_table[r.slot]
         kcfg = self._dispatch("prefill", self._prefill_profile(reqs))
+        fn = self._get_fn("prefill", b, s, kcfg)  # eager in this port
         self.device_calls["prefill"] += 1
-        batch = self._upload({"inputs": tokens, "positions": pos,
-                              "page_table": pt, "context_lens": qlens,
-                              "query_lens": qlens})
-        logits, new_cache = M.apply_prefill(
-            self.model, self._prefill_cache_view(b), batch, kernel_cfg=kcfg)
+        logits, new_cache = fn({"inputs": tokens, "positions": pos,
+                                "page_table": pt, "context_lens": qlens,
+                                "query_lens": qlens})
         if self._debug_logits:
             self._step_logits.append(logits)
         self.launched_token_slots += b * s
@@ -485,14 +576,13 @@ class Engine:
             pos[r.slot, 0] = r.total_len - 1
             ctx[r.slot] = r.total_len
         kcfg = self._dispatch("decode", self._decode_profile(reqs))
+        fn = self._get_fn("decode", b, 1, kcfg)
         self.device_calls["decode"] += 1
-        batch = self._upload({"inputs": tokens, "positions": pos,
-                              "page_table": self.page_table.copy(),
-                              "context_lens": ctx})
-        logits, _ = M.apply_decode(self.model, self.cache, batch,
-                                   kernel_cfg=kcfg)
-        if self._debug_logits:
-            self._step_logits.append(logits)
+        logits, = fn({"inputs": tokens, "positions": pos,
+                      "page_table": self.page_table.copy(),
+                      "context_lens": ctx})
+        if self._debug_logits:  # a copy: a replay overwrites the buffer
+            self._step_logits.append(logits.clone())
         self.launched_token_slots += b
         toks = self._sample(logits, b, [(r.slot, r) for r in reqs])
         for r in reqs:

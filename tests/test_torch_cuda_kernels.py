@@ -8,6 +8,11 @@ on a host without CUDA.  Run on the card with
 
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
+The engine's CUDA graphs (the packed step and the padded decode step,
+captured at a key's first step and replayed after) against the same
+engine with `cuda_graphs=False`: the same tokens, bit-equal logits and KV
+pages, and the same launch counts.
+
 Imports neither JAX nor the JAX package.  Tolerances: fp32 atol 1e-4
 with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
 7.8e-3; p is rounded to bf16 before p.V on both sides).  In bf16 the
@@ -40,6 +45,7 @@ from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.mlstm import ops as mops
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
+from repro_torch.serving import cuda_graphs
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request
 
@@ -826,3 +832,137 @@ def test_xlstm_engine_on_card_matches_cpu(cuda):
                 len(eng.model.mlstm) * eng.device_calls["prefill"] > 0
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the packed step and the padded decode step, captured
+# ---------------------------------------------------------------------------
+
+
+def _graphs_vs_eager(arch, prompts, dev, *, sampled=False, **eng_kw):
+    """The same requests through an engine with CUDA graphs and one
+    without, each from launch counters at 0: per step the tokens and the
+    (debug) logits, then the caches, the compile events and the counters.
+    Logits and caches must be bit-equal: the graphs replay the eager
+    step's kernels on the same inputs."""
+    cfg = reduced(ARCHS[arch]).replace(dtype="float32")
+    model = weights.init_random(cfg, 0, device=dev)
+    runs = []
+    for graphs in (True, False):
+        eng = Engine(cfg, model, device=dev, debug_logits=True,
+                     cuda_graphs=graphs, **eng_kw)
+        for i, p in enumerate(prompts):
+            kw = (dict(temperature=0.9, top_k=30, top_p=0.8, seed=i)
+                  if sampled and i % 2 else {})
+            eng.add_request(Request(prompt=list(p), max_new_tokens=6, **kw))
+        for c in cuda_graphs.kernel_counters():
+            c.update(dict.fromkeys(c, 0))
+        toks, logits = [], []
+        while eng.sched.has_work:
+            toks.append(eng.step()["sampled_tokens"])
+            logits.append(eng.last_step_logits.clone())
+        torch.cuda.synchronize()
+        runs.append(dict(eng=eng, toks=toks, logits=logits,
+                         counts=[dict(c) for c in
+                                 cuda_graphs.kernel_counters()]))
+    g, e = runs
+    assert g["eng"].graph_stats["captures"] > 0
+    assert g["eng"].graph_stats["replays"] > 0
+    assert e["eng"].graph_stats == {"captures": 0, "replays": 0,
+                                    "capture_s": 0.0}
+    assert g["eng"].compile_events == e["eng"].compile_events
+    assert g["toks"] == e["toks"]
+    for a, b in zip(g["logits"], e["logits"]):
+        assert torch.equal(a, b)
+    for group, leaves in e["eng"].cache.items():
+        for name, t in leaves.items():
+            assert torch.equal(g["eng"].cache[group][name], t), (group, name)
+    assert g["counts"] == e["counts"]
+    return g["eng"], e["eng"]
+
+
+def _prompts_for(arch, lens, seed):
+    rng = np.random.default_rng(seed)
+    vocab = reduced(ARCHS[arch]).vocab_size
+    return [list(map(int, rng.integers(1, vocab, size=n))) for n in lens]
+
+
+def test_graphed_packed_step_matches_eager(cuda):
+    """Reduced smollm-135m, fp32, chunked prefill at 32 tokens, greedy and
+    sampled (temperature, top-k, top-p) requests: the graphed packed step
+    gives the eager step's tokens, logits, pages and launch counts."""
+    geng, _ = _graphs_vs_eager(
+        "smollm-135m", _prompts_for("smollm-135m", (5, 40, 17, 70, 3, 33), 0),
+        cuda, sampled=True, max_seqs=4, num_pages=64, max_model_len=256,
+        enable_chunked_prefill=True, max_prefill_tokens=32)
+    assert all(isinstance(geng._compiled[k], cuda_graphs.GraphedStep)
+               for k in geng.compile_events)
+
+
+def test_graphed_packed_step_matches_eager_under_preemption(cuda):
+    """13 pages for four requests that need ~18: preemption rewrites the
+    page tables the graphs read from their static buffers."""
+    geng, _ = _graphs_vs_eager(
+        "smollm-135m", _prompts_for("smollm-135m", (40, 33, 47, 20), 7),
+        cuda, max_seqs=4, num_pages=13, max_model_len=128)
+    assert geng.graph_stats["replays"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_graphed_padded_decode_matches_eager(cuda, arch):
+    """The padded step: the decode step captured (the prefill eager), the
+    same tokens, logits, KV pages and recurrent states as eager."""
+    geng, _ = _graphs_vs_eager(
+        arch, _prompts_for(arch, (12, 20, 7, 40), 1), cuda, max_seqs=2,
+        num_pages=32, max_model_len=128)
+    kinds = {k[0]: type(geng._compiled[k]) for k in geng.compile_events}
+    assert kinds == {"prefill": cuda_graphs.EagerStep,
+                     "decode": cuda_graphs.GraphedStep}
+
+
+def test_launch_counters_follow_replays(cuda):
+    """A replayed step adds the launches its capture recorded: the graphed
+    run counts exactly what the eager run counts, every paged kernel
+    included (zamba2: the prefill eager, the decode replayed)."""
+    for arch in ("smollm-135m", "zamba2-1.2b"):
+        _graphs_vs_eager(
+            arch, _prompts_for(arch, (12, 20, 7, 40), 3), cuda, max_seqs=2,
+            num_pages=32, max_model_len=128)
+        assert K.LAUNCHES["paged_decode"] + \
+            K.LAUNCHES["paged_decode_segmented"] > 0
+
+
+def test_merge_counters_a_graph_captured_survive_a_larger_launch(cuda):
+    """A graph captures the folded C3 launch with the counter buffer of its
+    stream; a larger launch on that stream replaces the buffer.  The old
+    one stays alive and zeroed, and the graph still replays on it and
+    gives the eager bits."""
+    q, kp, vp, pt, cl = _case(cuda, torch.float32, 3, 3, 16, [0, 1, 17, 300])
+    s, hq, d = q.shape
+    kt, vt = (x.reshape(3, -1, 1, 16, d) for x in (kp, vp))
+    kw = dict(num_segments=4, tiles_per_segment=5, scale=0.125)
+    qq = q.reshape(s, 3, 3, d)
+    want = K.paged_decode_segmented_merged(qq, kt, vt, pt, cl, **kw)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        K.paged_decode_segmented_merged(qq, kt, vt, pt, cl, **kw)  # warm-up
+    key = (cuda.index if cuda.index is not None else 0, side.cuda_stream)
+    buf = K._COUNTERS[key]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = K.paged_decode_segmented_merged(qq, kt, vt, pt, cl, **kw)
+    q2, kp2, vp2, pt2, cl2 = _case(cuda, torch.float32, 3, 3, 16,
+                                   [5, 40, 300, 9, 77, 100, 2, 64], seed=1)
+    with torch.cuda.stream(side):
+        K.paged_decode_segmented_merged(
+            q2.reshape(8, 3, 3, d), *(x.reshape(3, -1, 1, 16, d)
+                                      for x in (kp2, vp2)), pt2, cl2, **kw)
+    torch.cuda.synchronize()
+    assert K._COUNTERS[key] is not buf
+    assert any(t is buf for t in K._RETIRED)
+    assert not buf.any()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not buf.any()

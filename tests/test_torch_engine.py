@@ -34,7 +34,7 @@ def _prompts(vocab, lens, seed=0):
 
 def _run_both(models, prompts, *, max_new_tokens, backend="xla", **kw):
     jcfg, tcfg, params, model = models
-    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, **kw)
+    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256) | kw
     jeng = JEngine(jcfg, params, backend=backend, packed_attention=True,
                    fused_sampling=True, **eng_kw)
     teng = TEngine(tcfg, model, device="cpu", **eng_kw)
@@ -80,6 +80,26 @@ def test_engine_matches_reference_pallas_backend(models):
     prompts = _prompts(models[1].vocab_size, [9, 21, 4], seed=2)
     res = _run_both(models, prompts, max_new_tokens=3, backend="pallas")
     _assert_same(*res)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_engine_matches_reference_under_preemption(models, chunked):
+    """13 pages of 16 (12 usable) for four requests that need ~18: the
+    scheduler preempts decoding requests (their output folds into the
+    prompt) and resumes them.  Tokens, steps, launched token rows and
+    dispatch equal the reference's, and no page leaks."""
+    kw = (dict(enable_chunked_prefill=True, max_prefill_tokens=32)
+          if chunked else {})
+    lens = (40, 33, 47, 20)
+    prompts = _prompts(models[1].vocab_size, lens, seed=7)
+    jeng, teng, jreqs, treqs = _run_both(
+        models, prompts, max_new_tokens=24, num_pages=13, max_model_len=128,
+        **kw)
+    _assert_same(jeng, teng, jreqs, treqs)
+    assert [r.prompt for r in treqs] == [r.prompt for r in jreqs]
+    assert teng.step_idx == jeng.step_idx
+    assert any(len(r.prompt) > n for r, n in zip(treqs, lens)), \
+        "no request was preempted"
 
 
 def test_engine_rejects_oversized_request(models):

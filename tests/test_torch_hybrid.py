@@ -133,7 +133,8 @@ def test_prefill_decode_consistency(zamba):
     np.testing.assert_allclose(l1.numpy(), l2.numpy(), atol=2e-4, rtol=2e-4)
 
 
-def _run_engines(built, prompts, *, max_new_tokens, **kw):
+def _run_engines(built, prompts, *, max_new_tokens, with_requests=False,
+                 **kw):
     jcfg, tcfg, params, model = built
     jeng = JEngine(jcfg, params, **kw)
     teng = TEngine(tcfg, model, device="cpu", **kw)
@@ -150,6 +151,8 @@ def _run_engines(built, prompts, *, max_new_tokens, **kw):
     assert teng.launched_token_slots == jeng.launched_token_slots
     assert dict(teng.dispatch_counts) == dict(jeng.dispatch_counts)
     assert dict(teng.device_calls) == dict(jeng.device_calls)
+    if with_requests:
+        return teng, treqs, jeng, jreqs
     return teng
 
 
@@ -175,6 +178,28 @@ def test_dense_padded_engine_matches_reference():
     assert not teng._packed
     assert {phase for phase, _ in teng.dispatch_counts} == {"prefill",
                                                              "decode"}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "smollm-135m"])
+def test_padded_engine_matches_reference_under_preemption(zamba, arch):
+    """13 pages of 16 (12 usable) for four requests that need ~18: the
+    padded step preempts decoding requests (their output folds into the
+    prompt) and prefills them again.  Tokens, steps, launched token rows,
+    dispatch and device calls equal the reference's, and no page leaks;
+    zamba2, and smollm on the padded step."""
+    built = zamba if arch == "zamba2-1.2b" else _build(arch)
+    lens = (40, 33, 47, 20)
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(1, built[0].vocab_size, size=n)))
+               for n in lens]
+    kw = {"packed_attention": False} if arch == "smollm-135m" else {}
+    teng, treqs, jeng, jreqs = _run_engines(
+        built, prompts, max_new_tokens=24, max_seqs=4, num_pages=13,
+        max_model_len=128, with_requests=True, **kw)
+    assert [r.prompt for r in treqs] == [r.prompt for r in jreqs]
+    assert teng.step_idx == jeng.step_idx
+    assert any(len(r.prompt) > n for r, n in zip(treqs, lens)), \
+        "no request was preempted"
 
 
 def test_padded_engine_rejects_what_is_not_ported(zamba):

@@ -184,6 +184,35 @@ def test_engine_matches_reference(xlstm):
     assert teng.device_calls["prefill"] > 0
 
 
+def test_engine_matches_reference_under_preemption(xlstm):
+    """13 pages of 16 (12 usable: xlstm holds no KV, but the scheduler
+    still pages every request) for four requests that need ~18: decoding
+    requests are preempted (their output folds into the prompt) and
+    prefilled again from the empty state.  Tokens, steps, launched token
+    rows and device calls equal the reference's, and no page leaks."""
+    jcfg, tcfg, params, model = xlstm
+    lens = (40, 33, 47, 20)
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(1, jcfg.vocab_size, size=n)))
+               for n in lens]
+    kw = dict(max_seqs=4, num_pages=13, max_model_len=128)
+    jeng = JEngine(jcfg, params, **kw)
+    teng = TEngine(tcfg, model, device="cpu", **kw)
+    jreqs = jeng.generate([JRequest(prompt=list(p), max_new_tokens=24)
+                           for p in prompts])
+    treqs = teng.generate([TRequest(prompt=list(p), max_new_tokens=24)
+                           for p in prompts])
+    assert all(r.state is State.FINISHED for r in treqs)
+    assert teng.alloc.free_pages == teng.num_pages - 1, "pages leaked"
+    assert [r.prompt for r in treqs] == [r.prompt for r in jreqs]
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert teng.step_idx == jeng.step_idx
+    assert teng.launched_token_slots == jeng.launched_token_slots
+    assert dict(teng.device_calls) == dict(jeng.device_calls)
+    assert any(len(r.prompt) > n for r, n in zip(treqs, lens)), \
+        "no request was preempted"
+
+
 def test_prefill_cache_view_starts_empty(xlstm):
     _, tcfg, _, model = xlstm
     eng = TEngine(tcfg, model, device="cpu", max_seqs=2, num_pages=8,
