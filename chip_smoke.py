@@ -23,9 +23,13 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               1024 rows at context 0 in the uniform layout), at
               qwen2.5-3b's heads (Hkv 2, group 8, D 128: the D 128
               instantiation of the tensor-core prefill, and 128 rows a
-              Q-Block, over 64) and, for the decode kernels only, at
+              Q-Block, over 64), for the decode kernels only, at
               glm4-9b's heads (Hkv 2, group 16, D 128: the largest group
-              the repo's models give them), in fp32 with TF32 off (atol
+              the repo's models give them) and, for the prefill only, at
+              the padded step's resumed chunks with smollm's heads (4
+              chunks of 512 rows in the uniform layout after prior
+              contexts of 0 / 512 / 1024 / 1536, one padded to half its
+              rows: `prefill_attention_cached`), in fp32 with TF32 off (atol
               1e-4) and bf16 (atol 2e-2: a bf16 output ulp near 1 is
               7.8e-3, and p is rounded to bf16 before p.V on both sides;
               bf16 prefill runs the tensor-core kernel, fp32 the scalar
@@ -59,14 +63,33 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               bit (else within one bf16 ulp of the largest logit), both
               walls, the captures and replays and the steps' walls by kind
               logged (`graphs_vs_eager`); and the same differential on a
-              preempting trace (4 requests on 13 pages)
+              preempting trace (4 requests on 13 pages).  Then (a) the
+              same 8 requests through `submit()` + `run()` (the async
+              double-buffered loop), graphs on, against the synchronous
+              graphed run: identical tokens, launch counters,
+              `compile_events` and logits launch by launch bit for bit;
+              both walls, the replayed steps' mean walls and the capture
+              seconds logged, and the decode graph's replay time on the
+              card against its kernels' summed time (`replay_cost`); (b) a
+              shared-prefix trace (8 requests of one 768-token prefix and
+              64-256 own tokens, 32 new each, chunked at 512) through
+              `run()` with prefix caching off and on: every request
+              finishes, a page must hit; the prefill accounting, both
+              walls and each request's time to first token logged
   6. diff     full width in fp32 (TF32 off): 3 greedy requests of 8 new
               tokens on the card (CUDA kernels, CUDA graphs) and on the
               CPU (plain versions), stepped in lockstep: identical tokens,
               logits within 5e-3; then one bf16 prefill of the same 3
               prompts on the card, replaying the packed step's graph (the
               prompts are served once before to capture it), and on the
-              CPU: the logit gap within 2 x the CPU's own bf16-vs-fp32 gap
+              CPU: the logit gap within 2 x the CPU's own bf16-vs-fp32 gap;
+              then three more fp32 legs, identical tokens and logits
+              within 5e-3: phase 5's shared-prefix trace with prefix
+              caching on (packed, in lockstep, the same cached tokens on
+              both), the padded step with chunked prefill at 64 (resumed
+              chunks run `apply_prefill_cached` on the card's fp32 prefill
+              kernel), and `stream()` on the card against `generate()` on
+              the CPU, launch by launch
   7. flash    the flash-attention forward kernel (o and lse) against its
               plain version on the card at the shape the train phase gives
               it (B 4, S 2048, Hq 9, Hkv 3, D 64, causal, packed q
@@ -231,6 +254,14 @@ PAGED_SHAPES = {
     "glm4-9b": dict(
         page_sizes=(16,), ctx=(0, 1, 33, 640, 1024, 1500, 2047, 2048),
         num_segments=16, qlens=None, pf_ctx=None, stride=None),
+    # the Q-Block prefill alone (ctx None: no decode kernels) at smollm's
+    # heads on the padded step's resumed chunks (`prefill_attention_cached`):
+    # 4 chunks of 512 rows in the uniform layout after prior contexts of
+    # 0, 512, 1024 and 1536 tokens, the last chunk padded to half its rows
+    "smollm-135m/resumed": dict(
+        page_sizes=(16,), ctx=None, num_segments=None,
+        qlens=(512, 512, 512, 256), pf_ctx=(512, 1024, 1536, 1792),
+        stride=512),
 }
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
@@ -246,6 +277,9 @@ SERVE_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3)
 # that need ~18, as in tests/test_torch_engine.py
 PREEMPT_LENS, PREEMPT_NEW_TOKENS = (40, 33, 47, 20), 24
 PREEMPT_ENGINE = dict(max_seqs=4, num_pages=13, max_model_len=128)
+# the shared-prefix trace (phases 5 and 6): 8 requests of one 768-token
+# prefix and 64-256 tokens of their own, 32 new tokens each, chunked at 512
+SHARED_PREFIX, SHARED_OWN, SHARED_REQUESTS = 768, (64, 256), 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
 # shape the train phase gives the kernel (smollm-135m: Hq 9, Hkv 3, D 64),
@@ -406,10 +440,11 @@ def tile_view(pages, tile):
 
 
 def paged_heads(arch):
-    """(hkv, group, head_dim, page_size) of the model a shape set is for."""
+    """(hkv, group, head_dim, page_size) of the model a shape set is for
+    (a set's name is the model's, or the model's and a "/" suffix)."""
     from repro_torch.configs import ARCHS
 
-    cfg = ARCHS[arch]
+    cfg = ARCHS[arch.split("/")[0]]
     return (cfg.num_kv_heads, cfg.num_q_heads // cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.page_size)
 
@@ -417,9 +452,32 @@ def paged_heads(arch):
 def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
     """({name: (kernel_fn, plain_fn)}, inputs) at the shapes arch's serve
     phase gives the kernels (PAGED_SHAPES); both functions of a pair take
-    the same tensors."""
+    the same tensors.  A set without decode contexts gives the prefill
+    alone."""
     shp = PAGED_SHAPES[arch]
     hkv, group, d, _ = paged_heads(arch)
+    scale = d ** -0.5
+    calls, x = {}, {}
+    if shp["ctx"] is not None:
+        calls, x = decode_calls(torch, K, dtype, ps, tile, shp, hkv, group,
+                                d, scale)
+    pf = None
+    if shp["qlens"] is not None:
+        pf = prefill_inputs(torch, tops, dtype, ps, hkv=hkv, group=group,
+                            d=d, qlens=shp["qlens"], ctx=shp["pf_ctx"],
+                            stride=shp["stride"])
+        pkt, pvt = tile_view(pf["k"], tile), tile_view(pf["v"], tile)
+        pf_args = (pf["q_packed"], pkt, pvt, pf["qb_seq"], pf["qb_pos0"],
+                   pf["pt"], pf["ctx"])
+        pf_kw = dict(block_q=pf["block_q"], group=pf["group"], scale=scale)
+        calls["paged_prefill_qblock"] = (
+            lambda: K.paged_prefill_qblock(*pf_args, **pf_kw),
+            lambda: K.paged_prefill_qblock_plain(*pf_args, **pf_kw))
+    return calls, dict(x, pf=pf, tile=tile, ps=ps)
+
+
+def decode_calls(torch, K, dtype, ps, tile, shp, hkv, group, d, scale):
+    """The decode kernels' pairs of `kernel_calls` at a set's contexts."""
     q, kp, vp, pt, ctx = decode_inputs(torch, dtype, ps, hkv=hkv,
                                        group=group, d=d, ctx=shp["ctx"])
     s, hq, _ = q.shape
@@ -427,7 +485,6 @@ def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
     num_tiles = pt.shape[1] * (ps // tile)
     nseg = min(shp["num_segments"], num_tiles)
     tps = -(-num_tiles // nseg)
-    scale = d ** -0.5
     qg = q.reshape(s, hkv, group, d).contiguous()
     qb = q.reshape(s, hq, 1, d).contiguous()
     seg_kw = dict(num_segments=nseg, tiles_per_segment=tps, scale=scale)
@@ -456,20 +513,8 @@ def kernel_calls(torch, K, dtype, ps, tile, tops, arch=ARCH):
             lambda: K.paged_decode_segmented_merged_plain(qg, kt, vt, pt, ctx,
                                                           **seg_kw)),
     }
-    pf = None
-    if shp["qlens"] is not None:
-        pf = prefill_inputs(torch, tops, dtype, ps, hkv=hkv, group=group,
-                            d=d, qlens=shp["qlens"], ctx=shp["pf_ctx"],
-                            stride=shp["stride"])
-        pkt, pvt = tile_view(pf["k"], tile), tile_view(pf["v"], tile)
-        pf_args = (pf["q_packed"], pkt, pvt, pf["qb_seq"], pf["qb_pos0"],
-                   pf["pt"], pf["ctx"])
-        pf_kw = dict(block_q=pf["block_q"], group=pf["group"], scale=scale)
-        calls["paged_prefill_qblock"] = (
-            lambda: K.paged_prefill_qblock(*pf_args, **pf_kw),
-            lambda: K.paged_prefill_qblock_plain(*pf_args, **pf_kw))
     return calls, dict(q=q, kp=kp, vp=vp, pt=pt, ctx=ctx, nseg=nseg,
-                       tps=tps, pf=pf, parts=parts, tile=tile, ps=ps)
+                       tps=tps, parts=parts)
 
 
 def max_err(torch, name, got, want):
@@ -508,7 +553,8 @@ def same_bits(torch, a, b):
 
 def phase_check(torch, K, tops):
     """Each paged kernel against its plain version at both serve phases'
-    shapes and at qwen2.5-3b's and glm4-9b's heads, and the folded C3
+    shapes, at qwen2.5-3b's and glm4-9b's heads and (the prefill) at the
+    padded step's resumed chunks with smollm's heads, and the folded C3
     launch against the two launches it replaces, bit for bit; returns
     each kernel's worst error over all of them."""
     errs: dict[str, float] = {}
@@ -538,6 +584,8 @@ def phase_check(torch, K, tops):
                             f"({arch} shapes, {dtype_name}, page {ps})")
                     base = name.split("[")[0]
                     errs[base] = max(errs.get(base, 0.0), err)
+                if shp["ctx"] is None:
+                    continue  # the prefill alone
                 merged = calls[MERGED][0]()
                 pair = K.segment_reduce(*calls["paged_decode_segmented"][0](),
                                         dtype)
@@ -780,14 +828,161 @@ def serve_run(torch, eng, reqs, tag):
         split[kind][0] += 1
         split[kind][1] += dt
         logits.append(eng.last_step_logits)
-        if not bool(torch.isfinite(eng.last_step_logits).all()):
-            raise AssertionError(f"{tag}: non-finite logits at step "
-                                 f"{len(stats)}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    for i, x in enumerate(logits):  # checked after the timed loop
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: non-finite logits at step {i + 1}")
     return dict(eng=eng, reqs=reqs, stats=stats, logits=logits, wall=wall,
                 step_walls=walls, split=split,
                 counts=[dict(c) for c in kernel_counters()])
+
+
+def stream_run(torch, eng, reqs, tag):
+    """Serve `reqs` on `eng` through `submit()` + `run()` (the async loop).
+    Every kernel launch counter is zeroed just before and read just after.
+    Each launch's logits are taken as `_finish_step` hands them over and
+    stay on the card until the loop has ended: a check inside the loop
+    would wait for the launch dispatched after it, and so serialise the
+    loop.  A step's wall is the time from one `_finish_step` return to
+    the next (it holds the dispatch of the step after it), "replayed"
+    when no capture fell in it.  Returns what `serve_run` returns, with each request's
+    time to its first token (`ttft_s`) and the mean wall of the replayed
+    steps."""
+    from repro_torch.serving.cuda_graphs import kernel_counters
+    from repro_torch.serving.request import State
+
+    logits, marks = [], []
+    finish = eng._finish_step
+
+    def record(flight):
+        stats = finish(flight)
+        marks.append((time.perf_counter(), eng.graph_stats["captures"]))
+        if flight.pack is not None:  # kept on the card: no wait here
+            logits.append(flight.logits)
+        return stats
+
+    eng._finish_step = record
+    for r in reqs:
+        eng.submit(r)
+    for counts in kernel_counters():
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    first: dict[int, float] = {}
+    t0 = time.perf_counter()
+    out = eng.run(on_token=lambda rid, tok: first.setdefault(
+        rid, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out["unfinished"] or not all(r.state is State.FINISHED for r in reqs):
+        raise AssertionError(f"{tag}: run() left requests unfinished")
+    for i, x in enumerate(logits):  # checked after the timed loop
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: non-finite logits at launch "
+                                 f"{i + 1}")
+    walls, prev = [], (t0, 0)
+    for mark in marks:
+        if mark[1] == prev[1]:
+            walls.append(mark[0] - prev[0])
+        prev = mark
+    return dict(eng=eng, reqs=reqs, logits=logits, wall=wall,
+                counts=[dict(c) for c in kernel_counters()],
+                ttft_s=[first[r.req_id] for r in reqs],
+                replayed_mean_s=statistics.fmean(walls) if walls else None,
+                steps=len(marks))
+
+
+def async_vs_sync(torch, tag, sync, streamed):
+    """The synchronous graphed run `sync` (`serve_run`) against the same
+    requests through `run()` (`stream_run`), graphs on: identical tokens,
+    launch counters and compile_events, and the logits launch by launch
+    bit for bit (a replay of the same graphs on the same inputs; the async
+    launches read their decode inputs from the previous launch on the
+    card).  Logs both walls, the replayed steps' mean wall and the
+    capture seconds."""
+    seng, aeng = sync["eng"], streamed["eng"]
+    same_tokens = [(r.prompt, r.output) for r in sync["reqs"]] \
+        == [(r.prompt, r.output) for r in streamed["reqs"]]
+    same_counts = sync["counts"] == streamed["counts"]
+    same_events = seng.compile_events == aeng.compile_events
+    bit_equal = len(sync["logits"]) == len(streamed["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(sync["logits"], streamed["logits"]))
+    n, t = sync["split"]["replayed"]
+    log(f"{tag} run()-vs-step(): wall step() {sync['wall']:.3f}s run() "
+        f"{streamed['wall']:.3f}s  replayed steps' mean wall step() "
+        f"{1e3 * t / max(n, 1):.3f} ms ({n} steps) run() "
+        f"{1e3 * (streamed['replayed_mean_s'] or float('nan')):.3f} ms  "
+        f"capture_s step() {seng.graph_stats['capture_s']:.3f} run() "
+        f"{aeng.graph_stats['capture_s']:.3f}  captures "
+        f"{seng.graph_stats['captures']} / {aeng.graph_stats['captures']}  "
+        f"replays {seng.graph_stats['replays']} / "
+        f"{aeng.graph_stats['replays']}  steps {len(sync['stats'])} / "
+        f"{streamed['steps']}")
+    log(f"{tag} run()-vs-step(): tokens_identical {same_tokens}  "
+        f"counters_identical {same_counts}  compile_events_identical "
+        f"{same_events}  logits bit_equal {bit_equal} "
+        f"({len(streamed['logits'])} / {len(sync['logits'])} launches)")
+    if not (same_tokens and same_counts and same_events and bit_equal):
+        raise AssertionError(f"{tag}: run() and step() differ: tokens "
+                             f"{same_tokens}, counters {same_counts}, "
+                             f"compile_events {same_events}, logits "
+                             f"{bit_equal}")
+    if not aeng.graph_stats["replays"]:
+        raise AssertionError(f"{tag}: run() replayed no graph")
+    return dict(wall_run=streamed["wall"],
+                replayed_ms_run=1e3 * (streamed["replayed_mean_s"] or 0.0),
+                replayed_ms_step=1e3 * t / max(n, 1))
+
+
+def replay_cost(torch, eng, iters=20):
+    """Where a replayed decode step's time goes on the card: the packed
+    step's decode-only graph (token bucket max_seqs) of a finished run,
+    replayed `iters` times back to back on its last inputs (the card
+    rewrites the same KV slots with the same values): its wall on the card
+    over CUDA events, against the sum of its kernels' durations and their
+    count under `torch.profiler`.  The difference is the time between the
+    graph's nodes, which no host work can fill."""
+    keys = [k for k in eng.compile_events
+            if k[0] == "unified" and k[2] == eng.max_seqs]
+    graph = eng._compiled[keys[-1]].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end) / iters
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(iters):
+            graph.replay()
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += getattr(ev, "self_device_time_total", None) \
+                or ev.self_cuda_time_total
+            kernels += ev.count
+    busy_ms = busy_us / 1e3 / iters
+    log(f"serve decode graph {keys[-1][:3]}: replay {wall_ms:.3f} ms on the "
+        f"card (CUDA events, {iters} back to back), its kernels "
+        f"{busy_ms:.3f} ms summed ({kernels / iters:.0f} a replay, "
+        f"torch.profiler): {wall_ms - busy_ms:.3f} ms between nodes")
+    return dict(decode_replay_ms=wall_ms, decode_kernels_ms=busy_ms,
+                decode_kernels=kernels / iters)
+
+
+def shared_prefix_prompts(torch, g, vocab):
+    """SHARED_REQUESTS prompts of one SHARED_PREFIX-token prefix and
+    SHARED_OWN tokens of their own, drawn from `g`."""
+    prefix = torch.randint(1, vocab, (SHARED_PREFIX,), generator=g).tolist()
+    own = torch.randint(SHARED_OWN[0], SHARED_OWN[1] + 1,
+                        (SHARED_REQUESTS,), generator=g).tolist()
+    return [prefix + torch.randint(1, vocab, (n,), generator=g).tolist()
+            for n in own]
 
 
 def graphs_vs_eager(torch, tag, g, e, dtype):
@@ -941,7 +1136,16 @@ def phase_serve(torch, K, FK):
     eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **eng_kw),
                       requests(), "serve eager")
     walls = graphs_vs_eager(torch, "serve", run, eager, cfg.dtype)
-    del run, eager
+    del eager
+    # (a) the same requests through submit() + run(), graphs on
+    streamed = stream_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                          "serve run()")
+    walls |= async_vs_sync(torch, "serve", run, streamed)
+    walls |= replay_cost(torch, streamed["eng"])
+    del run, streamed
+    # (b) the shared-prefix trace through run(), prefix caching off and on
+    shared = shared_prefix_prompts(torch, g, cfg.vocab_size)
+    walls |= shared_prefix_run(torch, cfg, model, eng_kw, shared)
     # a preempting trace: preemption rewrites the page tables the graphs
     # read from their static buffers
     pre_kw = eng_kw | dict(PREEMPT_ENGINE)
@@ -964,30 +1168,58 @@ def phase_serve(torch, K, FK):
                           prompt_tokens=prompt_toks, **walls)
 
 
-def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
-    """`arch` at full width (cut to `layers`, else full depth), fp32: 3
-    greedy requests of 8 new tokens on the card and on the CPU, stepped in
-    lockstep: identical tokens, logits within DIFF_LOGIT_ATOL.  With
-    `bf16_kernels` (kernel module, tensor-core kernel name), then the bf16
-    leg (`engine_bf16_leg`) on the same prompts."""
-    from repro_torch import weights
-    from repro_torch.configs import ARCHS
+def shared_prefix_run(torch, cfg, model, eng_kw, prompts):
+    """The shared-prefix trace through `run()`, prefix caching off then
+    on: every request finishes with its 32 tokens, and with caching on a
+    page hits.  Logs the prefill accounting, both walls and each
+    request's time to its first token."""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request
 
-    cfg = ARCHS[arch].replace(dtype="float32")
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
-    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
-                  debug_logits=True)
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
-               for n in (37, 70, 101)]
+    runs = {}
+    for caching in (False, True):
+        eng = Engine(cfg, model, enable_prefix_caching=caching, **eng_kw)
+        runs[caching] = stream_run(
+            torch, eng, [Request(prompt=list(p), max_new_tokens=32)
+                         for p in prompts], f"shared caching={caching}")
+        if not all(len(r.output) == 32 for r in runs[caching]["reqs"]):
+            raise AssertionError("shared-prefix trace: a request did not "
+                                 "finish its 32 tokens")
+    off, on = runs[False], runs[True]
+    same = [r.output for r in off["reqs"]] == [r.output for r in on["reqs"]]
+    cache = on["eng"].prefix_cache.stats()
+    for caching, r in runs.items():
+        e = r["eng"]
+        log(f"serve shared-prefix caching={caching}: {len(prompts)} requests "
+            f"x ({SHARED_PREFIX} shared + {SHARED_OWN[0]}-{SHARED_OWN[1]} own)"
+            f" tokens, 32 new each: wall {r['wall']:.3f}s  steps "
+            f"{r['steps']}  prefilled_tokens {e.prefilled_tokens}  "
+            f"cached_prefill_tokens {e.cached_prefill_tokens}  "
+            f"launched_token_slots {e.launched_token_slots}  ttft_ms "
+            f"{[round(1e3 * t, 1) for t in r['ttft_s']]}")
+    log(f"serve shared-prefix: prefix cache {cache}  tokens identical "
+        f"off / on {same} (bf16: the cached prefix's KV comes from another "
+        f"request's launch)")
+    if not cache["cache_hits"] or not on["eng"].cached_prefill_tokens:
+        raise AssertionError(f"shared-prefix trace: no page hit ({cache})")
+    return dict(shared_wall_off=off["wall"], shared_wall_on=on["wall"],
+                cached_prefill_tokens=on["eng"].cached_prefill_tokens)
+
+
+def lockstep_diff(torch, tag, cfg, models, prompts, new_tokens, eng_kw):
+    """The same greedy requests on the card and on the CPU (`models`:
+    {device: model}), stepped in lockstep: the same tokens each step and
+    at the end, logits within DIFF_LOGIT_ATOL.  Returns (engines,
+    requests, worst logit difference, steps, the CPU's first-step
+    logits)."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
     engines, reqs = [], []
     for dev in (DEVICE, "cpu"):
-        eng = Engine(cfg, weights.init_random(cfg, SEED, device=dev),
-                     device=dev, **eng_kw)
-        rs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
+        eng = Engine(cfg, models[dev], device=dev, **eng_kw)
+        rs = [Request(prompt=list(p), max_new_tokens=new_tokens)
+              for p in prompts]
         for r in rs:
             eng.add_request(r)
         engines.append(eng)
@@ -997,36 +1229,150 @@ def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
         stats = [e.step() for e in engines]
         steps += 1
         if stats[0]["sampled_tokens"] != stats[1]["sampled_tokens"]:
-            raise AssertionError(f"step {steps}: engines diverged")
-        if steps == 1:  # the prefill of every prompt: the bf16 leg's ruler
-            cpu_fp32_prefill = prefill_logits(engines[1], len(prompts))
+            raise AssertionError(f"{tag} step {steps}: engines diverged")
+        if steps == 1:
+            first = engines[1].last_step_logits
         a = engines[0].last_step_logits.cpu()
         worst = max(worst, float((a - engines[1].last_step_logits).abs()
                                  .max()))
     gpu_out = [r.output for r in reqs[0]]
     cpu_out = [r.output for r in reqs[1]]
-    log(f"{tag} {arch} {cfg.num_layers} layers fp32, {len(prompts)} requests "
-        f"x 8 greedy tokens, {steps} steps: max_abs_logit_diff {worst:.3e} "
-        f"(bound {DIFF_LOGIT_ATOL:g})  tokens_identical {gpu_out == cpu_out}")
+    log(f"{tag} {cfg.name} {cfg.num_layers} layers fp32, {len(prompts)} "
+        f"requests x {new_tokens} greedy tokens, {steps} steps: "
+        f"max_abs_logit_diff {worst:.3e} (bound {DIFF_LOGIT_ATOL:g})  "
+        f"tokens_identical {gpu_out == cpu_out}")
     if gpu_out != cpu_out:
-        raise AssertionError(f"greedy tokens differ:\n cuda {gpu_out}\n "
-                             f"cpu  {cpu_out}")
+        raise AssertionError(f"{tag}: greedy tokens differ:\n cuda "
+                             f"{gpu_out}\n cpu  {cpu_out}")
     if engines[1].sched.has_work:
-        raise AssertionError("cpu engine did not finish in lockstep")
+        raise AssertionError(f"{tag}: cpu engine did not finish in lockstep")
     if not worst <= DIFF_LOGIT_ATOL:
-        raise AssertionError(f"logit difference {worst} > {DIFF_LOGIT_ATOL}")
+        raise AssertionError(f"{tag}: logit difference {worst} > "
+                             f"{DIFF_LOGIT_ATOL}")
+    return engines, reqs, worst, steps, first
+
+
+def phase_diff_legs(torch, K):
+    """Phase 6's legs for this slice's paths, smollm at full width in
+    fp32, card against CPU: the shared-prefix trace with prefix caching
+    on (packed); the padded step with chunked prefill at 64, whose resumed
+    chunks run `apply_prefill_cached` on the card's fp32 prefill kernel;
+    and `stream()` on the card against `generate()` on the CPU."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    cfg = ARCHS[ARCH].replace(dtype="float32")
+    models = {dev: weights.init_random(cfg, SEED, device=dev)
+              for dev in (DEVICE, "cpu")}
+    base = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
+                debug_logits=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    # 1. the shared-prefix trace, prefix caching on, packed
+    shared = shared_prefix_prompts(torch, g, cfg.vocab_size)
+    engines, *_ = lockstep_diff(
+        torch, "diff prefix-caching", cfg, models, shared, 32,
+        base | dict(max_seqs=8, num_pages=1024, max_model_len=2048,
+                    enable_chunked_prefill=True, max_prefill_tokens=512,
+                    enable_prefix_caching=True))
+    cached = [e.cached_prefill_tokens for e in engines]
+    log(f"diff prefix-caching: cached_prefill_tokens card / cpu {cached}")
+    if not cached[0] or cached[0] != cached[1]:
+        raise AssertionError(f"diff prefix-caching: no hit, or the card "
+                             f"and the CPU differ: {cached}")
+    del engines
+    # 2. the padded step, chunked at 64: resumed chunks on the card's
+    # prefill kernel (fp32: `prefill_kernel`)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    K.reset_launches()
+    engines, *_ = lockstep_diff(
+        torch, "diff padded-chunked", cfg, models, prompts, 8,
+        base | dict(packed_attention=False, enable_chunked_prefill=True,
+                    max_prefill_tokens=64))
+    resumed = engines[0].device_calls["prefill_cached"]
+    log(f"diff padded-chunked: device calls {dict(engines[0].device_calls)}"
+        f"  compile_events {[k[:3] for k in engines[0].compile_events]}  "
+        f"card prefill_kernel launches "
+        f"{K.KERNEL_LAUNCHES['prefill_kernel']}")
+    if not resumed or not K.KERNEL_LAUNCHES["prefill_kernel"]:
+        raise AssertionError("diff padded-chunked: no resumed chunk ran on "
+                             "the card's prefill kernel")
+    del engines
+    # 3. stream() on the card against generate() on the CPU
+    outs, logits = [], []
+    for dev in (DEVICE, "cpu"):
+        eng = Engine(cfg, models[dev], device=dev, **base)
+        seen = []
+        finish = eng._finish_step
+
+        def record(flight, finish=finish, seen=seen):
+            stats = finish(flight)
+            if flight.pack is not None:
+                seen.append(flight.logits.cpu())
+            return stats
+
+        eng._finish_step = record
+        reqs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
+        if dev == DEVICE:
+            for r in reqs:
+                eng.submit(r)
+            list(eng.stream())
+        else:
+            eng.generate(reqs)
+        outs.append([r.output for r in reqs])
+        logits.append(seen)
+    worst = max((float((a - b).abs().max()) for a, b in zip(*logits)),
+                default=float("inf"))
+    log(f"diff stream-vs-generate: card stream() against cpu generate(), "
+        f"{len(logits[0])} / {len(logits[1])} launches  max_abs_logit_diff "
+        f"{worst:.3e} (bound {DIFF_LOGIT_ATOL:g})  tokens_identical "
+        f"{outs[0] == outs[1]}")
+    if outs[0] != outs[1] or len(logits[0]) != len(logits[1]) \
+            or not worst <= DIFF_LOGIT_ATOL:
+        raise AssertionError("diff stream-vs-generate: the card's stream() "
+                             "and the CPU's generate() differ")
+
+
+def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):
+    """`arch` at full width (cut to `layers`, else full depth), fp32: 3
+    greedy requests of 8 new tokens on the card and on the CPU, stepped in
+    lockstep: identical tokens, logits within DIFF_LOGIT_ATOL.  With
+    `bf16_kernels` (kernel module, tensor-core kernel name), then the bf16
+    leg (`engine_bf16_leg`) on the same prompts."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch].replace(dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
+                  debug_logits=True)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    models = {dev: weights.init_random(cfg, SEED, device=dev)
+              for dev in (DEVICE, "cpu")}
+    engines, _, worst, _, first = lockstep_diff(torch, tag, cfg, models,
+                                                prompts, 8, eng_kw)
+    # the prefill of every prompt: the bf16 leg's ruler
+    cpu_fp32_prefill = prefill_logits(engines[1], len(prompts), first)
+    del engines, models
     if bf16_kernels is not None:
         engine_bf16_leg(torch, cfg, prompts, cpu_fp32_prefill, tag,
                         eng_kw, *bf16_kernels)
     return worst
 
 
-def prefill_logits(eng, n):
-    """The last-token logits of a first step that prefilled n prompts:
-    the packed step's rows follow its static decode region of max_seqs
-    rows; the padded step's prefill rows come first."""
+def prefill_logits(eng, n, logits=None):
+    """The last-token logits of a first step that prefilled n prompts
+    (`logits`, default the engine's last step's): the packed step's rows
+    follow its static decode region of max_seqs rows; the padded step's
+    prefill rows come first."""
+    logits = eng.last_step_logits if logits is None else logits
     first = eng.max_seqs if eng._packed else 0
-    return eng.last_step_logits[first:first + n]
+    return logits[first:first + n]
 
 
 def engine_bf16_leg(torch, cfg32, prompts, cpu_fp32, tag, eng_kw, kernels,
@@ -1771,6 +2117,8 @@ def main() -> int:
     # bf16 prefill through the graphed packed step
     phase_engine_diff(torch, ARCH, SEED + 1, "diff", None,
                       (K, "prefill_mma_kernel"))
+    # prefix caching, the padded step's resumed chunks, stream()
+    phase_diff_legs(torch, K)
     lap("6 diff")
 
     # 7. the flash kernel against its plain version; the gradient card vs CPU

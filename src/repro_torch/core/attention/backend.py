@@ -1,6 +1,6 @@
 """Attention backend: the unified token-packed entry of the packed engine
-step, and the decode / uniform-prefill entries of the padded per-kind
-step.
+step, and the decode / uniform-prefill (fresh or resumed) entries of the
+padded per-kind step.
 
 The JAX reference switches between a `pallas` backend (its kernels) and an
 `xla` pure-jnp reference.  The port has no such switch; each entry is the
@@ -69,21 +69,23 @@ def decode_attention(
 
 
 def prefill_attention_uniform(
-    q: torch.Tensor,  # [B, S, Hq, Dk]
-    query_lens: torch.Tensor,  # [B] (<= S; ragged through padding)
+    q: torch.Tensor,  # [B, S, Hq, Dk] the chunk after any prior context
+    query_lens: torch.Tensor,  # [B] chunk lengths (<= S; ragged by padding)
     k_pages: torch.Tensor,  # [Hkv, 1, P, ps, Dk], the chunk already written
     v_pages: torch.Tensor,
-    page_table: torch.Tensor,  # [B, Np]
-    context_lens: torch.Tensor,  # [B]
+    page_table: torch.Tensor,  # [B, Np], or narrowed to the context's pages
+    context_lens: torch.Tensor,  # [B] prior context + chunk
     *,
     scale: float | None = None,
     kernel_cfg: heuristics.KernelConfig | None = None,
 ) -> torch.Tensor:
-    """Uniform-layout prefill over sequences with NO prior context
-    (context_lens == query_lens): the Q-Block prefill kernel reads the
-    chunk's KV back from the pages (paper §4.3).  The uniform padded layout
-    is the ragged one with stride-S starts.  Returns [B, S, Hq, Dv], zeros
-    in padded rows."""
+    """Uniform-layout prefill: fresh prompts (context_lens == query_lens)
+    and resumed chunks (context_lens = prior + query_lens, after earlier
+    chunks or a prefix-cache hit) alike.  The Q-Block prefill kernel reads
+    the whole context, prior and chunk, back from the pages, each query
+    row at its causal offset (paper §4.3).  The uniform padded layout is
+    the ragged one with stride-S starts.  Returns [B, S, Hq, Dv], zeros in
+    padded rows."""
     b, s, hq, dk = q.shape
     require_single_pool(k_pages, "prefill_attention_uniform")
     cfg = heuristics.validate(
@@ -95,3 +97,7 @@ def prefill_attention_uniform(
         tile=cfg.tile, scale=scale,
     )
     return out.reshape(b, s, hq, -1)
+
+
+# the reference's resumed-prefill entry: the same call
+prefill_attention_cached = prefill_attention_uniform

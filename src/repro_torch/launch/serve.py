@@ -2,7 +2,8 @@
 stream (arrival-rate driven), reporting latency and throughput.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
-        [--device cpu] [--chunked-prefill] [--eager] [--profile]
+        [--device cpu] [--chunked-prefill] [--eager] [--profile] \
+        [--stream] [--prefix-caching] [--shared-prefix N]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
@@ -14,9 +15,18 @@ step and the padded decode step are captured into CUDA graphs and
 replayed (`--eager`: `Engine(cuda_graphs=False)`, every step eager); the
 run prints its `compile_events` (one per executable-cache key) and its
 captures and replays.
+`--stream` submits every request up front and drives the engine through
+`submit()` + `run()`, the async double-buffered loop on the packed step
+(the padded step steps synchronously under it); without it the requests
+arrive `--rate` per step into `step()` calls.  `--prefix-caching` turns
+on the prefix cache (dense models only); `--shared-prefix N` prepends
+one N-token prompt to every request, the cache's hot path.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
-prompts are random, drawn from seed 0; prompt lengths are uniform in
-[--min-prompt, --max-prompt].  `--profile` runs the measured loop under
+prompts are random, drawn from seed 0; prompt lengths (after the shared
+prefix) are uniform in [--min-prompt, --max-prompt].  The default
+--max-model-len is the power of two (at least 512) that holds the
+longest request, and the default --num-pages gives every slot that
+length.  `--profile` runs the measured loop under
 `torch.profiler` a second time and prints device time by kernel and the
 device's idle share of the unprofiled wall time.  One warm-up request on
 a throwaway engine runs first.
@@ -39,6 +49,7 @@ from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.launch.profiling import profiler, report
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request, State
+from repro_torch.utils.misc import cdiv, next_power_of_2
 
 SEED = 0
 
@@ -53,14 +64,21 @@ def main() -> None:
                     help="arrivals per engine step")
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--max-seqs", type=int, default=8)
-    ap.add_argument("--num-pages", type=int, default=256)
-    ap.add_argument("--max-model-len", type=int, default=512)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--max-model-len", type=int, default=None)
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=79)
     ap.add_argument("--chunked-prefill", action="store_true")
     ap.add_argument("--max-prefill-tokens", type=int, default=8192)
     ap.add_argument("--eager", action="store_true",
                     help="no CUDA graphs: every step runs eagerly")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive through submit() + run(): the async "
+                         "double-buffered loop")
+    ap.add_argument("--prefix-caching", action="store_true",
+                    help="reuse cached KV pages of shared prompt prefixes")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend one N-token prompt to every request")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
@@ -70,14 +88,21 @@ def main() -> None:
     dev = torch.device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures device time: it needs --device cuda")
+    longest = args.shared_prefix + args.max_prompt + args.max_new_tokens
+    max_model_len = args.max_model_len or max(512, next_power_of_2(longest))
+    num_pages = args.num_pages or \
+        args.max_seqs * cdiv(max_model_len, cfg.page_size)
     model = weights.init_random(cfg, SEED, device=dev)
-    eng_kw = dict(max_seqs=args.max_seqs, num_pages=args.num_pages,
-                  max_model_len=args.max_model_len,
+    eng_kw = dict(max_seqs=args.max_seqs, num_pages=num_pages,
+                  max_model_len=max_model_len,
+                  enable_prefix_caching=args.prefix_caching,
                   enable_chunked_prefill=args.chunked_prefill,
                   max_prefill_tokens=args.max_prefill_tokens,
                   cuda_graphs=not args.eager, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
-    prompts = [list(map(int, rng.integers(
+    shared = list(map(int, rng.integers(1, cfg.vocab_size,
+                                        size=args.shared_prefix)))
+    prompts = [shared + list(map(int, rng.integers(
         1, cfg.vocab_size,
         size=int(rng.integers(args.min_prompt, args.max_prompt + 1)))))
         for _ in range(args.num_requests + 1)]
@@ -91,9 +116,10 @@ def main() -> None:
         for kernels in (K, FK, SK, MK):
             kernels.reset_launches()
         prof = profiler() if profile else contextlib.nullcontext()
+        drive = _drive_stream if args.stream else _drive
         t0 = time.perf_counter()
         with prof:
-            _drive(eng, list(reqs), args.rate, t_submit, t_done)
+            drive(eng, list(reqs), args.rate, t_submit, t_done)
         return eng, reqs, t_submit, t_done, time.perf_counter() - t0, prof
 
     run(prompts[:1])  # warm-up on a throwaway engine: handles, allocator
@@ -108,6 +134,11 @@ def main() -> None:
           f"tok/s on {where}) in {eng.step_idx} steps")
     print(f"latency p50={np.percentile(lat, 50):.3f}s "
           f"p95={np.percentile(lat, 95):.3f}s max={lat.max():.3f}s")
+    print(f"drive: {'submit() + run()' if args.stream else 'step()'}  "
+          f"prefilled_tokens {eng.prefilled_tokens}  cached_prefill_tokens "
+          f"{eng.cached_prefill_tokens}")
+    if eng.prefix_cache is not None:
+        print(f"prefix cache: {eng.prefix_cache.stats()}")
     print(f"dispatch: {dict(eng.dispatch_counts)}")
     print(f"device calls: {dict(eng.device_calls)}")
     print(f"kernel launches: "
@@ -139,6 +170,20 @@ def _drive(eng, pending, rate, t_submit, t_done) -> None:
         for r in all_reqs:
             if r.state is State.FINISHED and r.req_id not in t_done:
                 t_done[r.req_id] = now
+
+
+def _drive_stream(eng, pending, rate, t_submit, t_done) -> None:
+    """Every request submitted at once, then `run()` to the end (`rate`
+    does not apply)."""
+    del rate
+    for r in pending:
+        t_submit[r.req_id] = time.perf_counter()
+        eng.submit(r)
+    out = eng.run(on_finish=lambda r: t_done.setdefault(
+        r.req_id, time.perf_counter()))
+    if out["unfinished"]:
+        raise RuntimeError(f"run() ended with {out['unfinished']} "
+                           "request(s) unfinished")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ prefill chunks, then `wo`.  Padded prefill ([B, S], context 0) and decode
 Q-Block prefill or the C1-C3 decode kernels.  The reference computes those
 slots in every layer; the port computes them once per step (the write
 index `write_index` in `meta`, `kv_cache.write_index`), since every
-layer writes the same positions.  Training: QKV, RoPE, causal flash attention over the
-whole sequence (no cache), then `wo`.
+layer writes the same positions.  Resumed prefill ([B, S] chunks at
+absolute positions after a prior context in the pages): the same write,
+then the Q-Block prefill over the whole paged context.  Training: QKV,
+RoPE, causal flash attention over the whole sequence (no cache), then
+`wo`.
 """
 from __future__ import annotations
 
@@ -89,9 +92,10 @@ class Attention(nn.Module):
     def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
                         k_pages: torch.Tensor, v_pages: torch.Tensor,
                         meta: dict, kernel_cfg=None) -> torch.Tensor:
-        """Fresh prompts at context 0.  x [B, S, d]; positions [B, S];
-        meta: page_table, context_lens, query_lens and the write index.
-        Returns [B, S, d]."""
+        """Chunks of prompts: fresh at context 0, or resumed after a prior
+        context in the pages (positions absolute, context_lens = prior +
+        chunk).  x [B, S, d]; positions [B, S]; meta: page_table,
+        context_lens, query_lens and the write index.  Returns [B, S, d]."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x, positions)
         self._write_kv(k, v, k_pages, v_pages, meta)

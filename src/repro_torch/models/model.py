@@ -18,6 +18,8 @@ Entry points (ports of `repro.models.model`):
   apply_unified  token-packed decode + prefill chunks over the paged cache,
                  last-token gather and fused sampling (dense only)
   apply_prefill  padded [B, S] fresh prompts at context 0 (every family)
+  apply_prefill_cached  padded [B, S] chunks resumed after a prior
+                 context in the pages (dense only)
   apply_decode   padded [B, 1] decode batch (every family)
   apply_train    causal attention over whole sequences, every block
                  rematerialised in the backward, masked fp32 CE (dense)
@@ -69,10 +71,10 @@ class Block(nn.Module):
                       k_pages: torch.Tensor, v_pages: torch.Tensor,
                       meta: dict, *, mode: str,
                       kernel_cfg=None) -> torch.Tensor:
-        """Padded serving mode "prefill" or "decode" over this layer's
-        pages [Hkv, 1, P, ps, D] (written in place)."""
-        attn = (self.attn.forward_prefill if mode == "prefill"
-                else self.attn.forward_decode)
+        """Padded serving mode "prefill", "prefill_cached" or "decode"
+        over this layer's pages [Hkv, 1, P, ps, D] (written in place)."""
+        attn = (self.attn.forward_decode if mode == "decode"
+                else self.attn.forward_prefill)
         x = x + attn(self.ln1(x), positions, k_pages, v_pages, meta,
                      kernel_cfg=kernel_cfg)
         return x + self.mlp(self.ln2(x))
@@ -263,9 +265,9 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
 
 def _serve_masks(mode: str, meta: dict, s: int):
     """(valid [B, S] bool, seq_lens [B]) of the padded serving modes: a
-    prefill row is valid up to its query length, a decode row where its
-    slot is live."""
-    if mode == "prefill":
+    prefill (or resumed prefill) row is valid up to its query length, a
+    decode row where its slot is live."""
+    if mode in ("prefill", "prefill_cached"):
         qlens = meta["query_lens"]
         valid = torch.arange(s, device=qlens.device)[None, :] < qlens[:, None]
         return valid, qlens
@@ -361,13 +363,36 @@ def apply_prefill(model: Model, cache: dict, batch: dict, *,
     [B, Np], context_lens [B] and query_lens [B] (equal).  `cache` holds
     B slot rows of any state cache (the engine passes zeroed rows and
     merges them back).  Returns (last_token_logits [B, V] f32, cache)."""
+    return _prefill(model, cache, batch, "prefill", kernel_cfg)
+
+
+@torch.no_grad()
+def apply_prefill_cached(model: Model, cache: dict, batch: dict, *,
+                         kernel_cfg=None):
+    """Resumed prefill at context > 0: only this step's chunk of each
+    prompt is embedded and computed (inputs [B, S] the chunk's ids,
+    positions absolute, context_lens = prior context + chunk, query_lens
+    = chunk; page_table [B, np_b] may be narrowed to the context's
+    pages).  The prior context (earlier chunks, a prefix-cache hit, or
+    both) is read back from the pages: the chunk's KV is written at its
+    absolute slots, then attention covers the whole paged context.
+    Dense family only (hybrid / ssm state is not page-addressable).
+    Returns (last_token_logits [B, V] f32, cache)."""
+    if model.cfg.family != "dense":
+        raise ValueError(f"resumed prefill needs page-addressable context: "
+                         f"unsupported for family={model.cfg.family!r}")
+    return _prefill(model, cache, batch, "prefill_cached", kernel_cfg)
+
+
+def _prefill(model: Model, cache: dict, batch: dict, mode: str,
+             kernel_cfg):
     meta = {k: batch[k] for k in ("page_table", "context_lens", "query_lens")}
     inputs, positions = batch["inputs"], batch["positions"]
     b, s = inputs.shape
-    valid, _ = _serve_masks("prefill", meta, s)
+    valid, _ = _serve_masks(mode, meta, s)
     _add_write_index(meta, cache, positions, valid)
     x = _serve_forward(model, L.embed(model.embed, inputs), positions,
-                       cache, meta, mode="prefill", kernel_cfg=kernel_cfg)
+                       cache, meta, mode=mode, kernel_cfg=kernel_cfg)
     # the head is row-wise: it runs on each row's last valid token only
     last = torch.clamp(meta["query_lens"].long() - 1, min=0)
     return model.head(x[torch.arange(b, device=x.device), last]), cache

@@ -4,19 +4,30 @@ eagerly, or captured into a CUDA graph and replayed.
 Port of the reference's static-shape executable cache
 (`repro.serving.engine.Engine._get_fn`, which its docstring calls "the TPU
 analog of CUDA-graph capture").  An entry takes the step's host metadata
-as numpy arrays and returns the step's device outputs (a tuple):
+as numpy arrays, and optionally device tensors (the packed step's
+`prev_tokens`: the previous launch's sampled ids, still on the card), and
+returns the step's device outputs (a tuple):
 
-  EagerStep    uploads the arrays and runs the step's body: the CPU, the
-               padded prefill, and `Engine(cuda_graphs=False)` on the card
-  GraphedStep  on the card: the first call copies the arrays into static
-               device buffers and runs the body eagerly (the warm-up; its
-               result is the step's), then captures the body over those
-               buffers into a `torch.cuda.CUDAGraph`, which does not
-               execute; every later call copies the arrays into the same
-               buffers and replays the graph.  Its outputs are static
-               buffers that the next replay overwrites.
+  EagerStep    uploads the arrays and runs the step's body on them and the
+               device tensors: the CPU, the padded prefill, and
+               `Engine(cuda_graphs=False)` on the card
+  GraphedStep  on the card: the first call copies the arrays and the
+               device tensors into static device buffers and runs the body
+               eagerly (the warm-up; its result is the step's), then
+               captures the body over those buffers into a
+               `torch.cuda.CUDAGraph`, which does not execute; every later
+               call copies into the same buffers (the host arrays through
+               one pinned buffer, the device tensors by a device-to-device
+               copy on the stream) and replays the graph.  Its outputs are
+               static buffers that the next replay overwrites.
 
 A capture that fails raises; nothing carries on eagerly.
+
+`TokenCopies` takes the packed step's sampled ids off the card without
+waiting for them: each launch's ids go into one of two pinned host
+buffers by an asynchronous copy queued right behind the launch, so the
+async loop can replay the next step (which overwrites a graph's output
+buffer) before it reads them.
 
 The kernel wrappers count their launches on the host as they enqueue
 them (`LAUNCHES`, `KERNEL_LAUNCHES`), so a capture counts launches that
@@ -77,9 +88,12 @@ class EagerStep:
         self.body = body
         self.device = device
 
-    def __call__(self, arrays: dict[str, np.ndarray]) -> tuple:
-        return self.body({k: torch.from_numpy(v).to(self.device)
-                          for k, v in arrays.items()})
+    def __call__(self, arrays: dict[str, np.ndarray],
+                 device_inputs: dict[str, torch.Tensor] | None = None) \
+            -> tuple:
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in arrays.items()}
+        return self.body(batch | (device_inputs or {}))
 
 
 class StaticInputs:
@@ -107,6 +121,12 @@ class StaticInputs:
         self._copied = torch.cuda.Event()
 
     def upload(self, arrays: dict[str, np.ndarray]) -> None:
+        # The only host wait of a replayed step's dispatch.  The copy it
+        # waits for was queued at the start of this entry's previous step,
+        # behind at most the step before that; the async loop keeps at
+        # most one step in flight, and dispatches a step only after it
+        # consumed the one before the in-flight step, so that copy has
+        # started and the wait is the copy alone, never a step's compute.
         self._copied.synchronize()
         for name, a in arrays.items():
             dst = self.host[name]
@@ -137,14 +157,32 @@ class GraphedStep:
         self.stream = stream
         self.stats = stats
         self.inputs: StaticInputs | None = None
+        self.device_inputs: dict[str, torch.Tensor] = {}
+        self.tensors: dict[str, torch.Tensor] = {}  # the body's batch
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple = ()
         self.delta: Counts = []
 
-    def __call__(self, arrays: dict[str, np.ndarray]) -> tuple:
+    def __call__(self, arrays: dict[str, np.ndarray],
+                 device_inputs: dict[str, torch.Tensor] | None = None) \
+            -> tuple:
+        device_inputs = device_inputs or {}
         if self.inputs is None:
             self.inputs = StaticInputs(arrays, self.device)
+            self.device_inputs = {k: torch.empty_like(v)
+                                  for k, v in device_inputs.items()}
+            self.tensors = self.inputs.tensors | self.device_inputs
         self.inputs.upload(arrays)
+        if device_inputs.keys() != self.device_inputs.keys():
+            raise ValueError(f"device inputs {sorted(device_inputs)} are "
+                             f"not the captured {sorted(self.device_inputs)}")
+        for name, t in device_inputs.items():
+            dst = self.device_inputs[name]
+            if t.shape != dst.shape or t.dtype != dst.dtype:
+                raise ValueError(f"device input {name!r}: {t.dtype}"
+                                 f"{tuple(t.shape)} does not fit the "
+                                 f"captured {dst.dtype}{tuple(dst.shape)}")
+            dst.copy_(t)  # on the stream: ordered after t's producer
         if self.graph is not None:
             self.graph.replay()
             add_counts(self.delta)
@@ -153,7 +191,7 @@ class GraphedStep:
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            out = self.body(self.inputs.tensors)  # the warm-up: the result
+            out = self.body(self.tensors)  # the warm-up: the result
         cur.wait_stream(self.stream)
         for t in out:
             t.record_stream(cur)
@@ -161,7 +199,7 @@ class GraphedStep:
 
         def capture():
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                return self.body(self.inputs.tensors)
+                return self.body(self.tensors)
 
         t0 = time.perf_counter()
         self.outputs, self.delta = counted(capture)
@@ -170,3 +208,48 @@ class GraphedStep:
         self.graph = graph
         self.stats["captures"] += 1
         return out
+
+
+class TokenCopies:
+    """Two host buffers [n] int32 for the packed step's sampled ids, used
+    in turn, one per launch: `start` queues the copy of a launch's device
+    ids into the next buffer and returns its index, `wait` blocks until
+    that copy is done and returns the ids.  On the card the buffers are
+    pinned and the copy is asynchronous, ordered on the stream right
+    behind the launch, with an event recorded after it; so a later replay
+    that overwrites the graph's output buffer cannot reach the copy, and
+    `wait` waits for this launch alone.  On the CPU the copy is immediate.
+
+    Two buffers serve the async loop, which holds at most two launches
+    whose ids the host has not read: the one in flight and the one just
+    dispatched.  A third `start` before the oldest `wait` raises, as does
+    a `wait` on a buffer with no copy pending."""
+
+    def __init__(self, n: int, device: torch.device):
+        pin = device.type == "cuda"
+        self.bufs = [torch.zeros((n,), dtype=torch.int32, pin_memory=pin)
+                     for _ in range(2)]
+        self.events = [torch.cuda.Event() if pin else None
+                       for _ in range(2)]
+        self.pending = [False, False]
+        self.starts = 0  # copies started; buffer = starts % 2
+
+    def start(self, toks: torch.Tensor) -> int:
+        i = self.starts % 2
+        if self.pending[i]:
+            raise RuntimeError(f"token buffer {i} still holds ids nobody "
+                               "read: more than two launches in flight")
+        self.bufs[i].copy_(toks, non_blocking=True)
+        if self.events[i] is not None:
+            self.events[i].record()
+        self.pending[i] = True
+        self.starts += 1
+        return i
+
+    def wait(self, i: int) -> np.ndarray:
+        if not self.pending[i]:
+            raise RuntimeError(f"token buffer {i} has no copy pending")
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        self.pending[i] = False
+        return self.bufs[i].numpy().copy()

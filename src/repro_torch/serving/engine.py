@@ -1,7 +1,7 @@
 """Continuous-batching inference engine: the packed, fused-sampling step
 and the padded per-kind step.
 
-Port of the synchronous paths of `repro.serving.engine.Engine`.  With
+Port of `repro.serving.engine.Engine`.  With
 `packed_attention=True` (the default for dense models) every scheduled
 piece of work — decode rows (q = 1), fresh prefill chunks and resumed
 chunks — is packed into ONE [1, T] token stream and run by ONE
@@ -35,11 +35,12 @@ they run their plain PyTorch versions.
 The executable cache (`_get_fn` / `_compiled` / `compile_events`, the
 reference's names and key) holds one entry per (kind, batch bucket, seq
 bucket, KernelConfig): ("unified", 2 * max_seqs, token bucket, kcfg),
-("decode", max_seqs, 1, kcfg) and ("prefill", b, s, kcfg).  On the card
+("decode", max_seqs, 1, kcfg), ("prefill", b, s, kcfg) and
+("prefill_cached/np{np_b}", b, s, kcfg).  On the card
 (`cuda_graphs=True`, the default) a unified or decode entry is a CUDA
 graph (`serving/cuda_graphs.py`): the first step with its key runs
 eagerly and captures it, later ones copy their metadata into its static
-input buffers and replay it.  The padded prefill's entry stays eager
+input buffers and replay it.  The padded prefill's entries stay eager
 (each of its (b, s) buckets recurs rarely, so a capture would seldom pay
 back), as does the padded step's sampling dispatch.  On the CPU, and on
 the card with `cuda_graphs=False`, every entry runs eagerly;
@@ -48,10 +49,35 @@ split: the host draws each sampling row's seeded Gumbel noise into a
 static [2 * max_seqs, V] buffer before the step, and the step (captured)
 filters and draws.
 
-Not ported yet (see ROADMAP.md): the async `submit()/stream()/run()`
-loop, speculative decoding, prefix caching, resumed chunks on the padded
-step (`apply_prefill_cached`), telemetry / refit, autotuned chunk budgets
-and the tp executor.
+Async double-buffered serving (`submit()` / `stream()` / `run()`): on the
+packed step the streaming loop schedules, packs and DISPATCHES step N+1
+before it reads step N's sampled ids, so the host's work overlaps the
+card's.  A decode row whose input token is still in flight reads it on
+the card (`prev_tokens[token_source]` inside the step; `prev_tokens` is
+the previous launch's device ids, a device input of the entry, copied on
+the stream into a graph's static buffer before its replay); on the host a
+PENDING_TOKEN placeholder holds its output position, so lengths, paging
+and max_new_tokens stay exact, and a finish lands one step late.  A row
+of a request that finished, or was preempted (its `_spec_epoch` moved),
+while its launch was in flight is discarded.  Each launch's ids leave
+the card through one of two pinned host buffers (`TokenCopies`), copied
+asynchronously right behind the launch, since the next replay of the
+same graph overwrites its output buffer.  `token_source` and
+`prev_tokens` are in every packed launch, so one graph per key serves
+synchronous and async steps.  The padded step steps synchronously under
+`stream()`, with the same yields.
+
+Prefix caching (`enable_prefix_caching=True`, dense only): admission
+reuses the longest chain of cached full pages, and the prompt's chunk
+resumes at that context.  Chunked prefill (`enable_chunked_prefill`)
+splits prompts into budget-sized chunks.  On the packed step a resumed
+chunk is a chunk row with context > query; on the padded step it runs
+`apply_prefill_cached` (entry ("prefill_cached/np{np_b}", b, s, kcfg),
+eager, `np_b` the page-table width bucket), the Q-Block prefill over the
+whole paged context.
+
+Not ported yet (see ROADMAP.md): speculative decoding, telemetry /
+refit, autotuned chunk budgets and the tp executor.
 """
 from __future__ import annotations
 
@@ -70,7 +96,9 @@ from repro_torch.core.paged.allocator import RefCountedPageAllocator
 from repro_torch.models import model as M
 from repro_torch.models import sampling
 from repro_torch.serving import cuda_graphs
-from repro_torch.serving.request import Request, State
+from repro_torch.serving.cuda_graphs import TokenCopies
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.request import PENDING_TOKEN, Request, State
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.utils.misc import cdiv, next_power_of_2
 
@@ -81,12 +109,27 @@ log = logging.getLogger(__name__)
 class _PackedLaunch:
     """Host-side record of one unified launch: which request gets which
     sampled row back."""
-    rows: list[tuple[Request, int]]  # (request, packed row) of sampling rows
+    # (request, packed row, request._spec_epoch at pack time) of every
+    # row that samples: the epoch lets the async loop discard rows whose
+    # request was preempted while the launch was in flight
+    rows: list[tuple[Request, int, int]]
     kcfg: heuristics.KernelConfig
     tokens: int  # launched token-bucket width
     # per-row host arrays [S] that seed the noise: temperature, stream
-    # ids, tokens generated so far
+    # ids, tokens drawn so far
     noise_seeds: tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched engine step whose sampled ids the host has not read
+    yet (the async loop's double-buffer slot)."""
+    dec: object  # the scheduler's decision
+    stats: dict
+    pack: _PackedLaunch | None = None
+    toks: torch.Tensor | None = None  # the launch's device ids [S]
+    host: int = -1  # its `TokenCopies` buffer
+    logits: torch.Tensor | None = None  # debug_logits: a copy, [S, V]
 
 
 class Engine:
@@ -99,6 +142,7 @@ class Engine:
         num_pages: int = 128,
         max_model_len: int = 2048,
         max_prefill_tokens: int = 8192,
+        enable_prefix_caching: bool = False,
         enable_chunked_prefill: bool = False,
         packed_attention: bool = True,
         seed: int = 0,
@@ -126,16 +170,10 @@ class Engine:
         if packed_attention and not self._packed:
             log.info("engine: packed attention unavailable for family=%r; "
                      "using the padded per-kind step", cfg.family)
-        if enable_chunked_prefill:
+        if enable_prefix_caching or enable_chunked_prefill:
             assert cfg.family == "dense", (
-                "chunked prefill needs page-addressable context "
-                f"(unsupported for family={cfg.family!r})")
-            if not self._packed:
-                raise NotImplementedError(
-                    "chunked prefill on the padded step (resumed chunks, "
-                    "apply_prefill_cached) is not ported yet")
-        # (prefix caching, the other source of resumed chunks, is not
-        # ported: every prefill here starts at context 0)
+                "prefix caching / chunked prefill need page-addressable "
+                f"context (unsupported for family={cfg.family!r})")
         self.seed = seed
         self._debug_logits = debug_logits
         self._group = max(1, cfg.num_q_heads // max(cfg.num_kv_heads, 1))
@@ -143,17 +181,22 @@ class Engine:
         self._last_dispatch: dict[str, dict] = {}
         self.max_prefill_tokens = max_prefill_tokens
         self.alloc = RefCountedPageAllocator(num_pages, cfg.page_size)
+        self.prefix_cache = (PrefixCache(self.alloc, cfg.page_size)
+                             if enable_prefix_caching else None)
         self.sched = Scheduler(self.alloc, max_seqs=max_seqs,
                                max_prefill_tokens=max_prefill_tokens,
+                               prefix_cache=self.prefix_cache,
                                enable_chunked_prefill=enable_chunked_prefill)
         self.cache = M.make_cache(cfg, max_seqs=max_seqs,
                                   num_pages=num_pages, device=self.device)
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
         self.step_idx = 0
-        self.prefilled_tokens = 0  # prompt tokens actually computed
+        self.prefilled_tokens = 0  # uncached prompt tokens computed
+        self.cached_prefill_tokens = 0  # tokens skipped via the prefix cache
         self.launched_token_slots = 0  # token rows launched (incl. padding)
         # device calls by kind: a packed step is exactly {"unified": 1}; a
-        # padded step adds "prefill" / "decode", each with its "sample"
+        # padded step adds "prefill" / "prefill_cached" / "decode", each
+        # with its "sample"
         self.device_calls: collections.Counter = collections.Counter()
         self._emitted: list[tuple[int, int]] = []  # (req_id, token)/step
         self.last_step_stats: dict | None = None
@@ -172,10 +215,16 @@ class Engine:
         if self._graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph_stream = torch.cuda.Stream(self.device)
-        # the packed step's static noise buffer (zero on greedy rows)
-        self._noise = (torch.zeros((2 * max_seqs, cfg.vocab_size),
-                                   dtype=torch.float32, device=self.device)
-                       if self._packed else None)
+        # the packed step's static noise buffer (zero on greedy rows), its
+        # `prev_tokens` of a launch with no launch in flight, and the two
+        # host buffers its sampled ids leave the card through
+        self._noise = self._no_prev = self._copies = None
+        if self._packed:
+            self._noise = torch.zeros((2 * max_seqs, cfg.vocab_size),
+                                      dtype=torch.float32, device=self.device)
+            self._no_prev = torch.zeros((2 * max_seqs,), dtype=torch.int32,
+                                        device=self.device)
+            self._copies = TokenCopies(2 * max_seqs, self.device)
         self._noisy = False  # the buffer holds a nonzero row
 
     # ------------------------------------------------------------------
@@ -189,8 +238,8 @@ class Engine:
         variants by batch shape replays the capture for that config
         (`compile_events` grows one entry per bucket x config, never per
         step).  A unified (b = 2 * max_seqs, s = token bucket) or decode
-        entry is a `GraphedStep` on the card with graphs on; a prefill
-        entry is always eager (`EagerStep`)."""
+        entry is a `GraphedStep` on the card with graphs on; a prefill or
+        resumed-prefill entry is always eager (`EagerStep`)."""
         key = (kind, b, s, kcfg)
         if key not in self._compiled:
             self.compile_events.append(key)
@@ -199,10 +248,14 @@ class Engine:
             elif kind == "decode":
                 body = functools.partial(self._decode_body, kcfg)
             elif kind == "prefill":
-                body = functools.partial(self._prefill_body, kcfg, b)
+                body = functools.partial(self._prefill_body, kcfg, b,
+                                         M.apply_prefill)
+            elif kind.startswith("prefill_cached"):
+                body = functools.partial(self._prefill_body, kcfg, b,
+                                         M.apply_prefill_cached)
             else:
                 raise ValueError(kind)
-            if self._graphs and kind != "prefill":
+            if self._graphs and kind in ("unified", "decode"):
                 self._compiled[key] = cuda_graphs.GraphedStep(
                     body, self.device, self._graph_pool, self._graph_stream,
                     self.graph_stats)
@@ -224,9 +277,9 @@ class Engine:
         return M.apply_decode(self.model, self.cache, batch,
                               kernel_cfg=kcfg)[:1]
 
-    def _prefill_body(self, kcfg, b: int, batch: dict) -> tuple:
-        return M.apply_prefill(self.model, self._prefill_cache_view(b),
-                               batch, kernel_cfg=kcfg)
+    def _prefill_body(self, kcfg, b: int, apply, batch: dict) -> tuple:
+        return apply(self.model, self._prefill_cache_view(b), batch,
+                     kernel_cfg=kcfg)
 
     # ------------------------------------------------------------------
     # kernel-config dispatch (paper Fig. 5: profile -> tree -> config)
@@ -294,7 +347,9 @@ class Engine:
 
     def _sampling_rows(self, n: int, fill: list[tuple[int, Request]]):
         """Per-row sampling-param arrays ([n] each) with neutral defaults
-        on dead rows (temp 0 / top_p 1 / top_k 0 / stream 0 / drawn 0)."""
+        on dead rows (temp 0 / top_p 1 / top_k 0 / stream 0 / drawn 0).
+        The draw counter counts a pending placeholder: an in-flight token
+        was drawn, and this launch's draw comes after it."""
         temps = np.zeros((n,), np.float32)
         topp = np.ones((n,), np.float32)
         topk = np.zeros((n,), np.int32)
@@ -305,11 +360,18 @@ class Engine:
             topp[i] = r.top_p
             topk[i] = r.top_k
             streams[i] = r.sampling_stream
-            ngen[i] = r.num_generated
+            ngen[i] = r.num_generated + (1 if r._placeholder else 0)
         return temps, topp, topk, streams, ngen
 
     def _emit_token(self, r: Request, tok: int) -> None:
-        r.output.append(tok)
+        """Deliver one sampled token: fill the pending placeholder (async)
+        or append (sync), count the draw, record (req_id, token) for
+        `stream()`."""
+        if r._placeholder:
+            r.output[-1] = tok
+            r._placeholder = False
+        else:
+            r.output.append(tok)
         r.num_generated += 1
         self._emitted.append((r.req_id, tok))
 
@@ -334,33 +396,126 @@ class Engine:
         while self.sched.has_work and steps < max_steps:
             self.step()
             steps += 1
+        self._note_drive_end("generate", steps, max_steps)
+        return list(requests)
+
+    def _note_drive_end(self, api: str, steps: int, max_steps: int) -> None:
+        """Close a drive loop: its stats into `last_generate`, and a
+        warning when the step budget ran out with requests unfinished
+        (their outputs are truncated)."""
         unfinished = len(self.sched.waiting) + len(self.sched.running)
         exhausted = unfinished > 0 and steps >= max_steps
         self.last_generate = {"steps": steps, "unfinished": unfinished,
                               "exhausted": exhausted}
         if exhausted:
-            log.warning("generate: max_steps=%d exhausted with %d "
-                        "request(s) not FINISHED", max_steps, unfinished)
-        return list(requests)
+            log.warning("%s: max_steps=%d exhausted with %d request(s) not "
+                        "FINISHED", api, max_steps, unfinished)
+
+    def submit(self, req: Request) -> int:
+        """Queue a request for the streaming loop; returns the req_id that
+        `stream()` tags its tokens with."""
+        self.add_request(req)
+        return req.req_id
+
+    def stream(self, *, max_steps: int = 10_000):
+        """Drive the engine until the queue drains, yielding (req_id,
+        token) pairs in emission order.  On the packed step the loop is
+        double buffered: each iteration dispatches step N+1 before it
+        blocks on step N's sampled ids.  The padded step steps
+        synchronously, with the same yields."""
+        steps = 0
+        if not self._packed:
+            while self.sched.has_work and steps < max_steps:
+                self.step()
+                steps += 1
+                yield from self._emitted
+            self._note_drive_end("stream", steps, max_steps)
+            return
+        inflight: _Inflight | None = None
+        while inflight is not None or \
+                (self.sched.has_work and steps < max_steps):
+            nxt = None
+            if self.sched.has_work and \
+                    steps + (1 if inflight is not None else 0) < max_steps:
+                nxt = self._begin_step(inflight)
+            if inflight is not None:
+                self._finish_step(inflight)
+                steps += 1
+                yield from self._emitted
+            inflight = nxt
+        self._note_drive_end("stream", steps, max_steps)
+
+    def run(self, *, max_steps: int = 10_000, on_token=None,
+            on_finish=None) -> dict:
+        """Drive `stream()` over everything `submit()`ted, calling
+        `on_token(req_id, token)` for each sampled token and
+        `on_finish(request)` as a request leaves the batch.  Returns
+        {"outputs": {req_id: [token, ...]}} with the `last_generate`
+        stats."""
+        outputs: dict[int, list[int]] = {}
+        prev_cb = self.sched.on_finish
+        if on_finish is not None:
+            def chained(req):
+                if prev_cb is not None:
+                    prev_cb(req)
+                on_finish(req)
+            self.sched.on_finish = chained
+        try:
+            for rid, tok in self.stream(max_steps=max_steps):
+                outputs.setdefault(rid, []).append(tok)
+                if on_token is not None:
+                    on_token(rid, tok)
+        finally:
+            self.sched.on_finish = prev_cb
+        return {"outputs": outputs, **self.last_generate}
 
     # ------------------------------------------------------------------
     # one engine step
     # ------------------------------------------------------------------
 
     def step(self) -> dict:
-        self._last_dispatch = {}
+        flight = self._schedule_and_pack()
+        if self._packed:
+            return self._finish_step(flight)
+        # the padded per-kind step: each launch samples its own rows
         self._emitted = []
         self._step_logits = []
+        dec = flight.dec
+        if dec.prefill_reqs:
+            self._run_prefill(dec.prefill_reqs)
+        if dec.decode_reqs:
+            self._run_decode(dec.decode_reqs)
+        if self._debug_logits and self._step_logits:
+            self.last_step_logits = torch.cat(self._step_logits)
+        # the configs its runners picked (the pack recorded none)
+        flight.stats["dispatch"] = dict(self._last_dispatch)
+        return self._finish_padded(flight)
+
+    def _schedule_and_pack(self, prev_rows: dict[int, int] | None = None,
+                           prev_toks: torch.Tensor | None = None) \
+            -> _Inflight:
+        """The front half of a step, shared by `step()` and
+        `_begin_step()`: schedule, account, update the page tables and, on
+        the packed step, pack and DISPATCH, with no wait on the card."""
+        self._last_dispatch = {}
         dec = self.sched.step(self.step_idx)
         new_tokens = dec.scheduled_prefill_tokens
+        # cached tokens count on a request's first chunk (the one starting
+        # at the matched prefix); later chunks start past it
+        cached_tokens = sum(r.num_cached_tokens for r in dec.prefill_reqs
+                            if r.chunk_start == r.num_cached_tokens)
         self.prefilled_tokens += new_tokens
+        self.cached_prefill_tokens += cached_tokens
         stats = {"prefill": len(dec.prefill_reqs),
                  "decode": len(dec.decode_reqs),
                  "preempted": len(dec.preempted),
                  "prefill_tokens": new_tokens,
+                 "cached_tokens": cached_tokens,
                  "partial_prefills": sum(1 for r in dec.prefill_reqs
                                          if not r.prefill_done),
                  "budget_utilization": dec.budget_utilization}
+        if self.prefix_cache is not None:
+            stats.update(self.prefix_cache.stats())
         for req in dec.prefill_reqs:
             row = np.zeros((self.pages_per_seq,), np.int32)
             row[: len(req.pages)] = req.pages
@@ -368,28 +523,65 @@ class Engine:
         for req in dec.decode_reqs:  # page growth
             row = self.page_table[req.slot]
             row[: len(req.pages)] = req.pages
-        if self._packed:
-            if dec.decode_reqs or dec.prefill_reqs:
-                batch, pack = self._pack_unified(dec.decode_reqs,
-                                                 dec.prefill_reqs)
-                toks = self._launch_unified(batch, pack)
-                self._consume_unified(pack, toks)
-        else:
-            # padded per-kind step: each launch samples its own rows; every
-            # prefill is fresh (context 0: no chunking on this step)
-            if dec.prefill_reqs:
-                self._run_prefill_fresh(dec.prefill_reqs)
-            if dec.decode_reqs:
-                self._run_decode(dec.decode_reqs)
-            if self._debug_logits and self._step_logits:
-                self.last_step_logits = torch.cat(self._step_logits)
+        flight = _Inflight(dec=dec, stats=stats)
+        if self._packed and (dec.decode_reqs or dec.prefill_reqs):
+            batch, flight.pack = self._pack_unified(
+                dec.decode_reqs, dec.prefill_reqs, prev_rows=prev_rows)
+            self._launch_unified(batch, flight, prev_toks)
+        if self.prefix_cache is not None:
+            for r in dec.prefill_reqs:
+                # index the full pages written up to this chunk's end, so
+                # a request admitted later reuses them, even mid-prefill
+                # (the packed step set context_len at pack time; the
+                # padded step sets it when its chunk has run, so it
+                # indexes one step later, as the reference does)
+                r.cache_cursor = self.prefix_cache.insert_incremental(
+                    r.prompt, r.pages, r.context_len, r.cache_cursor)
+        stats["dispatch"] = dict(self._last_dispatch)
+        return flight
+
+    def _begin_step(self, prev: _Inflight | None) -> _Inflight:
+        """Schedule, pack and dispatch step N+1 while step N (`prev`) is
+        still on the card.  A request with a sampling row in `prev` gets
+        a PENDING_TOKEN placeholder, so every length, paging and
+        max_new_tokens computation sees the state after step N; its
+        decode row reads the token on the card from `prev`'s ids."""
+        prev_rows: dict[int, int] = {}
+        if prev is not None and prev.pack is not None:
+            for r, row, epoch in prev.pack.rows:
+                if r._spec_epoch != epoch or \
+                        r.state not in (State.RUNNING, State.PREFILLING):
+                    continue
+                prev_rows[r.req_id] = row
+                if not r._placeholder:
+                    r.output.append(PENDING_TOKEN)
+                    r._placeholder = True
+        return self._schedule_and_pack(
+            prev_rows=prev_rows,
+            prev_toks=prev.toks if prev is not None else None)
+
+    def _finish_step(self, flight: _Inflight) -> dict:
+        """The back half of a packed step: wait for the launch's sampled
+        ids, fold them into request state, then the step's epilogue."""
+        self._emitted = []
+        if flight.pack is not None:
+            if self._debug_logits:
+                self.last_step_logits = flight.logits
+            self._consume_unified(flight.pack, self._host_tokens(flight))
+        return self._finish_padded(flight)
+
+    def _finish_padded(self, flight: _Inflight) -> dict:
+        """The epilogue of a step (on the padded step, its whole back
+        half: its runners emitted their tokens): finishes, then stats.  A
+        request whose last token is still in flight (an unfilled
+        placeholder) finishes next step, once the token lands."""
+        stats = flight.stats
         for req in list(self.sched.running):
-            if req.prefill_done and req.done:
+            if req.prefill_done and req.done and not req._placeholder:
                 slot = req.slot  # finish() releases the slot
                 self.sched.finish(req)
                 if slot is not None:
                     self.page_table[slot] = 0
-        stats["dispatch"] = dict(self._last_dispatch)
         stats["pool"] = self.alloc.mesh_stats(1)
         stats["sampled_tokens"] = len(self._emitted)
         self.step_idx += 1
@@ -404,17 +596,22 @@ class Engine:
         return row[positions // ps] * ps + positions % ps
 
     def _pack_unified(self, decode_reqs: list[Request],
-                      prefill_reqs: list[Request]) \
+                      prefill_reqs: list[Request],
+                      prev_rows: dict[int, int] | None = None) \
             -> tuple[dict, _PackedLaunch]:
         """Build the batch for ONE token-packed launch.
 
         Rows [0, max_seqs) are the static decode region (decode rows
         sorted by pow2 context bucket, dead rows ctx = 0 with qlen = 1);
-        prefill chunks pack back-to-back behind it, the chunk-token count
-        bucketed to a power of two (at least one page).  The sequence axis
-        is static at 2 * max_seqs and the page table full-width.  Only
-        decode rows and prompt-completing chunks sample.  Each request's
-        `context_len` advances here."""
+        prefill chunks (fresh, or resumed at context > 0) pack back to
+        back behind it, the chunk-token count bucketed to a power of two
+        (at least one page).  The sequence axis is static at 2 * max_seqs
+        and the page table full-width.  Only decode rows and
+        prompt-completing chunks sample.  `prev_rows` (async loop) maps
+        req_id -> row of the launch still in flight whose sampled token is
+        this request's decode input: `token_source` routes it from that
+        launch's ids on the card (-1: the row's id is in `inputs`).  Each
+        request's `context_len` advances here."""
         ms = self.max_seqs
         ps = self.cfg.page_size
         plain = sorted(decode_reqs,
@@ -432,22 +629,29 @@ class Engine:
         tokens = np.zeros((1, t), np.int64)
         pos = np.zeros((1, t), np.int64)
         slots = np.full((1, t), trash, np.int64)
+        src = np.full((1, t), -1, np.int32)
         qlens = np.zeros((s,), np.int32)
         ctx = np.zeros((s,), np.int32)
         pt = np.zeros((s, np_b), np.int32)
         qsl = np.full((s + 1,), ms, np.int32)
         qsl[:ms + 1] = np.arange(ms + 1)
         qlens[:ms] = 1  # dead decode rows are masked by ctx == 0
-        rows: list[tuple[Request, int]] = []
+        rows: list[tuple[Request, int, int]] = []
         for i, r in enumerate(plain):
-            tokens[0, i] = r.output[-1] if r.output else r.prompt[-1]
+            if prev_rows and r.req_id in prev_rows:
+                src[0, i] = prev_rows[r.req_id]  # in flight: on the card
+            elif r._placeholder:
+                raise RuntimeError(f"request {r.req_id}: decode input still "
+                                   "in flight")
+            else:
+                tokens[0, i] = r.output[-1] if r.output else r.prompt[-1]
             p = r.total_len - 1
             pos[0, i] = p
             ctx[i] = r.total_len
             row = self.page_table[r.slot]
             pt[i] = row[:np_b]
             slots[0, i] = self._page_slots(row, np.asarray(p))
-            rows.append((r, i))
+            rows.append((r, i, r._spec_epoch))
             r.context_len = r.total_len
         cur = ms
         for j, r in enumerate(prefill_reqs):
@@ -457,7 +661,7 @@ class Engine:
             p = np.arange(r.chunk_start, r.chunk_start + n, dtype=np.int64)
             ctx[i] = r.chunk_start + n
             if r.chunk_start + n == r.num_prompt_tokens:
-                rows.append((r, i))  # prompt-completing chunk: samples
+                rows.append((r, i, r._spec_epoch))  # completing: samples
             r.context_len = r.chunk_start + n
             pos[0, cur: cur + n] = p  # packed-position RoPE: absolute
             qlens[i] = n
@@ -469,20 +673,22 @@ class Engine:
 
         kcfg = self._dispatch("unified", profile)
         temps, topp, topk, streams, ngen = self._sampling_rows(
-            s, [(i, r) for r, i in rows])
+            s, [(i, r) for r, i, _ in rows])
         pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t,
                              noise_seeds=(temps, streams, ngen))
         batch = {"inputs": tokens, "positions": pos, "page_table": pt,
                  "context_lens": ctx, "query_lens": qlens,
                  "query_start_loc": qsl, "slot_mapping": slots,
-                 "temperature": temps, "top_p": topp, "top_k": topk}
+                 "token_source": src, "temperature": temps, "top_p": topp,
+                 "top_k": topk}
         return batch, pack
 
     def _draw_noise(self, pack: _PackedLaunch) -> None:
         """The sampler's host part: each sampling row's Gumbel noise,
-        seeded from (seed, stream id, tokens generated), into the static
-        buffer (zeroed where no row samples; untouched while it stays
-        all zero)."""
+        seeded from (seed, stream id, tokens drawn), into the static
+        buffer (zeroed where no row samples; untouched while it stays all
+        zero).  It only queues work on the stream: the launch in flight
+        reads the buffer before these writes run."""
         temps, streams, ngen = pack.noise_seeds
         hot = sampling.hot_rows(temps)
         if hot or self._noisy:
@@ -491,23 +697,37 @@ class Engine:
                                   out=self._noise)
         self._noisy = bool(hot)
 
-    def _launch_unified(self, batch: dict, pack: _PackedLaunch) -> np.ndarray:
-        """Run one packed launch (host arrays in, through the executable
-        cache) and return the host token ids [S]."""
+    def _launch_unified(self, batch: dict, flight: _Inflight,
+                        prev_toks: torch.Tensor | None) -> None:
+        """Dispatch one packed launch through the executable cache and
+        queue the copy of its sampled ids to the host, without waiting
+        for either: `flight` gets the device ids (the next launch's
+        `prev_tokens`), the host buffer they are copied into, and the
+        debug logits.  `prev_toks`: the ids of the launch in flight, if
+        any (else zeros; no row reads them then)."""
+        pack = flight.pack
         fn = self._get_fn("unified", 2 * self.max_seqs, pack.tokens,
                           pack.kcfg)
         self.device_calls["unified"] += 1
         self._draw_noise(pack)
-        toks, logits = fn(batch)
+        prev = self._no_prev if prev_toks is None else prev_toks
+        toks, logits = fn(batch, {"prev_tokens": prev})
+        flight.toks = toks
+        flight.host = self._copies.start(toks)
         if self._debug_logits:  # a copy: a replay overwrites the buffer
-            self.last_step_logits = logits.clone()
+            flight.logits = logits.clone()
         self.launched_token_slots += pack.tokens
-        return toks.cpu().numpy()
+
+    def _host_tokens(self, flight: _Inflight) -> np.ndarray:
+        """Block until the flight's sampled ids reached the host; [S]."""
+        return self._copies.wait(flight.host)
 
     def _consume_unified(self, pack: _PackedLaunch, toks: np.ndarray) -> None:
-        """Fold one launch's sampled tokens back into request state."""
-        for r, row in pack.rows:
-            if r.state is State.FINISHED:
+        """Fold one launch's sampled tokens back into request state.  Rows
+        whose request finished, or was preempted, while the launch was in
+        flight are discarded by state and epoch."""
+        for r, row, epoch in pack.rows:
+            if r.state is State.FINISHED or r._spec_epoch != epoch:
                 continue
             self._emit_token(r, int(toks[row]))
 
@@ -537,32 +757,65 @@ class Engine:
         for r in reqs:
             r.context_len = r.chunk_start + r.num_scheduled_tokens
 
-    def _run_prefill_fresh(self, reqs: list[Request]) -> None:
-        """The padded prefill of fresh prompts, [pow2 batch, pow2 seq]: its
-        ("prefill", b, s, kcfg) key is recorded in `compile_events`, but
-        its entry stays eager, also on the card (each bucket recurs
-        rarely, so a capture would seldom pay back)."""
+    def _run_prefill(self, reqs: list[Request]) -> None:
+        """One scheduled chunk per request: chunks at context 0 (a fresh
+        prompt, or the first chunk of a chunked one) run the uniform
+        prefill; chunks at context > 0 (after earlier chunks, a prefix
+        cache hit, or both) run the resumed prefill over a page table
+        narrowed to the width bucket `np_b` the longest context needs."""
+        fresh = [r for r in reqs if r.chunk_start == 0]
+        resumed = [r for r in reqs if r.chunk_start > 0]
+        if fresh:
+            self._run_prefill_padded(fresh, "prefill", self.pages_per_seq)
+        if resumed:
+            max_ctx = max(r.chunk_start + r.num_scheduled_tokens
+                          for r in resumed)
+            np_b = min(self.pages_per_seq,
+                       next_power_of_2(cdiv(max_ctx, self.cfg.page_size)))
+            self._run_prefill_padded(resumed, "prefill_cached", np_b)
+
+    def _run_prefill_padded(self, reqs: list[Request], phase: str,
+                            np_b: int) -> None:
+        """The padded prefill of one scheduled chunk per request, [pow2
+        batch, pow2 seq], at absolute positions: only the chunk is
+        embedded and computed; attention reads any prior context back
+        from the pages (context_lens = chunk_start + chunk).  Entry
+        ("prefill", b, s, kcfg) for chunks at context 0,
+        ("prefill_cached/np{np_b}", b, s, kcfg) for resumed ones.  Its
+        key is recorded in `compile_events`, but the entry stays eager,
+        also on the card (each bucket recurs rarely, so a capture would
+        seldom pay back)."""
         b = next_power_of_2(len(reqs))
-        max_len = max(r.num_scheduled_tokens for r in reqs)
-        s = max(next_power_of_2(max_len), self.cfg.page_size)
+        max_chunk = max(r.num_scheduled_tokens for r in reqs)
+        s = max(next_power_of_2(max_chunk), self.cfg.page_size)
         tokens = np.zeros((b, s), np.int64)
         qlens = np.zeros((b,), np.int32)
-        pt = np.zeros((b, self.pages_per_seq), np.int32)
+        ctx = np.zeros((b,), np.int32)
+        pt = np.zeros((b, np_b), np.int32)
         pos = np.tile(np.arange(s, dtype=np.int64)[None], (b, 1))
         for i, r in enumerate(reqs):
             n = r.num_scheduled_tokens
-            tokens[i, :n] = r.prompt[:n]
+            tokens[i, :n] = r.prompt[r.chunk_start: r.chunk_start + n]
             qlens[i] = n
-            pt[i] = self.page_table[r.slot]
-        kcfg = self._dispatch("prefill", self._prefill_profile(reqs))
-        fn = self._get_fn("prefill", b, s, kcfg)  # eager in this port
-        self.device_calls["prefill"] += 1
-        logits, new_cache = fn({"inputs": tokens, "positions": pos,
-                                "page_table": pt, "context_lens": qlens,
-                                "query_lens": qlens})
+            ctx[i] = r.chunk_start + n
+            pos[i] += r.chunk_start
+            pt[i] = self.page_table[r.slot][:np_b]
+        kcfg = self._dispatch(phase, self._prefill_profile(reqs))
+        kind = phase if phase == "prefill" else f"{phase}/np{np_b}"
+        fn = self._get_fn(kind, b, s, kcfg)
+        self.device_calls[phase] += 1
+        self._run_chunks(reqs, fn, b * s, {
+            "inputs": tokens, "positions": pos, "page_table": pt,
+            "context_lens": ctx, "query_lens": qlens})
+
+    def _run_chunks(self, reqs: list[Request], fn, slots: int,
+                    batch: dict) -> None:
+        """Run one padded prefill entry over `reqs`' chunks: merge the
+        recurrent rows back, sample the prompts it completes."""
+        logits, new_cache = fn(batch)
         if self._debug_logits:
             self._step_logits.append(logits)
-        self.launched_token_slots += b * s
+        self.launched_token_slots += slots
         self._merge_prefill_cache(new_cache, [r.slot for r in reqs])
         self._finish_chunk(reqs, logits)
 
@@ -597,7 +850,8 @@ class Engine:
         """The attention pages (where the model has any) are global; the
         recurrent rows of a prefill start from the empty state, zeros with
         the mLSTM / sLSTM stabilisers `m` at -inf, as `M.make_cache` makes
-        them (prefill always begins at context 0 on the padded step)."""
+        them (a hybrid or ssm prefill always begins at context 0: chunked
+        prefill and prefix caching are dense only)."""
         view = {}
         for k, leaves in self.cache.items():
             if k == "attn":

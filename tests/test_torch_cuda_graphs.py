@@ -273,20 +273,24 @@ def test_packed_engine_samples_as_the_one_call_sampler(smollm):
             prompt=list(map(int, rng.integers(1, tcfg.vocab_size, size=n))),
             **{"max_new_tokens": 3} | kw))
     eng.add_request(TRequest(prompt=[5, 6, 7], max_new_tokens=6))
-    draws = []
-    orig = eng._launch_unified
+    draws, batches = [], []
+    launch, consume = eng._launch_unified, eng._consume_unified
 
-    def check(batch, pack):
-        toks = orig(batch, pack)
+    def record(batch, flight, prev_toks):
+        batches.append(batch)
+        launch(batch, flight, prev_toks)
+
+    def check(pack, toks):  # the launch's host ids, before they are used
+        batch = batches.pop()
         temps, streams, ngen = pack.noise_seeds
         want = _one_call_sampler(eng.last_step_logits, eng.seed, temps,
                                  batch["top_p"], batch["top_k"], streams,
                                  ngen)
         np.testing.assert_array_equal(toks, want.numpy())
         draws.append(len(TS.hot_rows(temps)))
-        return toks
+        consume(pack, toks)
 
-    eng._launch_unified = check
+    eng._launch_unified, eng._consume_unified = record, check
     while eng.sched.has_work:
         eng.step()
     assert draws[0] == 3 and 2 in draws and draws[-1] == 0

@@ -11,7 +11,9 @@ on a host without CUDA.  Run on the card with
 The engine's CUDA graphs (the packed step and the padded decode step,
 captured at a key's first step and replayed after) against the same
 engine with `cuda_graphs=False`: the same tokens, bit-equal logits and KV
-pages, and the same launch counts.
+pages, and the same launch counts.  The async loop (`submit()` + `run()`)
+on the graphs against the synchronous graphed run: the same, and its
+sampled ids leave the card through two pinned buffers in turn.
 
 Imports neither JAX nor the JAX package.  Tolerances: fp32 atol 1e-4
 with TF32 off (summation order), bf16 atol 2e-2 (an output ulp near 1 is
@@ -966,3 +968,100 @@ def test_merge_counters_a_graph_captured_survive_a_larger_launch(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     assert not buf.any()
+
+
+# ---------------------------------------------------------------------------
+# the async double-buffered loop on the graphs
+# ---------------------------------------------------------------------------
+
+
+def _launches(eng):
+    """Record each launching step's (debug) logits as `_finish_step`
+    hands them over, in the synchronous `step()` and in `stream()`."""
+    seen = []
+    finish = eng._finish_step
+
+    def record(flight):
+        stats = finish(flight)
+        if flight.pack is not None:
+            seen.append(flight.logits)
+        return stats
+
+    eng._finish_step = record
+    return seen
+
+
+def _sync_and_async(dev, prompts, new=6, **eng_kw):
+    """The same requests through `step()` and through `submit()` +
+    `run()`, graphs on, each from launch counters at 0."""
+    cfg = reduced(ARCHS["smollm-135m"]).replace(dtype="float32")
+    model = weights.init_random(cfg, 0, device=dev)
+    runs = []
+    for drive in ("sync", "async"):
+        eng = Engine(cfg, model, device=dev, debug_logits=True, **eng_kw)
+        logits = _launches(eng)
+        reqs = [Request(prompt=list(p), max_new_tokens=new, seed=i,
+                        **(dict(temperature=0.9, top_k=30, top_p=0.8)
+                           if i % 2 else {}))
+                for i, p in enumerate(prompts)]
+        for c in cuda_graphs.kernel_counters():
+            c.update(dict.fromkeys(c, 0))
+        if drive == "sync":
+            eng.generate(reqs)
+        else:
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+        torch.cuda.synchronize()
+        runs.append(dict(eng=eng, reqs=reqs, logits=logits,
+                         counts=[dict(c) for c in
+                                 cuda_graphs.kernel_counters()]))
+    return runs
+
+
+def test_async_graphed_run_matches_sync_bit_for_bit(cuda):
+    """Reduced smollm-135m, fp32, chunked prefill, greedy and sampled
+    requests, graphs on: `run()` replays the graphs the synchronous run
+    captures (one per key: `token_source` and `prev_tokens` are in every
+    launch) and gives its tokens, its launch counters, its compile events
+    and, launch by launch, its logits bit for bit; its KV pages end
+    bit-equal too."""
+    s, a = _sync_and_async(
+        cuda, _prompts_for("smollm-135m", (5, 40, 17, 3), 0), max_seqs=4,
+        num_pages=64, max_model_len=256, enable_chunked_prefill=True,
+        max_prefill_tokens=32)
+    assert [r.output for r in a["reqs"]] == [r.output for r in s["reqs"]]
+    assert a["eng"].compile_events == s["eng"].compile_events
+    assert a["eng"].graph_stats["captures"] == \
+        s["eng"].graph_stats["captures"] > 0
+    assert a["eng"].graph_stats["replays"] > 0
+    assert a["counts"] == s["counts"]
+    assert len(a["logits"]) == len(s["logits"])
+    for x, y in zip(a["logits"], s["logits"]):
+        assert torch.equal(x, y)
+    for name, t in s["eng"].cache["attn"].items():
+        assert torch.equal(a["eng"].cache["attn"][name], t), name
+
+
+def test_async_pinned_buffers_alternate_across_preemption(cuda):
+    """13 pages for four requests that need ~18 under `run()`: requests
+    are preempted while their tokens are in flight.  Every launch's ids
+    leave the card through the two pinned buffers in turn, each read
+    once, and the sequences agree with the synchronous graphed run's."""
+    s, a = _sync_and_async(
+        cuda, _prompts_for("smollm-135m", (40, 33, 47, 20), 7), new=24,
+        max_seqs=4, num_pages=13, max_model_len=128)
+    copies = a["eng"]._copies
+    assert all(b.is_pinned() for b in copies.bufs)
+    assert copies.starts == a["eng"].device_calls["unified"]
+    assert copies.pending == [False, False]
+    # a preemption folds the output into the prompt (and max_new_tokens
+    # counts again from there), at another step in each run: the
+    # sequences agree as far as both go
+    for x, y in zip(a["reqs"], s["reqs"]):
+        x, y = x.prompt + x.output, y.prompt + y.output
+        n = min(len(x), len(y))
+        assert x[:n] == y[:n]
+    assert any(len(r.prompt) > n for r, n in zip(a["reqs"],
+                                                 (40, 33, 47, 20)))
+    assert a["eng"].graph_stats["replays"] > 0
