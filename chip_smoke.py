@@ -25,11 +25,14 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               instantiation of the tensor-core prefill, and 128 rows a
               Q-Block, over 64), for the decode kernels only, at
               glm4-9b's heads (Hkv 2, group 16, D 128: the largest group
-              the repo's models give them) and, for the prefill only, at
+              the repo's models give them), for the prefill only, at
               the padded step's resumed chunks with smollm's heads (4
               chunks of 512 rows in the uniform layout after prior
               contexts of 0 / 512 / 1024 / 1536, one padded to half its
-              rows: `prefill_attention_cached`), in fp32 with TF32 off (atol
+              rows: `prefill_attention_cached`), and at the speculative
+              verify step's shapes (smollm's heads: 8 decode rows at
+              contexts of 128-1100, then 8 chunk rows of q 2-5 ending at
+              contexts of 130-1100), in fp32 with TF32 off (atol
               1e-4) and bf16 (atol 2e-2: a bf16 output ulp near 1 is
               7.8e-3, and p is rounded to bf16 before p.V on both sides;
               bf16 prefill runs the tensor-core kernel, fp32 the scalar
@@ -45,8 +48,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               FLOPs at peak); further `time` rows, logged only: the
               Q-Block prefill and both decode kernels at zamba2-1.2b's
               shapes (padded prefill; Hkv 32, group 1 decode), both
-              decode kernels at qwen2.5-3b's heads (D 128, group 8); the
-              folded C3 launch beside the two launches it replaces (the
+              decode kernels at qwen2.5-3b's heads (D 128, group 8), the
+              Q-Block prefill at the verify shapes; the folded C3 launch beside the two launches it replaces (the
               `segment_reduce` row of the kernels' JSON is the folded
               launch)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
@@ -75,7 +78,20 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               64-256 own tokens, 32 new each, chunked at 512) through
               `run()` with prefix caching off and on: every request
               finishes, a page must hit; the prefill accounting, both
-              walls and each request's time to first token logged
+              walls and each request's time to first token logged;
+              (c) speculative decoding (`phase_spec_serve`): 8 requests
+              of 128-1024 tokens, the even ones a repeated cycle of 3-8
+              tokens, 32 new, request 2 sampled, draft_k 4, graphs on,
+              against the same requests without speculation: in bf16
+              drafts proposed, accepted and rejected, one `unified`
+              device call a step, no page leaked, verify rows on the
+              Q-Block prefill, graphs bit for bit against eager, the
+              tokens' agreement with the run without speculation logged;
+              in fp32 (TF32 off) identical tokens with and without; the
+              sampler timed at [80, 49152] and its host noise draw; (d)
+              phase 5's requests through the two-dispatch sampler
+              (`fused_sampling=False`): identical tokens, counters,
+              `compile_events` and logits, {"unified": n, "sample": n}
   6. diff     full width in fp32 (TF32 off): 3 greedy requests of 8 new
               tokens on the card (CUDA kernels, CUDA graphs) and on the
               CPU (plain versions), stepped in lockstep: identical tokens,
@@ -88,8 +104,10 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               caching on (packed, in lockstep, the same cached tokens on
               both), the padded step with chunked prefill at 64 (resumed
               chunks run `apply_prefill_cached` on the card's fp32 prefill
-              kernel), and `stream()` on the card against `generate()` on
-              the CPU, launch by launch
+              kernel), `stream()` on the card against `generate()` on
+              the CPU, launch by launch, and speculative decoding (4
+              prompts, two a repeated cycle, 16 greedy tokens, draft_k
+              4): the same spec stats on both
   7. flash    the flash-attention forward kernel (o and lse) against its
               plain version on the card at the shape the train phase gives
               it (B 4, S 2048, Hq 9, Hkv 3, D 64, causal, packed q
@@ -262,6 +280,14 @@ PAGED_SHAPES = {
         page_sizes=(16,), ctx=None, num_segments=None,
         qlens=(512, 512, 512, 256), pf_ctx=(512, 1024, 1536, 1792),
         stride=512),
+    # the speculative verify rows of phase 5 (c) at smollm's heads: 8
+    # decode rows at contexts of 128-1100, then 8 chunk-region rows of
+    # q = s + 1 in 2..5 (a decode row and its s drafts) ending at contexts
+    # of 130-1100, packed back to back: most of each Q-Block is dead rows
+    "smollm-135m/verify": dict(
+        page_sizes=(16,), ctx=(128, 301, 517, 640, 777, 901, 1033, 1100),
+        num_segments=16, qlens=(2, 3, 4, 5, 5, 4, 3, 2),
+        pf_ctx=(130, 260, 515, 641, 799, 900, 1003, 1100), stride=None),
 }
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
@@ -280,6 +306,9 @@ PREEMPT_ENGINE = dict(max_seqs=4, num_pages=13, max_model_len=128)
 # the shared-prefix trace (phases 5 and 6): 8 requests of one 768-token
 # prefix and 64-256 tokens of their own, 32 new tokens each, chunked at 512
 SHARED_PREFIX, SHARED_OWN, SHARED_REQUESTS = 768, (64, 256), 8
+# phase 5 (c): speculative decoding, up to SPEC_DRAFT_K drafts a request a
+# step; half the prompts repeat a cycle of SPEC_CYCLE tokens (drawn)
+SPEC_DRAFT_K, SPEC_CYCLE = 4, (3, 8)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5  # + 1 untimed warm-up step
 # flash check shapes: (B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype); the
 # shape the train phase gives the kernel (smollm-135m: Hq 9, Hkv 3, D 64),
@@ -732,8 +761,8 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
     """Each paged kernel and the folded C3 launch at smollm's serve shapes
     (the rows of the kernels' JSON), the two launches it folds timed as
     one call, then, logged only, the Q-Block prefill and the decode
-    kernels at zamba2's shapes and the decode kernels at qwen2.5-3b's
-    heads."""
+    kernels at zamba2's shapes, the decode kernels at qwen2.5-3b's
+    heads and the Q-Block prefill at the verify rows' shapes."""
     dtype = getattr(torch, dtype_name)
     ps = 16
     tile = tops.default_tile(ps)
@@ -764,7 +793,8 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
     for arch, names in ((HYBRID_ARCH, ("paged_prefill_qblock", "paged_decode",
                                        "paged_decode_segmented", MERGED)),
                         ("qwen2.5-3b", ("paged_decode",
-                                        "paged_decode_segmented", MERGED))):
+                                        "paged_decode_segmented", MERGED)),
+                        ("smollm-135m/verify", ("paged_prefill_qblock",))):
         calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
         lib = library_calls(torch, x)
         for name in names:
@@ -1043,6 +1073,7 @@ def sampler_cost(torch, s, v, iters=50):
     L2 flush: the logits come hot from the head): the filter and draw that
     every graphed step runs, against greedy argmax alone."""
     from repro_torch.models.sampling import sample_tokens
+    from repro_torch.serving.cuda_graphs import gc_paused
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     logits = torch.randn((s, v), generator=g, device=DEVICE) * 4
@@ -1061,7 +1092,7 @@ def sampler_cost(torch, s, v, iters=50):
             sample_tokens(logits, temps, top_p, top_k, nz)  # warm-up
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with gc_paused(), torch.cuda.graph(graph, stream=side):
             sample_tokens(logits, temps, top_p, top_k, nz)
         ms[name] = time_ms(torch, graph.replay, iters,
                            torch.empty(1, device=DEVICE))
@@ -1137,6 +1168,8 @@ def phase_serve(torch, K, FK):
                       requests(), "serve eager")
     walls = graphs_vs_eager(torch, "serve", run, eager, cfg.dtype)
     del eager
+    # (d) the same requests through the two-dispatch sampler
+    walls |= two_dispatch_run(torch, cfg, model, eng_kw, requests, run)
     # (a) the same requests through submit() + run(), graphs on
     streamed = stream_run(torch, Engine(cfg, model, **eng_kw), requests(),
                           "serve run()")
@@ -1163,7 +1196,10 @@ def phase_serve(torch, K, FK):
     if not preempted:
         raise AssertionError("the preempting trace preempted nothing")
     graphs_vs_eager(torch, "serve preempt", *runs, cfg.dtype)
+    del runs
     sampler_cost(torch, 2 * eng_kw["max_seqs"], cfg.vocab_size)
+    # (c) speculative decoding
+    walls |= phase_spec_serve(torch, K, cfg, model, eng_kw, g)
     return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
                           prompt_tokens=prompt_toks, **walls)
 
@@ -1204,6 +1240,203 @@ def shared_prefix_run(torch, cfg, model, eng_kw, prompts):
         raise AssertionError(f"shared-prefix trace: no page hit ({cache})")
     return dict(shared_wall_off=off["wall"], shared_wall_on=on["wall"],
                 cached_prefill_tokens=on["eng"].cached_prefill_tokens)
+
+
+def first_divergence(a, b):
+    """(request, position) of the first token where two runs' requests
+    (prompt + output) differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        sx, sy = x.prompt + x.output, y.prompt + y.output
+        for j, (u, v) in enumerate(zip(sx, sy)):
+            if u != v:
+                return i, j
+        if len(sx) != len(sy):
+            return i, min(len(sx), len(sy))
+    return None
+
+
+def logits_diff(torch, a, b):
+    """(bit_equal, max abs diff) of two runs' logits, step by step."""
+    if len(a) != len(b):
+        return False, float("inf")
+    worst, equal = 0.0, True
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            return False, float("inf")
+        if not torch.equal(x, y):
+            equal = False
+            worst = max(worst, float((x - y).abs().max()))
+    return equal, worst
+
+
+def two_dispatch_run(torch, cfg, model, eng_kw, requests, fused):
+    """Phase 5 (d): the serve trace with `fused_sampling=False` (the packed
+    launch returns its logits, a second dispatch samples them), graphs
+    on, against the fused graphed run `fused`: identical tokens, launch
+    counters and compile_events, {"unified": n, "sample": n} device
+    calls, logits bit for bit (the same launch up to the head; the
+    sampler is outside it).  Logs both walls."""
+    from repro_torch.serving.engine import Engine
+
+    two = serve_run(torch, Engine(cfg, model, fused_sampling=False,
+                                  **eng_kw), requests(), "two-dispatch")
+    eng, n = two["eng"], len(two["stats"])
+    same = first_divergence(two["reqs"], fused["reqs"]) is None
+    same_counts = two["counts"] == fused["counts"]
+    same_events = eng.compile_events == fused["eng"].compile_events
+    bit_equal, worst = logits_diff(torch, two["logits"], fused["logits"])
+    calls = dict(eng.device_calls)
+    log(f"serve two-dispatch: wall {two['wall']:.3f}s against fused "
+        f"{fused['wall']:.3f}s  steps {n} / {len(fused['stats'])}  device "
+        f"calls {calls}  captures {eng.graph_stats['captures']} "
+        f"({eng.graph_stats['capture_s']:.3f}s capturing) replays "
+        f"{eng.graph_stats['replays']}")
+    log(f"serve two-dispatch: tokens_identical {same}  counters_identical "
+        f"{same_counts}  compile_events_identical {same_events}  logits "
+        f"bit_equal {bit_equal} max_abs_diff {worst:.3e}")
+    if not (same and same_counts and same_events and bit_equal):
+        raise AssertionError("two-dispatch and fused runs differ")
+    if calls != {"unified": n, "sample": n}:
+        raise AssertionError(f"two-dispatch device calls {calls}")
+    return dict(two_dispatch_wall=two["wall"], fused_wall=fused["wall"])
+
+
+def spec_prompts(torch, g, vocab, lens):
+    """Prompts of `lens` tokens drawn from `g`: the even ones repeat a
+    cycle of SPEC_CYCLE tokens to their length (the n-gram drafter
+    proposes from it), the odd ones are random."""
+    out = []
+    for i, n in enumerate(lens):
+        if i % 2:
+            out.append(torch.randint(1, vocab, (n,), generator=g).tolist())
+            continue
+        c = int(torch.randint(SPEC_CYCLE[0], SPEC_CYCLE[1] + 1, (1,),
+                              generator=g))
+        cycle = torch.randint(1, vocab, (c,), generator=g).tolist()
+        out.append((cycle * (n // c + 1))[:n])
+    return out
+
+
+def noise_cost(torch, v, k, iters=20):
+    """The host part of the sampler on the card: the wall of
+    `sampling.gumbel_noise` (zero the static buffer, then one seeded
+    generator and `torch.rand` a row, on the host) for one row, for the
+    K + 1 rows of one sampled verify row, and for every row of a spec
+    engine's buffer; synchronised, median of `iters`."""
+    from repro_torch.models import sampling
+
+    n = 16 * (k + 1)
+    out = torch.zeros((n, v), device=DEVICE)
+    ids = list(range(n))
+    ms = {}
+    for rows in (1, k + 1, n):
+        walls = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampling.gumbel_noise(SEED, ids, ids, v, DEVICE,
+                                  rows=list(range(rows)), out=out)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ms[rows] = 1e3 * statistics.median(walls)
+    log(f"serve noise (host part of the sampler, [{n}, {v}] buffer): "
+        + "  ".join(f"{r} rows {t:.3f} ms" for r, t in ms.items()))
+    return ms
+
+
+def phase_spec_serve(torch, K, cfg, model, eng_kw, g):
+    """Phase 5 (c): speculative decoding on the serve trace's shape, graphs
+    on: 8 requests of 128-1024 prompt tokens (the even ones a repeated
+    cycle), 32 new tokens, request 2 sampled; with draft_k SPEC_DRAFT_K
+    against the same requests without speculation.  In bf16 (the serving
+    dtype): drafts proposed, accepted and rejected, one `unified` device
+    call a step, no page leaked, the verify rows on the Q-Block prefill,
+    and the spec run against itself eagerly (`graphs_vs_eager`); the
+    tokens against the run without speculation are logged, with the first
+    divergence: a verify row's logits come from the Q-Block prefill, a
+    decode row's from the decode kernel, and in bf16 a near-tie (a
+    sampled row's draw above all) can go either way.  Then the same
+    trace in fp32 (TF32 off), where those paths agree to ~1e-6: identical
+    tokens with and without speculation, the sampled request included.
+    Logs steps, accept rate, captures by key and both walls; times the
+    sampler at [S (K+1), V] and its host part."""
+    from repro_torch import weights
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    lens = torch.randint(128, 1025, (8,), generator=g).tolist()
+    prompts = spec_prompts(torch, g, cfg.vocab_size, lens)
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=32,
+                        **(SERVE_SAMPLED if i == 2 else {}))
+                for i, p in enumerate(prompts)]
+
+    spec_kw = eng_kw | dict(speculative=True, draft_k=SPEC_DRAFT_K)
+    base = serve_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                     "spec base")
+    spec = serve_run(torch, Engine(cfg, model, **spec_kw), requests(),
+                     "spec")
+    launches = dict(K.LAUNCHES)
+    eng, steps = spec["eng"], len(spec["stats"])
+    st = dict(eng.spec_stats)
+    diverged = first_divergence(spec["reqs"], base["reqs"])
+    agree = sum(a.output == b.output
+                for a, b in zip(spec["reqs"], base["reqs"]))
+    rate = st["accepted"] / st["proposed"] if st["proposed"] else 0.0
+    gs = eng.graph_stats
+    log(f"serve spec: draft_k {SPEC_DRAFT_K}  prompts {lens}  steps {steps} "
+        f"(without speculation {len(base['stats'])})  spec_stats {st}  "
+        f"accepted / proposed {rate:.3f}  wall {spec['wall']:.3f}s "
+        f"(without {base['wall']:.3f}s)  captures {gs['captures']} "
+        f"({gs['capture_s']:.3f}s capturing; without "
+        f"{base['eng'].graph_stats['captures']}, "
+        f"{base['eng'].graph_stats['capture_s']:.3f}s) replays "
+        f"{gs['replays']}")
+    log(f"serve spec: keys captured {[k[:3] for k in eng.compile_events]} "
+        f"(without {[k[:3] for k in base['eng'].compile_events]})  device "
+        f"calls {dict(eng.device_calls)}  launches {launches}  "
+        f"launched_token_slots {eng.launched_token_slots} (without "
+        f"{base['eng'].launched_token_slots})  bf16 tokens_identical "
+        f"{diverged is None}: {agree} of {len(prompts)} requests (first "
+        f"divergence (request, position): {diverged}; request 2 "
+        f"samples)")
+    if not st["proposed"] or not st["accepted"] \
+            or st["accepted"] == st["proposed"]:
+        raise AssertionError(f"spec: want drafts accepted and rejected: {st}")
+    if dict(eng.device_calls) != {"unified": steps}:
+        raise AssertionError(f"spec: device calls {eng.device_calls}")
+    if eng.alloc.free_pages != eng.num_pages - 1:
+        raise AssertionError(f"spec: pages leaked ({eng.alloc.free_pages} "
+                             f"free of {eng.num_pages - 1})")
+    if not launches["paged_prefill_qblock"] or not launches["paged_decode"]:
+        raise AssertionError(f"spec: a paged kernel never ran: {launches}")
+    check_paged_routes(K, launches, "spec", cfg.dtype)
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **spec_kw),
+                      requests(), "spec eager")
+    graphs_vs_eager(torch, "spec", spec, eager, cfg.dtype)
+    del base, eager
+    cfg32 = cfg.replace(dtype="float32")
+    model32 = weights.init_random(cfg32, SEED, device=DEVICE)
+    runs = [serve_run(torch, Engine(cfg32, model32, **kw), requests(),
+                      f"spec fp32 {tag}")
+            for tag, kw in (("base", eng_kw), ("spec", spec_kw))]
+    diverged = first_divergence(runs[1]["reqs"], runs[0]["reqs"])
+    st32 = runs[1]["eng"].spec_stats
+    log(f"serve spec fp32: steps {len(runs[1]['stats'])} (without "
+        f"{len(runs[0]['stats'])})  spec_stats {st32}  tokens_identical "
+        f"{diverged is None} (first divergence {diverged})")
+    if diverged is not None or not st32["accepted"]:
+        raise AssertionError(f"spec fp32: tokens differ from the run "
+                             f"without speculation at {diverged}, or no "
+                             f"draft accepted: {st32}")
+    del runs, model32
+    s = 2 * eng_kw["max_seqs"] * (SPEC_DRAFT_K + 1)
+    sampler = sampler_cost(torch, s, cfg.vocab_size)
+    noise = noise_cost(torch, cfg.vocab_size, SPEC_DRAFT_K)
+    return dict(spec_wall=spec["wall"], spec_steps=steps,
+                spec_sampler_ms=sampler["filter_and_draw"],
+                spec_noise_ms=noise[SPEC_DRAFT_K + 1])
 
 
 def lockstep_diff(torch, tag, cfg, models, prompts, new_tokens, eng_kw):
@@ -1257,7 +1490,8 @@ def phase_diff_legs(torch, K):
     fp32, card against CPU: the shared-prefix trace with prefix caching
     on (packed); the padded step with chunked prefill at 64, whose resumed
     chunks run `apply_prefill_cached` on the card's fp32 prefill kernel;
-    and `stream()` on the card against `generate()` on the CPU."""
+    `stream()` on the card against `generate()` on the CPU; and
+    speculative decoding (greedy: the same tokens and spec stats)."""
     from repro_torch import weights
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import Engine
@@ -1333,6 +1567,17 @@ def phase_diff_legs(torch, K):
             or not worst <= DIFF_LOGIT_ATOL:
         raise AssertionError("diff stream-vs-generate: the card's stream() "
                              "and the CPU's generate() differ")
+    # 4. speculative decoding, greedy, in lockstep: the same accept counts
+    # on both sides (lockstep_diff compares each step's emitted tokens)
+    prompts = spec_prompts(torch, g, cfg.vocab_size, (90, 70, 101, 37))
+    engines, *_ = lockstep_diff(
+        torch, "diff spec", cfg, models, prompts, 16,
+        base | dict(speculative=True, draft_k=SPEC_DRAFT_K))
+    stats = [e.spec_stats for e in engines]
+    log(f"diff spec: spec_stats card {stats[0]}  cpu {stats[1]}")
+    if stats[0] != stats[1] or not stats[0]["proposed"]:
+        raise AssertionError(f"diff spec: no drafts, or the card and the "
+                             f"CPU differ: {stats}")
 
 
 def phase_engine_diff(torch, arch, seed, tag, layers=None, bf16_kernels=None):

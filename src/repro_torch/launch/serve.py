@@ -3,7 +3,8 @@ stream (arrival-rate driven), reporting latency and throughput.
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
         [--device cpu] [--chunked-prefill] [--eager] [--profile] \
-        [--stream] [--prefix-caching] [--shared-prefix N]
+        [--stream] [--prefix-caching] [--shared-prefix N] \
+        [--speculative [--draft-k K]] [--no-fused-sampling]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
@@ -21,6 +22,10 @@ captures and replays.
 arrive `--rate` per step into `step()` calls.  `--prefix-caching` turns
 on the prefix cache (dense models only); `--shared-prefix N` prepends
 one N-token prompt to every request, the cache's hot path.
+`--speculative` verifies per-request n-gram drafts (up to `--draft-k`
+a step) in the packed launch and prints the drafts' stats;
+`--no-fused-sampling` samples in a second dispatch after the packed
+launch (dense models only, like both).
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths (after the shared
 prefix) are uniform in [--min-prompt, --max-prompt].  The default
@@ -79,6 +84,17 @@ def main() -> None:
                     help="reuse cached KV pages of shared prompt prefixes")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="prepend one N-token prompt to every request")
+    ap.add_argument("--no-fused-sampling", action="store_true",
+                    help="sample the packed launch's logits in a second "
+                         "dispatch (two device calls a step)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding: per-request n-gram drafts "
+                         "verified in the one packed launch, exact page "
+                         "rollback on rejection; tokens identical to the "
+                         "plain path")
+    ap.add_argument("--draft-k", type=int, default=4, metavar="K",
+                    help="most drafts proposed per request per step "
+                         "(adaptive from the accept rate; default 4)")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
@@ -98,6 +114,8 @@ def main() -> None:
                   enable_prefix_caching=args.prefix_caching,
                   enable_chunked_prefill=args.chunked_prefill,
                   max_prefill_tokens=args.max_prefill_tokens,
+                  fused_sampling=not args.no_fused_sampling,
+                  speculative=args.speculative, draft_k=args.draft_k,
                   cuda_graphs=not args.eager, seed=SEED, device=dev)
     rng = np.random.default_rng(SEED)
     shared = list(map(int, rng.integers(1, cfg.vocab_size,
@@ -141,6 +159,14 @@ def main() -> None:
         print(f"prefix cache: {eng.prefix_cache.stats()}")
     print(f"dispatch: {dict(eng.dispatch_counts)}")
     print(f"device calls: {dict(eng.device_calls)}")
+    if args.speculative:
+        st = eng.spec_stats
+        rate = st["accepted"] / st["proposed"] if st["proposed"] else 0.0
+        k = eng.drafter.controller.k if eng.drafter is not None else 0
+        print(f"speculative decoding: {st['proposed']} drafted, "
+              f"{st['accepted']} accepted ({rate:.1%}), "
+              f"{st['emitted']} emitted over {st['steps']} spec steps "
+              f"(adaptive k now {k})")
     print(f"kernel launches: "
           f"{K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES | MK.LAUNCHES}")
     gs = eng.graph_stats

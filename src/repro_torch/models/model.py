@@ -16,7 +16,8 @@ pages.
 Entry points (ports of `repro.models.model`):
 
   apply_unified  token-packed decode + prefill chunks over the paged cache,
-                 last-token gather and fused sampling (dense only)
+                 last-token gather and fused sampling, and the
+                 speculative verify epilogue (dense only)
   apply_prefill  padded [B, S] fresh prompts at context 0 (every family)
   apply_prefill_cached  padded [B, S] chunks resumed after a prior
                  context in the pages (dense only)
@@ -219,14 +220,27 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     host part, `sampling.gumbel_noise`, runs before the step); `noise`
     None is only valid when every row is greedy.
 
+    Speculative verify (`max_draft = K > 0`, needs `sample`): the batch
+    also carries `spec_lens` [S] i32; a row with spec_lens == s > 0 is a
+    decode request packed as a resumed chunk of s + 1 tokens [last real
+    token, draft_1..draft_s].  Verify position j (0 <= j <= s) samples
+    from the logits at segment offset qlen - 1 - s + j; `noise` is then
+    [S * (K + 1), V], row i * (K + 1) + j drawn at counter
+    num_generated + j (`sampling.verify_rows`), the draw sequential
+    decoding makes for that token: on the same logits, the same token.  The head runs
+    on the gathered S * (K + 1) rows only.  A row emits 1 + (the longest
+    prefix of drafts equal to the sampled targets) tokens; plain rows
+    (s = 0) reduce to the fused sample in column 0.
+
     Every shape inside depends on the batch's shapes alone, and nothing
     reads device data back to the host, so the engine can capture the
     step into a CUDA graph.  The cache is written IN PLACE (and returned,
     as the reference returns its new cache).  Returns (last_logits [S, V]
-    f32, cache) without sampling; (tokens [S] i32, cache) with it;
+    f32, cache) without sampling; (tokens [S] i32, cache) with it; with
+    `max_draft = K`, (tokens [S, K+1] i32, num_emitted [S] i32, cache);
     `return_logits=True` inserts last_logits before the cache."""
-    if max_draft:
-        raise NotImplementedError("speculative verify is not ported yet")
+    if max_draft and not sample:
+        raise ValueError("speculative verify samples: it needs sample=True")
     if model.cfg.family != "dense":
         raise ValueError(f"the packed step needs page-addressable context: "
                          f"unsupported for family={model.cfg.family!r}")
@@ -252,6 +266,9 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     qsl, qlens = batch["query_start_loc"], batch["query_lens"]
     last = qsl[:-1] + torch.clamp(qlens - 1, min=0)
     last = torch.clamp(last, max=x.shape[1] - 1).long()
+    if max_draft:
+        return _verify(model, x, inputs, batch, last, max_draft,
+                       return_logits) + (cache,)
     last_logits = model.head(x[0, last])
     if not sample:
         return last_logits, cache
@@ -261,6 +278,39 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     if return_logits:
         return toks, last_logits, cache
     return toks, cache
+
+
+def _verify(model: Model, x: torch.Tensor, inputs: torch.Tensor,
+            batch: dict, last: torch.Tensor, k: int,
+            return_logits: bool) -> tuple:
+    """The speculative verify epilogue of `apply_unified`: (tokens
+    [S, k+1] i32, num_emitted [S] i32[, last_logits [S, V]]).  Columns of
+    a row with s < k clamp to its segment start; they are never consumed
+    (num_emitted caps at s + 1)."""
+    spec = batch["spec_lens"].long()  # [S]
+    s = spec.shape[0]
+    offs = torch.arange(k + 1, device=x.device)
+    start = batch["query_start_loc"][:-1].long()
+    pos = last[:, None] - spec[:, None] + offs[None, :]  # [S, k+1]
+    pos = torch.clamp(torch.maximum(pos, start[:, None]), max=last[:, None])
+    pos = torch.clamp(pos, 0, x.shape[1] - 1)
+    logits = model.head(x[0, pos.reshape(-1)])  # [S * (k+1), V]
+    rep = lambda a: a.repeat_interleave(k + 1)  # noqa: E731
+    toks = sampling.sample_tokens(
+        logits, rep(batch["temperature"]), rep(batch["top_p"]),
+        rep(batch["top_k"]), batch.get("noise")).reshape(s, k + 1)
+    # the drafts are the packed inputs one slot after each verify
+    # position; accept the longest prefix where target == draft
+    dpos = torch.clamp(pos[:, :-1] + 1, 0, inputs.shape[1] - 1)
+    drafts = inputs[0, dpos].to(torch.int32)  # [S, k]
+    match = (toks[:, :-1] == drafts) & (offs[None, :-1] < spec[:, None])
+    run = torch.cumprod(match.to(torch.int32), dim=1, dtype=torch.int32)
+    num_emitted = 1 + run.sum(1, dtype=torch.int32)
+    if not return_logits:
+        return toks, num_emitted
+    last_logits = logits.reshape(s, k + 1, -1)[
+        torch.arange(s, device=x.device), spec]
+    return toks, num_emitted, last_logits
 
 
 def _serve_masks(mode: str, meta: dict, s: int):

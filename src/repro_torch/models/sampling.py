@@ -17,7 +17,10 @@ The draw is Gumbel-max, `argmax(filtered + gumbel_noise)`, which is what
 `jax.random.categorical` computes; the noise comes from a `torch.Generator`
 on the logits' device seeded from the (seed, stream, n_generated)
 counter.  The bits differ from JAX's threefry keys, so the tests feed both
-sides the same injected noise.
+sides the same injected noise.  A speculative verify step draws each of
+its positions at the counter sequential decoding would use there
+(`verify_rows`): the same noise, so on the same logits the same token
+as the port's non-speculative step.
 """
 from __future__ import annotations
 
@@ -36,6 +39,21 @@ def row_seed(seed: int, stream: int, n_generated: int) -> int:
 def hot_rows(temperature) -> list[int]:
     """The rows that draw noise: temperature > 0 (host array [S])."""
     return [i for i, t in enumerate(temperature) if t > 0]
+
+
+def verify_rows(temperature, stream_ids, num_generated, spec_lens, k: int):
+    """The noise rows of a speculative verify step, [S * (k + 1)]: verify
+    position j of packed row i is row i * (k + 1) + j, drawn at counter
+    num_generated[i] + j, the (seed, stream, counter) sequential decoding
+    uses for that token.  Returns (stream ids, counters) of every row and
+    the rows to draw: positions j <= spec_lens[i] of the hot rows (the
+    others are never consumed)."""
+    streams = np.repeat(np.asarray(stream_ids), k + 1)
+    ngen = (np.asarray(num_generated)[:, None]
+            + np.arange(k + 1)).reshape(-1)
+    rows = [i * (k + 1) + j for i in hot_rows(temperature)
+            for j in range(int(spec_lens[i]) + 1)]
+    return streams, ngen, rows
 
 
 def gumbel_noise(seed: int, stream_ids, num_generated, vocab: int,
@@ -119,8 +137,9 @@ def sample_rows(logits: torch.Tensor, seed: int, temperature, top_p, top_k,
     """`sample_tokens` with per-row parameters given as HOST arrays [S]:
     the host decides which rows draw noise (temperature > 0) and seeds
     each from (seed, stream id, num_generated); greedy rows need no noise.
-    The padded step's eager sampling dispatch.  Returns int32 [S] on the
-    logits' device."""
+    The separate, eager sampling dispatch (the padded step's, the
+    two-dispatch packed step's).  Returns int32 [S] on the logits'
+    device."""
     dev = logits.device
     hot = hot_rows(temperature)
     noise = gumbel_noise(seed, stream_ids, num_generated, logits.shape[-1],

@@ -21,9 +21,11 @@ returns the step's device outputs (a tuple):
                copy on the stream) and replays the graph.  Its outputs are
                static buffers that the next replay overwrites.
 
-A capture that fails raises; nothing carries on eagerly.
+A capture that fails raises; nothing carries on eagerly.  The cyclic
+garbage collector is off during a capture (`gc_paused`).
 
-`TokenCopies` takes the packed step's sampled ids off the card without
+`TokenCopies` takes the packed step's sampled ids (and a speculative
+step's accept counts) off the card without
 waiting for them: each launch's ids go into one of two pinned host
 buffers by an asynchronous copy queued right behind the launch, so the
 async loop can replay the next step (which overwrites a graph's output
@@ -37,6 +39,8 @@ graphed run counts what an eager run of the same steps counts.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable
 
@@ -79,6 +83,22 @@ def add_counts(delta: Counts, counters: Counts | None = None) -> None:
     for c, d in zip(counters, delta):
         for k, n in d.items():
             c[k] += n
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the block.  A collection
+    inside a capture can destroy an unreachable engine's CUDA graphs,
+    events or pinned buffers, CUDA calls that invalidate the capture
+    (`cudaErrorStreamCaptureInvalidated`); `torch.cuda.graph` collects
+    before a capture only under `force_cudagraph_gc`, off by default."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class EagerStep:
@@ -198,7 +218,8 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
 
         def capture():
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with gc_paused(), torch.cuda.graph(graph, pool=self.pool,
+                                               stream=self.stream):
                 return self.body(self.tensors)
 
         t0 = time.perf_counter()
@@ -211,7 +232,9 @@ class GraphedStep:
 
 
 class TokenCopies:
-    """Two host buffers [n] int32 for the packed step's sampled ids, used
+    """Two host int32 buffers of `shape` for the packed step's sampled
+    ids ([S]; on a speculative engine [S, K+2]: the [S, K+1] verify tokens
+    and num_emitted as the last column, so one copy carries both), used
     in turn, one per launch: `start` queues the copy of a launch's device
     ids into the next buffer and returns its index, `wait` blocks until
     that copy is done and returns the ids.  On the card the buffers are
@@ -225,9 +248,9 @@ class TokenCopies:
     dispatched.  A third `start` before the oldest `wait` raises, as does
     a `wait` on a buffer with no copy pending."""
 
-    def __init__(self, n: int, device: torch.device):
+    def __init__(self, shape: int | tuple[int, ...], device: torch.device):
         pin = device.type == "cuda"
-        self.bufs = [torch.zeros((n,), dtype=torch.int32, pin_memory=pin)
+        self.bufs = [torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
                      for _ in range(2)]
         self.events = [torch.cuda.Event() if pin else None
                        for _ in range(2)]

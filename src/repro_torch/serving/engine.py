@@ -76,8 +76,37 @@ chunk is a chunk row with context > query; on the padded step it runs
 eager, `np_b` the page-table width bucket), the Q-Block prefill over the
 whole paged context.
 
-Not ported yet (see ROADMAP.md): speculative decoding, telemetry /
-refit, autotuned chunk budgets and the tp executor.
+Two-dispatch sampling (`fused_sampling=False`, packed step only): the
+packed launch returns the [S, V] last-token logits and a second,
+eager dispatch (`_host_tokens`) samples them, so a step is {"unified": 1,
+"sample": 1} device calls; the packed launch is graphed or eager as on the fused
+path, and `stream()` steps synchronously.  The tokens are the fused
+step's, bit for bit (one sampler, one noise per (seed, stream,
+counter)).
+
+Speculative decoding (`speculative=True`, needs the fused packed step):
+the scheduler asks the n-gram `Drafter` (`serving/draft.py`) for up to
+`draft_k` drafts per decode request and grows its pages to cover them; a
+drafted request leaves the decode region and packs as a resumed chunk of
+q = s + 1 tokens [last real token, draft_1..draft_s] at positions
+total_len - 1.., and the packed launch verifies it in the same graph
+(`apply_unified(max_draft=K)`): it samples K + 1 targets a row, each at
+the counter sequential decoding would use, and returns [S, K+1] tokens
+and [S] accept counts, which leave the card in one pinned copy.  The
+host emits the accepted drafts and the bonus token and rolls back
+exactly: `context_len` covers the kept tokens only, and the pages grown
+past them go back through the ref-counted allocator (always this step's
+fresh pages, never a shared or cached one).  Tokens are the
+non-speculative engine's, greedy and sampled, as far as the two
+attention paths round alike (a verify row runs the Q-Block prefill, a
+decode row the decode kernel): in fp32 they do; in bf16 a near-tie can
+go either way.  A spec engine's graphs
+always carry the wider outputs, and its noise buffer is
+[2 * max_seqs * (K + 1), V].  `stream()` steps synchronously: step N's
+accept counts decide step N+1's metadata.
+
+Not ported yet (see ROADMAP.md): telemetry / refit, autotuned chunk
+budgets and the tp executor.
 """
 from __future__ import annotations
 
@@ -97,6 +126,7 @@ from repro_torch.models import model as M
 from repro_torch.models import sampling
 from repro_torch.serving import cuda_graphs
 from repro_torch.serving.cuda_graphs import TokenCopies
+from repro_torch.serving.draft import Drafter, SpecConfig
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import PENDING_TOKEN, Request, State
 from repro_torch.serving.scheduler import Scheduler
@@ -115,9 +145,12 @@ class _PackedLaunch:
     rows: list[tuple[Request, int, int]]
     kcfg: heuristics.KernelConfig
     tokens: int  # launched token-bucket width
-    # per-row host arrays [S] that seed the noise: temperature, stream
-    # ids, tokens drawn so far
-    noise_seeds: tuple[np.ndarray, np.ndarray, np.ndarray]
+    # per-row host arrays [S] of the sampler: temperature, top_p, top_k,
+    # stream ids, tokens drawn so far
+    sampling: tuple[np.ndarray, ...]
+    # [S]: the drafts each packed row verifies (it emits 1..drafts+1
+    # tokens); zeros on a launch without spec rows
+    spec_lens: np.ndarray
 
 
 @dataclasses.dataclass
@@ -127,9 +160,11 @@ class _Inflight:
     dec: object  # the scheduler's decision
     stats: dict
     pack: _PackedLaunch | None = None
-    toks: torch.Tensor | None = None  # the launch's device ids [S]
+    # the launch's device ids ([S]; [S, K+2] on a speculative engine)
+    toks: torch.Tensor | None = None
     host: int = -1  # its `TokenCopies` buffer
-    logits: torch.Tensor | None = None  # debug_logits: a copy, [S, V]
+    # [S, V]: a copy under debug_logits; the two-dispatch step's logits
+    logits: torch.Tensor | None = None
 
 
 class Engine:
@@ -145,6 +180,10 @@ class Engine:
         enable_prefix_caching: bool = False,
         enable_chunked_prefill: bool = False,
         packed_attention: bool = True,
+        fused_sampling: bool = True,
+        speculative: bool = False,
+        draft_k: int = 4,
+        spec_config: SpecConfig | None = None,
         seed: int = 0,
         debug_logits: bool = False,
         cuda_graphs: bool = True,
@@ -170,6 +209,28 @@ class Engine:
         if packed_attention and not self._packed:
             log.info("engine: packed attention unavailable for family=%r; "
                      "using the padded per-kind step", cfg.family)
+        # sampling inside the packed launch is a packed-step feature; the
+        # padded step always samples in a second dispatch
+        self._fused = fused_sampling and self._packed
+        if fused_sampling and not self._packed:
+            log.info("engine: fused sampling needs the packed step; "
+                     "using the two-dispatch sampler")
+        # the verify epilogue rides in the fused packed launch
+        self._spec = bool(speculative) and self._fused
+        if speculative and not self._spec:
+            log.info("engine: speculative decoding needs the fused packed "
+                     "step; running non-speculative")
+        self.drafter = None
+        self.max_draft = 0
+        if self._spec:
+            scfg = spec_config or SpecConfig(max_draft=max(1, draft_k))
+            self.drafter = Drafter(scfg)
+            self.max_draft = scfg.max_draft
+        # cumulative: drafts proposed, drafts accepted, tokens emitted by
+        # spec rows, steps with a spec row (per-step values in the stats)
+        self.spec_stats = {"proposed": 0, "accepted": 0, "emitted": 0,
+                           "steps": 0}
+        self._step_spec = (0, 0, 0)  # (proposed, accepted, emitted)
         if enable_prefix_caching or enable_chunked_prefill:
             assert cfg.family == "dense", (
                 "prefix caching / chunked prefill need page-addressable "
@@ -186,7 +247,8 @@ class Engine:
         self.sched = Scheduler(self.alloc, max_seqs=max_seqs,
                                max_prefill_tokens=max_prefill_tokens,
                                prefix_cache=self.prefix_cache,
-                               enable_chunked_prefill=enable_chunked_prefill)
+                               enable_chunked_prefill=enable_chunked_prefill,
+                               drafter=self.drafter)
         self.cache = M.make_cache(cfg, max_seqs=max_seqs,
                                   num_pages=num_pages, device=self.device)
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
@@ -215,16 +277,21 @@ class Engine:
         if self._graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph_stream = torch.cuda.Stream(self.device)
-        # the packed step's static noise buffer (zero on greedy rows), its
-        # `prev_tokens` of a launch with no launch in flight, and the two
-        # host buffers its sampled ids leave the card through
+        # the fused packed step's static noise buffer (zero on greedy rows;
+        # K + 1 rows a sequence on a spec engine), its `prev_tokens` of a
+        # launch with no launch in flight, and the two host buffers its
+        # sampled ids leave the card through
         self._noise = self._no_prev = self._copies = None
         if self._packed:
-            self._noise = torch.zeros((2 * max_seqs, cfg.vocab_size),
-                                      dtype=torch.float32, device=self.device)
             self._no_prev = torch.zeros((2 * max_seqs,), dtype=torch.int32,
                                         device=self.device)
-            self._copies = TokenCopies(2 * max_seqs, self.device)
+        if self._fused:
+            k1 = self.max_draft + 1
+            self._noise = torch.zeros((2 * max_seqs * k1, cfg.vocab_size),
+                                      dtype=torch.float32, device=self.device)
+            self._copies = TokenCopies(
+                (2 * max_seqs, k1 + 1) if self._spec else (2 * max_seqs,),
+                self.device)
         self._noisy = False  # the buffer holds a nonzero row
 
     # ------------------------------------------------------------------
@@ -264,14 +331,25 @@ class Engine:
         return self._compiled[key]
 
     def _unified_body(self, kcfg, batch: dict) -> tuple:
+        """(ids, last logits [S, V]) fused; (last logits,) two-dispatch.
+        A spec engine's ids are [S, K+2]: the verify tokens, then the
+        accept count."""
+        if not self._fused:
+            logits, _ = M.apply_unified(
+                self.model, self.cache["attn"], batch, kernel_cfg=kcfg,
+                num_decode_seqs=self.max_seqs)
+            return (logits,)
         # a graph always reads the noise buffer (greedy rows ignore it); an
         # eager all-greedy step skips the filter, as the one-call sampler did
         noise = self._noise if self._graphs or self._noisy else None
-        toks, logits, _ = M.apply_unified(
+        *ids, logits, _ = M.apply_unified(
             self.model, self.cache["attn"], dict(batch, noise=noise),
             kernel_cfg=kcfg, num_decode_seqs=self.max_seqs, sample=True,
-            return_logits=True)
-        return toks, logits
+            return_logits=True, max_draft=self.max_draft)
+        if self._spec:
+            toks, emitted = ids
+            return torch.cat([toks, emitted[:, None]], dim=1), logits
+        return ids[0], logits
 
     def _decode_body(self, kcfg, batch: dict) -> tuple:
         return M.apply_decode(self.model, self.cache, batch,
@@ -286,12 +364,15 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _unified_profile(self, decode_reqs: list[Request],
-                         prefill_reqs: list[Request]) \
-            -> heuristics.BatchProfile:
+                         prefill_reqs: list[Request],
+                         spec_total: int = 0) -> heuristics.BatchProfile:
+        """The packed step's profile; `spec_total` (drafts verified this
+        step) is its own pow2 dimension, `spec_tokens`, as in the
+        reference, so a loaded tree that splits on it picks the same."""
         nseq = len(decode_reqs) + len(prefill_reqs)
-        total = len(decode_reqs) + sum(r.num_scheduled_tokens
-                                       for r in prefill_reqs)
-        max_ctx = max([r.total_len for r in decode_reqs]
+        total = len(decode_reqs) + spec_total + sum(
+            r.num_scheduled_tokens for r in prefill_reqs)
+        max_ctx = max([r.total_len + len(r.spec_tokens) for r in decode_reqs]
                       + [r.chunk_start + r.num_scheduled_tokens
                          for r in prefill_reqs])
         return heuristics.BatchProfile(
@@ -301,6 +382,7 @@ class Engine:
             decode_share=len(decode_reqs) / nseq,
             avg_query_len=next_power_of_2(max(total // nseq, 1)),
             total_tokens=next_power_of_2(total),
+            spec_tokens=next_power_of_2(spec_total) if spec_total else 0,
         )
 
     def _decode_profile(self, reqs: list[Request]) -> heuristics.BatchProfile:
@@ -419,12 +501,14 @@ class Engine:
 
     def stream(self, *, max_steps: int = 10_000):
         """Drive the engine until the queue drains, yielding (req_id,
-        token) pairs in emission order.  On the packed step the loop is
-        double buffered: each iteration dispatches step N+1 before it
-        blocks on step N's sampled ids.  The padded step steps
-        synchronously, with the same yields."""
+        token) pairs in emission order.  On the fused packed step the loop
+        is double buffered: each iteration dispatches step N+1 before it
+        blocks on step N's sampled ids.  The padded step, the two-dispatch
+        step and a speculative engine (step N's accept counts decide step
+        N+1's positions, contexts and pages) step synchronously, with the
+        same yields."""
         steps = 0
-        if not self._packed:
+        if not self._fused or self._spec:
             while self.sched.has_work and steps < max_steps:
                 self.step()
                 steps += 1
@@ -564,10 +648,14 @@ class Engine:
         """The back half of a packed step: wait for the launch's sampled
         ids, fold them into request state, then the step's epilogue."""
         self._emitted = []
+        self._step_spec = (0, 0, 0)
         if flight.pack is not None:
             if self._debug_logits:
                 self.last_step_logits = flight.logits
             self._consume_unified(flight.pack, self._host_tokens(flight))
+        if self._spec:
+            (flight.stats["spec_proposed"], flight.stats["spec_accepted"],
+             flight.stats["spec_emitted"]) = self._step_spec
         return self._finish_padded(flight)
 
     def _finish_padded(self, flight: _Inflight) -> dict:
@@ -610,17 +698,31 @@ class Engine:
         prompt-completing chunks sample.  `prev_rows` (async loop) maps
         req_id -> row of the launch still in flight whose sampled token is
         this request's decode input: `token_source` routes it from that
-        launch's ids on the card (-1: the row's id is in `inputs`).  Each
-        request's `context_len` advances here."""
+        launch's ids on the card (-1: the row's id is in `inputs`).
+
+        A decode request with drafts (`spec_tokens`) leaves the decode
+        region: it packs behind the prefill chunks, context-bucket
+        sorted, as a resumed chunk [last real token, draft_1..draft_s] at
+        positions total_len - 1.. with context total_len + s, so each
+        draft attends its predecessors; `spec_lens` carries s.  Each
+        request's `context_len` advances here; a spec row's to the
+        minimum its launch surely writes (total_len), which
+        `_consume_unified` finalizes."""
         ms = self.max_seqs
         ps = self.cfg.page_size
-        plain = sorted(decode_reqs,
-                       key=lambda r: next_power_of_2(max(r.total_len, 1)))
-        if len(prefill_reqs) > ms:
-            raise RuntimeError("chunk region overflow: more chunks than "
-                               "max_seqs")
-        profile = self._unified_profile(decode_reqs, prefill_reqs)
-        n_pref = sum(r.num_scheduled_tokens for r in prefill_reqs)
+        bucket = lambda r: next_power_of_2(max(r.total_len, 1))  # noqa: E731
+        plain = sorted((r for r in decode_reqs if not r.spec_tokens),
+                       key=bucket)
+        spec_reqs = sorted((r for r in decode_reqs if r.spec_tokens),
+                           key=bucket)
+        if len(prefill_reqs) + len(spec_reqs) > ms:
+            raise RuntimeError("chunk region overflow: more chunks and "
+                               "spec rows than max_seqs")
+        spec_total = sum(len(r.spec_tokens) for r in spec_reqs)
+        profile = self._unified_profile(decode_reqs, prefill_reqs,
+                                        spec_total=spec_total)
+        n_pref = sum(r.num_scheduled_tokens for r in prefill_reqs) \
+            + spec_total + len(spec_reqs)
         t = ms + (max(next_power_of_2(n_pref), ps) if n_pref else 0)
         s = 2 * ms
         np_b = self.pages_per_seq
@@ -637,6 +739,7 @@ class Engine:
         qsl[:ms + 1] = np.arange(ms + 1)
         qlens[:ms] = 1  # dead decode rows are masked by ctx == 0
         rows: list[tuple[Request, int, int]] = []
+        spec_lens = np.zeros((s,), np.int32)
         for i, r in enumerate(plain):
             if prev_rows and r.req_id in prev_rows:
                 src[0, i] = prev_rows[r.req_id]  # in flight: on the card
@@ -654,15 +757,29 @@ class Engine:
             rows.append((r, i, r._spec_epoch))
             r.context_len = r.total_len
         cur = ms
-        for j, r in enumerate(prefill_reqs):
+        for j, r in enumerate(prefill_reqs + spec_reqs):
             i = ms + j
-            n = r.num_scheduled_tokens
-            tokens[0, cur: cur + n] = r.prompt[r.chunk_start: r.chunk_start + n]
-            p = np.arange(r.chunk_start, r.chunk_start + n, dtype=np.int64)
-            ctx[i] = r.chunk_start + n
-            if r.chunk_start + n == r.num_prompt_tokens:
-                rows.append((r, i, r._spec_epoch))  # completing: samples
-            r.context_len = r.chunk_start + n
+            if r.spec_tokens:  # a verify row: consumes its drafts
+                drafts, r.spec_tokens = r.spec_tokens, []
+                n = len(drafts) + 1
+                last = r.output[-1] if r.output else r.prompt[-1]
+                tokens[0, cur: cur + n] = [last] + drafts
+                p = np.arange(r.total_len - 1, r.total_len - 1 + n,
+                              dtype=np.int64)
+                ctx[i] = r.total_len - 1 + n
+                spec_lens[i] = n - 1
+                rows.append((r, i, r._spec_epoch))
+                r.context_len = r.total_len
+            else:
+                n = r.num_scheduled_tokens
+                tokens[0, cur: cur + n] = \
+                    r.prompt[r.chunk_start: r.chunk_start + n]
+                p = np.arange(r.chunk_start, r.chunk_start + n,
+                              dtype=np.int64)
+                ctx[i] = r.chunk_start + n
+                if r.chunk_start + n == r.num_prompt_tokens:
+                    rows.append((r, i, r._spec_epoch))  # completing: samples
+                r.context_len = r.chunk_start + n
             pos[0, cur: cur + n] = p  # packed-position RoPE: absolute
             qlens[i] = n
             row = self.page_table[r.slot]
@@ -672,25 +789,34 @@ class Engine:
             qsl[i + 1:] = cur
 
         kcfg = self._dispatch("unified", profile)
-        temps, topp, topk, streams, ngen = self._sampling_rows(
-            s, [(i, r) for r, i, _ in rows])
+        rows_sampling = self._sampling_rows(s, [(i, r) for r, i, _ in rows])
         pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t,
-                             noise_seeds=(temps, streams, ngen))
+                             sampling=rows_sampling, spec_lens=spec_lens)
         batch = {"inputs": tokens, "positions": pos, "page_table": pt,
                  "context_lens": ctx, "query_lens": qlens,
                  "query_start_loc": qsl, "slot_mapping": slots,
-                 "token_source": src, "temperature": temps, "top_p": topp,
-                 "top_k": topk}
+                 "token_source": src}
+        if self._fused:
+            temps, topp, topk, _, _ = rows_sampling
+            batch.update(temperature=temps, top_p=topp, top_k=topk)
+        if self._spec:
+            batch["spec_lens"] = spec_lens
         return batch, pack
 
     def _draw_noise(self, pack: _PackedLaunch) -> None:
         """The sampler's host part: each sampling row's Gumbel noise,
         seeded from (seed, stream id, tokens drawn), into the static
         buffer (zeroed where no row samples; untouched while it stays all
-        zero).  It only queues work on the stream: the launch in flight
-        reads the buffer before these writes run."""
-        temps, streams, ngen = pack.noise_seeds
-        hot = sampling.hot_rows(temps)
+        zero); on a spec engine each verify position's, at its own
+        counter (`sampling.verify_rows`).  It only queues work on the
+        stream: the launch in flight reads the buffer before these writes
+        run."""
+        temps, _, _, streams, ngen = pack.sampling
+        if self._spec:
+            streams, ngen, hot = sampling.verify_rows(
+                temps, streams, ngen, pack.spec_lens, self.max_draft)
+        else:
+            hot = sampling.hot_rows(temps)
         if hot or self._noisy:
             sampling.gumbel_noise(self.seed, streams, ngen,
                                   self.cfg.vocab_size, self.device, rows=hot,
@@ -709,8 +835,13 @@ class Engine:
         fn = self._get_fn("unified", 2 * self.max_seqs, pack.tokens,
                           pack.kcfg)
         self.device_calls["unified"] += 1
-        self._draw_noise(pack)
         prev = self._no_prev if prev_toks is None else prev_toks
+        if not self._fused:  # the two-dispatch step samples at the finish
+            logits, = fn(batch, {"prev_tokens": prev})
+            flight.logits = logits.clone() if self._debug_logits else logits
+            self.launched_token_slots += pack.tokens
+            return
+        self._draw_noise(pack)
         toks, logits = fn(batch, {"prev_tokens": prev})
         flight.toks = toks
         flight.host = self._copies.start(toks)
@@ -718,31 +849,79 @@ class Engine:
             flight.logits = logits.clone()
         self.launched_token_slots += pack.tokens
 
-    def _host_tokens(self, flight: _Inflight) -> np.ndarray:
-        """Block until the flight's sampled ids reached the host; [S]."""
-        return self._copies.wait(flight.host)
+    def _host_tokens(self, flight: _Inflight):
+        """The flight's sampled ids on the host: [S] (waiting for their
+        copy), ([S, K+1] tokens, [S] accept counts) on a spec engine.  On
+        the two-dispatch step the second dispatch samples the launch's
+        logits here (the step is synchronous: no later launch has
+        overwritten them)."""
+        if not self._fused:
+            return self._sample(flight.logits, flight.pack.sampling)
+        ids = self._copies.wait(flight.host)
+        if self._spec:
+            return ids[:, :-1], ids[:, -1]
+        return ids
 
-    def _consume_unified(self, pack: _PackedLaunch, toks: np.ndarray) -> None:
+    def _consume_unified(self, pack: _PackedLaunch, toks) -> None:
         """Fold one launch's sampled tokens back into request state.  Rows
         whose request finished, or was preempted, while the launch was in
-        flight are discarded by state and epoch."""
+        flight are discarded by state and epoch.
+
+        A spec launch's row emits its accepted drafts and the bonus /
+        correction token (stopping at EOS or max_new_tokens), then rolls
+        back exactly: `context_len` covers the kept tokens only (the KV
+        past it is never read and is rewritten later; the bonus token's KV
+        is written next step, as a plain decode's), and the pages grown
+        for the drafts past the new total_len go back to the pool.  Those
+        are always this step's fresh refcount-1 pages (the scheduler grew
+        them past the covered total_len), so rollback never frees a
+        shared or cached page."""
+        emitted = None
+        if self._spec:
+            toks, emitted = toks
+        proposed = accepted = spec_emitted = spec_rows = 0
         for r, row, epoch in pack.rows:
             if r.state is State.FINISHED or r._spec_epoch != epoch:
                 continue
-            self._emit_token(r, int(toks[row]))
+            if not self._spec:
+                self._emit_token(r, int(toks[row]))
+                continue
+            k = int(pack.spec_lens[row])
+            kept = 0
+            for j in range(min(int(emitted[row]), k + 1)):
+                self._emit_token(r, int(toks[row, j]))
+                kept += 1
+                if r.done:
+                    break
+            if k:
+                r.context_len = r.total_len - 1
+                target = self.alloc.pages_needed(r.total_len)
+                if len(r.pages) > target:
+                    self.alloc.free(r.pages[target:])
+                    del r.pages[target:]
+                spec_rows += 1
+                proposed += k
+                accepted += kept - 1
+                spec_emitted += kept
+                self.drafter.observe(k, kept - 1)
+        if self._spec:
+            self._step_spec = (proposed, accepted, spec_emitted)
+            self.spec_stats["proposed"] += proposed
+            self.spec_stats["accepted"] += accepted
+            self.spec_stats["emitted"] += spec_emitted
+            if spec_rows:
+                self.spec_stats["steps"] += 1
 
     # ------------------------------------------------------------------
     # the padded per-kind step
     # ------------------------------------------------------------------
 
-    def _sample(self, logits: torch.Tensor, n: int,
-                fill: list[tuple[int, Request]]) -> np.ndarray:
-        """The padded step's separate sampling dispatch: the same
-        per-request-stream draw as the fused sampler, host token ids [n]."""
+    def _sample(self, logits: torch.Tensor, rows: tuple) -> np.ndarray:
+        """The separate sampling dispatch (the padded step's, the
+        two-dispatch packed step's): the same per-request-stream draw as
+        the fused sampler over `_sampling_rows` arrays; host ids [n]."""
         self.device_calls["sample"] += 1
-        temps, topp, topk, streams, ngen = self._sampling_rows(n, fill)
-        return sampling.sample_rows(logits, self.seed, temps, topp, topk,
-                                    streams, ngen).cpu().numpy()
+        return sampling.sample_rows(logits, self.seed, *rows).cpu().numpy()
 
     def _finish_chunk(self, reqs: list[Request], logits: torch.Tensor) \
             -> None:
@@ -751,7 +930,8 @@ class Engine:
                 if r.chunk_start + r.num_scheduled_tokens
                 == r.num_prompt_tokens]
         if done:
-            toks = self._sample(logits, logits.shape[0], done)
+            toks = self._sample(
+                logits, self._sampling_rows(logits.shape[0], done))
             for i, r in done:
                 self._emit_token(r, int(toks[i]))
         for r in reqs:
@@ -837,7 +1017,8 @@ class Engine:
         if self._debug_logits:  # a copy: a replay overwrites the buffer
             self._step_logits.append(logits.clone())
         self.launched_token_slots += b
-        toks = self._sample(logits, b, [(r.slot, r) for r in reqs])
+        toks = self._sample(
+            logits, self._sampling_rows(b, [(r.slot, r) for r in reqs]))
         for r in reqs:
             r.context_len = r.total_len
             self._emit_token(r, int(toks[r.slot]))

@@ -17,6 +17,7 @@ CUDA graphs, all on the CPU (reduced models, fp32, greedy unless stated):
     delta added once per replay equals what the eager runs add.
 """
 import dataclasses
+import gc
 import importlib
 import json
 import pkgutil
@@ -282,7 +283,7 @@ def test_packed_engine_samples_as_the_one_call_sampler(smollm):
 
     def check(pack, toks):  # the launch's host ids, before they are used
         batch = batches.pop()
-        temps, streams, ngen = pack.noise_seeds
+        temps, _, _, streams, ngen = pack.sampling
         want = _one_call_sampler(eng.last_step_logits, eng.seed, temps,
                                  batch["top_p"], batch["top_k"], streams,
                                  ngen)
@@ -363,3 +364,22 @@ def test_counted_restores_counters_when_the_capture_raises():
     with pytest.raises(RuntimeError, match="capture failed"):
         cuda_graphs.counted(fails)
     assert [dict(c) for c in counters] == before
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gc_paused_restores_the_collector(enabled):
+    """`gc_paused` turns the cyclic collector off for its block (a
+    collection inside a capture could destroy another engine's graphs)
+    and restores its state, also when the block raises."""
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with cuda_graphs.gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError):
+            with cuda_graphs.gc_paused():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -9,9 +9,10 @@ on a host without CUDA.  Run on the card with
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 The engine's CUDA graphs (the packed step and the padded decode step,
-captured at a key's first step and replayed after) against the same
-engine with `cuda_graphs=False`: the same tokens, bit-equal logits and KV
-pages, and the same launch counts.  The async loop (`submit()` + `run()`)
+captured at a key's first step and replayed after; the speculative verify
+step; the two-dispatch step's packed launch) against the same engine with
+`cuda_graphs=False`: the same tokens, bit-equal logits and KV pages, and
+the same launch counts.  The unified op at the verify step's shapes.  The async loop (`submit()` + `run()`)
 on the graphs against the synchronous graphed run: the same, and its
 sampled ids leave the card through two pinned buffers in turn.
 
@@ -251,6 +252,34 @@ def test_unified_op_matches_plain(cuda, dtype, case):
         kw = dict(num_decode_seqs=ms, variant=variant, tile=tile,
                   num_segments=4)
         got = ops.paged_attention_unified(*(a.to(cuda) for a in args), **kw)
+        want = ops.paged_attention_unified(*(a.cpu() for a in args), **kw)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unified_op_at_verify_shapes_matches_plain(cuda, dtype):
+    """The speculative verify step's shapes at smollm's heads (Hkv 3,
+    group 3, D 64, page 16): 8 decode rows at contexts of 128-1100, then 8
+    chunk rows of q = s + 1 in 2..5 ending at contexts of 130-1100, packed
+    back to back, through ops on the card vs the CPU."""
+    ctx = [128, 301, 517, 640, 777, 901, 1033, 1100]
+    qs = [2, 3, 4, 5, 5, 4, 3, 2]
+    q, kp, vp, pt, cl = _case(cuda, dtype, 3, 3, 16,
+                              ctx + [130, 260, 515, 641, 799, 900, 1003,
+                                     1100], seed=5)
+    qlens = torch.tensor([1] * 8 + qs, dtype=torch.int32)
+    qsl = torch.cat([torch.zeros(1, dtype=torch.int32),
+                     torch.cumsum(qlens, 0, dtype=torch.int32)])
+    t = 8 + 32  # the token bucket: max_seqs + pow2(28)
+    qt = torch.randn((t, 9, 64),
+                     generator=torch.Generator().manual_seed(6)).to(dtype)
+    args = [qt, kp, vp, pt, cl, qsl, qlens]
+    for variant in ("gqa", "segmented"):
+        kw = dict(num_decode_seqs=8, variant=variant, num_segments=16)
+        K.reset_launches()
+        got = ops.paged_attention_unified(*(a.to(cuda) for a in args), **kw)
+        assert K.LAUNCHES["paged_prefill_qblock"] == 1
         want = ops.paged_attention_unified(*(a.cpu() for a in args), **kw)
         torch.testing.assert_close(got.cpu().float(), want.float(),
                                    atol=ATOL[dtype], rtol=0)
@@ -920,6 +949,51 @@ def test_graphed_padded_decode_matches_eager(cuda, arch):
     kinds = {k[0]: type(geng._compiled[k]) for k in geng.compile_events}
     assert kinds == {"prefill": cuda_graphs.EagerStep,
                      "decode": cuda_graphs.GraphedStep}
+
+
+SPEC_PROMPTS = [[5, 9, 17, 3] * 6, ([5, 9, 17, 3] * 5)[:18],
+                [11, 4, 250, 7, 93, 1, 42, 8, 300], [5, 9, 17, 3] * 3]
+
+
+def test_graphed_spec_step_matches_eager(cuda):
+    """A speculative engine (draft_k 4), greedy and sampled requests: the
+    graphed verify step gives the eager step's tokens, logits, pages,
+    spec stats and launch counts; one device call a step."""
+    geng, eeng = _graphs_vs_eager(
+        "smollm-135m", SPEC_PROMPTS, cuda, sampled=True, speculative=True,
+        draft_k=4, max_seqs=4, num_pages=64, max_model_len=256)
+    assert geng.spec_stats == eeng.spec_stats
+    assert geng.spec_stats["proposed"] > 0
+    assert dict(geng.device_calls) == {"unified": geng.step_idx}
+    assert geng.alloc.free_pages == geng.num_pages - 1
+
+
+def test_graphed_two_dispatch_matches_eager(cuda):
+    """`fused_sampling=False`: the graphed packed launch and the eager
+    sampling dispatch after it, against the eager step; and the fused
+    engine's tokens."""
+    geng, _ = _graphs_vs_eager(
+        "smollm-135m", _prompts_for("smollm-135m", (5, 40, 17, 70), 2),
+        cuda, sampled=True, fused_sampling=False, max_seqs=4, num_pages=64,
+        max_model_len=256)
+    n = geng.step_idx
+    assert dict(geng.device_calls) == {"unified": n, "sample": n}
+
+
+def test_spec_engine_on_card_matches_cpu(cuda):
+    """Reduced smollm-135m in fp32, speculative, greedy: the card's tokens
+    and spec stats equal the CPU's (plain versions)."""
+    cfg = reduced(ARCHS["smollm-135m"]).replace(dtype="float32")
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = Engine(cfg, weights.init_random(cfg, 0, device=dev),
+                     max_seqs=4, num_pages=64, max_model_len=256,
+                     speculative=True, draft_k=4, device=dev)
+        reqs = eng.generate([Request(prompt=list(p), max_new_tokens=16)
+                             for p in SPEC_PROMPTS])
+        runs.append(([r.output for r in reqs], dict(eng.spec_stats)))
+    assert runs[0] == runs[1]
+    assert runs[0][1]["accepted"] > 0
 
 
 def test_launch_counters_follow_replays(cuda):
