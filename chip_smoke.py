@@ -201,6 +201,46 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               requests of 8 new tokens on the card and on the CPU, stepped
               in lockstep: identical tokens, logits within 5e-3; then the
               bf16 leg of phase 14 (the tensor-core mLSTM)
+ 19. tune     the autotune loop on the card: (a) every configuration of
+              the sweep's three spaces (`autotune.microbench`: DECODE_SPACE,
+              PREFILL_SPACE, UNIFIED_SPACE), through the ops the sweep and
+              the engine call, at the heads of smollm-135m (unified and
+              prefill), zamba2-1.2b's attention and qwen2.5-3b (decode and
+              prefill), on one mixed scenario (8 decode rows at contexts
+              0-2048, a resumed chunk of 200 rows at context 1312, a fresh
+              one of 100) against the same ops on the plain versions: fp32
+              (TF32 off) 1e-4, bf16 2e-2, the context-0 row exact zeros; a
+              configuration refused before launch (`LaunchLimitError`) is
+              logged by name; then `tune_calibrate` reads the cost model's
+              four card constants; (b) a cut grid (TUNE_GRID: batch 1 / 8 /
+              64 x max length 128 / 1024 / 4096 x decode share 0 / 0.5 /
+              1, the reference's jitter) swept at smollm's heads in bf16
+              (each configuration TUNE_WARMUP eager launches, then
+              TUNE_ITERS replayed in one CUDA graph and timed by CUDA
+              events), the three trees fit and exported by
+              `tune_and_export`: each phase's tuned-vs-best-fixed speedup,
+              listing, the cost model's rank correlation with the
+              measurement, the sweep's seconds, launches and inf count
+              logged; (c) phase 5's 8 requests at full width with the
+              default trees, then the tuned tree loaded: in fp32 (TF32
+              off, greedy) identical tokens, no page leaked; in bf16 the
+              dispatch, keys captured, capture seconds and walls logged
+ 20. observe  phase 5's 8 requests (greedy, fp32, TF32 off) through
+              `run()` without telemetry, then with
+              `Telemetry(launch_timing_interval=1)` and an inline
+              `RefitDaemon(min_new=OBSERVE_MIN_NEW)` on the engine hook
+              and a `MetricsServer` on 127.0.0.1 (port 0): identical
+              tokens, >= 1 refit and hot-swap at step boundaries, the
+              telemetry's steps, sampled and prefill tokens, dispatch and
+              compile events equal to the engine's (captures as the
+              compiled launches), every grid entry with `flops` and
+              `bytes_accessed` > 0, the Prometheus text round-tripping
+              through `parse_prometheus`, a `heuristics_hot_swap` instant
+              in the trace, `GET /metrics` answered; TTFT / ITL / step
+              p50-p95 and the refit report logged; then telemetry's cost
+              in bf16 with graphs (`Telemetry()` at interval 8 against
+              none, in turns, each engine's second run timed: replays
+              only)
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -208,6 +248,8 @@ kernels' JSON; the last line is the result JSON.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -393,6 +435,24 @@ TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # expected): 1e-4 and 1e-3 leave room without hiding a wrong kernel.
 TDIFF_BATCH, TDIFF_SEQ, TDIFF_STEPS = 2, 256, 3
 TDIFF_LOSS_RTOL, TDIFF_GNORM_RTOL = 1e-4, 1e-3
+# phase 19: the spaces the sweep times, at the heads of the models served
+# by the packed step (smollm-135m), the padded step (zamba2-1.2b's
+# attention) and qwen2.5-3b's (D 128, group 8)
+TUNE_GEOMETRIES = {"smollm-135m": ("unified", "prefill"),
+                   "zamba2-1.2b": ("decode", "prefill"),
+                   "qwen2.5-3b": ("decode", "prefill")}
+# the mixed scenario every configuration is checked on: 8 decode rows at
+# these contexts (one dead), then a resumed chunk (200 rows ending at
+# context 1312) and a fresh one (100 rows)
+TUNE_CHECK_CTX = (0, 1, 17, 100, 511, 1000, 1500, 2048)
+TUNE_CHECK_CHUNKS = ((200, 1312), (100, 100))
+# the sweep's cut grid (the reference's jitter recipe,
+# microbench.scenario_grid) and its launches a configuration
+TUNE_GRID = dict(batch_sizes=(1, 8, 64), max_lens=(128, 1024, 4096),
+                 decode_shares=(0.0, 0.5, 1.0))
+TUNE_WARMUP, TUNE_ITERS = 3, 10
+# phase 20: new warm launches per (phase, profile) bucket before a refit
+OBSERVE_MIN_NEW = 2
 
 
 def log(msg: str) -> None:
@@ -1118,21 +1178,13 @@ def phase_serve(torch, K, FK):
     eng_kw = dict(max_seqs=8, num_pages=2048, max_model_len=2048,
                   enable_chunked_prefill=True, max_prefill_tokens=512,
                   seed=SEED, debug_logits=True, device=DEVICE)
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-
-    def prompts(n, lo, hi):
-        lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
-        return [torch.randint(1, cfg.vocab_size, (n_,), generator=g).tolist()
-                for n_ in lens]
-
+    g, warm_prompts, served = serve_prompts(torch, cfg.vocab_size)
     # warm-up (cuBLAS handles, allocator) on a throwaway engine
     warm = Engine(cfg, model, **eng_kw)
     warm.generate([Request(prompt=p, max_new_tokens=4)
-                   for p in prompts(2, 40, 200)])
+                   for p in warm_prompts])
     del warm
     torch.cuda.synchronize()
-
-    served = prompts(8, 128, 1024)
 
     def requests():  # request 3 samples: temperature, top-k and top-p
         return [Request(prompt=list(p), max_new_tokens=32,
@@ -1202,6 +1254,22 @@ def phase_serve(torch, K, FK):
     walls |= phase_spec_serve(torch, K, cfg, model, eng_kw, g)
     return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
                           prompt_tokens=prompt_toks, **walls)
+
+
+def draw_prompts(torch, g, vocab, n, lo, hi):
+    """n prompts of lo..hi tokens drawn from `g`."""
+    lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+    return [torch.randint(1, vocab, (n_,), generator=g).tolist()
+            for n_ in lens]
+
+
+def serve_prompts(torch, vocab):
+    """(generator, warm-up prompts, served prompts) of phase 5: 2 warm-up
+    prompts of 40-200 tokens, then the 8 served ones of 128-1024, drawn
+    from seed SEED; the generator goes on to phase 5's later traces."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    warm = draw_prompts(torch, g, vocab, 2, 40, 200)
+    return g, warm, draw_prompts(torch, g, vocab, 8, 128, 1024)
 
 
 def shared_prefix_run(torch, cfg, model, eng_kw, prompts):
@@ -2293,6 +2361,520 @@ def phase_xlstm_serve(torch, kernel_modules):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the autotune loop on the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_kernels(K):
+    """The paged wrappers that ops.py calls swapped for their plain
+    versions (the same arguments), so an ops-level call runs the plain
+    path on the card's tensors."""
+    names = ("paged_decode", "paged_decode_segmented_merged",
+             "paged_prefill_qblock")
+    saved = {n: getattr(K, n) for n in names}
+    for n in names:
+        setattr(K, n, getattr(K, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(K, n, f)
+
+
+def tune_check_inputs(torch, dtype, hkv, group, d, ps, seed=11):
+    """TUNE_CHECK's mixed scenario at one model's heads: 8 decode rows at
+    TUNE_CHECK_CTX, then the chunks of TUNE_CHECK_CHUNKS (query rows,
+    context) packed back to back, as the unified launch takes them; the
+    decode and the prefill calls take their own rows of it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ctx = list(TUNE_CHECK_CTX) + [c for _, c in TUNE_CHECK_CHUNKS]
+    qlens = [1] * len(TUNE_CHECK_CTX) + [q for q, _ in TUNE_CHECK_CHUNKS]
+    s = len(ctx)
+    np_ = -(-max(ctx) // ps)
+    p = s * np_ + 1
+    kp = torch.randn((hkv, p, ps, d), generator=g).to(dtype)
+    vp = torch.randn((hkv, p, ps, d), generator=g).to(dtype)
+    pt = (torch.randperm(p - 1, generator=g)[: s * np_].reshape(s, np_)
+          + 1).to(torch.int32)
+    q = torch.randn((sum(qlens), hkv * group, d), generator=g).to(dtype)
+    qsl = torch.tensor([0] + list(itertools.accumulate(qlens)),
+                       dtype=torch.int32)
+    x = dict(q=q, k=kp, v=vp, pt=pt, ctx=torch.tensor(ctx, dtype=torch.int32),
+             qsl=qsl, qlens=torch.tensor(qlens, dtype=torch.int32))
+    return {k: t.to(DEVICE) for k, t in x.items()}
+
+
+def tune_check_call(tops, x, space, cfg):
+    """One ops-level call of `space`'s launch at `cfg` on the inputs."""
+    nd = len(TUNE_CHECK_CTX)
+    kv = dict(tile=cfg.tile)
+    if space == "decode":
+        return tops.paged_attention_decode(
+            x["q"][:nd], x["k"], x["v"], x["pt"][:nd], x["ctx"][:nd],
+            variant=cfg.variant, num_segments=cfg.num_segments, **kv)
+    if space == "prefill":
+        return tops.paged_attention_prefill(
+            x["q"][nd:], x["k"], x["v"], x["pt"][nd:], x["ctx"][nd:],
+            x["qsl"][nd:] - nd, x["qlens"][nd:], block_q=cfg.block_q, **kv)
+    return tops.paged_attention_unified(
+        x["q"], x["k"], x["v"], x["pt"], x["ctx"], x["qsl"], x["qlens"],
+        num_decode_seqs=nd, variant=cfg.variant,
+        num_segments=cfg.num_segments, block_q=cfg.block_q, **kv)
+
+
+def phase_tune_check(torch, K, tops):
+    """Every configuration of the three spaces the sweep times, at the
+    served models' heads (TUNE_GEOMETRIES), against the plain version on
+    the card, before anything is timed: one mixed scenario each, fp32
+    with TF32 off at 1e-4 and bf16 at 2e-2; the context-0 decode row
+    exactly zero.  A configuration the wrapper refuses before launch
+    (`LaunchLimitError`: the fp32 prefill's shared memory) is logged by
+    name and returned; any other error fails the phase."""
+    from repro_torch.autotune import microbench as MB
+    from repro_torch.kernels._common import LaunchLimitError
+
+    spaces = {"decode": MB.DECODE_SPACE, "prefill": MB.PREFILL_SPACE,
+              "unified": MB.UNIFIED_SPACE}
+    refused, worst, checked = [], {}, 0
+    for arch, names in TUNE_GEOMETRIES.items():
+        hkv, group, d, ps = paged_heads(arch)
+        for dtype_name in ("float32", "bfloat16"):
+            x = tune_check_inputs(torch, getattr(torch, dtype_name), hkv,
+                                  group, d, ps)
+            for space in names:
+                for cfg in spaces[space]:
+                    tag = (f"{arch} {dtype_name} {space} {cfg.variant} tile "
+                           f"{cfg.tile} segments {cfg.num_segments} block_q "
+                           f"{cfg.block_q}")
+                    try:
+                        got = tune_check_call(tops, x, space, cfg)
+                    except LaunchLimitError as e:
+                        refused.append(tag)
+                        log(f"tune check {tag}: refused before launch ({e})")
+                        continue
+                    with plain_kernels(K):
+                        want = tune_check_call(tops, x, space, cfg)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    zero = space == "prefill" or bool((got[0] == 0).all())
+                    ok = err <= ATOL[dtype_name] and zero
+                    log(f"tune check {tag}: max_abs_err {err:.3e} atol "
+                        f"{ATOL[dtype_name]:g} context-0 row zero {zero}  "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"tune check {tag}: err {err}, "
+                                             f"context-0 row zero {zero}")
+                    key = (space, dtype_name)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    checked += 1
+    log(f"tune check: {checked} configurations checked, worst "
+        + ", ".join(f"{sp} {dt} {e:.3e}" for (sp, dt), e in worst.items())
+        + f"; {len(refused)} refused before launch: {refused}")
+    return refused
+
+
+def tune_calibrate(torch):
+    """The cost model's card constants, read at smollm's heads (bf16, each
+    the mean of ITERS launches replayed in a CUDA graph): a decode launch
+    of 1 sequence of 16 keys (LAUNCH_OVERHEAD_S), the prefill of 1
+    sequence of 16 rows (PREFILL_OVERHEAD_S), a decode of 1 sequence of
+    4096 keys (one streaming block a KV head: BLOCK_STREAM_BW, its K and V
+    bytes over its time less the first), and the prefill of 8 x 1024
+    fresh rows (MMA_EFFICIENCY: the FLOPs `prefill_time` counts for it
+    over its time less the second, over the bf16 peak)."""
+    from repro_torch.autotune import costmodel as C
+    from repro_torch.autotune import microbench as MB
+    from repro_torch.core.attention.heuristics import KernelConfig
+    from repro_torch.roofline import hw
+
+    hkv, group, d, ps = paged_heads(ARCH)
+
+    def sc(ctx, q):
+        return C.Scenario(num_seqs=len(ctx), context_lens=ctx, query_lens=q,
+                          num_q_heads=hkv * group, num_kv_heads=hkv,
+                          head_dim=d, page_size=ps)
+
+    gqa = KernelConfig("gqa")
+    t_dec = MB._measure_on_device(sc((16,), (1,)), gqa)
+    t_pre = MB._measure_on_device(sc((16,), (16,)), gqa)
+    t_long = MB._measure_on_device(sc((4096,), (1,)), gqa)
+    pf = sc((1024,) * 8, (1024,) * 8)
+    t_pf = MB._measure_on_device(pf, gqa)
+    # prefill_time's FLOPs: its time at efficiency 1 and no fixed cost
+    model = (C.prefill_time(pf, block_q=16, tile=ps) - C.PREFILL_OVERHEAD_S) \
+        * C.MMA_EFFICIENCY
+    flops = model * hw.PEAK_FLOPS_BF16
+    bw = 4096 * 2 * d * 2 / max(t_long - t_dec, 1e-9)
+    eff = flops / max(t_pf - t_pre, 1e-9) / hw.PEAK_FLOPS_BF16
+    log(f"tune calibrate (bf16, {ARCH} heads): decode 1 x 16 keys "
+        f"{t_dec * 1e6:.2f} us, prefill 1 x 16 rows {t_pre * 1e6:.2f} us, "
+        f"decode 1 x 4096 keys {t_long * 1e6:.2f} us -> one block "
+        f"{bw / 1e9:.1f} GB/s, prefill 8 x 1024 rows {t_pf * 1e6:.2f} us "
+        f"-> {flops:.4g} FLOPs at {eff:.4f} of the bf16 peak (model "
+        f"constants now {C.LAUNCH_OVERHEAD_S * 1e6:g} us, "
+        f"{C.PREFILL_OVERHEAD_S * 1e6:g} us, {C.BLOCK_STREAM_BW / 1e9:g} "
+        f"GB/s, {C.MMA_EFFICIENCY:g})")
+    return dict(launch_us=t_dec * 1e6, prefill_us=t_pre * 1e6,
+                block_gbps=bw / 1e9, mma_efficiency=eff)
+
+
+def rank_corr(a, b):
+    """Spearman's rank correlation of two equal-length sequences (ties
+    take their mean rank)."""
+    def ranks(v):
+        order = sorted(range(len(v)), key=v.__getitem__)
+        r = [0.0] * len(v)
+        i = 0
+        while i < len(order):
+            j = i
+            while j + 1 < len(order) and v[order[j + 1]] == v[order[i]]:
+                j += 1
+            for k in range(i, j + 1):
+                r[order[k]] = (i + j) / 2
+            i = j + 1
+        return r
+    ra, rb = ranks(a), ranks(b)
+    ma, mb = statistics.fmean(ra), statistics.fmean(rb)
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    var = math.sqrt(sum((x - ma) ** 2 for x in ra)
+                    * sum((y - mb) ** 2 for y in rb))
+    return cov / var if var else float("nan")
+
+
+def phase_tune_sweep(torch, K, out_dir):
+    """The sweep of TUNE_GRID (the reference's jitter recipe, a cut grid)
+    at smollm's heads on the card, TUNE_WARMUP + TUNE_ITERS launches a
+    configuration, the three trees fit and exported in `tune_and_export`'s
+    format into out_dir/tuned.json.  Logs each phase's tuned-vs-best-fixed
+    speedup and listing, the sweep's seconds and launches, the `inf`
+    configurations, and the rank correlation of the Hopper cost model's
+    predictions against the measurement per phase (a finding, not a
+    gate).  Returns the exported tree's path."""
+    from repro_torch.autotune import microbench as MB
+    from repro_torch.autotune.tune import tune_and_export
+
+    hkv, group, d, ps = paged_heads(ARCH)
+    arch = dict(num_q_heads=hkv * group, num_kv_heads=hkv, head_dim=d,
+                page_size=ps)
+    grid = MB.scenario_grid(seed=SEED, **arch, **TUNE_GRID)
+    path = str(Path(out_dir) / "tuned.json")
+    before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    rep = tune_and_export(path, str(Path(out_dir) / "tuned.py"),
+                          use_hardware=True, grid=grid, warmup=TUNE_WARMUP,
+                          iters=TUNE_ITERS, **arch)
+    sweep_s = time.perf_counter() - t0
+    # the counters see the eager warm-up launches only; each measurement
+    # then replays its graph of TUNE_ITERS launches twice
+    eager = sum(K.LAUNCHES[k] - before[k] for k in before)
+    graphed = eager * 2 * TUNE_ITERS // TUNE_WARMUP
+    spaces = {"decode": MB.DECODE_SPACE, "prefill": MB.PREFILL_SPACE,
+              "unified": MB.UNIFIED_SPACE}
+    n_meas = sum(len(r.timings) for res in rep["results"].values()
+                 for r in res)
+    n_inf = sum(1 for res in rep["results"].values() for r in res
+                for t in r.timings.values() if math.isinf(t))
+    log(f"tune sweep {ARCH} heads: {len(grid)} scenarios, {n_meas} "
+        f"(scenario, config) timings in {sweep_s:.1f}s, each "
+        f"{TUNE_WARMUP} eager + {TUNE_ITERS} graphed launches, replayed "
+        f"twice: {eager} eager and {graphed} replayed Pallas-function "
+        f"launches; {n_inf} inf")
+    for phase, res in rep["results"].items():
+        st = rep if phase == "decode" else rep[phase]
+        meas, pred = [], []
+        for r in res:
+            for i, t in r.timings.items():
+                if math.isfinite(t):
+                    meas.append(t)
+                    pred.append(MB.measure(r.scenario, spaces[phase][i],
+                                           unified=phase == "unified"))
+        log(f"tune {phase}: {len(res)} scenarios, tuned-vs-best-fixed "
+            f"{st['tuned_vs_untuned_speedup']:.4f}x, max pointwise "
+            f"{st['max_pointwise_speedup']:.3f}x, oracle overhead "
+            f"{st['tuned_vs_oracle_overhead']:.2%}, cost-model rank "
+            f"correlation {rank_corr(meas, pred):.3f} over {len(meas)} "
+            f"timings; measured {min(meas) * 1e6:.2f}-"
+            f"{max(meas) * 1e6:.2f} us")
+        for line in st["listing"].rstrip().splitlines():
+            log(f"tune {phase} tree | {line}")
+    log(f"tune suggested_max_prefill_tokens "
+        f"{rep['suggested_max_prefill_tokens']}")
+    log(f"tune payload {json.dumps(json.load(open(path)))}")
+    return path, dict(sweep_s=sweep_s, timings=n_meas, inf=n_inf,
+                      launches=eager + graphed)
+
+
+def tuned_vs_default(torch, cfg, model, eng_kw, requests, path, tag):
+    """Phase 5's requests served with the default trees, then with the
+    tree at `path` (`heuristics.load`; reset after): both runs' tokens,
+    walls, keys captured and capture seconds, and dispatch by (phase,
+    variant).  Returns both `serve_run`s."""
+    from repro_torch.core.attention import heuristics
+    from repro_torch.serving.engine import Engine
+
+    runs = {}
+    try:
+        for name in ("default", "tuned"):
+            if name == "tuned":
+                heuristics.load(path)
+            eng = Engine(cfg, model, debug_logits=True, **eng_kw)
+            runs[name] = serve_run(torch, eng, requests(), f"{tag} {name}")
+    finally:
+        heuristics.reset()
+    for name, run in runs.items():
+        eng = run["eng"]
+        leaked = eng.alloc.free_pages != eng.num_pages - 1
+        gs = eng.graph_stats
+        log(f"{tag} {name} tree: wall {run['wall']:.3f}s  steps "
+            f"{len(run['stats'])}  keys captured {gs['captures']} "
+            f"({gs['capture_s']:.3f}s capturing)  compile_events "
+            f"{len(eng.compile_events)}  "
+            f"dispatch {dict(eng.dispatch_counts)}  pages leaked {leaked}")
+        if leaked:
+            raise AssertionError(f"{tag} {name}: pages leaked")
+    return runs
+
+
+def phase_tune(torch, K, tops):
+    """Phase 19: (a) every configuration checked, (b) the sweep, fit and
+    export, (c) the tuned tree served against the default trees."""
+    import tempfile
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.request import Request
+
+    refused = phase_tune_check(torch, K, tops)
+    calib = tune_calibrate(torch)
+    with tempfile.TemporaryDirectory() as out_dir:
+        path, sweep = phase_tune_sweep(torch, K, out_dir)
+        cfg = ARCHS[ARCH]
+        g, _, served = serve_prompts(torch, cfg.vocab_size)
+        del g
+        eng_kw = dict(max_seqs=8, num_pages=2048, max_model_len=2048,
+                      enable_chunked_prefill=True, max_prefill_tokens=512,
+                      seed=SEED, device=DEVICE)
+        cfg32 = cfg.replace(dtype="float32")
+        model32 = weights.init_random(cfg32, SEED, device=DEVICE)
+
+        def greedy():
+            return [Request(prompt=list(p), max_new_tokens=32)
+                    for p in served]
+
+        runs = tuned_vs_default(torch, cfg32, model32, eng_kw, greedy, path,
+                                "tune serve fp32")
+        same = [r.output for r in runs["default"]["reqs"]] \
+            == [r.output for r in runs["tuned"]["reqs"]]
+        log(f"tune serve fp32: tuned tokens identical to default {same}")
+        if not same:
+            raise AssertionError("the tuned tree changed fp32 tokens")
+        del runs
+        model16 = weights.init_random(cfg, SEED, device=DEVICE)
+
+        def phase5():
+            return [Request(prompt=list(p), max_new_tokens=32,
+                            **(SERVE_SAMPLED if i == 3 else {}))
+                    for i, p in enumerate(served)]
+
+        runs16 = tuned_vs_default(torch, cfg, model16, eng_kw, phase5, path,
+                                  "tune serve bf16")
+        same16 = sum(a.output == b.output for a, b in
+                     zip(runs16["default"]["reqs"], runs16["tuned"]["reqs"]))
+        log(f"tune serve bf16: {same16} of {len(served)} requests' tokens "
+            f"identical to the default trees' (logged only)")
+        walls = {f"{k}_wall_s": v["wall"] for k, v in runs16.items()}
+        del runs16
+    return dict(refused=refused, **calib, **sweep, **walls), \
+        (cfg32, model32, cfg, model16, served, eng_kw)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: telemetry and the online refit on the card
+# ---------------------------------------------------------------------------
+
+
+def observed_run(torch, cfg, model, eng_kw, requests, tel=None,
+                 daemon=None):
+    """`requests()` through `submit()` + `run()` on a fresh engine, with
+    `tel` / `daemon` on it; (engine, requests, wall)."""
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, model, telemetry=tel, refit=daemon, **eng_kw)
+    reqs = requests()
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out["unfinished"]:
+        raise AssertionError("run() left requests unfinished")
+    return eng, reqs, wall
+
+
+def check_telemetry(torch, eng, reqs, tel):
+    """The telemetry's counts against the engine's ground truth, the
+    grid's costs, the Prometheus round trip, the trace."""
+    from repro_torch.obs import parse_prometheus
+
+    m = tel.metrics
+    checks = {
+        "steps": (m.value("repro_steps_total"), eng.step_idx),
+        "sampled": (m.value("repro_tokens_total", kind="sampled"),
+                    sum(len(r.output) for r in reqs)),
+        "prefill": (m.value("repro_tokens_total", kind="prefill"),
+                    eng.prefilled_tokens),
+        "compiled launches": (
+            sum(s["value"] for s in
+                m.snapshot()["repro_compile_events_total"]["series"]),
+            len(eng.compile_events)),
+        "graph captures": (m.value("repro_compile_events_total",
+                                   kind="unified"),
+                           eng.graph_stats["captures"]),
+    }
+    for (phase, variant), n in eng.dispatch_counts.items():
+        checks[f"dispatch {phase}/{variant}"] = (
+            m.value("repro_dispatch_total", phase=phase, variant=variant), n)
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    grid = tel.latency_grid()
+    costless = [e for e in grid["entries"]
+                if not (e["flops"] and e["flops"] > 0
+                        and e["bytes_accessed"] and e["bytes_accessed"] > 0)]
+    parsed = parse_prometheus(tel.prometheus_text())
+    snap = m.snapshot()
+    lost = [n for n in snap if n not in parsed]
+    steps = [v for name, _, v in parsed["repro_steps_total"]["samples"]]
+    doc = json.loads(json.dumps(tel.tracer.to_json()))
+    swaps = [e for e in doc["traceEvents"]
+             if e["name"] == "heuristics_hot_swap"]
+    log(f"observe telemetry vs engine: "
+        + ", ".join(f"{k} {a:g}/{b:g}" for k, (a, b) in checks.items())
+        + f"; grid entries {len(grid['entries'])} ({len(costless)} without"
+        f" cost); prometheus families {len(parsed)} (lost {lost}); trace "
+        f"events {len(doc['traceEvents'])}, hot-swap instants {len(swaps)}")
+    if bad or costless or lost or steps != [eng.step_idx] or not swaps:
+        raise AssertionError(f"telemetry disagrees: {bad}, costless "
+                             f"{len(costless)}, lost {lost}, steps {steps}, "
+                             f"swaps {len(swaps)}")
+
+
+def phase_observe(torch, models):
+    """Phase 20: phase 5's 8 requests (greedy, fp32, TF32 off) through
+    `run()`, unobserved and then with `Telemetry(launch_timing_interval=1)`
+    and a `RefitDaemon(min_new=OBSERVE_MIN_NEW)` on the engine hook:
+    identical tokens, >= 1 refit and hot-swap at step boundaries, the
+    telemetry's counts equal to the engine's, every grid entry with a
+    cost, the Prometheus text round-tripping, a hot-swap instant in the
+    trace, and `GET /metrics` answered on 127.0.0.1.  Then telemetry's
+    cost: bf16 with graphs, no telemetry against `Telemetry()` (interval
+    8, no refit), in turns."""
+    import tempfile
+    import urllib.request
+
+    from repro_torch.core.attention import heuristics
+    from repro_torch.obs import MetricsServer, RefitDaemon, Telemetry
+    from repro_torch.serving.request import Request
+
+    cfg32, model32, cfg16, model16, served, eng_kw = models
+
+    def greedy():
+        return [Request(prompt=list(p), max_new_tokens=32) for p in served]
+
+    _, plain, _ = observed_run(torch, cfg32, model32, eng_kw, greedy)
+    tel = Telemetry(launch_timing_interval=1)
+    with tempfile.TemporaryDirectory() as out_dir:
+        daemon = RefitDaemon(tel, out_dir=out_dir, min_new=OBSERVE_MIN_NEW)
+        server = MetricsServer(tel, port=0).start()
+        try:
+            eng, reqs, wall = observed_run(torch, cfg32, model32, eng_kw,
+                                           greedy, tel, daemon)
+            with urllib.request.urlopen(server.url("/metrics"),
+                                        timeout=10) as resp:
+                scraped = resp.read().decode()
+        finally:
+            server.stop()
+            heuristics.reset()
+        rep = daemon.report()
+        same = [r.output for r in plain] == [r.output for r in reqs]
+        keys = [(k[2], k[3].variant, k[3].tile, k[3].num_segments,
+                 k[3].block_q) for k in eng.compile_events]
+        log(f"observe fp32: tokens identical to the unobserved run {same}; "
+            f"refits {rep['refits']} swaps {rep['swaps']} at steps "
+            f"{rep['swap_steps']} of {eng.step_idx}; wall {wall:.3f}s; "
+            f"keys captured {eng.graph_stats['captures']} "
+            f"({eng.graph_stats['capture_s']:.3f}s capturing; (tokens, "
+            f"variant, tile, segments, block_q) {keys}); dispatch "
+            f"{dict(eng.dispatch_counts)}; GET /metrics {len(scraped)} "
+            f"bytes")
+        if not (same and rep["refits"] >= 1 and rep["swaps"] >= 1
+                and all(s is not None and s <= eng.step_idx
+                        for s in rep["swap_steps"])
+                and "repro_steps_total" in scraped):
+            raise AssertionError(f"observe: tokens {same}, refit {rep}, "
+                                 f"scrape {len(scraped)} bytes")
+        check_telemetry(torch, eng, reqs, tel)
+        last = daemon.last_report or {"phases": {}}
+        for phase, st in last["phases"].items():
+            log(f"observe refit {phase}: calibration "
+                f"{st['calibration_ratio']:.4g}, host overhead "
+                f"{(st['host_overhead_s_est'] or 0) * 1e3:.4f} ms, device "
+                f"fraction {st['device_time_fraction']}, profiles "
+                f"{st['profiles']}, observed points {st['observed_points']}")
+    s = tel.summary()
+    log(f"observe fp32 telemetry: ttft p50 {s['ttft_p50'] * 1e3:.3f} ms p95 "
+        f"{s['ttft_p95'] * 1e3:.3f} ms, itl p50 {s['itl_p50'] * 1e3:.3f} ms "
+        f"p95 {s['itl_p95'] * 1e3:.3f} ms, step p50 "
+        f"{s['step_p50'] * 1e3:.3f} ms, padding waste "
+        f"{s['padding_waste']:.4f} (every launch timed: the loop is "
+        f"synchronous)")
+    walls = telemetry_cost(torch, cfg16, model16, eng_kw, greedy)
+    return dict(refits=rep["refits"], swaps=rep["swaps"],
+                tel_walls=walls["telemetry"], none_walls=walls["none"])
+
+
+def telemetry_cost(torch, cfg, model, eng_kw, requests):
+    """Telemetry's cost on the serving path: bf16, graphs, `run()`, no
+    telemetry against `Telemetry()` (interval 8, no refit), in turns
+    (none, on, on, none).  Each engine serves the requests once to
+    capture its graphs, then again, timed: replays only, so the captures
+    (0.2-0.3 s a key) do not hide the hooks' cost.  Returns the timed
+    walls by name."""
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving.engine import Engine
+
+    walls = {"none": [], "telemetry": []}
+    summaries = []
+    for name in ("none", "telemetry", "telemetry", "none"):
+        tel = Telemetry() if name == "telemetry" else None
+        eng = Engine(cfg, model, telemetry=tel, **eng_kw)
+        for timed in (False, True):
+            captures = eng.graph_stats["captures"]
+            for r in requests():
+                eng.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if out["unfinished"]:
+                raise AssertionError("run() left requests unfinished")
+        if eng.graph_stats["captures"] != captures:
+            raise AssertionError("the timed run captured a graph")
+        walls[name].append(wall)
+        if tel is not None:
+            summaries.append(tel.summary())
+    log(f"observe bf16 telemetry cost (graphs, run(), interval 8, replays "
+        f"only, {eng.step_idx // 2} steps): walls none {walls['none']} "
+        f"telemetry {walls['telemetry']}; with telemetry: step p50 "
+        + ", ".join(f"{x['step_p50'] * 1e3:.3f}" for x in summaries)
+        + " ms, itl p50 " + ", ".join(f"{x['itl_p50'] * 1e3:.3f}"
+                                      for x in summaries) + " ms")
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -2416,6 +2998,16 @@ def main() -> int:
     phase_engine_diff(torch, XLSTM_ARCH, SEED + 5, "xdiff", XDIFF_LAYERS,
                       (MK, "mlstm_mma_kernel"))
     lap("18 xdiff")
+
+    # 19. the autotune loop: every configuration checked, the sweep timed
+    # on the card, the trees fit and served
+    _, tune_models = phase_tune(torch, K, tops)
+    lap("19 tune")
+
+    # 20. telemetry and the online refit's hot-swap on the serving path
+    phase_observe(torch, tune_models)
+    del tune_models
+    lap("20 observe")
 
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)

@@ -17,7 +17,13 @@ of it.  Layers (bottom-up):
   serving/    request / scheduler / prefix cache / `Engine` (packed and
               padded per-kind steps).
   training/   Markov data, AdamW, the train step, checkpoints.
-  launch/     `python -m repro_torch.launch.serve` / `.train`.
+  obs/        telemetry, metrics, tracing, the scrape server and the
+              online refit daemon (copies of `repro.obs`).
+  autotune/   the kernel-config sweep (timed on the card), the Hopper
+              cost model and the decision-tree fit and export.
+  roofline/   the card's constants (`hw.py`).
+  launch/     `python -m repro_torch.launch.serve` / `.train` /
+              `.autotune`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; a CPU
 tensor reaches each kernel's plain PyTorch version, a CUDA tensor the

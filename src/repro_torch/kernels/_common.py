@@ -18,6 +18,13 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MMA_HEAD_DIMS = (64, 128)
 
 
+class LaunchLimitError(ValueError):
+    """A shape inside the wrapper's inputs' contract that the CUDA kernel
+    does not take (a head dim, a shared-memory footprint), raised before
+    the launch.  A kernel-config sweep prices such a configuration at
+    infinity; every other `ValueError` is a malformed input."""
+
+
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
@@ -60,9 +67,10 @@ def _check_mma(name: str, d: int, *tensors: torch.Tensor) -> None:
     """What the bf16 tensor-core attention kernels take: head dim 64 or
     128, and 16-byte aligned rows for their cp.async copies."""
     if d not in MMA_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} has no bf16 tensor-core "
-                         f"kernel (head dims {MMA_HEAD_DIMS}); it is not "
-                         f"sent to a slower one")
+        raise LaunchLimitError(f"{name}: head_dim {d} has no bf16 "
+                               f"tensor-core kernel (head dims "
+                               f"{MMA_HEAD_DIMS}); it is not sent to a "
+                               f"slower one")
     _check_aligned(name, *tensors)
 
 

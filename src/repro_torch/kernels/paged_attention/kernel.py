@@ -28,8 +28,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    NEG_INF, _check_mma, _finalize, _init_state, _on_card, _ptr, _raise_on,
-    _stream, _tile_update,
+    NEG_INF, LaunchLimitError, _check_mma, _finalize, _init_state, _on_card,
+    _ptr, _raise_on, _stream, _tile_update,
 )
 from repro_torch.utils.misc import cdiv
 
@@ -147,8 +147,9 @@ def _check_kernel(name: str, d: int, *tensors: torch.Tensor,
         _check_mma(name, d, *tensors[:3])
         return
     if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"{name}: head_dim {d} unsupported by the CUDA "
-                         f"kernel (multiples of 8 up to {MAX_HEAD_DIM})")
+        raise LaunchLimitError(f"{name}: head_dim {d} unsupported by the "
+                               f"CUDA kernel (multiples of 8 up to "
+                               f"{MAX_HEAD_DIM})")
     for t in vectors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the CUDA kernel reads K/V in 16-byte "
@@ -158,9 +159,10 @@ def _check_kernel(name: str, d: int, *tensors: torch.Tensor,
         m, tile = attend
         smem = library().pa_attend_smem_bytes(m, d, tile)
         if smem > _SMEM_LIMIT:
-            raise ValueError(f"{name}: {m} rows x head_dim {d} x tile "
-                             f"{tile} needs {smem} B of shared memory per "
-                             f"block (limit {_SMEM_LIMIT})")
+            raise LaunchLimitError(
+                f"{name}: {m} rows x head_dim {d} x tile {tile} needs "
+                f"{smem} B of shared memory per block (limit "
+                f"{_SMEM_LIMIT})")
 
 
 def _check_segmented(name: str, q: torch.Tensor, k: torch.Tensor,

@@ -4,7 +4,10 @@ stream (arrival-rate driven), reporting latency and throughput.
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
         [--device cpu] [--chunked-prefill] [--eager] [--profile] \
         [--stream] [--prefix-caching] [--shared-prefix N] \
-        [--speculative [--draft-k K]] [--no-fused-sampling]
+        [--speculative [--draft-k K]] [--no-fused-sampling] \
+        [--heuristics TREE.json|tune] [--max-prefill-tokens N|auto] \
+        [--metrics-dir D] [--trace-out T] [--metrics-port P] \
+        [--snapshot-interval SEC] [--slo-p95 SEC] [--refit-every N]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
@@ -26,6 +29,20 @@ one N-token prompt to every request, the cache's hot path.
 a step) in the packed launch and prints the drafts' stats;
 `--no-fused-sampling` samples in a second dispatch after the packed
 launch (dense models only, like both).
+Kernel configs: the engine's built-in decision trees unless
+`--heuristics TREE.json` (from `python -m repro_torch.launch.autotune`)
+or $REPRO_ATTN_HEURISTICS names a tree; `--heuristics tune` runs a quick
+cost-model tune inline first (the reference launcher's default).
+`--max-prefill-tokens auto` takes the loaded tree's chunk budget, else
+the cost model's.  Observability (the measured run only; metric names as
+in docs/observability.md): `--metrics-dir D` writes D/metrics.prom,
+D/metrics.jsonl and D/latency_grid.json (the input of `launch.autotune
+--refit-from`); `--trace-out T` a Chrome / Perfetto trace;
+`--metrics-port P` serves /metrics, /snapshot and /trace on 127.0.0.1:P
+while the engine runs (0: an ephemeral port; `--snapshot-interval`
+rotates snapshots into D); `--slo-p95 SEC` arms the flight recorder;
+`--refit-every N` the online refit daemon, which hot-swaps refit trees
+between steps.  Any of them turns on telemetry and prints its summary.
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights and
 prompts are random, drawn from seed 0; prompt lengths (after the shared
 prefix) are uniform in [--min-prompt, --max-prompt].  The default
@@ -40,6 +57,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +66,7 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.core.attention import heuristics
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mlstm import kernel as MK
@@ -74,7 +94,11 @@ def main() -> None:
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=79)
     ap.add_argument("--chunked-prefill", action="store_true")
-    ap.add_argument("--max-prefill-tokens", type=int, default=8192)
+    ap.add_argument("--max-prefill-tokens", type=_budget, default=8192,
+                    metavar="N|auto",
+                    help="per-step prefill token budget; auto: the loaded "
+                         "tree's exported budget, else the cost model's "
+                         "decode-latency roofline")
     ap.add_argument("--eager", action="store_true",
                     help="no CUDA graphs: every step runs eagerly")
     ap.add_argument("--stream", action="store_true",
@@ -95,9 +119,98 @@ def main() -> None:
     ap.add_argument("--draft-k", type=int, default=4, metavar="K",
                     help="most drafts proposed per request per step "
                          "(adaptive from the accept rate; default 4)")
+    ap.add_argument("--heuristics", default=None, metavar="TREE.json|tune",
+                    help="decision trees exported by `python -m "
+                         "repro_torch.launch.autotune` ($REPRO_ATTN_"
+                         "HEURISTICS works too); `tune`: run a quick "
+                         "cost-model tune inline; default: the engine's "
+                         "built-in trees")
+    ap.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help="telemetry: write DIR/metrics.prom, "
+                         "DIR/metrics.jsonl and DIR/latency_grid.json")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="telemetry: write a Chrome / Perfetto trace")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="P",
+                    help="telemetry: serve /metrics, /snapshot and /trace "
+                         "on 127.0.0.1:P while the engine runs (0: an "
+                         "ephemeral port); snapshots rotate into "
+                         "--metrics-dir")
+    ap.add_argument("--snapshot-interval", type=float, default=30.0,
+                    metavar="SEC",
+                    help="snapshot cadence of the --metrics-port server")
+    ap.add_argument("--slo-p95", type=float, default=None, metavar="SEC",
+                    help="flight recorder: dump the trace ring and a "
+                         "snapshot into --metrics-dir (or .) when the "
+                         "rolling p95 step latency passes SEC")
+    ap.add_argument("--refit-every", type=int, default=None, metavar="N",
+                    help="online refit: after N new warm launches per "
+                         "(phase, profile) bucket, refit the trees from "
+                         "the latency grid and hot-swap them between "
+                         "steps (files in --metrics-dir or .)")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    try:
+        _serve(ap, args)
+    finally:
+        heuristics.reset()
 
+
+def _budget(value: str) -> int | str:
+    return value if value == "auto" else int(value)
+
+
+def _load_heuristics(args, cfg) -> None:
+    """Install the run's decision trees (see `--heuristics`)."""
+    if args.heuristics == "tune":
+        from repro_torch.autotune.tune import tune_and_export
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "tree.json")
+            rep = tune_and_export(path, num_q_heads=cfg.num_q_heads,
+                                  num_kv_heads=cfg.num_kv_heads,
+                                  head_dim=cfg.resolved_head_dim,
+                                  page_size=cfg.page_size)
+            heuristics.load(path)
+        print(f"heuristics: a cost-model tune (tuned-vs-fixed speedup "
+              f"{rep['tuned_vs_untuned_speedup']:.2f}x)")
+    elif args.heuristics:
+        heuristics.load(args.heuristics)
+        print(f"heuristics installed from {args.heuristics}")
+    elif heuristics.maybe_load_env():
+        print(f"heuristics installed from $REPRO_ATTN_HEURISTICS "
+              f"({heuristics.loaded_path()})")
+
+
+def _observers(args):
+    """(telemetry, metrics server, refit daemon) of the measured run, each
+    None when no flag asks for it."""
+    from repro_torch.obs import (
+        FlightRecorder, MetricsServer, RefitDaemon, Telemetry,
+    )
+
+    if not (args.metrics_dir or args.trace_out
+            or args.metrics_port is not None
+            or args.slo_p95 is not None or args.refit_every is not None):
+        return None, None, None
+    obs_dir = args.metrics_dir or "."
+    # ring mode: the flight recorder wants the LAST steps at a breach;
+    # the refit daemon wants every warm launch timed
+    tel = Telemetry(trace_ring=args.slo_p95 is not None,
+                    launch_timing_interval=1 if args.refit_every else 8)
+    server = daemon = None
+    if args.metrics_port is not None:
+        server = MetricsServer(
+            tel, port=args.metrics_port, snapshot_dir=args.metrics_dir,
+            snapshot_interval_s=args.snapshot_interval,
+            arch=args.arch).start()
+        print(f"live metrics: {server.url()}")
+    if args.slo_p95 is not None:
+        FlightRecorder(tel, slo_p95_s=args.slo_p95, dump_dir=obs_dir)
+    if args.refit_every is not None:
+        daemon = RefitDaemon(tel, out_dir=obs_dir, min_new=args.refit_every)
+    return tel, server, daemon
+
+
+def _serve(ap, args) -> None:
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduced(cfg)
@@ -109,6 +222,7 @@ def main() -> None:
     num_pages = args.num_pages or \
         args.max_seqs * cdiv(max_model_len, cfg.page_size)
     model = weights.init_random(cfg, SEED, device=dev)
+    _load_heuristics(args, cfg)
     eng_kw = dict(max_seqs=args.max_seqs, num_pages=num_pages,
                   max_model_len=max_model_len,
                   enable_prefix_caching=args.prefix_caching,
@@ -125,8 +239,9 @@ def main() -> None:
         size=int(rng.integers(args.min_prompt, args.max_prompt + 1)))))
         for _ in range(args.num_requests + 1)]
 
-    def run(prompts: list[list[int]], profile: bool = False):
-        eng = Engine(cfg, model, **eng_kw)
+    def run(prompts: list[list[int]], profile: bool = False, tel=None,
+            daemon=None):
+        eng = Engine(cfg, model, telemetry=tel, refit=daemon, **eng_kw)
         reqs = [Request(prompt=list(p), max_new_tokens=args.max_new_tokens)
                 for p in prompts]
         t_submit: dict[int, float] = {}
@@ -141,7 +256,16 @@ def main() -> None:
         return eng, reqs, t_submit, t_done, time.perf_counter() - t0, prof
 
     run(prompts[:1])  # warm-up on a throwaway engine: handles, allocator
-    eng, reqs, t_submit, t_done, dt, _ = run(prompts[1:])
+    tel, server, daemon = _observers(args)
+    try:
+        eng, reqs, t_submit, t_done, dt, _ = run(prompts[1:], tel=tel,
+                                                 daemon=daemon)
+    finally:
+        # the artifacts of a cut run are what one refits or debugs from
+        if server is not None:
+            server.stop()
+        if tel is not None:
+            _export(args, tel)
     lat = np.asarray([t_done[i] - t_submit[i] for i in t_submit])
     total_toks = sum(len(r.output) for r in reqs)
     prompt_toks = sum(r.num_prompt_tokens for r in reqs)
@@ -173,12 +297,51 @@ def main() -> None:
     print(f"compile_events: {len(eng.compile_events)}  cuda graphs: "
           f"{gs['captures']} captured ({gs['capture_s']:.3f}s capturing), "
           f"{gs['replays']} replays")
+    if args.chunked_prefill or args.max_prefill_tokens == "auto":
+        print(f"max_prefill_tokens: {eng.max_prefill_tokens}")
+    if tel is not None:
+        _report_telemetry(tel, daemon)
     if args.profile:
         # the same requests again under the profiler (which slows the
         # host several-fold): device time by kernel, idle share against
         # the unprofiled wall time above
         *_, dt_prof, prof = run(prompts[1:], profile=True)
         report(prof, dt, dt_prof)
+
+
+def _export(args, tel) -> None:
+    if args.metrics_dir:
+        os.makedirs(args.metrics_dir, exist_ok=True)
+        tel.export_prometheus(os.path.join(args.metrics_dir, "metrics.prom"))
+        tel.write_snapshot(os.path.join(args.metrics_dir, "metrics.jsonl"),
+                           arch=args.arch)
+        grid = os.path.join(args.metrics_dir, "latency_grid.json")
+        tel.export_latency_grid(grid)
+        print(f"metrics -> {args.metrics_dir}/ (refit: python -m "
+              f"repro_torch.launch.autotune --refit-from {grid})")
+    if args.trace_out:
+        tel.export_trace(args.trace_out)
+        print(f"trace -> {args.trace_out} (open at https://ui.perfetto.dev)")
+
+
+def _report_telemetry(tel, daemon) -> None:
+    s = tel.summary()
+    ms = lambda v: "n/a" if v is None else f"{v * 1e3:.3f} ms"  # noqa: E731
+    print(f"telemetry: ttft p50 {ms(s['ttft_p50'])} p95 {ms(s['ttft_p95'])}"
+          f", itl p50 {ms(s['itl_p50'])} p95 {ms(s['itl_p95'])}, step p50 "
+          f"{ms(s['step_p50'])} p95 {ms(s['step_p95'])}, padding waste "
+          f"{s['padding_waste']:.1%}")
+    if tel.flight is not None:
+        n = len(tel.flight.dumps)
+        where = f" (last: {tel.flight.dumps[-1]}*)" if n else ""
+        print(f"flight recorder: rolling p95 "
+              f"{(tel.flight.rolling_p95() or 0) * 1e3:.3f} ms against the "
+              f"SLO {tel.flight.slo_p95_s * 1e3:.3f} ms, {n} dump(s){where}")
+    if daemon is not None:
+        rep = daemon.report()
+        print(f"online refit: {rep['refits']} refit(s), {rep['swaps']} "
+              f"hot-swap(s) at steps {rep['swap_steps']}"
+              + (f", tree: {rep['last_path']}" if rep["last_path"] else ""))
 
 
 def _drive(eng, pending, rate, t_submit, t_done) -> None:

@@ -105,12 +105,28 @@ always carry the wider outputs, and its noise buffer is
 [2 * max_seqs * (K + 1), V].  `stream()` steps synchronously: step N's
 accept counts decide step N+1's metadata.
 
-Not ported yet (see ROADMAP.md): telemetry / refit, autotuned chunk
-budgets and the tp executor.
+Telemetry (`Engine(telemetry=obs.Telemetry(...))`): the reference's
+hooks at the reference's sites.  Step phases (schedule, pack, launch,
+sample, host, overlap) are timed on the host around the same regions;
+the scheduler and prefix cache count their events; each launch records
+its kind, profile and KernelConfig, and every `launch_timing_interval`-th
+warm launch (every first launch of a key, a capture, always) is timed by
+synchronising the stream on its output, the counterpart of the
+reference's `block_until_ready`.  Warm timed launches build the latency
+grid, each entry stamped with `_exe_cost`'s analytic count of its key's
+work.  Without telemetry no hook runs and nothing synchronises.  A
+`RefitDaemon` (`refit=`) refits the heuristics trees from that grid and
+hot-swaps them between steps (`_finish_padded`); a configuration a new
+tree picks captures its graph at first use, as any new key does.
+`max_prefill_tokens="auto"` takes a loaded tree's exported budget, else
+the Hopper cost model's (`autotune.costmodel`).
+
+Not ported yet (see ROADMAP.md): the tp executor.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -143,6 +159,8 @@ class _PackedLaunch:
     # row that samples: the epoch lets the async loop discard rows whose
     # request was preempted while the launch was in flight
     rows: list[tuple[Request, int, int]]
+    prefill_reqs: list[Request]  # the chunk rows' requests (telemetry)
+    profile: heuristics.BatchProfile
     kcfg: heuristics.KernelConfig
     tokens: int  # launched token-bucket width
     # per-row host arrays [S] of the sampler: temperature, top_p, top_k,
@@ -159,6 +177,7 @@ class _Inflight:
     yet (the async loop's double-buffer slot)."""
     dec: object  # the scheduler's decision
     stats: dict
+    t0: float  # the step's start on the telemetry clock (0 without)
     pack: _PackedLaunch | None = None
     # the launch's device ids ([S]; [S, K+2] on a speculative engine)
     toks: torch.Tensor | None = None
@@ -176,7 +195,7 @@ class Engine:
         max_seqs: int = 8,
         num_pages: int = 128,
         max_model_len: int = 2048,
-        max_prefill_tokens: int = 8192,
+        max_prefill_tokens: int | str = 8192,
         enable_prefix_caching: bool = False,
         enable_chunked_prefill: bool = False,
         packed_attention: bool = True,
@@ -187,11 +206,33 @@ class Engine:
         seed: int = 0,
         debug_logits: bool = False,
         cuda_graphs: bool = True,
+        telemetry=None,
+        refit=None,
         device="cuda",
     ):
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        # obs.Telemetry | None.  None (the default) disables every hook
+        # and the timing synchronisations: the serving loop stays exactly
+        # as asynchronous as without it.
+        self.telemetry = telemetry
+        # obs.RefitDaemon | None: after every finished step the engine
+        # applies any pending heuristics hot-swap (and, in the daemon's
+        # inline mode, evaluates its refit trigger); swaps happen only
+        # BETWEEN steps, so a step never sees two trees.
+        self.refit = refit
+        if refit is not None and (telemetry is None
+                                  or refit.telemetry is not telemetry):
+            raise ValueError("the refit daemon must watch this engine's "
+                             "telemetry")
+        if telemetry is not None:
+            telemetry.set_arch(
+                num_q_heads=cfg.num_q_heads,
+                num_kv_heads=max(cfg.num_kv_heads, 1),
+                head_dim=cfg.resolved_head_dim,
+                page_size=cfg.page_size,
+                tp=1)
         self.max_seqs = max_seqs
         self.num_pages = num_pages
         self.pages_per_seq = cdiv(max_model_len, cfg.page_size)
@@ -240,15 +281,36 @@ class Engine:
         self._group = max(1, cfg.num_q_heads // max(cfg.num_kv_heads, 1))
         self.dispatch_counts: collections.Counter = collections.Counter()
         self._last_dispatch: dict[str, dict] = {}
+        if max_prefill_tokens == "auto":
+            # chunk-size autotuner: the per-step budget from the cost
+            # model's decode-latency roofline (a loaded tree's export wins)
+            from repro_torch.autotune.costmodel import \
+                suggest_max_prefill_tokens
+            max_prefill_tokens = (
+                heuristics.suggested_max_prefill_tokens()
+                or suggest_max_prefill_tokens(
+                    num_q_heads=cfg.num_q_heads,
+                    num_kv_heads=max(cfg.num_kv_heads, 1),
+                    head_dim=cfg.resolved_head_dim,
+                    page_size=cfg.page_size, max_seqs=max_seqs,
+                    target_context=max_model_len))
+            if not enable_chunked_prefill:
+                # unchunked, the budget gates whole prompts: a prompt
+                # longer than it would wait forever, so admit any prompt
+                # that fits a sequence
+                max_prefill_tokens = max(max_prefill_tokens, max_model_len)
+            log.info("engine: autotuned max_prefill_tokens=%d",
+                     max_prefill_tokens)
         self.max_prefill_tokens = max_prefill_tokens
         self.alloc = RefCountedPageAllocator(num_pages, cfg.page_size)
-        self.prefix_cache = (PrefixCache(self.alloc, cfg.page_size)
+        self.prefix_cache = (PrefixCache(self.alloc, cfg.page_size,
+                                         telemetry=telemetry)
                              if enable_prefix_caching else None)
         self.sched = Scheduler(self.alloc, max_seqs=max_seqs,
                                max_prefill_tokens=max_prefill_tokens,
                                prefix_cache=self.prefix_cache,
                                enable_chunked_prefill=enable_chunked_prefill,
-                               drafter=self.drafter)
+                               telemetry=telemetry, drafter=self.drafter)
         self.cache = M.make_cache(cfg, max_seqs=max_seqs,
                                   num_pages=num_pages, device=self.device)
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
@@ -270,6 +332,9 @@ class Engine:
         # the executable cache: key -> entry, one compile event a key
         self.compile_events: list[tuple] = []  # (kind, b, s, kcfg)/capture
         self._compiled: dict[tuple, object] = {}
+        # key -> {"flops", "bytes_accessed"}: `_exe_cost`, stamped once
+        # per key (telemetry only)
+        self._launch_costs: dict[tuple, dict] = {}
         # CUDA graphs: the card only; one memory pool and one capture
         # stream for all of the engine's graphs
         self._graphs = cuda_graphs and self.device.type == "cuda"
@@ -360,6 +425,106 @@ class Engine:
                      kernel_cfg=kcfg)
 
     # ------------------------------------------------------------------
+    # device-side timing (telemetry only)
+    # ------------------------------------------------------------------
+
+    def _launch_ctx(self, kind: str):
+        """`torch.profiler.record_function("repro.launch.<kind>")` around
+        a launch, so a device profile (`serve --profile`) attributes
+        device time to the launch kind; a no-op without telemetry."""
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"repro.launch.{kind}")
+
+    @staticmethod
+    def _wait(out: torch.Tensor) -> None:
+        """A timed launch's barrier: the host waits until the stream that
+        produced `out` has run it (the reference's `block_until_ready`)."""
+        if out.is_cuda:
+            torch.cuda.current_stream(out.device).synchronize()
+
+    @functools.cached_property
+    def _matrix_params(self) -> int:
+        """Weights each token's row is multiplied by once: every matrix of
+        the model but the embedding and the head, the hybrid's shared
+        block once per invocation."""
+        skip = ("embed", "lm_head")
+        n = sum(p.numel() for name, p in self.model.named_parameters()
+                if p.ndim >= 2 and not name.startswith(skip))
+        if self.cfg.family == "hybrid":
+            n += (M.attn_layer_count(self.cfg) - 1) * sum(
+                p.numel() for p in self.model.shared.parameters()
+                if p.ndim >= 2)
+        return n
+
+    def _exe_cost(self, key: tuple) -> dict:
+        """Analytic work of the static launch behind executable-cache key
+        `key` = (kind, b, s, kcfg), memoised per key.  The reference
+        stamps XLA's `cost_analysis` of the executable here; PyTorch has
+        none, so this counts what the key's launch is shaped for, whatever
+        rows of it are live:
+
+          flops  2 x rows x (the model's matrix weights) for the
+                 projections and MLPs, 2 x seqs x d_model x vocab for the
+                 head, and 4 x rows x width x Hq x D per attention layer
+                 (QK and PV over the static page-table width)
+          bytes  the weights once, K and V of the static width per
+                 attention layer, a layer's activations in and out per
+                 row, and the fp32 logits
+
+        where rows is the token bucket (unified: s; decode: b; prefill:
+        b x s), seqs the batch rows (b) and width the page table's keys
+        (`pages_per_seq` pages; a resumed prefill's `np{n}` bucket: n).
+        Every grid entry then carries `flops` and `bytes_accessed`, the
+        device-time floor `tune.refit_from_telemetry` splits host
+        overhead against."""
+        cost = self._launch_costs.get(key)
+        if cost is not None:
+            return cost
+        kind, b, s, _ = key
+        cfg = self.cfg
+        rows = {"unified": s, "decode": b}.get(kind, b * s)
+        pages = self.pages_per_seq
+        if kind.startswith("prefill_cached/np"):
+            pages = int(kind.rsplit("np", 1)[1])
+        width = pages * cfg.page_size
+        n_attn = M.attn_layer_count(cfg)
+        hd = cfg.resolved_head_dim
+        item = self.model.embed.element_size()
+        flops = (2.0 * rows * self._matrix_params
+                 + 2.0 * b * cfg.d_model * cfg.vocab_size
+                 + 4.0 * rows * width * cfg.num_q_heads * hd * n_attn)
+        weights = sum(p.numel() for p in self.model.parameters()) * item
+        kv = 2.0 * b * width * max(cfg.num_kv_heads, 1) * hd * item * n_attn
+        acts = 2.0 * rows * cfg.d_model * item * cfg.num_layers
+        cost = {"flops": flops,
+                "bytes_accessed": weights + kv + acts
+                + 4.0 * b * cfg.vocab_size}
+        self._launch_costs[key] = cost
+        return cost
+
+    def _record_launch(self, kind: str, key: tuple, profile, kcfg,
+                       t_launch: float, out: torch.Tensor, pre: int, *,
+                       tokens: int, grid_phase: str | None = None) -> None:
+        """Telemetry of one launch (the reference's per-site block): a
+        first launch of a key (a capture: `compile_events` grew past
+        `pre`) is always timed, a warm one every `launch_timing_interval`
+        launches; a timed launch waits for `out` before its end time.
+        The key's cost is stamped after the record, so it never counts in
+        the launch's time."""
+        tel = self.telemetry
+        compiled = len(self.compile_events) > pre
+        timed = compiled or tel.time_this_launch()
+        if timed:
+            self._wait(out)
+        tel.record_launch(kind, profile, kcfg, t_launch, tel.clock.now(),
+                          compiled=compiled, tokens=tokens,
+                          grid_phase=grid_phase, timed=timed,
+                          cost=self._launch_costs.get(key))
+        if compiled:
+            self._exe_cost(key)
+
+    # ------------------------------------------------------------------
     # kernel-config dispatch (paper Fig. 5: profile -> tree -> config)
     # ------------------------------------------------------------------
 
@@ -418,6 +583,8 @@ class Engine:
                     phase, heuristics.prefill_config)
         kcfg = heuristics.validate(pick(profile), self.cfg.page_size)
         self.dispatch_counts[(phase, kcfg.variant)] += 1
+        if self.telemetry is not None:
+            self.telemetry.record_dispatch(phase, kcfg.variant)
         self._last_dispatch[phase] = {
             "variant": kcfg.variant, "tile": kcfg.tile,
             "num_segments": kcfg.num_segments, "block_q": kcfg.block_q,
@@ -558,7 +725,8 @@ class Engine:
     # ------------------------------------------------------------------
 
     def step(self) -> dict:
-        flight = self._schedule_and_pack()
+        tel = self.telemetry
+        flight = self._schedule_and_pack(tel.clock.now() if tel else 0.0)
         if self._packed:
             return self._finish_step(flight)
         # the padded per-kind step: each launch samples its own rows
@@ -575,14 +743,21 @@ class Engine:
         flight.stats["dispatch"] = dict(self._last_dispatch)
         return self._finish_padded(flight)
 
-    def _schedule_and_pack(self, prev_rows: dict[int, int] | None = None,
+    def _schedule_and_pack(self, t_step: float,
+                           prev_rows: dict[int, int] | None = None,
                            prev_toks: torch.Tensor | None = None) \
             -> _Inflight:
         """The front half of a step, shared by `step()` and
         `_begin_step()`: schedule, account, update the page tables and, on
-        the packed step, pack and DISPATCH, with no wait on the card."""
+        the packed step, pack and DISPATCH, with no wait on the card.
+        `t_step`: the step's start on the telemetry clock."""
+        tel = self.telemetry
         self._last_dispatch = {}
         dec = self.sched.step(self.step_idx)
+        if tel:
+            tel.record_phase("schedule", t_step, tel.clock.now(),
+                             decode=len(dec.decode_reqs),
+                             prefill=len(dec.prefill_reqs))
         new_tokens = dec.scheduled_prefill_tokens
         # cached tokens count on a request's first chunk (the one starting
         # at the matched prefix); later chunks start past it
@@ -607,7 +782,7 @@ class Engine:
         for req in dec.decode_reqs:  # page growth
             row = self.page_table[req.slot]
             row[: len(req.pages)] = req.pages
-        flight = _Inflight(dec=dec, stats=stats)
+        flight = _Inflight(dec=dec, stats=stats, t0=t_step)
         if self._packed and (dec.decode_reqs or dec.prefill_reqs):
             batch, flight.pack = self._pack_unified(
                 dec.decode_reqs, dec.prefill_reqs, prev_rows=prev_rows)
@@ -630,6 +805,8 @@ class Engine:
         a PENDING_TOKEN placeholder, so every length, paging and
         max_new_tokens computation sees the state after step N; its
         decode row reads the token on the card from `prev`'s ids."""
+        tel = self.telemetry
+        t0 = tel.clock.now() if tel else 0.0
         prev_rows: dict[int, int] = {}
         if prev is not None and prev.pack is not None:
             for r, row, epoch in prev.pack.rows:
@@ -640,19 +817,29 @@ class Engine:
                 if not r._placeholder:
                     r.output.append(PENDING_TOKEN)
                     r._placeholder = True
-        return self._schedule_and_pack(
-            prev_rows=prev_rows,
+        flight = self._schedule_and_pack(
+            t0, prev_rows=prev_rows,
             prev_toks=prev.toks if prev is not None else None)
+        if tel and prev is not None and prev.pack is not None:
+            # the host work above ran while the previous launch was still
+            # on the card
+            tel.record_phase("overlap", t0, tel.clock.now())
+        return flight
 
     def _finish_step(self, flight: _Inflight) -> dict:
         """The back half of a packed step: wait for the launch's sampled
         ids, fold them into request state, then the step's epilogue."""
+        tel = self.telemetry
         self._emitted = []
         self._step_spec = (0, 0, 0)
         if flight.pack is not None:
             if self._debug_logits:
                 self.last_step_logits = flight.logits
-            self._consume_unified(flight.pack, self._host_tokens(flight))
+            t_sample = tel.clock.now() if tel else 0.0
+            toks = self._host_tokens(flight)
+            if tel:
+                tel.record_phase("sample", t_sample, tel.clock.now())
+            self._consume_unified(flight.pack, toks)
         if self._spec:
             (flight.stats["spec_proposed"], flight.stats["spec_accepted"],
              flight.stats["spec_emitted"]) = self._step_spec
@@ -662,8 +849,12 @@ class Engine:
         """The epilogue of a step (on the padded step, its whole back
         half: its runners emitted their tokens): finishes, then stats.  A
         request whose last token is still in flight (an unfilled
-        placeholder) finishes next step, once the token lands."""
+        placeholder) finishes next step, once the token lands.  Then the
+        step's telemetry, and the refit daemon's step boundary: a pending
+        tree is swapped in here, between steps."""
+        tel = self.telemetry
         stats = flight.stats
+        t_host = tel.clock.now() if tel else 0.0
         for req in list(self.sched.running):
             if req.prefill_done and req.done and not req._placeholder:
                 slot = req.slot  # finish() releases the slot
@@ -672,6 +863,14 @@ class Engine:
                     self.page_table[slot] = 0
         stats["pool"] = self.alloc.mesh_stats(1)
         stats["sampled_tokens"] = len(self._emitted)
+        if tel:
+            t_end = tel.clock.now()
+            tel.record_phase("host", t_host, t_end)
+            tel.record_step(t0=flight.t0, t1=t_end, decision=flight.dec,
+                            stats=stats, engine=self)
+        if self.refit is not None:  # hot-swap boundary (obs.refit)
+            self.refit.on_step(self)
+            stats["refit_swaps"] = self.refit.swaps
         self.step_idx += 1
         self.last_step_stats = stats
         return stats
@@ -708,6 +907,8 @@ class Engine:
         request's `context_len` advances here; a spec row's to the
         minimum its launch surely writes (total_len), which
         `_consume_unified` finalizes."""
+        tel = self.telemetry
+        t_pack = tel.clock.now() if tel else 0.0
         ms = self.max_seqs
         ps = self.cfg.page_size
         bucket = lambda r: next_power_of_2(max(r.total_len, 1))  # noqa: E731
@@ -790,7 +991,8 @@ class Engine:
 
         kcfg = self._dispatch("unified", profile)
         rows_sampling = self._sampling_rows(s, [(i, r) for r, i, _ in rows])
-        pack = _PackedLaunch(rows=rows, kcfg=kcfg, tokens=t,
+        pack = _PackedLaunch(rows=rows, prefill_reqs=list(prefill_reqs),
+                             profile=profile, kcfg=kcfg, tokens=t,
                              sampling=rows_sampling, spec_lens=spec_lens)
         batch = {"inputs": tokens, "positions": pos, "page_table": pt,
                  "context_lens": ctx, "query_lens": qlens,
@@ -801,6 +1003,8 @@ class Engine:
             batch.update(temperature=temps, top_p=topp, top_k=topk)
         if self._spec:
             batch["spec_lens"] = spec_lens
+        if tel:
+            tel.record_phase("pack", t_pack, tel.clock.now(), tokens=t)
         return batch, pack
 
     def _draw_noise(self, pack: _PackedLaunch) -> None:
@@ -831,18 +1035,28 @@ class Engine:
         `prev_tokens`), the host buffer they are copied into, and the
         debug logits.  `prev_toks`: the ids of the launch in flight, if
         any (else zeros; no row reads them then)."""
+        tel = self.telemetry
         pack = flight.pack
-        fn = self._get_fn("unified", 2 * self.max_seqs, pack.tokens,
-                          pack.kcfg)
+        pre = len(self.compile_events)
+        key = ("unified", 2 * self.max_seqs, pack.tokens, pack.kcfg)
+        fn = self._get_fn(*key)
         self.device_calls["unified"] += 1
         prev = self._no_prev if prev_toks is None else prev_toks
+        if self._fused:
+            self._draw_noise(pack)
+        t_launch = tel.clock.now() if tel else 0.0
+        with self._launch_ctx("unified"):
+            out = fn(batch, {"prev_tokens": prev})
+        if tel:
+            self._record_launch("unified", key, pack.profile, pack.kcfg,
+                                t_launch, out[0], pre, tokens=pack.tokens,
+                                grid_phase="unified")
         if not self._fused:  # the two-dispatch step samples at the finish
-            logits, = fn(batch, {"prev_tokens": prev})
+            logits, = out
             flight.logits = logits.clone() if self._debug_logits else logits
             self.launched_token_slots += pack.tokens
             return
-        self._draw_noise(pack)
-        toks, logits = fn(batch, {"prev_tokens": prev})
+        toks, logits = out
         flight.toks = toks
         flight.host = self._copies.start(toks)
         if self._debug_logits:  # a copy: a replay overwrites the buffer
@@ -876,6 +1090,7 @@ class Engine:
         are always this step's fresh refcount-1 pages (the scheduler grew
         them past the covered total_len), so rollback never frees a
         shared or cached page."""
+        tel = self.telemetry
         emitted = None
         if self._spec:
             toks, emitted = toks
@@ -885,12 +1100,16 @@ class Engine:
                 continue
             if not self._spec:
                 self._emit_token(r, int(toks[row]))
+                if tel:
+                    tel.requests.token(r)
                 continue
             k = int(pack.spec_lens[row])
             kept = 0
             for j in range(min(int(emitted[row]), k + 1)):
                 self._emit_token(r, int(toks[row, j]))
                 kept += 1
+                if tel:
+                    tel.requests.token(r)
                 if r.done:
                     break
             if k:
@@ -911,6 +1130,10 @@ class Engine:
             self.spec_stats["emitted"] += spec_emitted
             if spec_rows:
                 self.spec_stats["steps"] += 1
+        if tel:
+            for r in pack.prefill_reqs:
+                if r.state in (State.PREFILLING, State.RUNNING):
+                    tel.requests.chunk(r)
 
     # ------------------------------------------------------------------
     # the padded per-kind step
@@ -926,16 +1149,26 @@ class Engine:
     def _finish_chunk(self, reqs: list[Request], logits: torch.Tensor) \
             -> None:
         """Advance progress; sample first tokens for prompts now complete."""
+        tel = self.telemetry
         done = [(i, r) for i, r in enumerate(reqs)
                 if r.chunk_start + r.num_scheduled_tokens
                 == r.num_prompt_tokens]
         if done:
+            t_sample = tel.clock.now() if tel else 0.0
             toks = self._sample(
                 logits, self._sampling_rows(logits.shape[0], done))
             for i, r in done:
                 self._emit_token(r, int(toks[i]))
+            if tel:
+                tel.record_phase("sample", t_sample, tel.clock.now())
         for r in reqs:
             r.context_len = r.chunk_start + r.num_scheduled_tokens
+        if tel:
+            done_ids = {r.req_id for _, r in done}
+            for r in reqs:
+                tel.requests.chunk(r)
+                if r.req_id in done_ids:
+                    tel.requests.token(r)
 
     def _run_prefill(self, reqs: list[Request]) -> None:
         """One scheduled chunk per request: chunks at context 0 (a fresh
@@ -965,6 +1198,8 @@ class Engine:
         key is recorded in `compile_events`, but the entry stays eager,
         also on the card (each bucket recurs rarely, so a capture would
         seldom pay back)."""
+        tel = self.telemetry
+        t_pack = tel.clock.now() if tel else 0.0
         b = next_power_of_2(len(reqs))
         max_chunk = max(r.num_scheduled_tokens for r in reqs)
         s = max(next_power_of_2(max_chunk), self.cfg.page_size)
@@ -980,26 +1215,33 @@ class Engine:
             ctx[i] = r.chunk_start + n
             pos[i] += r.chunk_start
             pt[i] = self.page_table[r.slot][:np_b]
-        kcfg = self._dispatch(phase, self._prefill_profile(reqs))
+        profile = self._prefill_profile(reqs)
+        kcfg = self._dispatch(phase, profile)
         kind = phase if phase == "prefill" else f"{phase}/np{np_b}"
-        fn = self._get_fn(kind, b, s, kcfg)
+        pre = len(self.compile_events)
+        key = (kind, b, s, kcfg)
+        fn = self._get_fn(*key)
         self.device_calls[phase] += 1
-        self._run_chunks(reqs, fn, b * s, {
-            "inputs": tokens, "positions": pos, "page_table": pt,
-            "context_lens": ctx, "query_lens": qlens})
-
-    def _run_chunks(self, reqs: list[Request], fn, slots: int,
-                    batch: dict) -> None:
-        """Run one padded prefill entry over `reqs`' chunks: merge the
-        recurrent rows back, sample the prompts it completes."""
-        logits, new_cache = fn(batch)
+        batch = {"inputs": tokens, "positions": pos, "page_table": pt,
+                 "context_lens": ctx, "query_lens": qlens}
+        if tel:
+            t_launch = tel.clock.now()
+            tel.record_phase("pack", t_pack, t_launch, tokens=b * s)
+        with self._launch_ctx(phase):
+            logits, new_cache = fn(batch)
+        if tel:
+            self._record_launch(phase, key, profile, kcfg, t_launch, logits,
+                                pre, tokens=b * s, grid_phase="prefill")
         if self._debug_logits:
             self._step_logits.append(logits)
-        self.launched_token_slots += slots
+        self.launched_token_slots += b * s
+        # merge the recurrent rows back, sample the prompts it completes
         self._merge_prefill_cache(new_cache, [r.slot for r in reqs])
         self._finish_chunk(reqs, logits)
 
     def _run_decode(self, reqs: list[Request]) -> None:
+        tel = self.telemetry
+        t_pack = tel.clock.now() if tel else 0.0
         b = self.max_seqs  # static decode batch (paper C5)
         tokens = np.zeros((b, 1), np.int64)
         pos = np.full((b, 1), -1, np.int64)
@@ -1008,20 +1250,35 @@ class Engine:
             tokens[r.slot, 0] = r.output[-1] if r.output else r.prompt[-1]
             pos[r.slot, 0] = r.total_len - 1
             ctx[r.slot] = r.total_len
-        kcfg = self._dispatch("decode", self._decode_profile(reqs))
-        fn = self._get_fn("decode", b, 1, kcfg)
+        profile = self._decode_profile(reqs)
+        kcfg = self._dispatch("decode", profile)
+        pre = len(self.compile_events)
+        key = ("decode", b, 1, kcfg)
+        fn = self._get_fn(*key)
         self.device_calls["decode"] += 1
-        logits, = fn({"inputs": tokens, "positions": pos,
-                      "page_table": self.page_table.copy(),
-                      "context_lens": ctx})
+        batch = {"inputs": tokens, "positions": pos,
+                 "page_table": self.page_table.copy(), "context_lens": ctx}
+        if tel:
+            t_launch = tel.clock.now()
+            tel.record_phase("pack", t_pack, t_launch, tokens=b)
+        with self._launch_ctx("decode"):
+            logits, = fn(batch)
+        if tel:
+            self._record_launch("decode", key, profile, kcfg, t_launch,
+                                logits, pre, tokens=b)
         if self._debug_logits:  # a copy: a replay overwrites the buffer
             self._step_logits.append(logits.clone())
         self.launched_token_slots += b
+        t_sample = tel.clock.now() if tel else 0.0
         toks = self._sample(
             logits, self._sampling_rows(b, [(r.slot, r) for r in reqs]))
+        if tel:
+            tel.record_phase("sample", t_sample, tel.clock.now())
         for r in reqs:
             r.context_len = r.total_len
             self._emit_token(r, int(toks[r.slot]))
+            if tel:
+                tel.requests.token(r)
 
     # ------------------------------------------------------------------
     # slot-indexed (SSM) cache plumbing

@@ -1139,3 +1139,153 @@ def test_async_pinned_buffers_alternate_across_preemption(cuda):
     assert any(len(r.prompt) > n for r, n in zip(a["reqs"],
                                                  (40, 33, 47, 20)))
     assert a["eng"].graph_stats["replays"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the autotune loop on the card: every configuration of the spaces, the
+# graphed timing, telemetry and the online refit
+# ---------------------------------------------------------------------------
+
+# the spaces at the heads of the models the engine serves (packed smollm,
+# padded zamba2's attention) and qwen2.5-3b's (D 128, group 8)
+TUNE_GEOMETRIES = {"smollm-135m": ("unified", "prefill"),
+                   "zamba2-1.2b": ("decode", "prefill"),
+                   "qwen2.5-3b": ("decode", "prefill")}
+
+
+def _tune_call(space, x, cfg):
+    nd = 8  # decode rows first, then a resumed and a fresh chunk
+    if space == "decode":
+        return ops.paged_attention_decode(
+            x["q"][:nd], x["k"], x["v"], x["pt"][:nd], x["ctx"][:nd],
+            variant=cfg.variant, tile=cfg.tile,
+            num_segments=cfg.num_segments)
+    if space == "prefill":
+        return ops.paged_attention_prefill(
+            x["q"][nd:], x["k"], x["v"], x["pt"][nd:], x["ctx"][nd:],
+            x["qsl"][nd:] - nd, x["qlens"][nd:], block_q=cfg.block_q,
+            tile=cfg.tile)
+    return ops.paged_attention_unified(
+        x["q"], x["k"], x["v"], x["pt"], x["ctx"], x["qsl"], x["qlens"],
+        num_decode_seqs=nd, variant=cfg.variant, tile=cfg.tile,
+        num_segments=cfg.num_segments, block_q=cfg.block_q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(TUNE_GEOMETRIES))
+def test_every_tuned_configuration_matches_plain(cuda, monkeypatch, arch,
+                                                 dtype):
+    """Every KernelConfig of the sweep's spaces, through the ops the
+    engine and the sweep call, against the same ops on the plain
+    versions: 8 decode rows at contexts 0-2048, a chunk of 200 rows
+    resumed at context 1112 and a fresh one of 100.  A configuration may
+    be refused only before launch, by a documented limit
+    (`LaunchLimitError`: the fp32 prefill's shared memory)."""
+    from repro_torch.autotune import microbench as MB
+    from repro_torch.kernels._common import LaunchLimitError
+
+    cfg = ARCHS[arch]
+    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
+    group = cfg.num_q_heads // hkv
+    ctx = [0, 1, 17, 100, 511, 1000, 1500, 2048, 1312, 100]
+    qlens = [1] * 8 + [200, 100]
+    q, kp, vp, pt, ctx_t = _case(cuda, dtype, hkv, group, cfg.page_size,
+                                 ctx, d=d, seed=5)
+    g = torch.Generator().manual_seed(6)
+    x = dict(q=torch.randn((sum(qlens), hkv * group, d), generator=g)
+             .to(dtype).to(cuda), k=kp, v=vp, pt=pt, ctx=ctx_t,
+             qsl=torch.tensor(np.cumsum([0] + qlens), dtype=torch.int32,
+                              device=cuda),
+             qlens=torch.tensor(qlens, dtype=torch.int32, device=cuda))
+    spaces = {"decode": MB.DECODE_SPACE, "prefill": MB.PREFILL_SPACE,
+              "unified": MB.UNIFIED_SPACE}
+    refused = []
+    for space in TUNE_GEOMETRIES[arch]:
+        for kcfg in spaces[space]:
+            try:
+                got = _tune_call(space, x, kcfg)
+            except LaunchLimitError:
+                refused.append((space, kcfg))
+                continue
+            with monkeypatch.context() as m:
+                for name in ("paged_decode", "paged_decode_segmented_merged",
+                             "paged_prefill_qblock"):
+                    m.setattr(K, name, getattr(K, name + "_plain"))
+                want = _tune_call(space, x, kcfg)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (space, kcfg, err)
+            if space != "prefill":
+                assert bool((got[0] == 0).all()), (space, kcfg)
+    # only the fp32 prefill at qwen2.5-3b's 8-query groups outgrows a
+    # block's shared memory (block_q 32 / 64: 256 / 512 rows of D 128)
+    want_refused = [("prefill", c) for c in MB.PREFILL_SPACE
+                    if c.block_q >= 32] \
+        if (arch, dtype) == ("qwen2.5-3b", torch.float32) else []
+    assert refused == want_refused
+
+
+def test_graphed_measurements_are_device_times(cuda):
+    """`_measure_on_device` and `_measure_unified_on_device` time the
+    launches replayed in a CUDA graph: finite, positive, and the decode
+    of 8 sequences of 2048 keys slower than of 1 of 64."""
+    from repro_torch.autotune import costmodel as C
+    from repro_torch.autotune import microbench as MB
+    from repro_torch.core.attention.heuristics import KernelConfig
+
+    def sc(ctx, q):
+        return C.Scenario(num_seqs=len(ctx), context_lens=tuple(ctx),
+                          query_lens=tuple(q), num_q_heads=9,
+                          num_kv_heads=3, head_dim=64, page_size=16)
+
+    seg = KernelConfig("segmented", tile=16, num_segments=8, block_q=32)
+    small = MB._measure_on_device(sc([64], [1]), seg, warmup=2, iters=5)
+    big = MB._measure_on_device(sc([2048] * 8, [1] * 8), seg, warmup=2,
+                                iters=5)
+    pre = MB._measure_on_device(sc([300, 700], [300, 200]), seg, warmup=2,
+                                iters=5)
+    uni = MB._measure_unified_on_device(sc([900, 300, 700], [1, 300, 200]),
+                                        seg, warmup=2, iters=5)
+    for t in (small, big, pre, uni):
+        assert np.isfinite(t) and t > 0
+    assert big > small
+    assert MB.measure(sc([900, 300], [1, 300]), seg, use_hardware=True,
+                      warmup=2, iters=5) > 0
+
+
+def test_engine_with_telemetry_and_refit_matches_without(cuda, tmp_path):
+    """Reduced smollm-135m, fp32, graphs on: an engine with
+    `Telemetry(launch_timing_interval=1)` and an inline `RefitDaemon`
+    (which hot-swaps refit trees between steps) gives the tokens of the
+    same engine without them; the swaps happened, the telemetry counts
+    its steps and captures, and the grid carries costs."""
+    from repro_torch.core.attention import heuristics
+    from repro_torch.obs import RefitDaemon, Telemetry
+
+    cfg = reduced(ARCHS["smollm-135m"]).replace(dtype="float32")
+    model = weights.init_random(cfg, 0, device=cuda)
+    prompts = _prompts_for("smollm-135m", (18, 7, 24, 11), 9)
+    outs = []
+    try:
+        for observed in (False, True):
+            tel = Telemetry(launch_timing_interval=1) if observed else None
+            daemon = (RefitDaemon(tel, out_dir=str(tmp_path), min_new=3)
+                      if observed else None)
+            eng = Engine(cfg, model, device=cuda, max_seqs=4, num_pages=64,
+                         max_model_len=256, telemetry=tel, refit=daemon)
+            reqs = [Request(prompt=list(p), max_new_tokens=10)
+                    for p in prompts]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            outs.append([r.output for r in reqs])
+    finally:
+        heuristics.reset()
+    assert outs[0] == outs[1]
+    assert daemon.refits >= 1 and daemon.swaps >= 1
+    assert tel.metrics.value("repro_steps_total") == eng.step_idx
+    assert tel.metrics.value("repro_compile_events_total", kind="unified") \
+        == eng.graph_stats["captures"] == len(eng.compile_events)
+    grid = tel.latency_grid()["entries"]
+    assert grid and all(e["flops"] > 0 and e["bytes_accessed"] > 0
+                        for e in grid)
