@@ -242,6 +242,34 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               none, in turns, each engine's second run timed: replays
               only)
 
+ 21. moe      the MoE family: (a) the grouped expert GEMM
+              (`csrc/moe_grouped_gemm.cu`: gate / up fused, then down)
+              against its plain version at llama4-maverick's widths (E 128,
+              d 5120, ff 8192, bf16, atol 2e-2) and at a cut size (E 8, d
+              512, ff 1024, fp32 with TF32 off, 1e-4), at 8 and 520 rows,
+              each with uniform routing, every row on one expert, empty
+              experts and a 150-row group (three 64-row tiles); timed at 8
+              and 520 rows in bf16 beside its plain version, its bound and
+              a per-expert torch.matmul loop over host-known group sizes
+              (the yardstick, never called by the port); (b) full-width
+              llama4-maverick-400b-a17b cut to 2 of its 48 layers (bf16,
+              random weights drawn on the card, ~69.3 GB) serves phase 5's
+              8 prompts (greedy, 32 new tokens, max_seqs 8, chunked at 512)
+              through the packed fused step on CUDA graphs, then eagerly,
+              then through `submit()` + `run()`: tokens identical and
+              logits bit-equal (else within one bf16 ulp) graphs against
+              eager, `run()` bit for bit against `step()`; the grouped GEMM
+              (2 launches a MoE layer a step, every one the tensor-core
+              kernel) and every paged kernel launched; tokens/s, steps,
+              keys captured, peak memory and the replayed step's ms under
+              `run()` against `step()` logged; (c) maverick's attention
+              width (d 5120, 40 / 8 heads of D 128) with 1 layer, 8
+              experts of ff 1024 (shared ff 1024) and a vocab of 32768, fp32
+              (TF32 off): 3 greedy requests of 8 new tokens on the card
+              (eager, the fp32 kernels) and on the CPU in lockstep:
+              identical tokens, logits within 5e-3, identical expert ids
+              in every MoE call
+
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
 kernels' JSON; the last line is the result JSON.
@@ -453,6 +481,34 @@ TUNE_GRID = dict(batch_sizes=(1, 8, 64), max_lens=(128, 1024, 4096),
 TUNE_WARMUP, TUNE_ITERS = 3, 10
 # phase 20: new warm launches per (phase, profile) bucket before a refit
 OBSERVE_MIN_NEW = 2
+# phase 21: the MoE family.  The grouped expert GEMM replaces no Pallas
+# kernel: the reference computes it with jax.lax.ragged_dot in
+# moe_ffn_dropless (the "replaces" key names that line)
+MOE = "moe_grouped_gemm"
+MOE_SOURCE = "src/repro_torch/csrc/moe_grouped_gemm.cu"
+MOE_REPLACES = "src/repro/models/moe.py:209"
+MOE_ARCH = "llama4-maverick-400b-a17b"
+# full width, 2 of its 48 layers: a MoE layer is 32.2 GB in bf16, two
+# layers with the embedding and the head ~69.3 GB of the card's 80
+MOE_LAYERS = 2
+# the kernel checks (E, d, ff, dtype, atol): maverick's widths in bf16, a
+# cut size in fp32 (TF32 off); rows 8 (a decode step) and 520 (a chunk
+# step), each with uniform routing, every row on one expert, only two
+# experts with rows (the rest empty), and a group of 150 rows (three
+# 64-row tiles) among uniform ones
+MOE_CHECK_CASES = [(128, 5120, 8192, "bfloat16", 2e-2),
+                   (8, 512, 1024, "float32", 1e-4)]
+MOE_ROUTINGS = ("uniform", "one_expert", "empty", "long")
+MOE_ROWS = (8, 520)
+MOE_LONG_GROUP = 150
+# (b): phase 5's serve trace (8 requests, prompts 128-1024, 32 new tokens,
+# max_seqs 8, chunked at 512), greedy
+MOE_NEW_TOKENS = 32
+# (c): the card against the CPU at maverick's attention width (d 5120,
+# 40 / 8 heads of D 128) in fp32, cut to 1 layer, 8 experts of ff 1024
+# (shared ff 1024) and a vocab of 32768 so that the CPU leg fits
+MOE_DIFF_CUT = dict(num_layers=1, vocab_size=32768, dtype="float32")
+MOE_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
 
 
 def log(msg: str) -> None:
@@ -1024,16 +1080,18 @@ def async_vs_sync(torch, tag, sync, streamed):
                 replayed_ms_step=1e3 * t / max(n, 1))
 
 
-def replay_cost(torch, eng, iters=20):
+def replay_cost(torch, eng, iters=20, bucket=None, top=0):
     """Where a replayed decode step's time goes on the card: the packed
-    step's decode-only graph (token bucket max_seqs) of a finished run,
-    replayed `iters` times back to back on its last inputs (the card
-    rewrites the same KV slots with the same values): its wall on the card
-    over CUDA events, against the sum of its kernels' durations and their
-    count under `torch.profiler`.  The difference is the time between the
-    graph's nodes, which no host work can fill."""
+    step's decode-only graph (token bucket max_seqs, or `bucket`) of a
+    finished run, replayed `iters` times back to back on its last inputs
+    (the card rewrites the same KV slots with the same values): its wall
+    on the card over CUDA events, against the sum of its kernels'
+    durations and their count under `torch.profiler`.  The difference is
+    the time between the graph's nodes, which no host work can fill.
+    `top` > 0 also logs that many kernels by device time."""
+    bucket = eng.max_seqs if bucket is None else bucket
     keys = [k for k in eng.compile_events
-            if k[0] == "unified" and k[2] == eng.max_seqs]
+            if k[0] == "unified" and k[2] == bucket]
     graph = eng._compiled[keys[-1]].graph
     graph.replay()
     torch.cuda.synchronize()
@@ -1050,17 +1108,23 @@ def replay_cost(torch, eng, iters=20):
         for _ in range(iters):
             graph.replay()
         torch.cuda.synchronize()
-    busy_us, kernels = 0.0, 0
+    busy_us, kernels, by_name = 0.0, 0, []
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += getattr(ev, "self_device_time_total", None) \
+            us = getattr(ev, "self_device_time_total", None) \
                 or ev.self_cuda_time_total
+            busy_us += us
             kernels += ev.count
+            by_name.append((us, ev.count, ev.key))
     busy_ms = busy_us / 1e3 / iters
-    log(f"serve decode graph {keys[-1][:3]}: replay {wall_ms:.3f} ms on the "
+    kind = "decode" if bucket == eng.max_seqs else "chunk"
+    log(f"serve {kind} graph {keys[-1][:3]}: replay {wall_ms:.3f} ms on the "
         f"card (CUDA events, {iters} back to back), its kernels "
         f"{busy_ms:.3f} ms summed ({kernels / iters:.0f} a replay, "
         f"torch.profiler): {wall_ms - busy_ms:.3f} ms between nodes")
+    for us, count, name in sorted(by_name, reverse=True)[:top]:
+        log(f"  {us / 1e3 / iters:8.3f} ms  x{count / iters:4.0f} a replay"
+            f"  {name[:90]}")
     return dict(decode_replay_ms=wall_ms, decode_kernels_ms=busy_ms,
                 decode_kernels=kernels / iters)
 
@@ -2875,6 +2939,301 @@ def telemetry_cost(torch, cfg, model, eng_kw, requests):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the MoE family (llama4-maverick) on the packed serving step
+# ---------------------------------------------------------------------------
+
+
+def moe_routing(torch, case, rows, e, g):
+    """Sorted expert ids [rows] of a routing case, drawn from `g`."""
+    dev = DEVICE
+    if case == "uniform":
+        ids = torch.randint(0, e, (rows,), generator=g)
+    elif case == "one_expert":
+        ids = torch.full((rows,), 3 % e, dtype=torch.long)
+    elif case == "empty":  # only the first and the last expert get rows
+        ids = torch.randint(0, 2, (rows,), generator=g) * (e - 1)
+    else:  # "long": one group of MOE_LONG_GROUP rows among uniform ones
+        ids = torch.cat([torch.full((MOE_LONG_GROUP,), 1, dtype=torch.long),
+                         torch.randint(0, e, (rows - MOE_LONG_GROUP,),
+                                       generator=g)])
+    return torch.sort(ids).values.to(dev)
+
+
+def moe_offsets(torch, ids, e):
+    """offsets [E + 1] int32 of sorted expert ids (host-side: the checks'
+    inputs, not the serving path's)."""
+    counts = torch.bincount(ids, minlength=e)
+    return torch.cat([torch.zeros(1, dtype=torch.long, device=ids.device),
+                      counts.cumsum(0)]).to(torch.int32)
+
+
+def moe_weights(torch, e, d, ff, dtype, g):
+    """w_gate, w_up [E, d, ff] and w_down [E, ff, d], drawn on the card at
+    the reference's init scale (std d ** -0.5, ff ** -0.5)."""
+    return [(torch.randn(shape, generator=g, device=DEVICE) * fan ** -0.5
+             ).to(dtype) for shape, fan in (((e, d, ff), d), ((e, d, ff), d),
+                                            ((e, ff, d), ff))]
+
+
+def phase_moe_check(torch, GK):
+    """21 (a): the grouped GEMM (both launches: gate / up fused, then
+    down) against its plain version on the same inputs, at every case of
+    MOE_CHECK_CASES x MOE_ROWS x MOE_ROUTINGS; h and ys each within the
+    case's atol.  Returns (the worst error, the bf16 case's weights for
+    the timing)."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    gh = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    worst, kept = 0.0, None
+    for e, d, ff, dtype_name, atol in MOE_CHECK_CASES:
+        dtype = getattr(torch, dtype_name)
+        wg, wu, wd = moe_weights(torch, e, d, ff, dtype, g)
+        for rows in MOE_ROWS:
+            for case in MOE_ROUTINGS:
+                if case == "long" and rows <= MOE_LONG_GROUP:
+                    continue
+                off = moe_offsets(torch, moe_routing(torch, case, rows, e,
+                                                     gh), e)
+                xs = torch.randn((rows, d), generator=g,
+                                 device=DEVICE).to(dtype)
+                h = GK.grouped_gemm(xs, wg, off, wu)
+                ys = GK.grouped_gemm(h, wd, off)
+                h_plain = GK.grouped_gemm_plain(xs, wg, off, wu)
+                ys_plain = GK.grouped_gemm_plain(h, wd, off)
+                torch.cuda.synchronize()
+                err_h = max_err(torch, MOE, h, h_plain)
+                err_y = max_err(torch, MOE, ys, ys_plain)
+                log(f"check {MOE:18s} E {e} d {d} ff {ff} {dtype_name} "
+                    f"rows {rows} {case:10s}: max_abs_err h {err_h:.3e} "
+                    f"ys {err_y:.3e} (atol {atol:g}, max |ys| "
+                    f"{float(ys_plain.float().abs().max()):.3f})")
+                if not (err_h <= atol and err_y <= atol):
+                    raise AssertionError(f"{MOE} {dtype_name} rows {rows} "
+                                         f"{case}: error {err_h} / {err_y} "
+                                         f"> {atol}")
+                worst = max(worst, err_h, err_y)
+        if dtype_name == "bfloat16":
+            kept = (wg, wu, wd)
+        del wg, wu, wd
+    return worst, kept
+
+
+def moe_bound(rows, touched, d, ff, dtype_name):
+    """(bound_ms, bound_by) of the grouped GEMM pair: the touched experts'
+    three weight matrices, xs read and ys written once, against 2 x rows x
+    3 x d x ff operations."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    nbytes = touched * 3 * d * ff * e + 2 * rows * d * e
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * 3 * d * ff / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_moe_time(torch, GK, GO, kept, iters=20):
+    """21 (a): the grouped GEMM pair at maverick's widths in bf16, at 8
+    decode rows (the JSON row) and at 520 rows of a chunk step, routing
+    drawn uniformly: the kernel (`expert_ffn`, two launches), its plain
+    version, the bound, and a library yardstick the port never calls: one
+    torch.matmul per product over each expert's rows, the group sizes
+    known on the host beforehand."""
+    F = torch.nn.functional
+    wg, wu, wd = kept
+    e, d, ff = wg.shape
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    rows_out = {}
+    for rows in MOE_ROWS:
+        ids = moe_routing(torch, "uniform", rows, e, g)
+        off = moe_offsets(torch, ids, e)
+        bounds_h = [int(v) for v in off.tolist()]
+        groups = [(x, lo, hi) for x, (lo, hi) in
+                  enumerate(zip(bounds_h, bounds_h[1:])) if hi > lo]
+        xs = torch.randn((rows, d), generator=g).to(DEVICE, torch.bfloat16)
+
+        def kernel():
+            return GO.expert_ffn(xs, off, wg, wu, wd)
+
+        def plain():
+            return GK.grouped_gemm_plain(GK.grouped_gemm_plain(
+                xs, wg, off, wu), wd, off)
+
+        def library():
+            outs = []
+            for x, lo, hi in groups:
+                a = xs[lo:hi]
+                h = F.silu(torch.matmul(a, wg[x])) * torch.matmul(a, wu[x])
+                outs.append(torch.matmul(h, wd[x]))
+            return torch.cat(outs)
+
+        ms = time_ms(torch, kernel, iters, flush)
+        plain_ms = time_ms(torch, plain, 3, flush)
+        lib_ms = time_ms(torch, library, iters, flush)
+        bound_ms, bound_by = moe_bound(rows, len(groups), d, ff, "bfloat16")
+        log(f"time  {MOE:37s} {MOE_ARCH} bf16 rows {rows} experts touched "
+            f"{len(groups)} kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+            f"library_ms {lib_ms:.4f}  bound_ms {bound_ms:.5f} "
+            f"({bound_by})  of the bound {bound_ms / ms:.3f}  host_us "
+            f"{host_us(torch, kernel):.1f}")
+        rows_out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    return rows_out[MOE_ROWS[0]]
+
+
+def phase_moe_serve(torch, kernel_modules):
+    """21 (b): full-width llama4-maverick cut to MOE_LAYERS layers, bf16,
+    random weights drawn on the card, serves phase 5's 8 prompts (greedy,
+    32 new tokens, max_seqs 8, chunked at 512) through the packed fused
+    step captured into CUDA graphs, then eagerly, then through `submit()`
+    + `run()` (graphs): identical tokens between graphs and eager and
+    logits bit-equal (else within one bf16 ulp), `run()` equal to
+    `step()` bit for bit; the grouped GEMM and every paged kernel
+    launched (counters zeroed just before the graphed run and read just
+    after); tokens/s, steps, keys captured, launches, peak memory and the
+    replayed step's ms under `run()` against `step()` logged.  Returns
+    the graphed run's launches by function."""
+    import gc
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, State
+
+    K, GK = kernel_modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[MOE_ARCH].replace(num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe serve {MOE_ARCH}: {cfg.num_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_q_heads}/{cfg.num_kv_heads} D "
+        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} ff {cfg.moe.d_ff_expert} + "
+        f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}: {n_params / 1e9:.2f} G parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB) drawn on the "
+        f"card in {time.perf_counter() - t0:.1f}s")
+    eng_kw = dict(max_seqs=8, num_pages=1024, max_model_len=2048,
+                  enable_chunked_prefill=True, max_prefill_tokens=512,
+                  seed=SEED, debug_logits=True, device=DEVICE)
+    _, _, served = serve_prompts(torch, cfg.vocab_size)
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=MOE_NEW_TOKENS)
+                for p in served]
+
+    run = serve_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                    "moe serve")
+    reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
+    eng = run["eng"]
+    launches = dict(K.LAUNCHES) | dict(GK.LAUNCHES)
+    if not all(r.state is State.FINISHED and len(r.output) == MOE_NEW_TOKENS
+               for r in reqs):
+        raise AssertionError("moe serve: not every request finished")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"moe serve: a kernel was never launched: "
+                             f"{launches}")
+    check_paged_routes(K, launches, "moe serve", cfg.dtype)
+    # two launches (gate / up, down) per MoE layer per device step
+    want = 2 * MOE_LAYERS * eng.device_calls["unified"]
+    if GK.LAUNCHES[MOE] != want or GK.KERNEL_LAUNCHES["moe_mma_kernel"] \
+            != want:
+        raise AssertionError(f"moe serve: grouped GEMM launches "
+                             f"{GK.KERNEL_LAUNCHES} != {want}")
+    toks = sum(len(r.output) for r in reqs)
+    prompt_toks = sum(r.num_prompt_tokens for r in reqs)
+    log(f"moe serve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "
+        f"{toks}  wall_s {wall:.3f}  new_tok_per_s {toks / wall:.1f}  "
+        f"total_tok_per_s {(toks + prompt_toks) / wall:.1f}  keys captured "
+        f"{eng.graph_stats['captures']} ({eng.graph_stats['capture_s']:.3f}"
+        f"s capturing)  replays {eng.graph_stats['replays']}")
+    log(f"moe serve dispatch_counts {dict(eng.dispatch_counts)}  device "
+        f"calls {dict(eng.device_calls)}")
+    log(f"moe serve launches {launches}  by kernel {GK.KERNEL_LAUNCHES}")
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False,
+                                    **eng_kw), requests(), "moe serve eager")
+    walls = graphs_vs_eager(torch, "moe serve", run, eager, cfg.dtype)
+    del eager
+    streamed = stream_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                          "moe serve run()")
+    walls |= async_vs_sync(torch, "moe serve", run, streamed)
+    by_kind = {"decode": [], "chunk": []}
+    for st, dt in zip(run["stats"], run["step_walls"]):
+        by_kind["chunk" if st["prefill"] else "decode"].append(dt)
+    log("moe serve step() walls by kind (captures included): " + "  ".join(
+        f"{k} {len(v)} steps mean {1e3 * statistics.fmean(v):.3f} ms"
+        for k, v in by_kind.items() if v))
+    for bucket in sorted({k[2] for k in streamed["eng"].compile_events}):
+        walls |= {f"{name}_b{bucket}": v for name, v in replay_cost(
+            torch, streamed["eng"], bucket=bucket, top=8).items()}
+    del run, streamed, eng
+    sampler_cost(torch, 2 * eng_kw["max_seqs"], cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"moe serve peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated, of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
+                          prompt_tokens=prompt_toks, peak_gib=peak / 2**30,
+                          **walls)
+
+
+def phase_moe_diff(torch):
+    """21 (c): maverick's attention width with its MoE cut
+    (MOE_DIFF_CUT, MOE_DIFF_EXPERTS; shared ff = d_ff_expert), fp32 with
+    TF32 off: 3 greedy requests of 8 new tokens on the card and on the
+    CPU (the card model a copy of the CPU one: a MoE model's random
+    experts are drawn on its device), stepped in lockstep: identical
+    tokens, logits within DIFF_LOGIT_ATOL, and every MoE call's expert ids
+    equal.  The card runs eagerly (`cuda_graphs=False`) so that each
+    call's routing reaches the host; (b) holds the graphs to eager."""
+    import copy
+    import dataclasses
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+
+    base = ARCHS[MOE_ARCH]
+    cfg = base.replace(moe=dataclasses.replace(base.moe, **MOE_DIFF_EXPERTS),
+                       **MOE_DIFF_CUT)
+    cpu_model = weights.init_random(cfg, SEED, device="cpu")
+    models = {"cpu": cpu_model,
+              DEVICE: copy.deepcopy(cpu_model).to(DEVICE)}
+    routed = {}
+    for dev, model in models.items():
+        seen = routed[dev] = []
+        for blk in model.decoder_blocks():
+            route = blk.moe.route
+
+            def record(xt, route=route, seen=seen):
+                w, ids = route(xt)
+                seen.append(ids.cpu())
+                return w, ids
+            blk.moe.route = record
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
+                  debug_logits=True, cuda_graphs=False)
+    _, _, worst, steps, _ = lockstep_diff(torch, "moe diff", cfg, models,
+                                          prompts, 8, eng_kw)
+    same = len(routed[DEVICE]) == len(routed["cpu"]) and all(
+        torch.equal(a, b) for a, b in zip(routed[DEVICE], routed["cpu"]))
+    rows = sum(t.shape[0] for t in routed["cpu"])
+    log(f"moe diff: cuts {MOE_DIFF_CUT} {MOE_DIFF_EXPERTS} (shared ff "
+        f"{cfg.moe.d_ff_expert}); {len(routed['cpu'])} MoE calls, {rows} "
+        f"rows routed: expert ids identical {same}")
+    if not same:
+        raise AssertionError("moe diff: the card and the CPU chose "
+                             "different experts")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -2914,11 +3273,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.mamba2 import kernel as SK
     from repro_torch.kernels.mlstm import kernel as MK
+    from repro_torch.kernels.moe import kernel as GK
+    from repro_torch.kernels.moe import ops as GO
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
-    libraries = (K.library, FK.library, SK.library, MK.library)
+    libraries = (K.library, FK.library, SK.library, MK.library, GK.library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -3009,6 +3370,16 @@ def main() -> int:
     del tune_models
     lap("20 observe")
 
+    # 21. the MoE family: (a) the grouped expert GEMM against its plain
+    # version and timed; (b) full-width llama4-maverick (2 layers) served
+    # through the graphed packed step; (c) the card against the CPU
+    moe_err, kept = phase_moe_check(torch, GK)
+    moe_time = phase_moe_time(torch, GK, GO, kept)
+    del kept
+    moe_launches, _ = phase_moe_serve(torch, (K, GK))
+    phase_moe_diff(torch)
+    lap("21 moe")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -3028,6 +3399,9 @@ def main() -> int:
                         replaces=MLSTM_REPLACES,
                         launches=xlstm_launches[MLSTM],
                         max_abs_err=mlstm_err, **mlstm_time))
+    kernels.append(dict(name=MOE, route="cuda", source=MOE_SOURCE,
+                        replaces=MOE_REPLACES, launches=moe_launches[MOE],
+                        max_abs_err=moe_err, **moe_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

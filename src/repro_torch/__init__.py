@@ -4,16 +4,19 @@ The JAX/Pallas package `repro` is the reference; this package imports none
 of it.  Layers (bottom-up):
 
   csrc/       hand-written CUDA C++ kernels (sm_90a): paged attention
-              (serving), the flash-attention forward (training) and the
-              Mamba2 chunked SSD (hybrid prefill).
+              (serving), the flash-attention forward (training), the
+              Mamba2 chunked SSD (hybrid prefill), the chunked mLSTM
+              (xlstm prefill) and the grouped expert GEMM (MoE).
   kernels/    ctypes wrappers + launch counters + plain PyTorch versions,
               and the host layers (`paged_attention/ops.py`, the
-              differentiable `flash_attention/ops.py`, `mamba2/ops.py`).
+              differentiable `flash_attention/ops.py`, `mamba2/ops.py`,
+              `mlstm/ops.py`, `moe/ops.py`).
   core/       page allocator, paged KV layout, attention backend,
               kernel-config heuristics.
-  models/     dense decoder and zamba2 hybrid (`Model`; the unified
-              packed step, the padded prefill / decode steps,
-              `apply_train`), the Mamba2 block and sampling.
+  models/     dense and MoE decoders, the zamba2 hybrid and xlstm
+              (`Model`; the unified packed step, the padded prefill /
+              decode steps, `apply_train`), the MoE layer, the Mamba2 /
+              mLSTM / sLSTM blocks and sampling.
   serving/    request / scheduler / prefix cache / `Engine` (packed and
               padded per-kind steps).
   training/   Markov data, AdamW, the train step, checkpoints.

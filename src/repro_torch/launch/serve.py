@@ -8,12 +8,17 @@ stream (arrival-rate driven), reporting latency and throughput.
         [--heuristics TREE.json|tune] [--max-prefill-tokens N|auto] \
         [--metrics-dir D] [--trace-out T] [--metrics-port P] \
         [--snapshot-interval SEC] [--slo-p95 SEC] [--refit-every N]
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \
+        --reduced [--device cpu] [--chunked-prefill] [...]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
         [--device cpu] [--profile]
 
-A dense model runs the packed step; a hybrid model (zamba2) and an
+A dense or MoE model runs the packed step (a MoE model's experts on the
+grouped expert GEMM; llama4-maverick fits the card only `--reduced`, its
+full width is served by `chip_smoke.py` at 2 layers); a hybrid model
+(zamba2) and an
 xLSTM model (xlstm) run the padded per-kind step.  On the card the packed
 step and the padded decode step are captured into CUDA graphs and
 replayed (`--eager`: `Engine(cuda_graphs=False)`, every step eager); the
@@ -23,12 +28,12 @@ captures and replays.
 `submit()` + `run()`, the async double-buffered loop on the packed step
 (the padded step steps synchronously under it); without it the requests
 arrive `--rate` per step into `step()` calls.  `--prefix-caching` turns
-on the prefix cache (dense models only); `--shared-prefix N` prepends
+on the prefix cache (dense and MoE models only); `--shared-prefix N` prepends
 one N-token prompt to every request, the cache's hot path.
 `--speculative` verifies per-request n-gram drafts (up to `--draft-k`
 a step) in the packed launch and prints the drafts' stats;
 `--no-fused-sampling` samples in a second dispatch after the packed
-launch (dense models only, like both).
+launch (dense and MoE models only, like both).
 Kernel configs: the engine's built-in decision trees unless
 `--heuristics TREE.json` (from `python -m repro_torch.launch.autotune`)
 or $REPRO_ATTN_HEURISTICS names a tree; `--heuristics tune` runs a quick
@@ -70,6 +75,7 @@ from repro_torch.core.attention import heuristics
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mlstm import kernel as MK
+from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.launch.profiling import profiler, report
 from repro_torch.serving.engine import Engine
@@ -246,7 +252,7 @@ def _serve(ap, args) -> None:
                 for p in prompts]
         t_submit: dict[int, float] = {}
         t_done: dict[int, float] = {}
-        for kernels in (K, FK, SK, MK):
+        for kernels in (K, FK, SK, MK, GK):
             kernels.reset_launches()
         prof = profiler() if profile else contextlib.nullcontext()
         drive = _drive_stream if args.stream else _drive
@@ -291,8 +297,10 @@ def _serve(ap, args) -> None:
               f"{st['accepted']} accepted ({rate:.1%}), "
               f"{st['emitted']} emitted over {st['steps']} spec steps "
               f"(adaptive k now {k})")
-    print(f"kernel launches: "
-          f"{K.LAUNCHES | FK.LAUNCHES | SK.LAUNCHES | MK.LAUNCHES}")
+    launches = {}
+    for kernels in (K, FK, SK, MK, GK):
+        launches |= kernels.LAUNCHES
+    print(f"kernel launches: {launches}")
     gs = eng.graph_stats
     print(f"compile_events: {len(eng.compile_events)}  cuda graphs: "
           f"{gs['captures']} captured ({gs['capture_s']:.3f}s capturing), "

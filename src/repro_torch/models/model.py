@@ -1,9 +1,13 @@
-"""Decoder models: the dense family, the hybrid family (zamba2) and the
-ssm family (xlstm), their serving steps and the dense training loss.
+"""Decoder models: the dense and MoE families, the hybrid family (zamba2)
+and the ssm family (xlstm), their serving steps and the dense training
+loss.
 
 Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
-smollm).  Hybrid `Model` (family "hybrid", zamba2): embed ->
+smollm).  MoE `Model` (family "moe", llama4-maverick): the same stack,
+`first_k_dense` leading dense blocks (`lead_blocks`) then blocks whose
+FFN is the dropless `MoE` (`models/moe.py`), -> `ln_f` -> the untied
+`lm_head`.  Hybrid `Model` (family "hybrid", zamba2): embed ->
 [(period-1) Mamba2 blocks, then the ONE weight-shared decoder block] x
 n_attn, then the tail Mamba2 blocks (`hybrid_layout`) -> `ln_f` -> the
 untied `lm_head`.  Each Mamba2 block is pre-normed (`mamba_ln`) and
@@ -17,10 +21,10 @@ Entry points (ports of `repro.models.model`):
 
   apply_unified  token-packed decode + prefill chunks over the paged cache,
                  last-token gather and fused sampling, and the
-                 speculative verify epilogue (dense only)
+                 speculative verify epilogue (dense and moe)
   apply_prefill  padded [B, S] fresh prompts at context 0 (every family)
   apply_prefill_cached  padded [B, S] chunks resumed after a prior
-                 context in the pages (dense only)
+                 context in the pages (dense and moe)
   apply_decode   padded [B, 1] decode batch (every family)
   apply_train    causal attention over whole sequences, every block
                  rematerialised in the backward, masked fp32 CE (dense)
@@ -45,6 +49,7 @@ from repro_torch.core.paged.kv_cache import (
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import Attention
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import (
     Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
     mlstm_cache_specs, slstm_cache_specs,
@@ -52,7 +57,11 @@ from repro_torch.models.ssm_blocks import (
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    """A decoder block; its FFN is the SwiGLU `mlp`, or with `use_moe` the
+    dropless `moe` in its place (the reference's `_init_decoder_block`)."""
+
+    def __init__(self, cfg: ModelConfig, *, use_moe: bool = False,
+                 device=None):
         super().__init__()
         dt = cfg.param_dtype
         self.ln1 = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
@@ -60,13 +69,21 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device=device)
         self.ln2 = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
                              device=device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
-                         fused=cfg.fused_mlp)
+        if use_moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
+                             fused=cfg.fused_mlp)
+
+    def ffn(self, x: torch.Tensor, *, mode: str = "serve") -> torch.Tensor:
+        if hasattr(self, "moe"):
+            return self.moe(x, mode=mode)[0]
+        return self.mlp(x)
 
     def forward_train(self, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
         x = x + self.attn.forward_train(self.ln1(x), positions)
-        return x + self.mlp(self.ln2(x))
+        return x + self.ffn(self.ln2(x), mode="train")
 
     def forward_serve(self, x: torch.Tensor, positions: torch.Tensor,
                       k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -78,7 +95,7 @@ class Block(nn.Module):
                 else self.attn.forward_prefill)
         x = x + attn(self.ln1(x), positions, k_pages, v_pages, meta,
                      kernel_cfg=kernel_cfg)
-        return x + self.mlp(self.ln2(x))
+        return x + self.ffn(self.ln2(x))
 
 
 def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -99,6 +116,13 @@ def xlstm_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.num_layers - n_s, n_s, period - 1
 
 
+def moe_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(leading dense blocks, the blocks after them): `first_k_dense`
+    leading blocks keep the SwiGLU MLP in a MoE model."""
+    lead = cfg.moe.first_k_dense if cfg.moe.num_experts else 0
+    return lead, cfg.num_layers - lead
+
+
 def attn_layer_count(cfg: ModelConfig) -> int:
     """Layers that hold KV pages: each shared-block invocation of a hybrid
     has its own; xlstm has none."""
@@ -110,17 +134,19 @@ def attn_layer_count(cfg: ModelConfig) -> int:
 
 
 class Model(nn.Module):
-    """Dense decoder (family "dense"), zamba2 hybrid (family "hybrid") or
-    xlstm (family "ssm").  Parameters are allocated empty: fill them with
-    `weights.from_jax_params` or `weights.init_random`."""
+    """Dense decoder (family "dense"), MoE decoder (family "moe"), zamba2
+    hybrid (family "hybrid") or xlstm (family "ssm").  Parameters are
+    allocated empty: fill them with `weights.from_jax_params` or
+    `weights.init_random`."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "hybrid", "ssm") \
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
                 or cfg.mla.kv_lora_rank:
             raise NotImplementedError(
-                f"family={cfg.family!r} is not ported yet (dense, hybrid "
-                "and ssm only)")
+                f"family={cfg.family!r} (MLA: {bool(cfg.mla.kv_lora_rank)})"
+                " is not ported yet (dense, moe without MLA, hybrid and "
+                "ssm only)")
         if cfg.input_kind != "tokens":
             raise NotImplementedError("embedding inputs are not ported yet")
         self.cfg = cfg
@@ -128,9 +154,14 @@ class Model(nn.Module):
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device),
             requires_grad=False)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
+            lead, n_blocks = moe_layout(cfg)
+            use_moe = cfg.moe.num_experts > 0
+            self.lead_blocks = nn.ModuleList(
+                [Block(cfg, device=device) for _ in range(lead)])
             self.blocks = nn.ModuleList(
-                [Block(cfg, device=device) for _ in range(cfg.num_layers)])
+                [Block(cfg, use_moe=use_moe, device=device)
+                 for _ in range(n_blocks)])
         elif cfg.family == "hybrid":
             n_mamba = hybrid_layout(cfg)[0]
             self.mamba = nn.ModuleList(
@@ -156,6 +187,11 @@ class Model(nn.Module):
         return nn.ModuleList(
             [L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=cfg.param_dtype,
                        device=device) for _ in range(n)])
+
+    def decoder_blocks(self) -> list[Block]:
+        """The dense / moe block stack in layer order (the leading dense
+        blocks first), one KV layer each."""
+        return [*self.lead_blocks, *self.blocks]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + output projection; fp32 logits."""
@@ -241,7 +277,7 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     `return_logits=True` inserts last_logits before the cache."""
     if max_draft and not sample:
         raise ValueError("speculative verify samples: it needs sample=True")
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "moe"):
         raise ValueError(f"the packed step needs page-addressable context: "
                          f"unsupported for family={model.cfg.family!r}")
     inputs = batch["inputs"]
@@ -257,10 +293,10 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     meta.update(num_decode_seqs=num_decode_seqs, write_index=write_index(
         batch["slot_mapping"], kp.shape[3] * kp.shape[4]))
     x = L.embed(model.embed, inputs)  # [1, T, d]
-    for i, blk in enumerate(model.blocks):
+    for i, blk in enumerate(model.decoder_blocks()):
         x = x + blk.attn(blk.ln1(x), positions, kp[i], vp[i], meta,
                          kernel_cfg=kernel_cfg)
-        x = x + blk.mlp(blk.ln2(x))
+        x = x + blk.ffn(blk.ln2(x))
     # per-sequence last-token rows of the packed stream; the head is
     # row-wise, so it runs on these [S] rows instead of all T
     qsl, qlens = batch["query_start_loc"], batch["query_lens"]
@@ -347,8 +383,8 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
     if cfg.family == "ssm":
         return _xlstm_forward(model, x, cache, meta, mode=mode)
     kp, vp = cache["attn"]["k_pages"], cache["attn"]["v_pages"]
-    if cfg.family == "dense":
-        for i, blk in enumerate(model.blocks):
+    if cfg.family in ("dense", "moe"):
+        for i, blk in enumerate(model.decoder_blocks()):
             x = blk.forward_serve(x, positions, kp[i], vp[i], meta,
                                   mode=mode, kernel_cfg=kernel_cfg)
         return x
@@ -426,9 +462,9 @@ def apply_prefill_cached(model: Model, cache: dict, batch: dict, *,
     pages).  The prior context (earlier chunks, a prefix-cache hit, or
     both) is read back from the pages: the chunk's KV is written at its
     absolute slots, then attention covers the whole paged context.
-    Dense family only (hybrid / ssm state is not page-addressable).
-    Returns (last_token_logits [B, V] f32, cache)."""
-    if model.cfg.family != "dense":
+    Dense and moe families only (hybrid / ssm state is not
+    page-addressable).  Returns (last_token_logits [B, V] f32, cache)."""
+    if model.cfg.family not in ("dense", "moe"):
         raise ValueError(f"resumed prefill needs page-addressable context: "
                          f"unsupported for family={model.cfg.family!r}")
     return _prefill(model, cache, batch, "prefill_cached", kernel_cfg)

@@ -50,6 +50,7 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mlstm import kernel as MK
+from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
 
 Counts = list[dict[str, int]]
@@ -58,7 +59,8 @@ Counts = list[dict[str, int]]
 def kernel_counters() -> Counts:
     """Every launch counter of the kernel wrappers."""
     return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, SK.LAUNCHES,
-            SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES]
+            SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES, GK.LAUNCHES,
+            GK.KERNEL_LAUNCHES]
 
 
 def counted(fn: Callable, counters: Counts | None = None):

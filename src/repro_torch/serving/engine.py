@@ -2,7 +2,7 @@
 and the padded per-kind step.
 
 Port of `repro.serving.engine.Engine`.  With
-`packed_attention=True` (the default for dense models) every scheduled
+`packed_attention=True` (the default for dense and moe models) every scheduled
 piece of work — decode rows (q = 1), fresh prefill chunks and resumed
 chunks — is packed into ONE [1, T] token stream and run by ONE
 `apply_unified` call per step, with the last-token gather and sampling
@@ -67,7 +67,7 @@ same graph overwrites its output buffer.  `token_source` and
 synchronous and async steps.  The padded step steps synchronously under
 `stream()`, with the same yields.
 
-Prefix caching (`enable_prefix_caching=True`, dense only): admission
+Prefix caching (`enable_prefix_caching=True`, dense and moe): admission
 reuses the longest chain of cached full pages, and the prompt's chunk
 resumes at that context.  Chunked prefill (`enable_chunked_prefill`)
 splits prompts into budget-sized chunks.  On the packed step a resumed
@@ -149,6 +149,13 @@ from repro_torch.serving.scheduler import Scheduler
 from repro_torch.utils.misc import cdiv, next_power_of_2
 
 log = logging.getLogger(__name__)
+
+
+def _page_addressable(cfg: ModelConfig) -> bool:
+    """Every layer's context lives in the KV pages, per token: the
+    attention families without MLA (the packed step, prefix caching and
+    chunked prefill need it), as the reference's gates read."""
+    return cfg.family in ("dense", "moe") and not cfg.mla.kv_lora_rank
 
 
 @dataclasses.dataclass
@@ -246,10 +253,11 @@ class Engine:
         # page-addressable per token: attention families only (the
         # recurrent state of hybrid / ssm models is slot-indexed), as in
         # the reference
-        self._packed = packed_attention and cfg.family == "dense"
+        self._packed = packed_attention and _page_addressable(cfg)
         if packed_attention and not self._packed:
-            log.info("engine: packed attention unavailable for family=%r; "
-                     "using the padded per-kind step", cfg.family)
+            log.info("engine: packed attention unavailable for "
+                     "family=%r/MLA; using the padded per-kind step",
+                     cfg.family)
         # sampling inside the packed launch is a packed-step feature; the
         # padded step always samples in a second dispatch
         self._fused = fused_sampling and self._packed
@@ -273,9 +281,9 @@ class Engine:
                            "steps": 0}
         self._step_spec = (0, 0, 0)  # (proposed, accepted, emitted)
         if enable_prefix_caching or enable_chunked_prefill:
-            assert cfg.family == "dense", (
+            assert _page_addressable(cfg), (
                 "prefix caching / chunked prefill need page-addressable "
-                f"context (unsupported for family={cfg.family!r})")
+                f"context (unsupported for family={cfg.family!r}/MLA)")
         self.seed = seed
         self._debug_logits = debug_logits
         self._group = max(1, cfg.num_q_heads // max(cfg.num_kv_heads, 1))
@@ -447,9 +455,13 @@ class Engine:
     def _matrix_params(self) -> int:
         """Weights each token's row is multiplied by once: every matrix of
         the model but the embedding and the head, the hybrid's shared
-        block once per invocation."""
+        block once per invocation, a MoE layer's expert stacks top_k / E
+        of them (a row meets its top_k experts)."""
         skip = ("embed", "lm_head")
-        n = sum(p.numel() for name, p in self.model.named_parameters()
+        moe = self.cfg.moe
+        n = sum(p.numel() * moe.top_k // moe.num_experts
+                if p.ndim == 3 and ".moe." in name else p.numel()
+                for name, p in self.model.named_parameters()
                 if p.ndim >= 2 and not name.startswith(skip))
         if self.cfg.family == "hybrid":
             n += (M.attn_layer_count(self.cfg) - 1) * sum(

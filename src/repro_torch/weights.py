@@ -10,7 +10,15 @@ The JAX `M.init` pytree of a dense model is
                 "mlp": {"gate": {"w": [L, d, F]}, "up", "down"}},
      ["lm_head": {"w": [d, V]}]}
 
-with the blocks stacked on a leading [L] axis by `jax.vmap`.  A hybrid
+with the blocks stacked on a leading [L] axis by `jax.vmap`.  A MoE
+model's blocks hold, in place of "mlp",
+
+    "moe": {"router": {"w": [L, d, E]} (fp32), "w_gate": [L, E, d, ff],
+            "w_up": [L, E, d, ff], "w_down": [L, E, ff, d],
+            ["shared": {"gate": {"w": [L, d, ff s]}, "up", "down"}]}
+
+after `first_k_dense` unstacked dense blocks in the list "lead_blocks"
+(`[{"ln1", "attn", "ln2", "mlp"}, ...]`).  A hybrid
 (zamba2) model has, besides embed / ln_f / lm_head,
 
     {"mamba": {"in_proj": {"w": [n, d, in_dim]}, "conv_w": [n, K, conv],
@@ -47,6 +55,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Block, Model
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 
@@ -76,8 +85,25 @@ def _block_leaves(blk: Block):
         if lin.b is not None:
             yield ("attn", name, "b"), lin.b
     yield ("ln2", "scale"), blk.ln2.scale
+    if hasattr(blk, "moe"):
+        for path, t in _moe_leaves(blk.moe):
+            yield ("moe",) + path, t
+        return
     for name in ("gate", "up", "down"):
         yield ("mlp", name, "w"), getattr(blk.mlp, name).w
+
+
+# the [E, d_in, d_out] expert stacks of a MoE block
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _moe_leaves(moe: MoE):
+    yield ("router", "w"), moe.router.w
+    for name in _EXPERT_LEAVES:
+        yield (name,), getattr(moe, name)
+    if moe.shared is not None:
+        for name in ("gate", "up", "down"):
+            yield ("shared", name, "w"), getattr(moe.shared, name).w
 
 
 def _mamba_leaves(blk: Mamba2Block):
@@ -120,7 +146,10 @@ def _leaves(model: Model):
     yield ("ln_f", "scale"), None, model.ln_f.scale
     if model.lm_head is not None:
         yield ("lm_head", "w"), None, model.lm_head.w
-    if model.cfg.family == "dense":
+    if model.cfg.family in ("dense", "moe"):
+        for j, blk in enumerate(model.lead_blocks):
+            for path, t in _block_leaves(blk):
+                yield ("lead_blocks", j) + path, None, t
         for i, blk in enumerate(model.blocks):
             for path, t in _block_leaves(blk):
                 yield ("blocks",) + path, i, t
@@ -161,38 +190,74 @@ def from_jax_params(cfg: ModelConfig, params_np: dict,
         src = params_np
         for key in path:
             src = src[key]
-        what = ".".join(path) + ("" if i is None else f"[{i}]")
+        what = ".".join(map(str, path)) + ("" if i is None else f"[{i}]")
         _copy(t, src if i is None else src[i], what)
     return model.to(device)
 
 
+# the most fp32 elements a device draw of a MoE model holds at once (an
+# expert matrix above it is still drawn whole: 168 MB at maverick's width)
+_PIECE = 1 << 25
+
+
 @torch.no_grad()
 def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
-    """Random weights drawn like the reference's `M.init` from a seeded CPU
-    `torch.Generator`, so every device gets the same values: matrices (and
+    """Random weights drawn like the reference's `M.init`: matrices (and
     the conv kernel) truncated normal at +-2 std with std = d_in ** -0.5
     (the embedding: d_model ** -0.5; the sLSTM's recurrent blocks `r`:
-    (d / H) ** -0.5); norm scales and `d_skip` 1; biases, `a_log` and
-    `dt_bias` 0."""
+    (d / H) ** -0.5; an expert matrix [d_in, d_out]: d_in ** -0.5); norm
+    scales and `d_skip` 1; biases, `a_log` and `dt_bias` 0.
+
+    The model is allocated on `device` and filled leaf by leaf, in the
+    order of `_leaves`.  Where the draws are made:
+
+      * dense, hybrid and ssm models: by one seeded CPU `torch.Generator`,
+        each leaf whole in fp32, cast to its dtype and copied into place:
+        the same values on every device (the card-versus-CPU checks build
+        both models from one seed);
+      * MoE models: by a generator on `device`, seeded with `seed`, each
+        leaf in fp32 pieces along its first axis (one expert matrix of an
+        expert stack at a time, at most 2^25 elements of any other leaf)
+        cast into place, so a full-width model (34.6 G parameters at
+        llama4-maverick's width, 2 layers) never holds its fp32 draws on
+        the host.  The values differ between a CPU and a card build from
+        one seed: a comparison across devices moves one model to the
+        other device.
+    """
     _check_layouts(cfg)
-    gen = torch.Generator(device="cpu")
+    dev = torch.device(device)
+    on_device = cfg.family == "moe"
+    gen = torch.Generator(device=dev if on_device else "cpu")
     gen.manual_seed(seed)
-    model = Model(cfg, device="cpu")
+    model = Model(cfg, device=dev)
     for path, _, t in _leaves(model):
         name = path[-1]
         if name in ("scale", "d_skip"):
             t.fill_(1.0)
-        elif name in ("b", "a_log", "dt_bias"):
+            continue
+        if name in ("b", "a_log", "dt_bias"):
             t.zero_()
-        else:
-            fan_in = {"table": cfg.d_model, "r": t.shape[-1]}.get(
-                name, t.shape[0])
-            std = fan_in ** -0.5
+            continue
+        fan_in = {"table": cfg.d_model, "r": t.shape[-1]}.get(
+            name, t.shape[1] if name in _EXPERT_LEAVES else t.shape[0])
+        std = fan_in ** -0.5
+        if not on_device:
             tmp = torch.empty(t.shape, dtype=torch.float32)
             torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
                                         generator=gen)
             t.copy_(tmp.to(t.dtype))
-    return model.to(device)
+            continue
+        if name in _EXPERT_LEAVES:
+            pieces = t.unbind(0)
+        else:
+            pieces = t.split(max(1, _PIECE // t[0].numel()) if t.ndim > 1
+                             else _PIECE)
+        for piece in pieces:
+            tmp = torch.empty(piece.shape, dtype=torch.float32, device=dev)
+            torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+            piece.copy_(tmp)
+    return model
 
 
 @torch.no_grad()
@@ -224,4 +289,7 @@ def to_numpy_params(model: Model, *, grads: bool = False) -> dict:
             elif isinstance(v, dict):
                 stack(v)
     stack(out)
+    if "lead_blocks" in out:  # the reference's list of unstacked blocks
+        lead = out["lead_blocks"]
+        out["lead_blocks"] = [lead[j] for j in range(len(lead))]
     return out

@@ -1,6 +1,7 @@
 """The CUDA kernels (paged attention, flash attention, the Mamba2 SSD, the
-chunked mLSTM) against their plain PyTorch versions on the card, and the
-port's engines (packed smollm, padded zamba2 and xlstm) and the flash
+chunked mLSTM, the grouped expert GEMM) against their plain PyTorch
+versions on the card, and the port's engines (packed smollm and
+llama4-maverick, padded zamba2 and xlstm), the MoE layer and the flash
 attention gradient on the card against themselves on the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked `cuda` and skips
@@ -46,6 +47,7 @@ from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mamba2 import ops as sops
 from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.mlstm import ops as mops
+from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.serving import cuda_graphs
@@ -1289,3 +1291,166 @@ def test_engine_with_telemetry_and_refit_matches_without(cuda, tmp_path):
     grid = tel.latency_grid()["entries"]
     assert grid and all(e["flops"] > 0 and e["bytes_accessed"] > 0
                         for e in grid)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: the grouped expert GEMM and the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "llama4-maverick-400b-a17b"
+
+
+def _moe_ids(case, rows, e, g):
+    if case == "uniform":
+        ids = torch.randint(0, e, (rows,), generator=g)
+    elif case == "one_expert":
+        ids = torch.full((rows,), e // 2, dtype=torch.long)
+    elif case == "empty":
+        ids = torch.randint(0, 2, (rows,), generator=g) * (e - 1)
+    else:  # "long": a group of 150 rows (three 64-row tiles)
+        ids = torch.cat([torch.full((150,), 1, dtype=torch.long),
+                         torch.randint(0, e, (rows - 150,), generator=g)])
+    counts = torch.bincount(ids, minlength=e)
+    return torch.cat([torch.zeros(1, dtype=torch.long),
+                      counts.cumsum(0)]).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["uniform", "one_expert", "empty", "long"])
+@pytest.mark.parametrize("shape", [(8, 512, 1024), (5, 264, 200)])
+def test_grouped_gemm_matches_plain(cuda, dtype, case, shape):
+    """Both launches (gate / up fused, then down) against the plain
+    version: 8 and 200 rows (the "long" case: 200 only), and a shape whose
+    K and N are no multiple of the 64-wide tiles."""
+    e, d, ff = shape
+    g = torch.Generator().manual_seed(len(case) + e)
+    wg, wu = (torch.randn((e, d, ff), generator=g) * d ** -0.5
+              for _ in range(2))
+    wd = torch.randn((e, ff, d), generator=g) * ff ** -0.5
+    wg, wu, wd = (w.to(cuda, dtype) for w in (wg, wu, wd))
+    for rows in (8, 200):
+        if case == "long" and rows < 150:
+            continue
+        off = _moe_ids(case, rows, e, g).to(cuda)
+        xs = torch.randn((rows, d), generator=g).to(cuda, dtype)
+        GK.reset_launches()
+        h = GK.grouped_gemm(xs, wg, off, wu)
+        ys = GK.grouped_gemm(h, wd, off)
+        torch.cuda.synchronize()
+        kernel = "moe_mma_kernel" if dtype == torch.bfloat16 \
+            else "moe_fp32_kernel"
+        assert GK.KERNEL_LAUNCHES[kernel] == 2
+        for got, want in ((h, GK.grouped_gemm_plain(xs, wg, off, wu)),
+                          (ys, GK.grouped_gemm_plain(h, wd, off))):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=ATOL[dtype])
+
+
+def test_grouped_gemm_rejects_misaligned_bf16(cuda):
+    xs = torch.zeros(9 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    w = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=cuda)
+    off = torch.tensor([0, 4, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        GK.grouped_gemm(xs.view(9, 64), w, off)
+
+
+def _moe_layer(dev, dtype, top_k=2):
+    from repro_torch.models.moe import MoE
+
+    base = ARCHS[MOE_ARCH]
+    cfg = base.replace(d_model=512, dtype=dtype, moe=base.moe.__class__(
+        num_experts=16, top_k=top_k, num_shared_experts=1, d_ff_expert=256))
+    moe = MoE(cfg, device=dev)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * p.shape[-2] ** -0.5)
+    return moe
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_graph_replay_matches_eager_without_host_syncs(cuda, dtype):
+    """The MoE layer (top-2, 16 experts, a shared expert) eagerly under
+    `set_sync_debug_mode("error")` (any host sync raises), then captured
+    into a CUDA graph and replayed on new inputs: bit for bit the eager
+    forward, the two grouped-GEMM launches counted."""
+    moe = _moe_layer(cuda, dtype)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 40, 512), generator=g).to(cuda, moe.w_gate.dtype)
+    x2 = torch.randn((1, 40, 512), generator=g).to(cuda, moe.w_gate.dtype)
+    GK.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            want = moe(x2)[0]
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                moe(x)
+            torch.cuda.current_stream().wait_stream(s)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = moe(x)[0]
+            x.copy_(x2)
+            graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert GK.LAUNCHES["moe_grouped_gemm"] == 6  # eager x 2, capture
+
+
+def test_moe_on_card_matches_cpu(cuda):
+    """The same layer in fp32 on the card and on the CPU: the same expert
+    ids, outputs within 1e-4."""
+    cpu = _moe_layer(torch.device("cpu"), "float32")
+    card = _moe_layer(cuda, "float32")
+    x = torch.randn((3, 33, 512), generator=torch.Generator().manual_seed(2))
+    xt = x.reshape(-1, 512)
+    assert torch.equal(card.route(xt.to(cuda))[1].cpu(), cpu.route(xt)[1])
+    torch.testing.assert_close(card(x.to(cuda))[0].cpu(), cpu(x)[0],
+                               rtol=0, atol=1e-4)
+
+
+def test_graphed_moe_engine_matches_eager(cuda):
+    """Reduced llama4-maverick (fp32), chunked prefill at 32: the graphed
+    packed step gives the eager step's tokens, logits, pages and launch
+    counts, the grouped GEMM among them."""
+    geng, _ = _graphs_vs_eager(
+        MOE_ARCH, _prompts_for(MOE_ARCH, (5, 40, 17, 70, 3, 33), 0), cuda,
+        max_seqs=4, num_pages=64, max_model_len=256,
+        enable_chunked_prefill=True, max_prefill_tokens=32)
+    assert GK.LAUNCHES["moe_grouped_gemm"] == \
+        2 * 4 * geng.device_calls["unified"]
+
+
+def test_moe_engine_on_card_matches_cpu(cuda):
+    """Reduced llama4-maverick in fp32, the card model a copy of the CPU
+    one: greedy tokens through the kernels equal the plain versions'."""
+    import copy
+
+    cfg = reduced(ARCHS[MOE_ARCH]).replace(dtype="float32")
+    model = weights.init_random(cfg, 0, device="cpu")
+    outs = []
+    for dev, m in ((cuda, copy.deepcopy(model).to(cuda)),
+                   (torch.device("cpu"), model)):
+        eng = Engine(cfg, m, max_seqs=4, num_pages=64, max_model_len=256,
+                     enable_chunked_prefill=True, max_prefill_tokens=32,
+                     device=dev)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6) for p in
+                             _prompts_for(MOE_ARCH, (5, 40, 17, 70), 4)])
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_capture_raises_on_a_host_sync(cuda):
+    """What the MoE layer avoids: `torch.bincount` on a CUDA tensor reads
+    its maximum on the host, which a capture refuses."""
+    ids = torch.randint(0, 8, (64,), device=cuda)
+    ids.bincount()  # eager: fine
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            ids.bincount()
+    torch.cuda.synchronize()
