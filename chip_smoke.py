@@ -269,6 +269,36 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               (eager, the fp32 kernels) and on the CPU in lockstep:
               identical tokens, logits within 5e-3, identical expert ids
               in every MoE call
+ 22. mla      MLA (deepseek-v2-236b), after phase 21 has freed maverick:
+              (a) the latent paged decode (`csrc/mla_decode.cu`, through
+              the serving entry and its split-KV choice) against its plain
+              version at deepseek-v2's widths (H 128, r 512, rope 64,
+              page 16): 8 rows at contexts 0-2048 (5 segments and the
+              merge launch) and 64 rows of 4096 (one segment), bf16 (atol
+              2e-2) and fp32 (TF32 off, 1e-4), dead rows exact zeros;
+              timed at both in bf16 beside its bound, its plain version
+              and a page gather + SDPA yardstick (its backend named);
+              (b) the flash forward at key width 192 / value width 128
+              with a per-batch kv_len against its plain version at the
+              padded prefill of phase 5's prompts (8 x 1024 rows, 128
+              heads) in bf16 and at a cut in fp32, timed beside its
+              bound, its plain version and SDPA; (c) full-width
+              deepseek-v2 cut to 8 of its 60 layers (1 dense + 7 MoE,
+              bf16, random weights drawn on the card, 58.4 GB) serves
+              phase 5's 8 prompts (greedy, 32 new tokens, max_seqs 8,
+              unchunked) on the padded step, decode on CUDA graphs, then
+              eagerly: identical tokens, logits bit-equal (else within
+              one bf16 ulp); the latent decode, the flash forward and the
+              grouped GEMM launched as many times as the steps ask (every
+              one the tensor-core kernel), no plain version called, no
+              kernel-config key; tokens/s, steps, keys, peak memory, the
+              decode graph's replay and a profiled prefill step logged;
+              (d) deepseek-v2's
+              attention width with 2 layers (1 dense + 1 MoE), 8 experts
+              of ff 1024 top-6 with 2 shared and a vocab of 32768, fp32:
+              3 greedy requests on the card (eager) and on the CPU in
+              lockstep: identical tokens, logits within 5e-3, identical
+              expert ids
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -509,6 +539,32 @@ MOE_NEW_TOKENS = 32
 # (shared ff 1024) and a vocab of 32768 so that the CPU leg fits
 MOE_DIFF_CUT = dict(num_layers=1, vocab_size=32768, dtype="float32")
 MOE_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
+# phase 22: MLA (deepseek-v2).  The latent decode replaces no Pallas
+# kernel: the reference runs it as its jnp decode path (backend.py:76,
+# `v = k[..., :v_dim]` over the gathered latent pages)
+MLA = "mla_decode"
+MLA_SOURCE = "src/repro_torch/csrc/mla_decode.cu"
+MLA_REPLACES = "src/repro/core/attention/backend.py:76"
+MLA_FLASH = "flash_attention_fwd[192/128]"
+MLA_ARCH = "deepseek-v2-236b"
+# full width, 8 of its 60 layers (1 dense + 7 MoE): 58.4 GB of bf16
+# weights of the card's 80
+MLA_LAYERS = 8
+# (a) the latent decode at deepseek-v2's widths (H 128, r 512, rope 64,
+# page 16): phase 5's decode step (8 rows, contexts 0-2048) and 64 rows of
+# 4096 (the bytes-bound shape)
+MLA_DECODE_SHAPES = {"8x0-2048": [0, 1, 17, 300, 777, 1024, 1500, 2048],
+                     "64x4096": [4096] * 64}
+# (b) the flash forward at 192 / 128 at the padded prefill of phase 5's
+# prompts (8 x 1024 rows, kv_len the prompt lengths), and an fp32 cut
+MLA_FLASH_SERVE = (1024, 128)  # S (the prompts' bucket), H
+MLA_FLASH_FP32 = (2, 256, 16, [256, 100])  # B, S, H, kv_len
+MLA_NEW_TOKENS = 32
+# (d) the card against the CPU at deepseek-v2's attention width (d 5120,
+# 128 heads, q_lora 1536, kv_lora 512) in fp32: 2 layers (1 dense + 1
+# MoE), 8 experts of ff 1024 top-6 with 2 shared, a vocab of 32768
+MLA_DIFF_CUT = dict(num_layers=2, vocab_size=32768, dtype="float32")
+MLA_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
 
 
 def log(msg: str) -> None:
@@ -760,12 +816,18 @@ def phase_check(torch, K, tops):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters, flush):
+def time_ms(torch, fn, iters, flush, lead_cycles=0):
+    """Median ms of `fn` between two CUDA events, L2 flushed before each
+    call.  The events also take in the host's enqueue of `fn` where it
+    outlasts the flush; `lead_cycles` > 0 spins the stream that long
+    after the flush, so the enqueue hides behind it."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(iters):
         flush.zero_()  # evict the 50 MB L2: the step finds KV cold
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1088,10 +1150,12 @@ def replay_cost(torch, eng, iters=20, bucket=None, top=0):
     on the card over CUDA events, against the sum of its kernels'
     durations and their count under `torch.profiler`.  The difference is
     the time between the graph's nodes, which no host work can fill.
-    `top` > 0 also logs that many kernels by device time."""
+    `top` > 0 also logs that many kernels by device time.  On the padded
+    step (`eng._packed` False) the graph is the decode step's."""
     bucket = eng.max_seqs if bucket is None else bucket
     keys = [k for k in eng.compile_events
-            if k[0] == "unified" and k[2] == bucket]
+            if (k[0] == "unified" and k[2] == bucket)
+            or (k[0] == "decode" and not eng._packed)]
     graph = eng._compiled[keys[-1]].graph
     graph.replay()
     torch.cuda.synchronize()
@@ -1900,6 +1964,11 @@ def phase_flash_time(torch, FK, iters=20):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     ms = time_ms(torch, lambda: FK.flash_attention_fwd(*args, **kw), iters,
                  flush)
+    # the same launches with the wrapper's host enqueue hidden behind a
+    # ~1 ms spin: the kernel's own time
+    ms_hidden = time_ms(torch, lambda: FK.flash_attention_fwd(*args, **kw),
+                        iters, flush, lead_cycles=2_000_000)
+    enqueue_us = host_us(torch, lambda: FK.flash_attention_fwd(*args, **kw))
     plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(*args,
                                                                    **kw),
                        3, flush)
@@ -1908,7 +1977,8 @@ def phase_flash_time(torch, FK, iters=20):
     bound_ms, bound_by = flash_bound(case)
     log(f"time  {FLASH:24s} {case[-1]} B {case[0]} S {case[1]} kernel_ms "
         f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
-        f"bound_ms {bound_ms:.5f} ({bound_by})")
+        f"bound_ms {bound_ms:.5f} ({bound_by})  kernel_ms with the enqueue "
+        f"hidden {ms_hidden:.4f}  host_us {enqueue_us:.1f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -3234,6 +3304,468 @@ def phase_moe_diff(torch):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 22: MLA (deepseek-v2) on the padded serving step
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counted_plain(*targets):
+    """Every (module, name) plain version wrapped to count its calls:
+    yields {name: calls} (a kernel wrapper that gave way to its plain
+    version on the card would show there)."""
+    calls, saved = {}, []
+    for mod, name in targets:
+        f = getattr(mod, name)
+        calls[name] = 0
+
+        def wrapped(*a, _f=f, _n=name, **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        saved.append((mod, name, f))
+        setattr(mod, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+
+
+def sdpa_backend(torch, call):
+    """(the first SDPA backend that runs `call`, in the order flash,
+    efficient, cuDNN, math; None if none does), timed later under it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                call()
+            torch.cuda.synchronize()
+            return b
+        except RuntimeError:
+            continue
+    return None
+
+
+def mla_decode_inputs(torch, dtype, ctx, g, ps=16, h=128, r=512, rope=64):
+    """q [S, H, r + rope], one pool of pages, a shuffled page table and
+    contexts `ctx`, drawn from `g` on the card."""
+    s = len(ctx)
+    np_ = -(-max(ctx) // ps)
+    p = s * np_ + 1
+    q = torch.randn((s, h, r + rope), generator=g, device=DEVICE).to(dtype)
+    kp = torch.randn((p, ps, r + rope), generator=g,
+                     device=DEVICE).to(dtype)
+    pt = (torch.randperm(p - 1, generator=g, device=DEVICE)[:s * np_]
+          .reshape(s, np_) + 1).to(torch.int32)
+    return q, kp, pt, torch.tensor(ctx, dtype=torch.int32, device=DEVICE)
+
+
+def mla_decode_bound(ctx, h, r, rope, dtype_name):
+    """(bound_ms, bound_by) of the latent decode: each live cached row read
+    once (for both products), q read and o_lat written once; 2 x H x (D +
+    r) operations a live row."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    d = r + rope
+    live = sum(ctx)
+    nbytes = live * d * e + len(ctx) * h * (d + r) * e + 8 * len(ctx)
+    flops = live * h * 2 * (d + r)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def phase_mla_check(torch, AK, AO, iters=20):
+    """22 (a): the latent decode at deepseek-v2's widths through the
+    serving entry (its split-KV choice: 5 segments and the merge launch
+    at 8 rows, one segment at 64 rows) against its plain version, bf16
+    (atol 2e-2) and fp32 (TF32 off, 1e-4), dead rows exact zeros; timed in
+    bf16 beside its bound, its plain version and a page gather + SDPA
+    yardstick.  Returns (worst error, the 8-row shape's timing row)."""
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    worst, rows = 0.0, {}
+    scale = (128 + 64) ** -0.5
+    for tag, ctx in MLA_DECODE_SHAPES.items():
+        for dtype_name, atol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+            dtype = getattr(torch, dtype_name)
+            q, kp, pt, cl = mla_decode_inputs(torch, dtype, ctx, g)
+            got = AO.mla_decode_attention(q, kp, pt, cl, v_dim=512,
+                                          scale=scale)
+            want = AK.mla_decode_plain(q, kp, pt, cl, v_dim=512,
+                                       scale=scale)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            dead_exact = not bool(got[cl == 0].any())
+            nseg, seg = AO.split(q.shape[0], 128, pt.shape[1] * 16,
+                                 torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+            log(f"check {MLA:18s} {tag} {dtype_name} H 128 r 512 rope 64 "
+                f"page 16, {nseg} segments of {seg} keys: max_abs_err "
+                f"{err:.3e} (atol {atol:g}, max |o| "
+                f"{float(want.float().abs().max()):.3f})  dead rows exact "
+                f"zeros {dead_exact}")
+            if not (err <= atol and dead_exact):
+                raise AssertionError(f"{MLA} {tag} {dtype_name}: error "
+                                     f"{err} > {atol} or a dead row is "
+                                     f"not zero")
+            worst = max(worst, err)
+            if dtype_name != "bfloat16":
+                continue
+            s, h = q.shape[0], q.shape[1]
+            length = pt.shape[1] * 16
+            pos = torch.arange(length, device=DEVICE)
+            mask = (pos[None, :] < cl[:, None].long())[:, None, None, :]
+            pt_l = pt.long()
+
+            def library():  # the H heads as query rows of one KV head
+                k = kp[pt_l].reshape(s, 1, length, 576)
+                return F.scaled_dot_product_attention(
+                    q[:, None], k, k[..., :512], attn_mask=mask,
+                    scale=scale)[:, 0]
+
+            backend = sdpa_backend(torch, library)
+            ms = time_ms(torch, lambda: AO.mla_decode_attention(
+                q, kp, pt, cl, v_dim=512, scale=scale), iters, flush)
+            plain_ms = time_ms(torch, lambda: AK.mla_decode_plain(
+                q, kp, pt, cl, v_dim=512, scale=scale), 3, flush)
+            lib_ms = None
+            if backend is not None:
+                from torch.nn.attention import sdpa_kernel
+
+                with sdpa_kernel([backend]):
+                    lib_ms = time_ms(torch, library, iters, flush)
+            bound_ms, bound_by = mla_decode_bound(ctx, 128, 512, 64,
+                                                  dtype_name)
+            log(f"time  {MLA:37s} {tag} bf16 (sum ctx {sum(ctx)}) "
+                f"kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+                f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
+                f"(gather + SDPA, backend {backend})  bound_ms "
+                f"{bound_ms:.5f} ({bound_by})  of the bound "
+                f"{bound_ms / ms:.3f}  host_us "
+                f"{host_us(torch, lambda: AO.mla_decode_attention(q, kp, pt, cl, v_dim=512, scale=scale)):.1f}")
+            rows[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+            del q, kp, pt, cl, got, want
+    return worst, rows["8x0-2048"]
+
+
+def mla_flash_inputs(torch, dtype, b, s, h, kvl, g):
+    """Packed q [B*H, nq, bq, 192], k [B*H, S, 192], v [B*H, S, 128],
+    kv_len [B*H] and the kernel's keywords (group 1: every MLA head has its
+    own expanded key), drawn from `g` on the card."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    bq = fops.pick_block_q(s, 1)
+    q = torch.randn((b * h, s // bq, bq, 192), generator=g,
+                    device=DEVICE).to(dtype)
+    k = torch.randn((b * h, s, 192), generator=g, device=DEVICE).to(dtype)
+    v = torch.randn((b * h, s, 128), generator=g, device=DEVICE).to(dtype)
+    kv_len = torch.tensor(kvl, dtype=torch.int32,
+                          device=DEVICE).repeat_interleave(h)
+    return (q, k, v, kv_len, dict(block_q=bq, group=1, scale=192 ** -0.5,
+                                  causal=True, q_offset=0))
+
+
+def mla_flash_bound(b, s, h, kvl, dtype_name):
+    """(bound_ms, bound_by): q read and o and lse written once for every
+    row, k and v read once for the live keys only (the kernel loads no key
+    at or past kv_len); 2 x (192 + 128) operations a (query, key) pair a
+    head, each query row over min(row + 1, kv_len) keys."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    rows = b * h * s
+    live = h * sum(kvl)
+    nbytes = rows * (192 + 128) * e + rows * 4 + live * (192 + 128) * e
+    pairs = sum(sum(min(i + 1, n) for i in range(s)) for n in kvl)
+    flops = h * pairs * 2 * (192 + 128)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def phase_mla_flash(torch, FK, kvl_serve, iters=10):
+    """22 (b): the flash forward at key width 192 / value width 128 with a
+    per-batch kv_len against its plain version, bf16 at the padded
+    prefill of phase 5's prompts (8 x 1024 rows, 128 heads, kv_len the
+    prompt lengths) and fp32 at MLA_FLASH_FP32; timed in bf16 beside its
+    bound, its plain version and SDPA on the same masked problem.
+    Returns (worst error, timing row)."""
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    b, (s, h) = len(kvl_serve), MLA_FLASH_SERVE
+    worst, row = 0.0, None
+    for dtype_name, (b_, s_, h_, kvl), atol in (
+            ("bfloat16", (b, s, h, kvl_serve), 2e-2),
+            ("float32", MLA_FLASH_FP32, 1e-4)):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, kv_len, kw = mla_flash_inputs(torch, dtype, b_, s_, h_,
+                                               kvl, g)
+        o, lse = FK.flash_attention_fwd(q, k, v, kv_len=kv_len, **kw)
+        want_o, want_lse = FK.flash_attention_fwd_plain(q, k, v,
+                                                        kv_len=kv_len, **kw)
+        torch.cuda.synchronize()
+        err = float((o.float() - want_o.float()).abs().max())
+        err_lse = float((lse - want_lse).abs().max())
+        log(f"check {MLA_FLASH:18s} {dtype_name} B {b_} S {s_} H {h_} "
+            f"kv_len {kvl}: max_abs_err o {err:.3e} lse {err_lse:.3e} "
+            f"(atol {atol:g})")
+        if not (err <= atol and err_lse <= 1e-4):
+            raise AssertionError(f"{MLA_FLASH} {dtype_name}: error {err} / "
+                                 f"{err_lse} > {atol} / 1e-4")
+        worst = max(worst, err)
+        if dtype_name != "bfloat16":
+            continue
+        # SDPA on the same problem: [B, H, S, D], causal and kv_len masked
+        qd, kd, vd = (x.reshape(b_, h_, s_, -1) for x in (q, k, v))
+        pos = torch.arange(s_, device=DEVICE)
+        lens = torch.tensor(kvl, device=DEVICE)
+        mask = ((pos[None, :] <= pos[:, None])[None]
+                & (pos[None, None, :] < lens[:, None, None]))[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  scale=kw["scale"])
+
+        backend = sdpa_backend(torch, library)
+        ms = time_ms(torch, lambda: FK.flash_attention_fwd(
+            q, k, v, kv_len=kv_len, **kw), iters, flush)
+        plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(
+            q, k, v, kv_len=kv_len, **kw), 2, flush)
+        lib_ms = None
+        if backend is not None:
+            from torch.nn.attention import sdpa_kernel
+
+            with sdpa_kernel([backend]):
+                lib_ms = time_ms(torch, library, iters, flush)
+        bound_ms, bound_by = mla_flash_bound(b_, s_, h_, kvl, dtype_name)
+        log(f"time  {MLA_FLASH:37s} bf16 B {b_} S {s_} H {h_} kernel_ms "
+            f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} (SDPA, "
+            f"backend {backend})  bound_ms {bound_ms:.5f} ({bound_by})  of "
+            f"the bound {bound_ms / ms:.3f}")
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, o, want_o, qd, kd, vd, mask
+    return worst, row
+
+
+def prefill_profile(torch, eng, top=10):
+    """The first step of `eng` (a prefill, its requests added) under
+    `torch.profiler`: its wall, its kernels' summed device time and the
+    `top` kernels by device time, logged."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not st["prefill"]:
+        raise AssertionError("prefill_profile: the first step did not "
+                             "prefill")
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None) \
+                or ev.self_cuda_time_total
+            rows.append((us, ev.count, ev.key))
+    busy = sum(r[0] for r in rows) / 1e3
+    log(f"prefill step (profiled): wall {1e3 * wall:.3f} ms, its kernels "
+        f"{busy:.3f} ms summed ({sum(r[1] for r in rows)} launches)")
+    for us, count, name in sorted(rows, reverse=True)[:top]:
+        log(f"  {us / 1e3:8.3f} ms  x{count:4d}  {name[:90]}")
+    return dict(prefill_ms=1e3 * wall, prefill_kernels_ms=busy)
+
+
+def phase_mla_serve(torch, kernel_modules):
+    """22 (c): full-width deepseek-v2 cut to MLA_LAYERS layers (1 dense +
+    7 MoE), bf16, random weights drawn on the card, serves phase 5's 8
+    prompts (greedy, 32 new tokens, max_seqs 8, unchunked) on the padded
+    step (the packed request falls back to it, as in the reference), the
+    decode step on CUDA graphs, then eagerly: identical tokens, logits
+    bit-equal (else within one bf16 ulp); the latent decode (one launch
+    and one merge a layer a decode step, the tensor-core kernel), the
+    flash forward (one launch a layer a prefill) and the grouped GEMM (2
+    a MoE layer a step) launched, no plain version called (counters
+    zeroed just before the graphed run and read just after); tokens/s,
+    steps, keys, peak memory and the decode graph's replay logged.
+    Returns (the graphed run's launches by function, its numbers)."""
+    import gc
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, State
+
+    K, FK, GK, AK = kernel_modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[MLA_ARCH].replace(num_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    m = cfg.mla
+    log(f"mla serve {MLA_ARCH}: {cfg.num_layers} of 60 layers ("
+        f"{cfg.moe.first_k_dense} dense), d_model {cfg.d_model}, "
+        f"{cfg.num_q_heads} heads, q_lora {m.q_lora_rank} kv_lora "
+        f"{m.kv_lora_rank} nope {m.qk_nope_dim} rope {m.qk_rope_dim} v "
+        f"{m.v_head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} ff {cfg.moe.d_ff_expert} + "
+        f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}: {n_params / 1e9:.2f} G parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB) drawn on the "
+        f"card in {time.perf_counter() - t0:.1f}s")
+    eng_kw = dict(max_seqs=8, num_pages=1024, max_model_len=2048,
+                  seed=SEED, debug_logits=True, device=DEVICE)
+    _, _, served = serve_prompts(torch, cfg.vocab_size)
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=MLA_NEW_TOKENS)
+                for p in served]
+
+    with counted_plain((AK, "mla_decode_plain"),
+                       (FK, "flash_attention_fwd_plain"),
+                       (GK, "grouped_gemm_plain")) as plain_calls:
+        run = serve_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                        "mla serve")
+    reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
+    eng = run["eng"]
+    launches = {MLA: AK.LAUNCHES[MLA],
+                "flash_attention_fwd": FK.LAUNCHES["flash_attention_fwd"],
+                MOE: GK.LAUNCHES[MOE]}
+    if eng._packed:
+        raise AssertionError("mla serve: MLA must take the padded step")
+    if not all(r.state is State.FINISHED and len(r.output) == MLA_NEW_TOKENS
+               for r in reqs):
+        raise AssertionError("mla serve: not every request finished")
+    if any(plain_calls.values()):
+        raise AssertionError(f"mla serve: plain versions ran on the card "
+                             f"path: {plain_calls}")
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"mla serve: a paged GQA kernel ran: "
+                             f"{K.LAUNCHES}")
+    from repro_torch.kernels.mla_decode import ops as AO
+
+    calls = eng.device_calls
+    n_moe = MLA_LAYERS - cfg.moe.first_k_dense
+    nseg, _ = AO.split(eng.max_seqs, cfg.num_q_heads,
+                       eng.pages_per_seq * cfg.page_size,
+                       AO._sm_count(torch.device(DEVICE)))
+    want = {MLA: MLA_LAYERS * calls["decode"],
+            "flash_attention_fwd": MLA_LAYERS * calls["prefill"],
+            MOE: 2 * n_moe * (calls["decode"] + calls["prefill"])}
+    if launches != want \
+            or AK.KERNEL_LAUNCHES["mla_mma_kernel"] != want[MLA] \
+            or AK.KERNEL_LAUNCHES["mla_merge_kernel"] \
+            != want[MLA] * (nseg > 1) \
+            or GK.KERNEL_LAUNCHES["moe_mma_kernel"] != want[MOE]:
+        raise AssertionError(f"mla serve: launches {launches} "
+                             f"{AK.KERNEL_LAUNCHES} {GK.KERNEL_LAUNCHES} != "
+                             f"{want}")
+    if any(k[3] is not None for k in eng.compile_events):
+        raise AssertionError(f"mla serve: kernel-config dispatch ran: "
+                             f"{eng.compile_events}")
+    toks = sum(len(r.output) for r in reqs)
+    prompt_toks = sum(r.num_prompt_tokens for r in reqs)
+    log(f"mla serve steps {steps}  prompt_tokens {prompt_toks}  new_tokens "
+        f"{toks}  wall_s {wall:.3f}  new_tok_per_s {toks / wall:.1f}  "
+        f"total_tok_per_s {(toks + prompt_toks) / wall:.1f}  keys "
+        f"{eng.compile_events}  captured {eng.graph_stats['captures']} ("
+        f"{eng.graph_stats['capture_s']:.3f}s capturing)  replays "
+        f"{eng.graph_stats['replays']}")
+    log(f"mla serve device calls {dict(calls)}  launches {launches}  by "
+        f"kernel {AK.KERNEL_LAUNCHES} {GK.KERNEL_LAUNCHES}  plain calls "
+        f"{plain_calls}  latent decode segments {nseg}")
+    by_kind = {"decode": [], "prefill": []}
+    for st, dt in zip(run["stats"], run["step_walls"]):
+        by_kind["prefill" if st["prefill"] else "decode"].append(dt)
+    log("mla serve step() walls by kind (captures included): " + "  ".join(
+        f"{k} {len(v)} steps mean {1e3 * statistics.fmean(v):.3f} ms"
+        for k, v in by_kind.items() if v))
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False,
+                                    **eng_kw), requests(), "mla serve eager")
+    walls = graphs_vs_eager(torch, "mla serve", run, eager, cfg.dtype)
+    del eager
+    walls |= replay_cost(torch, eng, top=8)
+    del run, eng
+    peak = torch.cuda.max_memory_allocated()
+    # where the prefill step's time goes (warm: the third prefill of the
+    # process)
+    prof_eng = Engine(cfg, model, cuda_graphs=False, **eng_kw)
+    for r in requests():
+        prof_eng.add_request(r)
+    walls |= prefill_profile(torch, prof_eng)
+    del prof_eng
+    log(f"mla serve peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated, of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
+                          prompt_tokens=prompt_toks, peak_gib=peak / 2**30,
+                          **walls)
+
+
+def phase_mla_diff(torch):
+    """22 (d): deepseek-v2's attention width with its MoE cut
+    (MLA_DIFF_CUT, MLA_DIFF_EXPERTS: 1 dense + 1 MoE layer), fp32 with
+    TF32 off: 3 greedy requests of 8 new tokens on the card (eager, the
+    fp32 kernels, so each MoE call's routing reaches the host) and on the
+    CPU (the card model a copy of the CPU one), stepped in lockstep:
+    identical tokens, logits within DIFF_LOGIT_ATOL, every MoE call's
+    expert ids equal."""
+    import copy
+    import dataclasses
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+
+    base = ARCHS[MLA_ARCH]
+    cfg = base.replace(moe=dataclasses.replace(base.moe, **MLA_DIFF_EXPERTS),
+                       **MLA_DIFF_CUT)
+    cpu_model = weights.init_random(cfg, SEED, device="cpu")
+    models = {"cpu": cpu_model,
+              DEVICE: copy.deepcopy(cpu_model).to(DEVICE)}
+    routed = {}
+    for dev, model in models.items():
+        seen = routed[dev] = []
+        for blk in model.decoder_blocks():
+            if not hasattr(blk, "moe"):
+                continue
+            route = blk.moe.route
+
+            def record(xt, route=route, seen=seen):
+                w, ids = route(xt)
+                seen.append(ids.cpu())
+                return w, ids
+            blk.moe.route = record
+    g = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    eng_kw = dict(max_seqs=4, num_pages=64, max_model_len=256, seed=SEED,
+                  debug_logits=True, cuda_graphs=False)
+    _, _, worst, steps, _ = lockstep_diff(torch, "mla diff", cfg, models,
+                                          prompts, 8, eng_kw)
+    same = len(routed[DEVICE]) == len(routed["cpu"]) > 0 and all(
+        torch.equal(a, b) for a, b in zip(routed[DEVICE], routed["cpu"]))
+    rows = sum(t.shape[0] for t in routed["cpu"])
+    log(f"mla diff: cuts {MLA_DIFF_CUT} {MLA_DIFF_EXPERTS} (top-"
+        f"{cfg.moe.top_k}, {cfg.moe.num_shared_experts} shared, "
+        f"{cfg.moe.first_k_dense} dense); {len(routed['cpu'])} MoE calls, "
+        f"{rows} rows routed: expert ids identical {same}")
+    if not same:
+        raise AssertionError("mla diff: the card and the CPU chose "
+                             "different experts")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -3272,6 +3804,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.mamba2 import kernel as SK
+    from repro_torch.kernels.mla_decode import kernel as AK
+    from repro_torch.kernels.mla_decode import ops as AO
     from repro_torch.kernels.mlstm import kernel as MK
     from repro_torch.kernels.moe import kernel as GK
     from repro_torch.kernels.moe import ops as GO
@@ -3279,7 +3813,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
-    libraries = (K.library, FK.library, SK.library, MK.library, GK.library)
+    libraries = (K.library, FK.library, SK.library, MK.library, GK.library,
+                 AK.library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -3380,6 +3915,17 @@ def main() -> int:
     phase_moe_diff(torch)
     lap("21 moe")
 
+    # 22. MLA (deepseek-v2): (a) the latent decode and (b) the flash
+    # forward at 192 / 128 against their plain versions and timed; (c)
+    # full-width deepseek-v2 (8 layers) served on the padded step; (d) the
+    # card against the CPU
+    mla_err, mla_time = phase_mla_check(torch, AK, AO)
+    kvl_serve = [len(p) for p in serve_prompts(torch, 102400)[2]]
+    mla_flash_err, mla_flash_time = phase_mla_flash(torch, FK, kvl_serve)
+    mla_launches, _ = phase_mla_serve(torch, (K, FK, GK, AK))
+    phase_mla_diff(torch)
+    lap("22 mla")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -3402,6 +3948,13 @@ def main() -> int:
     kernels.append(dict(name=MOE, route="cuda", source=MOE_SOURCE,
                         replaces=MOE_REPLACES, launches=moe_launches[MOE],
                         max_abs_err=moe_err, **moe_time))
+    kernels.append(dict(name=MLA, route="cuda", source=MLA_SOURCE,
+                        replaces=MLA_REPLACES, launches=mla_launches[MLA],
+                        max_abs_err=mla_err, **mla_time))
+    kernels.append(dict(name=MLA_FLASH, route="cuda", source=FLASH_SOURCE,
+                        replaces=FLASH_REPLACES,
+                        launches=mla_launches["flash_attention_fwd"],
+                        max_abs_err=mla_flash_err, **mla_flash_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

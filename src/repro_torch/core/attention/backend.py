@@ -1,6 +1,6 @@
 """Attention backend: the unified token-packed entry of the packed engine
-step, and the decode / uniform-prefill (fresh or resumed) entries of the
-padded per-kind step.
+step, the decode / uniform-prefill (fresh or resumed) entries of the
+padded per-kind step, and MLA's latent decode (`mla_decode_attention`).
 
 The JAX reference switches between a `pallas` backend (its kernels) and an
 `xla` pure-jnp reference.  The port has no such switch; each entry is the
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.attention import heuristics
 from repro_torch.core.paged.kv_cache import require_single_pool
+from repro_torch.kernels.mla_decode import ops as mla_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
 
@@ -66,6 +67,28 @@ def decode_attention(
         variant=cfg.variant, tile=cfg.tile, num_segments=cfg.num_segments,
         scale=scale,
     )
+
+
+def mla_decode_attention(
+    q: torch.Tensor,  # [S, Hq, r + rope] the absorbed queries
+    k_pages: torch.Tensor,  # [1, 1, P, ps, r + rope] [latent | k_rope] rows
+    page_table: torch.Tensor,  # [S, Np]
+    context_lens: torch.Tensor,  # [S]
+    *,
+    v_dim: int,
+    scale: float,
+) -> torch.Tensor:
+    """MLA's absorbed-form decode: every query head attends over the one
+    latent "KV head", V the first `v_dim` columns of each cached row (the
+    reference's `decode_attention(..., v_pages=None, v_dim=r)`).  Dead
+    rows (context 0) are exact zeros.  Returns [S, Hq, v_dim]."""
+    require_single_pool(k_pages, "mla_decode_attention")
+    if k_pages.shape[0] != 1:
+        raise ValueError(f"mla_decode_attention: one latent KV head, got "
+                         f"k_pages {tuple(k_pages.shape)}")
+    return mla_ops.mla_decode_attention(
+        q, k_pages[0, 0], page_table, context_lens, v_dim=v_dim,
+        scale=scale)
 
 
 def prefill_attention_uniform(

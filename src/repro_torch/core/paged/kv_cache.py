@@ -2,6 +2,7 @@
 
 Layout (stacked across attention layers, leading dim L):
   k_pages/v_pages : [L, Hkv, num_pools, pages_per_pool, page_size, D]
+                    (MLA: k_pages only, Hkv 1, rows [latent | k_rope])
   page_table      : [S, pages_per_seq] int32, POOL-LOCAL page ids
   pool of seq s   : s // (S // num_pools)
 
@@ -39,14 +40,20 @@ def require_single_pool(k_pages: torch.Tensor, site: str) -> None:
 
 
 def make_kv_cache(num_layers: int, num_kv_heads: int, num_pools: int,
-                  pages_per_pool: int, page_size: int, head_dim: int,
-                  dtype: torch.dtype, device) -> dict[str, torch.Tensor]:
+                  pages_per_pool: int, page_size: int, k_dim: int,
+                  v_dim: int, dtype: torch.dtype,
+                  device) -> dict[str, torch.Tensor]:
     """Zeroed {'k_pages', 'v_pages'} of shape
-    [L, Hkv, num_pools, pages_per_pool, page_size, D]."""
-    shape = (num_layers, num_kv_heads, num_pools, pages_per_pool, page_size,
-             head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    [L, Hkv, num_pools, pages_per_pool, page_size, k_dim / v_dim]; v_dim 0
+    means V is a view into the K rows (MLA's latent) and only 'k_pages'
+    is made, as the reference's `make_kv_cache_specs`."""
+    lead = (num_layers, num_kv_heads, num_pools, pages_per_pool, page_size)
+    cache = {"k_pages": torch.zeros(lead + (k_dim,), dtype=dtype,
+                                    device=device)}
+    if v_dim:
+        cache["v_pages"] = torch.zeros(lead + (v_dim,), dtype=dtype,
+                                       device=device)
+    return cache
 
 
 def physical_slots(page_table: torch.Tensor, positions: torch.Tensor,

@@ -26,7 +26,9 @@
 //     maps l == 0 to 1, so rows with no live key are exact zeros, and
 //     writes lse = m + log(l) (kNeg where l == 0) when asked;
 //   * element-wise masks only on tiles that cross a warp's limit: a tile
-//     whose keys are live for every row of the slab skips the compares.
+//     whose keys are live for every row of the slab skips the compares;
+//   * the value width DV may differ from the key width D (MLA's expanded
+//     prefill: D 192 = nope 128 + rope 64, DV 128); it defaults to D.
 //
 // bf16 only: the tensor cores cannot give fp32 at the 1e-4 the card-versus
 // CPU checks hold, so fp32 stays on the scalar kernels of each .cu (a
@@ -54,25 +56,29 @@ constexpr int kKeys = 64;                     // keys of one K/V tile
 constexpr int kStages = 2;                    // K/V tiles in flight
 
 // Shared memory, in bf16 elements: Q [kBlockRows][kStride] then kStages x
-// (K [kKeys][kStride], V [kKeys][kStride]).
-template <int D>
+// (K [kKeys][kStride], V [kKeys][kVStride]).
+template <int D, int DV = D>
 struct Layout {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(D % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
   // +16 B a row: the 8 rows of one ldmatrix hit 8 different bank groups
   static constexpr int kStride = D + 8;
-  static constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  static constexpr int kVStride = DV + 8;
+  static constexpr int kChunks = D / 8;    // 16-byte chunks per Q / K row
+  static constexpr int kVChunks = DV / 8;  // per V row
   static constexpr int kTile = kKeys * kStride;
+  static constexpr int kVTile = kKeys * kVStride;
   static constexpr int kQ = kBlockRows * kStride;
   static constexpr size_t kBytes =
-      (size_t)(kQ + 2 * kStages * kTile) * sizeof(bf16);
+      (size_t)(kQ + kStages * (kTile + kVTile)) * sizeof(bf16);
   __device__ static bf16* q(bf16* smem, int warp) {
     return smem + warp * kSlab * kStride;
   }
   __device__ static bf16* k(bf16* smem, int stage) {
-    return smem + kQ + 2 * stage * kTile;
+    return smem + kQ + stage * (kTile + kVTile);
   }
   __device__ static bf16* v(bf16* smem, int stage) {
-    return smem + kQ + (2 * stage + 1) * kTile;
+    return smem + kQ + stage * (kTile + kVTile) + kTile;
   }
 };
 
@@ -109,23 +115,41 @@ __device__ __forceinline__ void load_q_slab(bf16* q_s, const bf16* q,
 // One K/V tile of kKeys rows starting at key kv0, by the whole block.
 // rows(key, &k_row, &v_row) gives the global rows of a key < limit; keys
 // >= limit are zero-filled, so P.V never touches memory past them.
-template <int D, class Rows>
+template <int D, int DV = D, class Rows>
 __device__ __forceinline__ void load_kv_tile(bf16* k_s, bf16* v_s, int kv0,
                                              int limit, const bf16* base,
                                              Rows rows) {
-  constexpr int C = Layout<D>::kChunks;
-  constexpr int kRowsPerPass = kThreads / C;
-  const int c = threadIdx.x % C;
-  for (int j = threadIdx.x / C; j < kKeys; j += kRowsPerPass) {
-    const int key = kv0 + j;
-    const bool ok = key < limit;
-    const bf16* kr = base;
-    const bf16* vr = base;
-    if (ok) rows(key, kr, vr);
-    cp_async16(k_s + j * Layout<D>::kStride + c * 8, ok ? kr + c * 8 : base,
-               ok);
-    cp_async16(v_s + j * Layout<D>::kStride + c * 8, ok ? vr + c * 8 : base,
-               ok);
+  using L = Layout<D, DV>;
+  if constexpr (D == DV) {  // one row of K and one of V a thread a pass
+    constexpr int C = L::kChunks;
+    constexpr int kRowsPerPass = kThreads / C;
+    const int c = threadIdx.x % C;
+    for (int j = threadIdx.x / C; j < kKeys; j += kRowsPerPass) {
+      const int key = kv0 + j;
+      const bool ok = key < limit;
+      const bf16* kr = base;
+      const bf16* vr = base;
+      if (ok) rows(key, kr, vr);
+      cp_async16(k_s + j * L::kStride + c * 8, ok ? kr + c * 8 : base, ok);
+      cp_async16(v_s + j * L::kVStride + c * 8, ok ? vr + c * 8 : base, ok);
+    }
+  } else {  // K and V rows of different widths: chunk by chunk
+    for (int e = threadIdx.x; e < kKeys * (L::kChunks + L::kVChunks);
+         e += kThreads) {
+      const bool is_k = e < kKeys * L::kChunks;
+      const int f = is_k ? e : e - kKeys * L::kChunks;
+      const int C = is_k ? L::kChunks : L::kVChunks;
+      const int j = f / C, c = f - j * C;
+      const int key = kv0 + j;
+      const bool ok = key < limit;
+      const bf16* kr = base;
+      const bf16* vr = base;
+      if (ok) rows(key, kr, vr);
+      const bf16* src = is_k ? kr : vr;
+      cp_async16((is_k ? k_s + j * L::kStride : v_s + j * L::kVStride) +
+                     c * 8,
+                 ok ? src + c * 8 : base, ok);
+    }
   }
 }
 
@@ -135,10 +159,10 @@ __device__ __forceinline__ void load_kv_tile(bf16* k_s, bf16* v_s, int kv0,
 
 // Thread (lane) holds rows g = lane / 4 and g + 8 of the slab; o[n] holds
 // columns 8n + 2 (lane % 4) and + 1 of both rows (mma's C layout).
-template <int D>
+template <int D, int DV = D>
 struct Warp {
   uint32_t qf[D / 16][4];  // Q as mma A fragments, one per 16 columns
-  float o[D / 8][4];
+  float o[DV / 8][4];
   float m[2], l[2];
 
   __device__ void init(const bf16* q_s) {
@@ -149,7 +173,7 @@ struct Warp {
                                 Layout<D>::kStride +
                           kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     m[0] = m[1] = kNeg;
     l[0] = l[1] = 0.f;
@@ -161,7 +185,8 @@ struct Warp {
   __device__ __forceinline__ void step(const bf16* k_s, const bf16* v_s,
                                        float scale, int kv0,
                                        const int (&lim)[2]) {
-    constexpr int S = Layout<D>::kStride;
+    constexpr int S = Layout<D, DV>::kStride;
+    constexpr int SV = Layout<D, DV>::kVStride;
     constexpr int NT = kKeys / 8;  // score n-tiles
     const int lane = threadIdx.x & 31;
     const int tq = lane & 3;
@@ -219,7 +244,7 @@ struct Warp {
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -230,9 +255,10 @@ struct Warp {
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < DV / 16; ++np) {
         uint32_t b[4];
-        ldsm_x4_t(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+        ldsm_x4_t(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                SV +
                          np * 16 + (lane >> 4) * 8);
         mma16816(o[2 * np], pa[kk], b[0], b[1]);
         mma16816(o[2 * np + 1], pa[kk], b[2], b[3]);
@@ -240,7 +266,7 @@ struct Warp {
     }
   }
 
-  // out rows (row-major [., D], row 0 = the slab's first) = o / l with
+  // out rows (row-major [., DV], row 0 = the slab's first) = o / l with
   // l == 0 -> 1; rows >= valid are not written.  lse (may be null) gets
   // m + log(l), kNeg where l == 0.
   __device__ void store(bf16* out, float* lse, int valid) const {
@@ -251,9 +277,9 @@ struct Warp {
       const int row = g + 8 * r;
       if (row >= valid) continue;
       const float l_safe = l[r] == 0.f ? 1.f : l[r];
-      bf16* dst = out + (long long)row * D + 2 * tq;
+      bf16* dst = out + (long long)row * DV + 2 * tq;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<uint32_t*>(dst + n * 8) =
             pack_bf16(o[n][2 * r] / l_safe, o[n][2 * r + 1] / l_safe);
       if (lse != nullptr && tq == 0)
@@ -272,21 +298,21 @@ struct Warp {
 // when kv0 + kKeys > all_live (keys below all_live are live for every row
 // of the warp).  Keys >= limit are zero-filled.  Ends with every copy
 // landed and a barrier, so the ring is free for the next walk.
-template <int D, class Rows>
-__device__ __forceinline__ void walk(Warp<D>& w, bf16* smem, int n_tiles,
+template <int D, int DV = D, class Rows>
+__device__ __forceinline__ void walk(Warp<D, DV>& w, bf16* smem, int n_tiles,
                                      int limit, const bf16* base, Rows rows,
                                      bool on, int tiles, int all_live,
                                      const int (&lim)[2], float scale) {
-  using L = Layout<D>;
+  using L = Layout<D, DV>;
   if (n_tiles <= 0) return;
-  load_kv_tile<D>(L::k(smem, 0), L::v(smem, 0), 0, limit, base, rows);
+  load_kv_tile<D, DV>(L::k(smem, 0), L::v(smem, 0), 0, limit, base, rows);
   cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
     if (t + 1 < n_tiles) {
       const int nx = (t + 1) % kStages;
-      load_kv_tile<D>(L::k(smem, nx), L::v(smem, nx), (t + 1) * kKeys, limit,
-                      base, rows);
+      load_kv_tile<D, DV>(L::k(smem, nx), L::v(smem, nx), (t + 1) * kKeys,
+                          limit, base, rows);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -305,11 +331,11 @@ __device__ __forceinline__ void walk(Warp<D>& w, bf16* smem, int n_tiles,
   }
 }
 
-template <int D, class K>
+template <int D, int DV = D, class K>
 cudaError_t prepare(K kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Layout<D>::kBytes);
+                              (int)Layout<D, DV>::kBytes);
 }
 
 }  // namespace attn_tile

@@ -6,9 +6,15 @@
 // (`_fwd_kernel`), the attention of the training path.  Same inputs:
 // q packed as [B*Hkv, nq, M = block_q * group, D] (row = tok * group + g,
 // so the `group` query heads that share a KV head are rows of one block,
-// paper §4.4), k / v as [B*Hkv, Skv, D].  Outputs o in q's layout and,
-// for the backward, lse = m + log(l) in fp32 [B*Hkv, nq, M] (kNeg where
-// a row saw no live key), as the reference's `_flash_fwd_core` returns.
+// paper §4.4), k as [B*Hkv, Skv, D], v as [B*Hkv, Skv, DV].  Outputs o
+// [B*Hkv, nq, M, DV] and, for the backward, lse = m + log(l) in fp32
+// [B*Hkv, nq, M] (kNeg where a row saw no live key), as the reference's
+// `_flash_fwd_core` returns.  Two widenings serve MLA's expanded prefill
+// (deepseek-v2): a value width DV below the key width D (192 / 128), and
+// an optional kv_len [B*Hkv] int32 that masks the keys at or past each
+// slice's length, as `flash_attention_xla(kv_len=)` does (the padded
+// rows of a uniform prefill batch); the training path passes DV = D and
+// no kv_len and computes what it did.
 //
 // What bounds it on this card: operations.  A causal training call does
 // 4 * D FLOPs per live (query, key) pair, S/2 keys per query on average,
@@ -23,13 +29,15 @@
 //   64 consecutive flattened rows (4 warps x 16) of one slice: each K/V
 //   tile it streams through the cp.async ring serves 64 query rows, and
 //   the packed-q / lse layouts at the wrapper stay as they are.  Each
-//   warp's row q_offset + R / group fixes its causal limit; tiles
+//   warp's row q_offset + R / group (and the slice's kv_len) fixes its
+//   limit; tiles
 //   strictly above the diagonal are never visited (the loop stops at the
 //   block's last row, and a warp skips tiles past its own), and only the
 //   tiles crossing a warp's diagonal compare element-wise.  The heaviest
-//   row blocks are issued first.  D is a template parameter, 64 or 128
-//   (every head dim of the registry's attention models); another D in
-//   bf16 is refused, never sent to a slower kernel.
+//   row blocks are issued first.  D and DV are template parameters: 64 /
+//   64, 128 / 128 (every head dim of the registry's GQA models) and 192 /
+//   128 (deepseek-v2's MLA prefill); other widths in bf16 are refused,
+//   never sent to a slower kernel.
 //
 //   fp32 (`flash_fwd_kernel`, the card-versus-CPU checks): scalar fp32
 //   FMAs on the CUDA cores, since the tensor cores cannot give fp32 at
@@ -38,7 +46,7 @@
 //   * block_q - 1; each thread owns a 4 x 4 register tile of the 64 x 64
 //   score tile and a 4 x DB/16 tile of the accumulator; Q^T, K^T, V and
 //   P^T in shared memory, padded against bank conflicts; D any multiple
-//   of 8 up to 256.  The entry point picks the kernel by dtype: a choice
+//   of 8 up to 256, DV <= D (V zero-filled past DV).  The entry point picks the kernel by dtype: a choice
 //   by type, not a fallback on failure.
 //
 // Semantics kept exactly from the Pallas kernel by both: the mask value
@@ -96,9 +104,10 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int BH, int nq, int M, int D,
-                     int Skv, int block_q, int group, float scale, int causal,
-                     int q_offset) {
+                     float* __restrict__ lse,
+                     const int* __restrict__ kv_len, int BH, int nq, int M,
+                     int D, int DV, int Skv, int block_q, int group,
+                     float scale, int causal, int q_offset) {
   constexpr int kCols = DB / 16;  // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
@@ -133,21 +142,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  int kv_end = Skv;
-  if (causal) kv_end = min(Skv, q_offset + (qi + 1) * block_q);
+  const int kvl = kv_len != nullptr ? min(Skv, kv_len[bh]) : Skv;
+  int kv_end = kvl;
+  if (causal) kv_end = min(kvl, q_offset + (qi + 1) * block_q);
   const int n_tiles = kv_end > 0 ? (kv_end + kKeys - 1) / kKeys : 0;
   const float* kb = k + (long long)bh * Skv * D;
-  const float* vb = v + (long long)bh * Skv * D;
+  const float* vb = v + (long long)bh * Skv * DV;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kKeys;
     __syncthreads();  // the previous tile's readers of k_s / v_s / p_s
     for (int e = tid; e < kKeys * DB; e += kThreads) {
       const int j = e / DB, d = e - j * DB;
-      const bool in = kv0 + j < Skv && d < D;
-      const long long g = (long long)(kv0 + j) * D + d;
-      k_s[d * kKeyStride + j] = in ? kb[g] : 0.f;
-      v_s[j * DB + d] = in ? vb[g] : 0.f;
+      const bool in = kv0 + j < kvl;
+      k_s[d * kKeyStride + j] =
+          in && d < D ? kb[(long long)(kv0 + j) * D + d] : 0.f;
+      v_s[j * DB + d] = in && d < DV ? vb[(long long)(kv0 + j) * DV + d]
+                                     : 0.f;
     }
     __syncthreads();
 
@@ -180,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = kv0 + tx + 16 * j;
-        live[j] = q_pos[i] >= 0 && kp < Skv && (!causal || kp <= q_pos[i]);
+        live[j] = q_pos[i] >= 0 && kp < kvl && (!causal || kp <= q_pos[i]);
         s[i][j] = live[j] ? s[i][j] * scale : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -231,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) o[(row_base + r) * D + d] = acc[i][c] / l_safe;
+      if (d < DV) o[(row_base + r) * DV + d] = acc[i][c] / l_safe;
     }
     if (tx == 0) lse[row_base + r] = l[i] == 0.f ? kNeg : m[i] + logf(l_safe);
   }
@@ -239,8 +250,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DB>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int BH, int nq, int M, int D, int Skv, int block_q, int group,
-           float scale, int causal, int q_offset, cudaStream_t stream) {
+           const int* kv_len, int BH, int nq, int M, int D, int DV, int Skv,
+           int block_q, int group, float scale, int causal, int q_offset,
+           cudaStream_t stream) {
   const size_t smem = smem_floats(DB) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
@@ -249,36 +261,38 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<DB><<<BH * nq, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, BH, nq, M, D, Skv, block_q, group, scale, causal,
-      q_offset);
+      (float*)lse, kv_len, BH, nq, M, D, DV, Skv, block_q, group, scale,
+      causal, q_offset);
   return cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int BH, int nq, int M, int D, int Skv, int block_q, int group,
-             float scale, int causal, int q_offset, cudaStream_t stream) {
+             const int* kv_len, int BH, int nq, int M, int D, int DV,
+             int Skv, int block_q, int group, float scale, int causal,
+             int q_offset, cudaStream_t stream) {
   if (D <= 64)
-    return launch<64>(q, k, v, o, lse, BH, nq, M, D, Skv, block_q, group,
-                      scale, causal, q_offset, stream);
+    return launch<64>(q, k, v, o, lse, kv_len, BH, nq, M, D, DV, Skv,
+                      block_q, group, scale, causal, q_offset, stream);
   if (D <= 128)
-    return launch<128>(q, k, v, o, lse, BH, nq, M, D, Skv, block_q, group,
-                       scale, causal, q_offset, stream);
-  return launch<256>(q, k, v, o, lse, BH, nq, M, D, Skv, block_q, group,
-                     scale, causal, q_offset, stream);
+    return launch<128>(q, k, v, o, lse, kv_len, BH, nq, M, D, DV, Skv,
+                       block_q, group, scale, causal, q_offset, stream);
+  return launch<256>(q, k, v, o, lse, kv_len, BH, nq, M, D, DV, Skv,
+                     block_q, group, scale, causal, q_offset, stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel.  One block per (64 flattened rows, b * Hkv)
 // with rows = nq * M per slice; row R is token q_offset + R / group.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, int DV, bool kLen>
 __global__ void __launch_bounds__(AT::kThreads)
     flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int BH, int rows, int Skv, int group, float scale,
-                     int causal, int q_offset) {
+                     const int* __restrict__ kv_len, int BH, int rows,
+                     int Skv, int group, float scale, int causal,
+                     int q_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   AT::bf16* smem = reinterpret_cast<AT::bf16*>(smem_raw);
   const int n_rb = (rows + AT::kBlockRows - 1) / AT::kBlockRows;
@@ -290,8 +304,9 @@ __global__ void __launch_bounds__(AT::kThreads)
   const long long slice = (long long)bh * rows;
 
   // exclusive key limit of flattened row R
+  const int kvl = kLen ? min(Skv, kv_len[bh]) : Skv;
   auto limit_of = [&](int R) {
-    return causal ? min(Skv, q_offset + R / group + 1) : Skv;
+    return causal ? min(kvl, q_offset + R / group + 1) : kvl;
   };
   const int g = lane >> 2;
   const int lim[2] = {limit_of(r0 + g), limit_of(r0 + g + 8)};
@@ -301,66 +316,94 @@ __global__ void __launch_bounds__(AT::kThreads)
   const int last = min(rb * AT::kBlockRows + AT::kBlockRows, rows) - 1;
   const int n_tiles = (limit_of(last) + AT::kKeys - 1) / AT::kKeys;
 
-  AT::load_q_slab<D>(AT::Layout<D>::q(smem, warp), q + (slice + r0) * D,
-                     valid);
+  using Lay = AT::Layout<D, DV>;
+  AT::load_q_slab<D>(Lay::q(smem, warp), q + (slice + r0) * D, valid);
   AT::cp_async_commit();
   AT::cp_async_wait<0>();
   __syncwarp();
-  AT::Warp<D> w;
-  w.init(AT::Layout<D>::q(smem, warp));
+  AT::Warp<D, DV> w;
+  w.init(Lay::q(smem, warp));
 
   const AT::bf16* kb = k + (long long)bh * Skv * D;
-  const AT::bf16* vb = v + (long long)bh * Skv * D;
+  const AT::bf16* vb = v + (long long)bh * Skv * DV;
   auto key_rows = [&](int key, const AT::bf16*& kr, const AT::bf16*& vr) {
     kr = kb + (long long)key * D;
-    vr = vb + (long long)key * D;
+    vr = vb + (long long)key * DV;
   };
-  AT::walk<D>(w, smem, n_tiles, Skv, kb, key_rows, valid > 0, tiles,
-              all_live, lim, scale);
-  if (valid > 0) w.store(o + (slice + r0) * D, lse + slice + r0, valid);
+  AT::walk<D, DV>(w, smem, n_tiles, kvl, kb, key_rows, valid > 0, tiles,
+                  all_live, lim, scale);
+  if (valid > 0) w.store(o + (slice + r0) * DV, lse + slice + r0, valid);
 }
 
-template <int D>
+template <int D, int DV, bool kLen>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, int BH, int rows, int Skv, int group, float scale,
-               int causal, int q_offset, cudaStream_t stream) {
-  cudaError_t err = AT::prepare<D>(flash_mma_kernel<D>);
+               void* lse, const int* kv_len, int BH, int rows, int Skv,
+               int group, float scale, int causal, int q_offset,
+               cudaStream_t stream) {
+  cudaError_t err = AT::prepare<D, DV>(flash_mma_kernel<D, DV, kLen>);
   if (err != cudaSuccess) return err;
   const int n_rb = (rows + AT::kBlockRows - 1) / AT::kBlockRows;
-  flash_mma_kernel<D>
-      <<<BH * n_rb, AT::kThreads, AT::Layout<D>::kBytes, stream>>>(
+  flash_mma_kernel<D, DV, kLen>
+      <<<BH * n_rb, AT::kThreads, AT::Layout<D, DV>::kBytes, stream>>>(
           (const AT::bf16*)q, (const AT::bf16*)k, (const AT::bf16*)v,
-          (AT::bf16*)o, (float*)lse, BH, rows, Skv, group, scale, causal,
-          q_offset);
+          (AT::bf16*)o, (float*)lse, kv_len, BH, rows, Skv, group, scale,
+          causal, q_offset);
   return cudaGetLastError();
+}
+
+// The length mask is a template flag: the training path (no kv_len) runs
+// the instantiation without it, whose registers it would otherwise cost.
+template <int D, int DV>
+int launch_mma_len(const void* q, const void* k, const void* v, void* o,
+                   void* lse, const int* kv_len, int BH, int rows, int Skv,
+                   int group, float scale, int causal, int q_offset,
+                   cudaStream_t stream) {
+  return kv_len != nullptr
+             ? launch_mma<D, DV, true>(q, k, v, o, lse, kv_len, BH, rows,
+                                       Skv, group, scale, causal, q_offset,
+                                       stream)
+             : launch_mma<D, DV, false>(q, k, v, o, lse, kv_len, BH, rows,
+                                        Skv, group, scale, causal, q_offset,
+                                        stream);
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points (ctypes).  `bf16` selects the tensor-core kernel
-// (__nv_bfloat16 q / k / v / o, D 64 or 128) over the scalar fp32 one;
-// lse is always fp32.  Returns a cudaError_t code.
+// (__nv_bfloat16 q / k / v / o; D / DV 64 / 64, 128 / 128 or 192 / 128)
+// over the scalar fp32 one (DV <= D); lse is always fp32; kv_len may be
+// null (no length mask).  Returns a cudaError_t code.
 // ---------------------------------------------------------------------------
 extern "C" {
 
 int fa_flash_attention_fwd(const void* q, const void* k, const void* v,
-                           void* o, void* lse, int BH, int nq, int M, int D,
-                           int Skv, int block_q, int group, float scale,
-                           int causal, int q_offset, int bf16, void* stream) {
+                           void* o, void* lse, const void* kv_len, int BH,
+                           int nq, int M, int D, int DV, int Skv,
+                           int block_q, int group, float scale, int causal,
+                           int q_offset, int bf16, void* stream) {
   if (M <= 0 || M > kRows || group <= 0 || block_q * group != M || D <= 0 ||
-      D > kMaxHeadDim || D % 8 != 0 || Skv < 0 || q_offset < 0)
+      D > kMaxHeadDim || D % 8 != 0 || DV <= 0 || DV > D || DV % 8 != 0 ||
+      Skv < 0 || q_offset < 0)
     return cudaErrorInvalidValue;
-  if (bf16 && D != 64 && D != 128) return cudaErrorInvalidValue;
+  const bool same = D == DV && (D == 64 || D == 128);
+  if (bf16 && !same && !(D == 192 && DV == 128))
+    return cudaErrorInvalidValue;
   if (BH * nq == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return D == 64 ? launch_mma<64>(q, k, v, o, lse, BH, nq * M, Skv, group,
-                                    scale, causal, q_offset, st)
-                   : launch_mma<128>(q, k, v, o, lse, BH, nq * M, Skv, group,
-                                     scale, causal, q_offset, st);
-  return dispatch(q, k, v, o, lse, BH, nq, M, D, Skv, block_q, group,
-                         scale, causal, q_offset, st);
+  const int* kvl = static_cast<const int*>(kv_len);
+  if (bf16) {
+    if (D == 64)
+      return launch_mma_len<64, 64>(q, k, v, o, lse, kvl, BH, nq * M, Skv,
+                                    group, scale, causal, q_offset, st);
+    if (D == 128)
+      return launch_mma_len<128, 128>(q, k, v, o, lse, kvl, BH, nq * M, Skv,
+                                      group, scale, causal, q_offset, st);
+    return launch_mma_len<192, 128>(q, k, v, o, lse, kvl, BH, nq * M, Skv,
+                                    group, scale, causal, q_offset, st);
+  }
+  return dispatch(q, k, v, o, lse, kvl, BH, nq, M, D, DV, Skv, block_q,
+                  group, scale, causal, q_offset, st);
 }
 
 }  // extern "C"

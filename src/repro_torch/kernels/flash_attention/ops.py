@@ -19,7 +19,10 @@ the recompute backward of the reference.
             Under causal masking the query rows that precede a KV block
             are sliced off: their P is exactly zero there.
 
-D is not padded to the TPU's 128 lanes.
+D is not padded to the TPU's 128 lanes.  The forward also takes a value
+width other than the key width and a per-batch `kv_len` (MLA's expanded
+prefill, serving only): the backward raises on either until MLA training
+is ported.
 """
 from __future__ import annotations
 
@@ -59,20 +62,24 @@ def unpack_q(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def flash_forward(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
-                  group: int, causal: bool, scale: float, q_offset: int):
-    """qp [B, Hkv, S*G, D], kp / vp [B, Hkv, Skv, D] -> (o like qp, lse
-    [B, Hkv, S*G] f32) through the kernel wrapper."""
+                  group: int, causal: bool, scale: float, q_offset: int,
+                  kv_len: torch.Tensor | None = None):
+    """qp [B, Hkv, S*G, Dk], kp [B, Hkv, Skv, Dk], vp [B, Hkv, Skv, Dv] ->
+    (o [B, Hkv, S*G, Dv] in qp's dtype, lse [B, Hkv, S*G] f32) through the
+    kernel wrapper; kv_len [B] (optional) masks keys >= kv_len[b]."""
     b, hkv, rows, d = qp.shape
-    skv = kp.shape[2]
+    skv, dv = kp.shape[2], vp.shape[3]
     bq = pick_block_q(rows // group, group)
     nq = rows // (bq * group)
+    if kv_len is not None:  # one length per (b, KV head) slice
+        kv_len = kv_len.to(torch.int32).repeat_interleave(hkv).contiguous()
     o, lse = K.flash_attention_fwd(
         qp.reshape(b * hkv, nq, bq * group, d).contiguous(),
         kp.reshape(b * hkv, skv, d).contiguous(),
-        vp.reshape(b * hkv, skv, d).contiguous(),
+        vp.reshape(b * hkv, skv, dv).contiguous(),
         block_q=bq, group=group, scale=scale, causal=causal,
-        q_offset=q_offset)
-    return o.reshape(b, hkv, rows, d), lse.reshape(b, hkv, rows)
+        q_offset=q_offset, kv_len=kv_len)
+    return o.reshape(b, hkv, rows, dv), lse.reshape(b, hkv, rows)
 
 
 def flash_backward(qp, kp, vp, op, lse, dop, *, group: int, causal: bool,
@@ -112,41 +119,52 @@ def flash_backward(qp, kp, vp, op, lse, dop, *, group: int, causal: bool,
 
 class FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float, q_offset: int):
+    def forward(ctx, q, k, v, causal: bool, scale: float, q_offset: int,
+                kv_len=None):
         b, sq, hq, _ = q.shape
         hkv = k.shape[2]
         qp = pack_q(q, hkv)
         kp = k.permute(0, 2, 1, 3).contiguous()
         vp = v.permute(0, 2, 1, 3).contiguous()
         op, lse = flash_forward(qp, kp, vp, group=hq // hkv, causal=causal,
-                                scale=scale, q_offset=q_offset)
+                                scale=scale, q_offset=q_offset, kv_len=kv_len)
         ctx.save_for_backward(qp, kp, vp, op, lse)
         ctx.cfg = (hq // hkv, causal, scale, q_offset, sq)
+        ctx.forward_only = kv_len is not None or v.shape[3] != k.shape[3]
         return unpack_q(op, sq)
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.forward_only:
+            raise NotImplementedError(
+                "flash_attention: the backward of a kv_len-masked or "
+                "mixed-width (MLA) forward is not ported yet")
         qp, kp, vp, op, lse = ctx.saved_tensors
         group, causal, scale, q_offset, sq = ctx.cfg
         dq, dk, dv = flash_backward(
             qp, kp, vp, op, lse, pack_q(do, kp.shape[1]), group=group,
             causal=causal, scale=scale, q_offset=q_offset)
         return (unpack_q(dq, sq), dk.permute(0, 2, 1, 3),
-                dv.permute(0, 2, 1, 3), None, None, None)
+                dv.permute(0, 2, 1, 3), None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Causal (or bidirectional) GQA flash attention.  q [B, Sq, Hq, D];
-    k / v [B, Skv, Hkv, D] with Hq a multiple of Hkv; query row i sits at
-    position q_offset + i.  Returns [B, Sq, Hq, D] in q's dtype."""
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+                    q_offset: int = 0,
+                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal (or bidirectional) GQA flash attention.  q [B, Sq, Hq, Dk];
+    k [B, Skv, Hkv, Dk] and v [B, Skv, Hkv, Dv] with Hq a multiple of Hkv;
+    query row i sits at position q_offset + i; kv_len [B] (optional)
+    masks the keys at or past each batch row's length.  Returns [B, Sq,
+    Hq, Dv] in q's dtype."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3] \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} must be "
-                         "[B, Sq, Hkv*G, D] and [B, Skv, Hkv, D]")
+                         "[B, Sq, Hkv*G, Dk], [B, Skv, Hkv, Dk] and "
+                         "[B, Skv, Hkv, Dv]")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, causal, scale, q_offset)
+    return FlashAttention.apply(q, k, v, causal, scale, q_offset, kv_len)

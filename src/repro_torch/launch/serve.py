@@ -10,6 +10,8 @@ stream (arrival-rate driven), reporting latency and throughput.
         [--snapshot-interval SEC] [--slo-p95 SEC] [--refit-every N]
     python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \
         --reduced [--device cpu] [--chunked-prefill] [...]
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --reduced \
+        [--device cpu]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--reduced] \
         [--device cpu] [--profile]
     python -m repro_torch.launch.serve --arch xlstm-350m [--reduced] \
@@ -17,9 +19,11 @@ stream (arrival-rate driven), reporting latency and throughput.
 
 A dense or MoE model runs the packed step (a MoE model's experts on the
 grouped expert GEMM; llama4-maverick fits the card only `--reduced`, its
-full width is served by `chip_smoke.py` at 2 layers); a hybrid model
-(zamba2) and an
-xLSTM model (xlstm) run the padded per-kind step.  On the card the packed
+full width is served by `chip_smoke.py` at 2 layers); an MLA model
+(deepseek-v2: its latent decode kernel, its prefill on the flash forward
+at key width nope + rope; full width in `chip_smoke.py` at 8 layers), a
+hybrid model (zamba2) and an xLSTM model (xlstm) run the padded per-kind
+step.  On the card the packed
 step and the padded decode step are captured into CUDA graphs and
 replayed (`--eager`: `Engine(cuda_graphs=False)`, every step eager); the
 run prints its `compile_events` (one per executable-cache key) and its
@@ -74,6 +78,7 @@ from repro_torch.configs import ARCHS, reduced
 from repro_torch.core.attention import heuristics
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mla_decode import kernel as AK
 from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
@@ -298,7 +303,7 @@ def _serve(ap, args) -> None:
               f"{st['emitted']} emitted over {st['steps']} spec steps "
               f"(adaptive k now {k})")
     launches = {}
-    for kernels in (K, FK, SK, MK, GK):
+    for kernels in (K, FK, SK, MK, GK, AK):
         launches |= kernels.LAUNCHES
     print(f"kernel launches: {launches}")
     gs = eng.graph_stats

@@ -16,6 +16,15 @@ absolute positions after a prior context in the pages): the same write,
 then the Q-Block prefill over the whole paged context.  Training: QKV,
 RoPE, causal flash attention over the whole sequence (no cache), then
 `wo`.
+
+MLA (deepseek-v2, `MLAAttention`) serves on the padded step only, as in
+the reference: it caches one compressed row [latent | k_rope] a token
+(one "KV head", no V pages).  Prefill runs the expanded form (per-head
+keys [wk_b . latent | k_rope] and values wv_b . latent through the flash
+forward at key width nope + rope, value width v, keys masked at each
+row's query length); decode the absorbed form (q_nope . wk_b in fp32,
+the latent decode kernel over the pages with V the latent prefix of each
+row, then . wv_b in fp32).
 """
 from __future__ import annotations
 
@@ -29,11 +38,28 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 
 
+def kv_cache_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(num_kv_heads, k_dim, v_dim) of the paged cache rows; v_dim 0 means
+    V is a view into K (MLA's latent)."""
+    if cfg.mla.kv_lora_rank:
+        return 1, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim, 0
+    dh = cfg.resolved_head_dim
+    return cfg.num_kv_heads, dh, dh
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [n, i, k] @ b [n, k, j] with fp32 products and sums, as the
+    reference's fp32 einsums.  bf16 operands on the card go through a bf16
+    GEMM with fp32 output (a bf16 product is exact in fp32), so no fp32
+    copy of a weight is made; otherwise the operands are taken in fp32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.mla.kv_lora_rank:
-            raise NotImplementedError("MLA attention is not ported yet")
         if cfg.fused_qkv:
             raise NotImplementedError("fused wqkv weights are not ported yet")
         if cfg.rope_style != "rope":
@@ -129,3 +155,128 @@ class Attention(nn.Module):
         o = flash_attention(q, k, v, causal=True,
                             scale=self.cfg.resolved_head_dim ** -0.5)
         return self.wo(o.reshape(b, s, -1).to(x.dtype))
+
+
+class MLAAttention(nn.Module):
+    """deepseek-v2's multi-head latent attention (the reference's
+    `_mla_attention`), for the padded serving modes.  Leaves: `wkv_a`,
+    `kv_norm`, `wk_b`, `wv_b`, `wo`, and `wq_a` / `q_norm` / `wq_b`, or
+    `wq` where `q_lora_rank` is 0.  The layer's cache is one page pool of
+    [latent | k_rope] rows, k_pages [1, 1, P, ps, r + rope]."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        if cfg.rope_style != "rope":
+            raise NotImplementedError(
+                f"rope_style={cfg.rope_style!r} is not ported yet")
+        self.cfg = cfg
+        m = cfg.mla
+        h, dt = cfg.num_q_heads, cfg.param_dtype
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        self.q_lora = m.q_lora_rank > 0
+        if self.q_lora:
+            self.wq_a = L.Linear(cfg.d_model, m.q_lora_rank, dtype=dt,
+                                 device=device)
+            self.q_norm = L.RMSNorm(m.q_lora_rank, eps=cfg.norm_eps,
+                                    dtype=dt, device=device)
+            self.wq_b = L.Linear(m.q_lora_rank, h * qk, dtype=dt,
+                                 device=device)
+        else:
+            self.wq = L.Linear(cfg.d_model, h * qk, dtype=dt, device=device)
+        self.wkv_a = L.Linear(cfg.d_model, m.kv_lora_rank + m.qk_rope_dim,
+                              dtype=dt, device=device)
+        self.kv_norm = L.RMSNorm(m.kv_lora_rank, eps=cfg.norm_eps, dtype=dt,
+                                 device=device)
+        self.wk_b = L.Linear(m.kv_lora_rank, h * m.qk_nope_dim, dtype=dt,
+                             device=device)
+        self.wv_b = L.Linear(m.kv_lora_rank, h * m.v_head_dim, dtype=dt,
+                             device=device)
+        self.wo = L.Linear(h * m.v_head_dim, cfg.d_model, dtype=dt,
+                           device=device)
+        self.scale = qk ** -0.5
+
+    def q(self, x: torch.Tensor, positions: torch.Tensor):
+        """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated): the
+        reference's `_mla_q`."""
+        b, s, _ = x.shape
+        m = self.cfg.mla
+        q = self.wq_b(self.q_norm(self.wq_a(x))) if self.q_lora \
+            else self.wq(x)
+        q = q.reshape(b, s, self.cfg.num_q_heads,
+                      m.qk_nope_dim + m.qk_rope_dim)
+        q_rope = L.apply_rope(q[..., m.qk_nope_dim:], positions,
+                              self.cfg.rope_theta)
+        return q[..., :m.qk_nope_dim], q_rope
+
+    def latent(self, x: torch.Tensor, positions: torch.Tensor):
+        """(latent [B, S, r] normed, k_rope [B, S, rope] rotated): what the
+        cache holds, the reference's `_mla_latent`."""
+        r = self.cfg.mla.kv_lora_rank
+        kv = self.wkv_a(x)
+        latent = self.kv_norm(kv[..., :r])
+        k_rope = L.apply_rope(kv[..., r:][:, :, None, :], positions,
+                              self.cfg.rope_theta)[:, :, 0]
+        return latent, k_rope
+
+    def _write_rows(self, latent, k_rope, k_pages, meta) -> None:
+        """The step's [latent | k_rope] rows into this layer's pages at the
+        write index (in place)."""
+        row = torch.cat([latent, k_rope], dim=-1)
+        scatter_kv(k_pages, row.reshape(1, -1, row.shape[-1]),
+                   meta["write_index"])
+
+    def forward(self, *args, **kwargs):
+        raise ValueError("the unified packed step is unsupported for MLA: "
+                         "it serves on the padded per-kind step")
+
+    def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                        k_pages: torch.Tensor, v_pages, meta: dict,
+                        kernel_cfg=None) -> torch.Tensor:
+        """Fresh prompts at context 0 in the expanded form.  x [B, S, d];
+        positions [B, S]; k_pages [1, 1, P, ps, r + rope] (v_pages None);
+        meta: query_lens and the write index.  `cfg.mla_fused_prefill`
+        computes the same function (the reference's per-KV-block
+        expansion keeps its score buffers small; the flash forward never
+        holds one), so it takes this path too.  Returns [B, S, d]."""
+        b, s, _ = x.shape
+        m, h = self.cfg.mla, self.cfg.num_q_heads
+        q_nope, q_rope = self.q(x, positions)
+        latent, k_rope = self.latent(x, positions)
+        self._write_rows(latent, k_rope, k_pages, meta)
+        k_nope = self.wk_b(latent).reshape(b, s, h, m.qk_nope_dim)
+        v = self.wv_b(latent).reshape(b, s, h, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        o = flash_attention(q, k, v, causal=True, scale=self.scale,
+                            kv_len=meta["query_lens"])
+        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+
+    def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
+                       k_pages: torch.Tensor, v_pages, meta: dict,
+                       kernel_cfg=None) -> torch.Tensor:
+        """One token per slot in the absorbed form.  x [B, 1, d];
+        positions [B, 1] (-1 on dead slots); meta: page_table,
+        context_lens (0 on dead slots) and the write index.  The kernel
+        config is not read: the latent decode has one path, as the
+        reference's.  Returns [B, 1, d]."""
+        b = x.shape[0]
+        m, h = self.cfg.mla, self.cfg.num_q_heads
+        r = m.kv_lora_rank
+        q_nope, q_rope = self.q(x, positions)
+        latent, k_rope = self.latent(x, positions)
+        self._write_rows(latent, k_rope, k_pages, meta)
+        wkb = self.wk_b.w.reshape(r, h, m.qk_nope_dim).permute(1, 2, 0)
+        q_abs = _bmm_f32(q_nope[:, 0].transpose(0, 1), wkb)  # [H, B, r]
+        q_eff = torch.cat([q_abs.transpose(0, 1).to(x.dtype),
+                           q_rope[:, 0]], dim=-1)
+        o_lat = attn_backend.mla_decode_attention(
+            q_eff, k_pages, meta["page_table"], meta["context_lens"],
+            v_dim=r, scale=self.scale)  # [B, H, r]
+        wvb = self.wv_b.w.reshape(r, h, m.v_head_dim).transpose(0, 1)
+        o = _bmm_f32(o_lat.transpose(0, 1), wvb)  # [H, B, v]
+        return self.wo(o.transpose(0, 1).reshape(b, 1, -1).to(x.dtype))
+
+    def forward_train(self, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("MLA training is not ported yet")

@@ -7,7 +7,9 @@ SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
 smollm).  MoE `Model` (family "moe", llama4-maverick): the same stack,
 `first_k_dense` leading dense blocks (`lead_blocks`) then blocks whose
 FFN is the dropless `MoE` (`models/moe.py`), -> `ln_f` -> the untied
-`lm_head`.  Hybrid `Model` (family "hybrid", zamba2): embed ->
+`lm_head`.  deepseek-v2 is a MoE model whose blocks hold MLA
+(`MLAAttention`) in place of GQA; it serves on the padded step only, as
+in the reference.  Hybrid `Model` (family "hybrid", zamba2): embed ->
 [(period-1) Mamba2 blocks, then the ONE weight-shared decoder block] x
 n_attn, then the tail Mamba2 blocks (`hybrid_layout`) -> `ln_f` -> the
 untied `lm_head`.  Each Mamba2 block is pre-normed (`mamba_ln`) and
@@ -30,7 +32,8 @@ Entry points (ports of `repro.models.model`):
                  rematerialised in the backward, masked fp32 CE (dense)
 
 The serving cache (`make_cache`) is the reference's tree: {"attn":
-{"k_pages", "v_pages"}} for the attention layers (none for xlstm), for
+{"k_pages", "v_pages"}} for the attention layers (none for xlstm; MLA's
+is {"k_pages"} alone, its [latent | k_rope] rows), for
 the hybrid family {"mamba": {"conv", "ssm"}}, and for the ssm family
 {"mlstm": {"conv", "c", "n", "m"}, "slstm": {"h", "c", "n", "m"}}, the
 recurrent leaves indexed by [layer, slot].  The serving steps write it
@@ -48,7 +51,8 @@ from repro_torch.core.paged.kv_cache import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import (Attention, MLAAttention,
+                                          kv_cache_dims)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import (
     Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
@@ -66,7 +70,8 @@ class Block(nn.Module):
         dt = cfg.param_dtype
         self.ln1 = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
                              device=device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = (MLAAttention if cfg.mla.kv_lora_rank else Attention)(
+            cfg, device=device)
         self.ln2 = L.RMSNorm(cfg.d_model, eps=cfg.norm_eps, dtype=dt,
                              device=device)
         if use_moe:
@@ -86,11 +91,12 @@ class Block(nn.Module):
         return x + self.ffn(self.ln2(x), mode="train")
 
     def forward_serve(self, x: torch.Tensor, positions: torch.Tensor,
-                      k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      k_pages: torch.Tensor, v_pages: torch.Tensor | None,
                       meta: dict, *, mode: str,
                       kernel_cfg=None) -> torch.Tensor:
         """Padded serving mode "prefill", "prefill_cached" or "decode"
-        over this layer's pages [Hkv, 1, P, ps, D] (written in place)."""
+        over this layer's pages [Hkv, 1, P, ps, D] (written in place;
+        v_pages None for MLA)."""
         attn = (self.attn.forward_decode if mode == "decode"
                 else self.attn.forward_prefill)
         x = x + attn(self.ln1(x), positions, k_pages, v_pages, meta,
@@ -142,11 +148,11 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
-                or cfg.mla.kv_lora_rank:
+                or (cfg.mla.kv_lora_rank and cfg.family != "moe"):
             raise NotImplementedError(
                 f"family={cfg.family!r} (MLA: {bool(cfg.mla.kv_lora_rank)})"
-                " is not ported yet (dense, moe without MLA, hybrid and "
-                "ssm only)")
+                " is not ported yet (dense, moe with or without MLA, "
+                "hybrid and ssm only)")
         if cfg.input_kind != "tokens":
             raise NotImplementedError("embedding inputs are not ported yet")
         self.cfg = cfg
@@ -205,7 +211,9 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
                device) -> dict[str, dict[str, torch.Tensor]]:
     """The empty serving cache: {"attn": {"k_pages", "v_pages"}} of
     [n_attn, Hkv, 1, num_pages, page_size, head_dim] in the param dtype
-    (one pool: a single device) when the model has attention layers; for
+    (one pool: a single device) when the model has attention layers (MLA:
+    {"k_pages"} of [n_attn, 1, 1, num_pages, page_size, r + rope],
+    `kv_cache_dims`); for
     the hybrid family {"mamba": {"conv": [n_mamba, max_seqs, K-1,
     conv_dim] param dtype, "ssm": [n_mamba, max_seqs, H, N, P] fp32}}; for
     the ssm family {"mlstm": {"conv", "c", "n", "m"}, "slstm": {"h", "c",
@@ -214,9 +222,10 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
     -inf."""
     cache = {}
     if attn_layer_count(cfg):
+        hkv, dk, dv = kv_cache_dims(cfg)
         cache["attn"] = make_kv_cache(
-            attn_layer_count(cfg), cfg.num_kv_heads, 1, num_pages,
-            cfg.page_size, cfg.resolved_head_dim, cfg.param_dtype, device)
+            attn_layer_count(cfg), hkv, 1, num_pages, cfg.page_size, dk, dv,
+            cfg.param_dtype, device)
     if cfg.family == "hybrid":
         groups = {"mamba": (hybrid_layout(cfg)[0], mamba2_cache_specs)}
     elif cfg.family == "ssm":
@@ -277,9 +286,10 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     `return_logits=True` inserts last_logits before the cache."""
     if max_draft and not sample:
         raise ValueError("speculative verify samples: it needs sample=True")
-    if model.cfg.family not in ("dense", "moe"):
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe") or cfg.mla.kv_lora_rank:
         raise ValueError(f"the packed step needs page-addressable context: "
-                         f"unsupported for family={model.cfg.family!r}")
+                         f"unsupported for family={cfg.family!r}/MLA")
     inputs = batch["inputs"]
     if "token_source" in batch:
         src = batch["token_source"]
@@ -382,10 +392,11 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
     cfg = model.cfg
     if cfg.family == "ssm":
         return _xlstm_forward(model, x, cache, meta, mode=mode)
-    kp, vp = cache["attn"]["k_pages"], cache["attn"]["v_pages"]
+    kp, vp = cache["attn"]["k_pages"], cache["attn"].get("v_pages")
     if cfg.family in ("dense", "moe"):
         for i, blk in enumerate(model.decoder_blocks()):
-            x = blk.forward_serve(x, positions, kp[i], vp[i], meta,
+            x = blk.forward_serve(x, positions, kp[i],
+                                  None if vp is None else vp[i], meta,
                                   mode=mode, kernel_cfg=kernel_cfg)
         return x
     valid, seq_lens = _serve_masks(mode, meta, x.shape[1])
@@ -462,11 +473,13 @@ def apply_prefill_cached(model: Model, cache: dict, batch: dict, *,
     pages).  The prior context (earlier chunks, a prefix-cache hit, or
     both) is read back from the pages: the chunk's KV is written at its
     absolute slots, then attention covers the whole paged context.
-    Dense and moe families only (hybrid / ssm state is not
-    page-addressable).  Returns (last_token_logits [B, V] f32, cache)."""
-    if model.cfg.family not in ("dense", "moe"):
+    Dense and moe families without MLA only (hybrid / ssm state is not
+    page-addressable; MLA's latent rows serve fresh prompts only, as in
+    the reference).  Returns (last_token_logits [B, V] f32, cache)."""
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe") or cfg.mla.kv_lora_rank:
         raise ValueError(f"resumed prefill needs page-addressable context: "
-                         f"unsupported for family={model.cfg.family!r}")
+                         f"unsupported for family={cfg.family!r}/MLA")
     return _prefill(model, cache, batch, "prefill_cached", kernel_cfg)
 
 

@@ -13,10 +13,11 @@ The forward, general in top_k:
   2. top-k by a stable descending sort: ties go to the lower expert id,
      as `jax.lax.top_k` breaks them (`torch.topk` promises no order among
      equal values); the weights renormalised to sum 1 (clipped at 1e-9);
-  3. the flat expert ids [T k] in a stable counting sort on the device:
-     counts by a one-hot sum, offsets their cumsum, each row's sorted
-     position offsets[e] + its rank among the rows of expert e, the same
-     permutation as the reference's stable argsort;
+  3. the flat expert ids [T k] in a stable sort on the device (the
+     reference's stable argsort; nothing of size T k E, as a one-hot
+     would be, is formed): the group offsets a search of the sorted ids
+     for 0..E, each row's sorted position the inverse of the sort's
+     permutation;
   4. the sorted rows gathered in the param dtype, then the two grouped
      GEMM launches (`kernels/moe/ops.py:expert_ffn`);
   5. the combine in fp32 through the inverse permutation, [T, k, d]
@@ -33,7 +34,6 @@ expert-parallel `moe_ffn_dropless_ep` are not ported.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -83,13 +83,13 @@ class MoE(nn.Module):
         e = self.w_gate.shape[0]
         topw, topi = self.route(xt)
         e_flat = topi.reshape(-1)  # [T k]
-        onehot = F.one_hot(e_flat, e).to(torch.int32)  # [T k, E]
-        counts = onehot.sum(0, dtype=torch.int32)
-        offsets = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
-        rank = torch.cumsum(onehot, 0, dtype=torch.int32) - onehot
-        pos = (offsets[e_flat] + rank.gather(1, e_flat[:, None])[:, 0]).long()
-        src = torch.arange(t * k, device=x.device) // k
-        tok_of = torch.empty_like(src).scatter_(0, pos, src)
+        ids, order = torch.sort(e_flat, stable=True)  # order: sorted -> flat
+        # group g's rows start where the sorted ids first reach g
+        offsets = torch.searchsorted(
+            ids, torch.arange(e + 1, device=x.device), out_int32=True)
+        pos = torch.empty_like(order).scatter_(
+            0, order, torch.arange(t * k, device=x.device))
+        tok_of = order // k
         xs = xt[tok_of].to(self.w_gate.dtype)
         ys = moe_ops.expert_ffn(xs, offsets, self.w_gate, self.w_up,
                                 self.w_down)

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mla_decode import kernel as AK
 from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
@@ -60,7 +61,7 @@ def kernel_counters() -> Counts:
     """Every launch counter of the kernel wrappers."""
     return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, SK.LAUNCHES,
             SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES, GK.LAUNCHES,
-            GK.KERNEL_LAUNCHES]
+            GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES]
 
 
 def counted(fn: Callable, counters: Counts | None = None):

@@ -16,14 +16,16 @@ inside it:
 
 The padded per-kind step (`packed_attention=False`, and always for the
 hybrid and ssm families, whose slot-indexed recurrent state is not
-page-addressable per token) runs each step as `apply_prefill` over the
+page-addressable per token, and for MLA, whose latent decode has one
+fixed path, as in the reference) runs each step as `apply_prefill` over the
 fresh prompts, padded to a [pow2 batch, pow2 seq >= page] bucket, then
 `apply_decode` over the static `max_seqs` decode batch, each followed by
 a separate sampling dispatch.  Prefill starts every recurrent slot from
 the empty state (zeros, the xLSTM stabilisers at -inf) and merges the
 rows back into the slot-indexed cache (`_prefill_cache_view` /
 `_merge_prefill_cache`).  A model without attention layers (xlstm) has
-no KV pages to address and no attention kernel to configure.
+no KV pages to address and no attention kernel to configure; an MLA
+model has pages but no kernel configuration either.
 
 Metadata (page tables, context / query lengths, query start locations,
 slot mappings, positions) is built host-side in numpy and uploaded once
@@ -247,8 +249,11 @@ class Engine:
         if env_tree:
             log.info("engine: attention heuristics from %s", env_tree)
         # kernel-config dispatch steers the paged-attention kernels: none
-        # for a model without attention layers (xlstm)
-        self._dispatch_enabled = M.attn_layer_count(cfg) > 0
+        # for a model without attention layers (xlstm), nor for MLA, whose
+        # latent decode has one path (compile keys carry None, as the
+        # reference's)
+        self._dispatch_enabled = (M.attn_layer_count(cfg) > 0
+                                  and not cfg.mla.kv_lora_rank)
         # the unified token-packed step needs every layer's context to be
         # page-addressable per token: attention families only (the
         # recurrent state of hybrid / ssm models is slot-indexed), as in

@@ -18,7 +18,13 @@ model's blocks hold, in place of "mlp",
             ["shared": {"gate": {"w": [L, d, ff s]}, "up", "down"}]}
 
 after `first_k_dense` unstacked dense blocks in the list "lead_blocks"
-(`[{"ln1", "attn", "ln2", "mlp"}, ...]`).  A hybrid
+(`[{"ln1", "attn", "ln2", "mlp"}, ...]`).  An MLA model's (deepseek-v2)
+"attn" holds
+
+    {"wkv_a": {"w"}, "kv_norm": {"scale"}, "wk_b": {"w"}, "wv_b": {"w"},
+     "wo": {"w"}, "wq_a": {"w"}, "q_norm": {"scale"}, "wq_b": {"w"}}
+
+with "wq" in place of the three q leaves where `q_lora_rank` is 0.  A hybrid
 (zamba2) model has, besides embed / ln_f / lm_head,
 
     {"mamba": {"in_proj": {"w": [n, d, in_dim]}, "conv_w": [n, K, conv],
@@ -54,6 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import MLAAttention
+from repro_torch.models.layers import RMSNorm
 from repro_torch.models.model import Block, Model
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import Mamba2Block, MLSTMBlock, SLSTMBlock
@@ -76,14 +84,25 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
     dst.copy_(src.to(dst.dtype))
 
 
+def _attn_leaves(attn):
+    """(path under "attn", tensor) of a GQA or an MLA attention module."""
+    if isinstance(attn, MLAAttention):
+        names = ("wq_a", "q_norm", "wq_b") if attn.q_lora else ("wq",)
+        for name in names + ("wkv_a", "kv_norm", "wk_b", "wv_b", "wo"):
+            mod = getattr(attn, name)
+            if isinstance(mod, RMSNorm):
+                yield (name, "scale"), mod.scale
+            else:
+                yield (name, "w"), mod.w
+        return
+    yield from _linear_leaves(attn, ("wq", "wk", "wv", "wo"))
+
+
 def _block_leaves(blk: Block):
     """(path, tensor) of a decoder block, in the reference's tree order."""
     yield ("ln1", "scale"), blk.ln1.scale
-    for name in ("wq", "wk", "wv", "wo"):
-        lin = getattr(blk.attn, name)
-        yield ("attn", name, "w"), lin.w
-        if lin.b is not None:
-            yield ("attn", name, "b"), lin.b
+    for path, t in _attn_leaves(blk.attn):
+        yield ("attn",) + path, t
     yield ("ln2", "scale"), blk.ln2.scale
     if hasattr(blk, "moe"):
         for path, t in _moe_leaves(blk.moe):

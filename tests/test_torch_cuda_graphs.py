@@ -313,7 +313,7 @@ def test_kernel_counters_cover_every_wrapper_counter():
             if isinstance(getattr(mod, name, None), dict):
                 found.append(getattr(mod, name))
     ids = {id(c) for c in cuda_graphs.kernel_counters()}
-    assert len(found) == len(ids) == 9
+    assert len(found) == len(ids) == 11
     assert {id(c) for c in found} == ids
 
 

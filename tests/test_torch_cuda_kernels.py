@@ -1,8 +1,9 @@
 """The CUDA kernels (paged attention, flash attention, the Mamba2 SSD, the
-chunked mLSTM, the grouped expert GEMM) against their plain PyTorch
-versions on the card, and the port's engines (packed smollm and
-llama4-maverick, padded zamba2 and xlstm), the MoE layer and the flash
-attention gradient on the card against themselves on the CPU.
+chunked mLSTM, the grouped expert GEMM, MLA's latent decode) against
+their plain PyTorch versions on the card, and the port's engines (packed
+smollm and llama4-maverick, padded zamba2, xlstm and deepseek-v2), the
+MoE layer and the flash attention gradient on the card against
+themselves on the CPU.
 
 Needs an NVIDIA GPU and nvcc: every test here is marked `cuda` and skips
 on a host without CUDA.  Run on the card with
@@ -45,6 +46,8 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mamba2 import ops as sops
+from repro_torch.kernels.mla_decode import kernel as AK
+from repro_torch.kernels.mla_decode import ops as aops
 from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.mlstm import ops as mops
 from repro_torch.kernels.moe import kernel as GK
@@ -1454,3 +1457,205 @@ def test_capture_raises_on_a_host_sync(cuda):
         with torch.cuda.graph(graph):
             ids.bincount()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): the latent decode and the flash forward at 192 / 128
+# ---------------------------------------------------------------------------
+
+MLA_DECODE_CASES = [  # heads, r, rope, page, contexts, segments (None: split)
+    # deepseek-v2's widths: dead rows, mid-page and mid-tile ends, a 2048
+    # context, on the split the serving path picks and on one segment
+    (128, 512, 64, 16, [0, 1, 17, 300, 2048, 1000, 64, 65], None),
+    (128, 512, 64, 16, [0, 1, 17, 300, 2048, 1000, 64, 65], 1),
+    # 16 heads (one slab of a 32-head block idle), 4 segments of 64 keys
+    (16, 512, 64, 16, [200, 0, 129], 4),
+    # a single page
+    (128, 512, 64, 16, [16, 3, 0], None),
+]
+# fp32 also at the reduced widths (r 64, rope 32) and at 20 heads
+MLA_FP32_CASES = MLA_DECODE_CASES + [
+    (32, 64, 32, 16, [0, 40, 7, 130], 3),
+    (20, 64, 32, 24, [100, 1, 0], None),
+]
+
+
+def _mla_case(dev, dtype, case, seed=0):
+    h, r, rope, ps, ctx, _ = case
+    g = torch.Generator().manual_seed(seed)
+    s = len(ctx)
+    np_ = -(-max(ctx) // ps) + 1
+    p = s * np_ + 1
+    q = torch.randn((s, h, r + rope), generator=g).to(dtype)
+    kp = torch.randn((p, ps, r + rope), generator=g).to(dtype)
+    pt = (torch.randperm(p - 1, generator=g)[: s * np_].reshape(s, np_)
+          + 1).to(torch.int32)
+    cl = torch.tensor(ctx, dtype=torch.int32)
+    return [t.to(dev) for t in (q, kp, pt, cl)]
+
+
+def _mla_check(cuda, dtype, case):
+    q, kp, pt, cl = _mla_case(cuda, dtype, case)
+    r, nseg = case[1], case[5]
+    scale = (128 + case[2]) ** -0.5
+    keys = pt.shape[1] * kp.shape[1]
+    if nseg is None:
+        nseg, seg = aops.split(q.shape[0], q.shape[1], keys,
+                               torch.cuda.get_device_properties(
+                                   cuda).multi_processor_count)
+    else:
+        seg = -(-keys // (nseg * AK.SEG_ALIGN)) * AK.SEG_ALIGN
+    AK.reset_launches()
+    got = AK.mla_decode(q, kp, pt, cl, v_dim=r, scale=scale,
+                        num_segments=nseg, seg_keys=seg)
+    want = AK.mla_decode_plain(q, kp, pt, cl, v_dim=r, scale=scale)
+    torch.cuda.synchronize()
+    assert AK.LAUNCHES["mla_decode"] == 1
+    kern = "mla_mma_kernel" if dtype == torch.bfloat16 else "mla_fp32_kernel"
+    assert AK.KERNEL_LAUNCHES[kern] == 1
+    assert AK.KERNEL_LAUNCHES["mla_merge_kernel"] == int(nseg > 1)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+    assert not got[cl == 0].any()  # dead rows: exact zeros
+
+
+@pytest.mark.parametrize("case", MLA_DECODE_CASES)
+def test_mla_decode_mma_kernel_matches_plain(cuda, case):
+    _mla_check(cuda, torch.bfloat16, case)
+
+
+@pytest.mark.parametrize("case", MLA_FP32_CASES)
+def test_mla_decode_fp32_kernel_matches_plain(cuda, case):
+    _mla_check(cuda, torch.float32, case)
+
+
+def test_mla_decode_rejects_what_it_does_not_take(cuda):
+    q, kp, pt, cl = _mla_case(cuda, torch.bfloat16,
+                              (32, 64, 32, 16, [5], None))
+    with pytest.raises(ValueError, match="tensor-core"):  # reduced widths
+        AK.mla_decode(q, kp, pt, cl, v_dim=64, scale=1.0)
+    q, kp, pt, cl = _mla_case(cuda, torch.bfloat16,
+                              (32, 512, 64, 16, [5], None))
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    odd = buf[4:4 + q.numel()].view(q.shape)  # 8 bytes off 16
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        AK.mla_decode(odd, kp, pt, cl, v_dim=512, scale=1.0)
+
+
+def test_mla_decode_captures_without_host_syncs(cuda):
+    """The serving entry (split chosen from the shapes) under
+    `set_sync_debug_mode("error")`, then captured into a CUDA graph and
+    replayed on new contexts: the eager result on those contexts."""
+    from repro_torch.core.attention import backend as TB
+
+    q, kp, pt, cl = _mla_case(cuda, torch.bfloat16,
+                              (128, 512, 64, 16, [300, 0, 2048, 17], None))
+    cl2 = torch.tensor([5, 1000, 0, 2000], dtype=torch.int32, device=cuda)
+    kp5 = kp[None, None]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = TB.mla_decode_attention(q, kp5, pt, cl2, v_dim=512,
+                                       scale=0.1)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            TB.mla_decode_attention(q, kp5, pt, cl, v_dim=512, scale=0.1)
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = TB.mla_decode_attention(q, kp5, pt, cl, v_dim=512,
+                                          scale=0.1)
+        cl.copy_(cl2)
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+MLA_FLASH_CASES = [  # B, S, H, kv_len
+    (3, 40, 4, [40, 17, 0]),  # ragged rows, one dead
+    (2, 130, 2, [130, 65]),  # three 64-key tiles, a ragged last one
+    (1, 64, 128, [50]),  # deepseek-v2's 128 heads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+def test_flash_mla_widths_match_plain(cuda, dtype, case):
+    """Key width 192 / value width 128 with a per-batch kv_len: the
+    tensor-core kernel in bf16, the scalar one in fp32, against the plain
+    version; rows of a slice with kv_len 0 are exact zeros."""
+    b, s, h, kvl = case
+    g = torch.Generator().manual_seed(5)
+    q, k = (torch.randn((b, s, h, 192), generator=g).to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, s, h, 128), generator=g).to(dtype)
+    kv_len = torch.tensor(kvl, dtype=torch.int32)
+    bq = fops.pick_block_q(s, 1)
+    qp = fops.pack_q(q, h).reshape(b * h, s // bq, bq, 192).contiguous()
+    kp, vp = (x.permute(0, 2, 1, 3).reshape(b * h, s, x.shape[3])
+              .contiguous() for x in (k, v))
+    kvh = kv_len.repeat_interleave(h)
+    kw = dict(block_q=bq, group=1, scale=192 ** -0.5, causal=True,
+              q_offset=0)
+    n0 = FK.LAUNCHES["flash_attention_fwd"]
+    o, lse = FK.flash_attention_fwd(qp.to(cuda), kp.to(cuda), vp.to(cuda),
+                                    kv_len=kvh.to(cuda), **kw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(qp, kp, vp, kv_len=kvh,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention_fwd"] == n0 + 1
+    assert o.shape == (b * h, s // bq, bq, 128)
+    torch.testing.assert_close(o.cpu().float(), want_o.float(),
+                               atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse.cpu(), want_lse, atol=1e-4, rtol=0)
+    dead = (kvh == 0).to(cuda)
+    assert not o[dead].any()
+
+
+@pytest.mark.parametrize("shape", [(128, 8, 128, 512), (128, 64, 512, 128)])
+def test_mla_absorbed_products_sum_in_fp32(cuda, shape):
+    """The decode's q_abs / wv_b products at deepseek-v2's widths: bf16
+    operands on the card (a bf16 GEMM with fp32 output, weights
+    transposed views as the layer passes them) give the fp32 products
+    and sums of the CPU's fp64 product to fp32 rounding."""
+    from repro_torch.models.attention import _bmm_f32
+
+    n, i, k, j = shape
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn((i, n, k), generator=g).to(torch.bfloat16)
+    w = torch.randn((k, n, j), generator=g).to(torch.bfloat16)
+    got = _bmm_f32(a.to(cuda).transpose(0, 1), w.to(cuda).transpose(0, 1))
+    want = torch.bmm(a.double().transpose(0, 1), w.double().transpose(0, 1))
+    assert got.dtype == torch.float32 and got.shape == (n, i, j)
+    torch.testing.assert_close(got.cpu().double(), want, atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_mla_engine_on_card_matches_cpu(cuda):
+    """Reduced deepseek-v2 in fp32 (the scalar flash and latent decode
+    kernels), the card model a copy of the CPU one, on the padded step,
+    graphs and eager: greedy tokens equal the plain versions'; every
+    decode step one latent decode launch a layer."""
+    import copy
+
+    cfg = reduced(ARCHS["deepseek-v2-236b"]).replace(dtype="float32")
+    model = weights.init_random(cfg, 0, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    outs = []
+    for dev, m, graphs in ((cuda, card, True), (cuda, card, False),
+                           (torch.device("cpu"), model, False)):
+        AK.reset_launches()
+        eng = Engine(cfg, m, max_seqs=4, num_pages=64, max_model_len=256,
+                     device=dev, cuda_graphs=graphs)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6) for p in
+                             _prompts_for("deepseek-v2-236b",
+                                          (5, 40, 17, 70), 4)])
+        outs.append([r.output for r in reqs])
+        if dev.type == "cuda":
+            assert AK.LAUNCHES["mla_decode"] == \
+                cfg.num_layers * eng.device_calls["decode"]
+    assert outs[0] == outs[1] == outs[2]
