@@ -273,11 +273,14 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               (a) the latent paged decode (`csrc/mla_decode.cu`, through
               the serving entry and its split-KV choice) against its plain
               version at deepseek-v2's widths (H 128, r 512, rope 64,
-              page 16): 8 rows at contexts 0-2048 (5 segments and the
+              page 16): 8 rows at contexts 0-2048 (8 segments and the
               merge launch) and 64 rows of 4096 (one segment), bf16 (atol
               2e-2) and fp32 (TF32 off, 1e-4), dead rows exact zeros;
               timed at both in bf16 beside its bound, its plain version
-              and a page gather + SDPA yardstick (its backend named);
+              and a page gather + SDPA yardstick (its backend named),
+              also with the enqueue hidden behind a spin; ptxas'
+              registers and spills (from the build's report) and the
+              dynamic shared memory of the bf16 kernel;
               (b) the flash forward at key width 192 / value width 128
               with a per-batch kv_len against its plain version at the
               padded prefill of phase 5's prompts (8 x 1024 rows, 128
@@ -292,7 +295,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               grouped GEMM launched as many times as the steps ask (every
               one the tensor-core kernel), no plain version called, no
               kernel-config key; tokens/s, steps, keys, peak memory, the
-              decode graph's replay and a profiled prefill step logged;
+              decode graph's replay (the latent decode's device time and
+              share in it) and a profiled prefill step logged;
               (d) deepseek-v2's
               attention width with 2 layers (1 dense + 1 MoE), 8 experts
               of ff 1024 top-6 with 2 shared and a vocab of 32768, fp32:
@@ -1142,7 +1146,7 @@ def async_vs_sync(torch, tag, sync, streamed):
                 replayed_ms_step=1e3 * t / max(n, 1))
 
 
-def replay_cost(torch, eng, iters=20, bucket=None, top=0):
+def replay_cost(torch, eng, iters=20, bucket=None, top=0, focus=()):
     """Where a replayed decode step's time goes on the card: the packed
     step's decode-only graph (token bucket max_seqs, or `bucket`) of a
     finished run, replayed `iters` times back to back on its last inputs
@@ -1150,8 +1154,10 @@ def replay_cost(torch, eng, iters=20, bucket=None, top=0):
     on the card over CUDA events, against the sum of its kernels'
     durations and their count under `torch.profiler`.  The difference is
     the time between the graph's nodes, which no host work can fill.
-    `top` > 0 also logs that many kernels by device time.  On the padded
-    step (`eng._packed` False) the graph is the decode step's."""
+    `top` > 0 also logs that many kernels by device time; `focus` names
+    kernels (substrings) whose device time and share of the replay are
+    logged and returned as `focus_ms`.  On the padded step
+    (`eng._packed` False) the graph is the decode step's."""
     bucket = eng.max_seqs if bucket is None else bucket
     keys = [k for k in eng.compile_events
             if (k[0] == "unified" and k[2] == bucket)
@@ -1189,8 +1195,17 @@ def replay_cost(torch, eng, iters=20, bucket=None, top=0):
     for us, count, name in sorted(by_name, reverse=True)[:top]:
         log(f"  {us / 1e3 / iters:8.3f} ms  x{count / iters:4.0f} a replay"
             f"  {name[:90]}")
-    return dict(decode_replay_ms=wall_ms, decode_kernels_ms=busy_ms,
-                decode_kernels=kernels / iters)
+    out = dict(decode_replay_ms=wall_ms, decode_kernels_ms=busy_ms,
+               decode_kernels=kernels / iters)
+    if focus:
+        hit = [(us, count) for us, count, name in by_name
+               if any(f in name for f in focus)]
+        focus_ms = sum(us for us, _ in hit) / 1e3 / iters
+        log(f"  {' + '.join(focus)}: {focus_ms:.4f} ms a replay ("
+            f"x{sum(c for _, c in hit) / iters:.0f}), {focus_ms / wall_ms:.4f} "
+            f"of the replay, {focus_ms / busy_ms:.4f} of its kernels' sum")
+        out["focus_ms"] = focus_ms
+    return out
 
 
 def shared_prefix_prompts(torch, g, vocab):
@@ -3376,14 +3391,27 @@ def mla_decode_bound(ctx, h, r, rope, dtype_name):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def phase_mla_check(torch, AK, AO, iters=20):
+def phase_mla_check(torch, AK, AO, ptxas=(), iters=20):
     """22 (a): the latent decode at deepseek-v2's widths through the
-    serving entry (its split-KV choice: 5 segments and the merge launch
+    serving entry (its split-KV choice: 8 segments and the merge launch
     at 8 rows, one segment at 64 rows) against its plain version, bf16
     (atol 2e-2) and fp32 (TF32 off, 1e-4), dead rows exact zeros; timed in
     bf16 beside its bound, its plain version and a page gather + SDPA
-    yardstick.  Returns (worst error, the 8-row shape's timing row)."""
+    yardstick, and also with the enqueue hidden (`lead_cycles`).
+    `ptxas` holds `_build.resource_usage("mla_decode")`: the bf16
+    kernel's lines are logged with its dynamic shared memory.  Returns
+    (worst error, the 8-row shape's timing row)."""
     F = torch.nn.functional
+    entry = False
+    for line in ptxas:
+        if "Compiling entry" in line:
+            entry = "mla_wgmma_kernel" in line
+            if entry:
+                log("ptxas mla_wgmma_kernel")
+        elif entry:
+            log(f"ptxas   {line.replace('ptxas info    : ', '')}")
+    log(f"mla_wgmma_kernel dynamic shared memory "
+        f"{AK.library().mla_decode_smem_bytes()} B of 232448")
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     worst, rows = 0.0, {}
@@ -3429,6 +3457,11 @@ def phase_mla_check(torch, AK, AO, iters=20):
             backend = sdpa_backend(torch, library)
             ms = time_ms(torch, lambda: AO.mla_decode_attention(
                 q, kp, pt, cl, v_dim=512, scale=scale), iters, flush)
+            # the launches' own time, the enqueue hidden behind a ~1 ms
+            # spin
+            hidden = time_ms(torch, lambda: AO.mla_decode_attention(
+                q, kp, pt, cl, v_dim=512, scale=scale), iters, flush,
+                lead_cycles=2_000_000)
             plain_ms = time_ms(torch, lambda: AK.mla_decode_plain(
                 q, kp, pt, cl, v_dim=512, scale=scale), 3, flush)
             lib_ms = None
@@ -3446,6 +3479,8 @@ def phase_mla_check(torch, AK, AO, iters=20):
                 f"{bound_ms:.5f} ({bound_by})  of the bound "
                 f"{bound_ms / ms:.3f}  host_us "
                 f"{host_us(torch, lambda: AO.mla_decode_attention(q, kp, pt, cl, v_dim=512, scale=scale)):.1f}")
+            log(f"time  {MLA:37s} {tag} bf16 kernel_ms with the enqueue "
+                f"hidden {hidden:.4f}  of the bound {bound_ms / hidden:.3f}")
             rows[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
             del q, kp, pt, cl, got, want
@@ -3660,7 +3695,7 @@ def phase_mla_serve(torch, kernel_modules):
             "flash_attention_fwd": MLA_LAYERS * calls["prefill"],
             MOE: 2 * n_moe * (calls["decode"] + calls["prefill"])}
     if launches != want \
-            or AK.KERNEL_LAUNCHES["mla_mma_kernel"] != want[MLA] \
+            or AK.KERNEL_LAUNCHES["mla_wgmma_kernel"] != want[MLA] \
             or AK.KERNEL_LAUNCHES["mla_merge_kernel"] \
             != want[MLA] * (nseg > 1) \
             or GK.KERNEL_LAUNCHES["moe_mma_kernel"] != want[MOE]:
@@ -3691,7 +3726,8 @@ def phase_mla_serve(torch, kernel_modules):
                                     **eng_kw), requests(), "mla serve eager")
     walls = graphs_vs_eager(torch, "mla serve", run, eager, cfg.dtype)
     del eager
-    walls |= replay_cost(torch, eng, top=8)
+    walls |= replay_cost(torch, eng, top=8,
+                         focus=("mla_wgmma_kernel", "mla_merge_kernel"))
     del run, eng
     peak = torch.cuda.max_memory_allocated()
     # where the prefill step's time goes (warm: the third prefill of the
@@ -3919,7 +3955,8 @@ def main() -> int:
     # forward at 192 / 128 against their plain versions and timed; (c)
     # full-width deepseek-v2 (8 layers) served on the padded step; (d) the
     # card against the CPU
-    mla_err, mla_time = phase_mla_check(torch, AK, AO)
+    mla_err, mla_time = phase_mla_check(torch, AK, AO,
+                                        _build.resource_usage("mla_decode"))
     kvl_serve = [len(p) for p in serve_prompts(torch, 102400)[2]]
     mla_flash_err, mla_flash_time = phase_mla_flash(torch, FK, kvl_serve)
     mla_launches, _ = phase_mla_serve(torch, (K, FK, GK, AK))

@@ -14,36 +14,62 @@
 // o = softmax(scale * q . k^T) . k[:, :DV] over keys < context_lens[s].
 // A row with context 0 is exact zeros.
 //
-// What bounds it on this card: bytes, just.  Each cached row (1,152 B in
-// bf16 at deepseek-v2's r 512 + rope 64) is read once for the scores and
-// once for P.V, by 128 heads: 128 x 2 x (576 + 512) = 278.5 kFLOP a row,
-// ~242 FLOP a byte, near the H100's ridge (~295).  So the products belong
-// on the tensor cores and each K tile must serve both products and as many
-// heads as the registers allow:
+// What bounds it on this card: both rates at once.  Each cached row (1,152
+// B in bf16 at deepseek-v2's r 512 + rope 64) is read once for the scores
+// and once for P.V, by 128 heads: 128 x 2 x (576 + 512) = 278.5 kFLOP a
+// row, ~242 FLOP a byte, just under the H100's ridge (~295).  So the pages
+// have to stream at near HBM rate while the tensor cores run near their
+// peak, and each K tile must serve both products and as many heads as the
+// registers allow:
 //
-//   bf16 (`mla_mma_kernel`, the serving dtype): one block per (32 heads,
-//   KV segment, sequence), 8 warps.  The block streams its segment's keys
-//   in 64-key tiles (73.7 KB each at D 576) through a two-stage cp.async
-//   ring; every tile is read from memory once and used for Q.K^T and for
-//   P.V.  Warp w owns slab w / 4 (16 heads) and quarter w % 4: for the
-//   scores, a quarter of D (9 of its 36 k-steps, the Q fragments held in
-//   registers), summed with the slab's other three quarters through shared
-//   memory in a fixed order (so the four warps of a slab hold the same
-//   scores, row max and row sum); for P.V, a quarter of DV (128 columns,
-//   64 fp32 accumulators a thread, where all 512 would need 256).  Products
-//   are mma.sync m16n8k16 bf16 x bf16 -> fp32 (mma_bf16.cuh), operands by
-//   ldmatrix (V transposed on the fly from the same tile).  The softmax is
-//   the Pallas kernels' `_flash_tile_update`: masked scores -0.7 * FLT_MAX,
-//   m_safe, alpha = 0 before a row's first live key, l summing fp32 p, p
-//   rounded to bf16 for P.V.  The block's heads of one sequence run side
-//   by side (blockIdx.x is the head group), so the other head groups find
-//   the tile in L2.
+//   bf16 (`mla_wgmma_kernel`, the serving dtype): one block per (64 heads,
+//   KV segment, sequence): one wgmma M tile.  64 heads is the most a block
+//   can hold: O [64 x 512] fp32 is 128 KB, half the SM's register file,
+//   split over two consumer warpgroups at 128 registers a thread (128 heads
+//   would need all 256 KB).  Three warpgroups of 128 threads:
+//     - the producer (warpgroup 0, setmaxnreg 40): one warp streams the
+//       segment's keys in tiles of KT = 64 keys through a two-stage ring of
+//       TMA loads, 128-byte swizzled, into the layout wgmma reads.  The
+//       3-D tensor map over the pool [P, ps, D] has a box of 64 columns x
+//       min(ps, KT) rows x 1 page: a tile is KT / min(ps, KT) page pieces x
+//       9 column blocks, the lane of each piece reading its page-table
+//       entry a tile ahead.  Pages wholly past the context are never
+//       loaded (their entries may be stale);
+//     - consumer 0 (warpgroup 1, setmaxnreg 232) loads Q [64 x 576] once
+//       (cp.async, swizzled, rows >= H zero), then a tile: S = Q K^T [64 x
+//       64] with 36 wgmma m64n64k16 (both operands in shared memory), the
+//       online softmax on S in registers (a row's 64 keys lie in one quad
+//       of lanes: no shared-memory score exchange; a full tile runs no mask
+//       arithmetic), P (bf16) and each row's rescale factor to shared
+//       memory, then O[:, 0:256] += P V;
+//     - consumer 1 (warpgroup 2, setmaxnreg 232): O[:, 256:512] += P V.
+//   V is the tile's first 512 columns read as wgmma's B with the transpose
+//   bit (m64n256k16), so a tile leaves HBM once and shared memory once a
+//   product.  mbarriers mark "tile full" (TMA bytes), "tile free" (both
+//   consumers), "P ready" and "P free"; no block-wide barrier runs in the
+//   loop, and the producer refills a stage while the consumers compute.
+//   Keys past the context inside the last tile are masked in S and their
+//   V rows zeroed in shared memory before P.V (a whole-page load brings in
+//   the rest of the page, which may hold anything, NaN too: 0 x NaN is
+//   NaN).  The softmax is the Pallas kernels' `_flash_tile_update`: masked
+//   scores -0.7 * FLT_MAX, m_safe, alpha = 0 before a row's first live
+//   key, l summing fp32 p, p rounded to bf16 for P.V.  The two 64-head
+//   halves of a sequence run side by side (blockIdx.x), so the second
+//   finds each tile in L2.
+//
+//   Shared memory: Q 73,728 B + 2 x 64-key tiles (147,456 B) + P 8,192 B =
+//   229,376 of 232,448 B, so the ring holds two tiles and a tile's load
+//   has one tile of compute to land in: the time a tile is the larger of
+//   that load's latency and the consumers' S + softmax + P.V, which run in
+//   sequence (S reads both operands from shared memory at about its
+//   bandwidth).  32-key tiles in four stages would spend the same bytes
+//   on a deeper ring; measured slower on the card (PERF.md), not built.
 //
 //   fp32 (`mla_fp32_kernel`, the card-versus-CPU checks): scalar fp32 FMAs,
 //   16 heads and 32-key tiles a block, 256 threads: any D <= 576 and DV <=
 //   min(D, 512).
 //
-// Split-KV segments.  A decode step of 8 sequences gives 8 x 4 = 32
+// Split-KV segments.  A decode step of 8 sequences gives 8 x 2 = 16
 // blocks, too few for 132 SMs, so the keys of a sequence are cut into
 // `nseg` segments of `seg_keys` keys, chosen by the wrapper from the shapes
 // alone (never from the context lengths: the launch captures into a CUDA
@@ -53,19 +79,30 @@
 // the segments that saw a live key.  With nseg == 1 the block writes o / l
 // itself.  No host reads anywhere.
 //
-// wgmma over 64 heads a warpgroup and TMA page streaming are left to a
-// later change.
+// The tensor map is encoded on the host by cuTensorMapEncodeTiled, an
+// entry point looked up at run time (the library links no -lcuda), cached
+// by (pool pointer, page size), and passed by value as a __grid_constant__
+// parameter, so a CUDA graph captures it.  Its page extent is left open:
+// the kernel trusts the page table's entries below each context, as the
+// plain version's gather does.
+//
+// Tests: on the CPU, `tests/test_torch_mla.py` holds the plain version
+// against the reference; on the card, `python -m pytest -q -m cuda
+// tests/test_torch_cuda_kernels.py -k mla` and `chip_smoke.py` phase 22.
 //
 // The entry point is a plain C function (device pointers, shapes, the
 // stream) returning cudaGetLastError(), loaded from Python with ctypes.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+#include <mutex>
 
 #include "mma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -73,10 +110,6 @@ using mma_bf16::bf16;
 using mma_bf16::cp_async16;
 using mma_bf16::cp_async_commit;
 using mma_bf16::cp_async_wait;
-using mma_bf16::ldsm_a;
-using mma_bf16::ldsm_x4;
-using mma_bf16::ldsm_x4_t;
-using mma_bf16::mma16816;
 using mma_bf16::pack_bf16;
 using mma_bf16::quad_max;
 using mma_bf16::quad_sum;
@@ -85,84 +118,176 @@ constexpr float kNeg = -0.7f * FLT_MAX;
 constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in per block on H100
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16: the warp-specialised wgmma kernel
 // ---------------------------------------------------------------------------
-constexpr int kKeys = 64;     // keys of one K tile
-constexpr int kSlab = 16;     // heads of one warp's rows
-constexpr int kSlabs = 2;     // slabs a block: 32 heads
-constexpr int kQuarters = 4;  // warps a slab
-constexpr int kWarps = kSlabs * kQuarters;
-constexpr int kThreads = kWarps * 32;
-constexpr int kHeads = kSlabs * kSlab;
+constexpr int kD = 576;                // deepseek-v2: r 512 + rope 64
+constexpr int kDV = 512;
+constexpr int kHeads = 64;             // a block's heads: one wgmma M tile
+constexpr int kBlocks = kD / 64;       // 64-column line blocks of a row: 9
+constexpr int kWg = 128;               // threads of a warpgroup
+constexpr int kThreads = 3 * kWg;      // producer + two consumers
+constexpr int kVCols = kDV / 2;        // a consumer's V columns: 256
+constexpr int kQBytes = kBlocks * kHeads * 128;
 
-template <int D, int DV>
-struct Layout {
-  static_assert(D % (16 * kQuarters) == 0 && DV % (16 * kQuarters) == 0,
-                "D and DV split into four 16-wide quarters");
-  static_assert(DV <= D, "V is a prefix of the K row");
-  static constexpr int kStride = D + 8;  // bf16 row: +16 B against conflicts
-  static constexpr int kChunks = D / 8;  // 16-byte chunks of a row
-  static constexpr int kTile = kKeys * kStride;
-  static constexpr int kKSteps = D / 16 / kQuarters;  // a quarter's k-steps
-  static constexpr int kVCols = DV / kQuarters;       // a warp's V columns
-  static constexpr int kSStride = kKeys + 4;          // partial-score row
-  static constexpr size_t kRing = 2 * (size_t)kTile * sizeof(bf16);
-  static constexpr size_t kQ = (size_t)kHeads * kStride * sizeof(bf16);
-  static constexpr size_t kPart =
-      (size_t)kWarps * kSlab * kSStride * sizeof(float);
-  // Q is read into registers before the first partial scores are written,
-  // so the two share their bytes
-  static constexpr size_t kBytes = kRing + (kQ > kPart ? kQ : kPart);
-  static_assert(kBytes <= kMaxSmem, "shared memory");
+constexpr int KT = 64;                 // keys a tile
+
+// The shared-memory plan: Q, a ring of kStages tiles, P [64 x 64], alpha
+// and the final (m, l) of the 64 rows, the barriers, and 1 KB to align the
+// swizzled operands.
+struct Tile {
+  static constexpr int kStages = 2;
+  static constexpr int kBlockBytes = KT * 128;  // one line block of a tile
+  static constexpr int kBytes = kBlocks * kBlockBytes;
+  static constexpr size_t kRing = kQBytes;
+  static constexpr size_t kP = kRing + (size_t)kStages * kBytes;
+  static constexpr size_t kAlpha = kP + kHeads * 128;
+  static constexpr size_t kML = kAlpha + kHeads * sizeof(float);
+  static constexpr size_t kBars = kML + 2 * kHeads * sizeof(float);
+  static constexpr size_t kSmem = kBars + (2 * kStages + 2) * 8 + 1024;
+  static_assert(kSmem <= kMaxSmem, "shared memory");
 };
 
-// One K tile: keys kv0 .. kv0 + 63 of sequence row `pt` (its page-table
-// row), those >= limit zero-filled.
-template <int D, int DV>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* kp,
-                                          const int* pt, int kv0, int limit,
-                                          int ps) {
-  using L = Layout<D, DV>;
-  for (int e = threadIdx.x; e < kKeys * L::kChunks; e += kThreads) {
-    const int j = e / L::kChunks, c = e - j * L::kChunks;
-    const int key = kv0 + j;
-    const bool ok = key < limit;
-    const bf16* src = kp;
-    if (ok) src = kp + ((long long)pt[key / ps] * ps + key % ps) * D + c * 8;
-    cp_async16(dst + j * L::kStride + c * 8, src, ok);
+// zero the V columns [c0 * 64, c0 * 64 + 256) of keys [live, KT) of a tile
+// (whole 128-byte lines: the swizzle only permutes inside a line)
+__device__ __forceinline__ void zero_dead_rows(unsigned char* tile, int live,
+                                               int c0, int tid) {
+  const int n = (KT - live) * 4 * 8;  // 16-byte units
+  for (int e = tid; e < n; e += kWg) {
+    const int row = live + e / 32, c = c0 + (e >> 3) % 4, u = e & 7;
+    *reinterpret_cast<uint4*>(tile + c * Tile::kBlockBytes + row * 128 +
+                              u * 16) = make_uint4(0, 0, 0, 0);
   }
 }
 
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-    mla_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                   const int* __restrict__ page_table,
-                   const int* __restrict__ context_lens,
-                   bf16* __restrict__ out, float* __restrict__ part_o,
-                   float* __restrict__ part_ml, int H, int Np, int ps,
-                   int nseg, int seg_keys, float scale) {
-  using L = Layout<D, DV>;
-  constexpr int S_ = L::kStride;
+// S = Q K^T [64 x KT] of one tile into `sc`: 36 k-steps of 16, both
+// operands in shared memory; committed, not waited for
+__device__ __forceinline__ void issue_scores(float (&sc)[KT / 2], uint64_t dq,
+                                             const unsigned char* tile) {
+  const uint64_t dk = hopper::desc_sw128(tile, 16, 1024);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kD / 16; ++k) {
+    const uint64_t a = dq + (((k >> 2) * kHeads * 128 + (k & 3) * 32) >> 4);
+    const uint64_t b =
+        dk + (((k >> 2) * Tile::kBlockBytes + (k & 3) * 32) >> 4);
+    hopper::wgmma_m64n64k16(sc, a, b, k > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Consumer 0's online softmax of one tile's scores, in place: sc becomes
+// the fp32 p of this thread's rows r0 and r0 + 8 (a row's keys lie in one
+// quad of lanes).  kMasked (the segment's last tile, keys >= live dead)
+// is a template flag, so a full tile runs no mask arithmetic.  m is kept
+// in the scores' units (scale . q k), the max taken over the scaled scores
+// (the raw scores' max is theirs only for scale > 0); exp(x - m) runs as
+// one FMA and one ex2 of the raw score.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KT / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int live,
+                                             float scale, int tq) {
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * tq + (i & 1);
+    if (!kMasked || col < live)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i] * scale);
+  }
+  float neg[2];  // -m_safe, in ex2's units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // key 0 of every tile is live, so the quad's max is a live score
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    const float m_safe = m_new <= kNeg ? 0.f : m_new;
+    alpha[r] = m[r] <= kNeg ? 0.f : ex2((m[r] - m_safe) * kLog2e);
+    m[r] = m_new;
+    neg[r] = -m_safe * kLog2e;
+  }
+  const float c = scale * kLog2e;
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * tq + (i & 1), r = (i >> 1) & 1;
+    const float p =
+        kMasked && col >= live ? 0.f : ex2(fmaf(sc[i], c, neg[r]));
+    sum[r] += p;
+    sc[i] = p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+}
+
+// P (bf16, 128-byte swizzled [64 x 64]) and each row's alpha to shared
+// memory, visible to wgmma; then "P ready"
+__device__ __forceinline__ void store_p(const float (&sc)[KT / 2],
+                                        const float (&alpha)[2],
+                                        unsigned char* p_s, float* alpha_s,
+                                        int r0, int tq, uint64_t* p_full) {
+#pragma unroll
+  for (int i = 0; i < KT / 2; i += 2) {
+    const int row = r0 + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * tq;
+    *reinterpret_cast<uint32_t*>(p_s + row * 128 +
+                                 (((col >> 3) ^ (row & 7)) << 4) +
+                                 (col & 7) * 2) = pack_bf16(sc[i], sc[i + 1]);
+  }
+  if (tq == 0) {
+    alpha_s[r0] = alpha[0];
+    alpha_s[r0 + 8] = alpha[1];
+  }
+  hopper::fence_proxy_async();
+  hopper::mbar_arrive(p_full);
+}
+
+// O *= alpha, row by row; skipped by a warp whose rows all keep their max
+// (alpha 1: the same bits)
+__device__ __forceinline__ void rescale(float (&o)[128],
+                                        const float (&alpha)[2]) {
+  if (__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    mla_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const bf16* __restrict__ q,
+                     const int* __restrict__ page_table,
+                     const int* __restrict__ context_lens,
+                     bf16* __restrict__ out, float* __restrict__ part_o,
+                     float* __restrict__ part_ml, int H, int Np, int ps,
+                     int box_rows, int nseg, int seg_keys, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw + L::kRing);
-  float* part = reinterpret_cast<float*>(smem_raw + L::kRing);
+  unsigned char* sm =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(sm);
+  unsigned char* ring = sm + Tile::kRing;
+  unsigned char* p_s = sm + Tile::kP;
+  float* alpha_s = reinterpret_cast<float*>(sm + Tile::kAlpha);
+  float* ml_s = reinterpret_cast<float*>(sm + Tile::kML);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Tile::kBars);
+  uint64_t* empty = full + Tile::kStages;
+  uint64_t* p_full = empty + Tile::kStages;
+  uint64_t* p_free = p_full + 1;
 
   const int h0 = blockIdx.x * kHeads, seg = blockIdx.y, s = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slab = warp / kQuarters, qt = warp % kQuarters;
-  const int g = lane >> 2, tq = lane & 3;
   const int k_begin = seg * seg_keys;
-  const int k_end = min(context_lens[s], k_begin + seg_keys);
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
-                                      : 0;
-  const int head[2] = {h0 + slab * kSlab + g, h0 + slab * kSlab + g + 8};
+  const int k_end =
+      min(min(context_lens[s], Np * ps), k_begin + seg_keys);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + KT - 1) / KT : 0;
 
   if (n_tiles == 0) {  // no live key in this segment (block-uniform)
     if (nseg == 1) {
-      for (int e = threadIdx.x; e < kHeads * DV; e += kThreads) {
-        const int hh = h0 + e / DV;
-        if (hh < H) out[((long long)s * H + hh) * DV + e % DV] =
+      for (int e = threadIdx.x; e < kHeads * kDV; e += kThreads) {
+        const int hh = h0 + e / kDV;
+        if (hh < H) out[((long long)s * H + hh) * kDV + e % kDV] =
             __float2bfloat16(0.f);
       }
     } else if (threadIdx.x < kHeads && h0 + (int)threadIdx.x < H) {
@@ -173,163 +298,166 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // Q rows h0 .. h0 + 31 of sequence s (rows >= H zero-filled), then tile 0
-  const bf16* qb = q + ((long long)s * H + h0) * D;
-  for (int e = threadIdx.x; e < kHeads * L::kChunks; e += kThreads) {
-    const int r = e / L::kChunks, c = e - r * L::kChunks;
-    const bool ok = h0 + r < H;
-    cp_async16(q_s + r * S_ + c * 8, ok ? qb + (long long)r * D + c * 8 : qb,
-               ok);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Tile::kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 2 * kWg);
+    }
+    hopper::mbar_init(p_full, kWg);
+    hopper::mbar_init(p_free, kWg);
+    hopper::mbar_fence_init();
   }
-  cp_async_commit();
-  const int* pt = page_table + (long long)s * Np;
-  load_tile<D, DV>(ring, kp, pt, k_begin, k_end, ps);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q landed
   __syncthreads();
-  uint32_t qf[L::kKSteps][4];
-#pragma unroll
-  for (int i = 0; i < L::kKSteps; ++i)
-    ldsm_a(qf[i], q_s + slab * kSlab * S_ + (qt * L::kKSteps + i) * 16, S_);
 
-  float o[L::kVCols / 8][4];
+  const int wg = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  if (wg == 0) {
+    // ---- producer: one warp streams the tiles ----------------------------
+    hopper::setmaxnreg_dec<40>();
+    if (tid < 32) {
+      const int lane = tid;
+      const int pieces = KT / box_rows;  // page pieces along a tile's keys
+      const int* pt = page_table + (long long)s * Np;
+      if (lane == 0) hopper::tma_prefetch_map(&k_map);
+      // this lane's piece of tile t: its page (0 when past the context)
+      auto page_of = [&](int t) {
+        const int key = k_begin + t * KT + lane * box_rows;
+        return lane < pieces && t < n_tiles && key < k_end
+                   ? __ldg(pt + key / ps)
+                   : 0;
+      };
+      int page = page_of(0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int next = page_of(t + 1);  // in flight during the wait
+        const int st = t % Tile::kStages;
+        hopper::mbar_wait(&empty[st], ((t / Tile::kStages) & 1) ^ 1);
+        const int kv0 = k_begin + t * KT;
+        const int live = min(pieces, (k_end - kv0 + box_rows - 1) / box_rows);
+        if (lane == 0)
+          hopper::mbar_arrive_expect_tx(&full[st],
+                                        live * kBlocks * box_rows * 128);
+        __syncwarp();
+        if (lane < live) {
+          unsigned char* dst =
+              ring + st * Tile::kBytes + lane * box_rows * 128;
+          const int row = (kv0 + lane * box_rows) % ps;
 #pragma unroll
-  for (int n = 0; n < L::kVCols / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float* mine = part + warp * kSlab * L::kSStride;
-  const float* slab_part = part + slab * kQuarters * kSlab * L::kSStride;
+          for (int c = 0; c < kBlocks; ++c)
+            hopper::tma_load_3d(dst + c * Tile::kBlockBytes, &k_map,
+                                &full[st], c * 64, row, page);
+        }
+        page = next;
+      }
+    }
+  } else {
+    // ---- consumers: wg 1 the scores, softmax and O[:, :256]; wg 2 O[:, 256:]
+    hopper::setmaxnreg_inc<232>();
+    const int half = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+    const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8
+    float o[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2];
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = k_begin + t * kKeys;
-    if (t + 1 < n_tiles) {
-      load_tile<D, DV>(ring + ((t + 1) & 1) * L::kTile, kp, pt, kv0 + kKeys,
-                       k_end, ps);
+    if (half == 0) {  // Q rows h0 .. h0 + 63 (>= H zero), swizzled
+      const bf16* qb = q + ((long long)s * H + h0) * kD;
+      for (int e = tid; e < kHeads * kD / 8; e += kWg) {
+        const int r = e / (kD / 8), u = e % (kD / 8);
+        const bool ok = h0 + r < H;
+        cp_async16(q_s + (u >> 3) * kHeads * 64 + r * 64 +
+                       (((u & 7) ^ (r & 7)) << 3),
+                   ok ? qb + (long long)r * kD + u * 8 : qb, ok);
+      }
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
       cp_async_wait<0>();
+      hopper::fence_proxy_async();
+      hopper::named_sync(2, kWg);
     }
-    __syncthreads();  // tile t landed; Q / last tile's partials all read
-    const bf16* k_s = ring + (t & 1) * L::kTile;
+    const uint64_t dq = hopper::desc_sw128(q_s, 16, 1024);
+    const uint64_t dp = hopper::desc_sw128(p_s, 16, 1024);
 
-    // this warp's quarter of the scores: 16 heads x 64 keys over 9 k-steps
-    float sp[kKeys / 8][4];
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-      sp[j][0] = sp[j][1] = sp[j][2] = sp[j][3] = 0.f;
-#pragma unroll
-    for (int i = 0; i < L::kKSteps; ++i) {
-      const int kk = qt * L::kKSteps + i;
-#pragma unroll
-      for (int jp = 0; jp < kKeys / 16; ++jp) {
-        uint32_t b[4];
-        ldsm_x4(b, k_s + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * S_ +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(sp[2 * jp], qf[i], b[0], b[1]);
-        mma16816(sp[2 * jp + 1], qf[i], b[2], b[3]);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % Tile::kStages;
+      unsigned char* tile = ring + st * Tile::kBytes;
+      const int live = k_end - (k_begin + t * KT);  // >= 1
+      hopper::mbar_wait(&full[st], (t / Tile::kStages) & 1);
+      if (half == 0) {
+        float sc[KT / 2];
+        issue_scores(sc, dq, tile);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        if (live < KT) {
+          softmax_tile<true>(sc, m, l, alpha, live, scale, tq);
+          zero_dead_rows(tile, live, 0, tid);
+        } else {
+          softmax_tile<false>(sc, m, l, alpha, live, scale, tq);
+        }
+        // P and alpha once consumer 1 is done with the last ones
+        if (t > 0) hopper::mbar_wait(p_free, (t - 1) & 1);
+        store_p(sc, alpha, p_s, alpha_s, r0, tq, p_full);
+        hopper::mbar_wait(p_full, t & 1);
+      } else {
+        hopper::mbar_wait(p_full, t & 1);
+        alpha[0] = alpha_s[r0];
+        alpha[1] = alpha_s[r0 + 8];
+        if (live < KT) {
+          zero_dead_rows(tile, live, 4, tid);
+          hopper::fence_proxy_async();
+          hopper::named_sync(3, kWg);
+        }
       }
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      *reinterpret_cast<float2*>(mine + g * L::kSStride + 8 * j + 2 * tq) =
-          make_float2(sp[j][0], sp[j][1]);
-      *reinterpret_cast<float2*>(mine + (g + 8) * L::kSStride + 8 * j +
-                                 2 * tq) = make_float2(sp[j][2], sp[j][3]);
-    }
-    __syncthreads();
 
-    // the slab's scores: its four quarters summed in order 0..3, scaled
-    // and (last tile only) masked; then the online softmax
-    const bool masked = kv0 + kKeys > k_end;
-    float sc[kKeys / 8][4];
-    float mx[2] = {kNeg, kNeg};
+      // O[:, half * 256 : +256] = alpha O + P V, V the tile's first 512
+      // columns read as B with the transpose bit
+      rescale(o, alpha);
+      hopper::fence_regs(o);
+      const uint64_t dv = hopper::desc_sw128(
+          tile + 4 * half * Tile::kBlockBytes, Tile::kBlockBytes, 1024);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = g + 8 * (e >> 1), col = 8 * j + 2 * tq + (e & 1);
-        float x = 0.f;
-#pragma unroll
-        for (int w = 0; w < kQuarters; ++w)
-          x += slab_part[(w * kSlab + row) * L::kSStride + col];
-        x *= scale;
-        if (masked && kv0 + col >= k_end) x = kNeg;
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float m_safe[2], alpha[2];
+      for (int kk = 0; kk < KT / 16; ++kk)
+        hopper::wgmma_m64n256k16_bt(o, dp + ((kk * 32) >> 4),
+                                    dv + ((kk * 16 * 128) >> 4), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (half == 1) hopper::mbar_arrive(p_free);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+    // epilogue: o / l (one segment) or the fp32 partial (acc, m, l)
+    if (half == 0 && tq == 0) {
+      ml_s[2 * r0] = m[0];
+      ml_s[2 * r0 + 1] = l[0];
+      ml_s[2 * (r0 + 8)] = m[1];
+      ml_s[2 * (r0 + 8) + 1] = l[1];
+    }
+    hopper::named_sync(1, 2 * kWg);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      m_safe[r] = m_new <= kNeg ? 0.f : m_new;
-      alpha[r] = m[r] <= kNeg ? 0.f : __expf(m[r] - m_safe[r]);
-      m[r] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-    uint32_t pa[kKeys / 16][4];
+      const int row = r0 + 8 * r;
+      if (h0 + row >= H) continue;
+      const float mr = ml_s[2 * row], lr = ml_s[2 * row + 1];
+      const long long orow = (long long)s * H + h0 + row;
+      const int c0 = half * kVCols + 2 * tq;
+      if (nseg == 1) {
+        const float l_safe = lr == 0.f ? 1.f : lr;
+        bf16* dst = out + orow * kDV + c0;
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      float p[4];
+        for (int n = 0; n < kVCols / 8; ++n)
+          *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(
+              o[4 * n + 2 * r] / l_safe, o[4 * n + 2 * r + 1] / l_safe);
+      } else {
+        const long long pr = orow * nseg + seg;
+        float* dst = part_o + pr * kDV + c0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = (masked && sc[j][e] == kNeg) ? 0.f
-                                            : __expf(sc[j][e] - m_safe[e >> 1]);
-        sum[e >> 1] += p[e];
-      }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int n = 0; n < L::kVCols / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P . V over this warp's V columns, V the tile's first DV columns
-    const bf16* v_s = k_s + qt * L::kVCols;
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < L::kVCols / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              S_ +
-                         np * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * np], pa[kk], b[0], b[1]);
-        mma16816(o[2 * np + 1], pa[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the tile and the partials are free again
-  }
-
-  // epilogue: o / l (one segment) or the fp32 partial (acc, m, l)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (head[r] >= H) continue;
-    const long long row = (long long)s * H + head[r];
-    const int c0 = qt * L::kVCols + 2 * tq;
-    if (nseg == 1) {
-      const float l_safe = l[r] == 0.f ? 1.f : l[r];
-      bf16* dst = out + row * DV + c0;
-#pragma unroll
-      for (int n = 0; n < L::kVCols / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + n * 8) =
-            pack_bf16(o[n][2 * r] / l_safe, o[n][2 * r + 1] / l_safe);
-    } else {
-      const long long pr = row * nseg + seg;
-      float* dst = part_o + pr * DV + c0;
-#pragma unroll
-      for (int n = 0; n < L::kVCols / 8; ++n)
-        *reinterpret_cast<float2*>(dst + n * 8) =
-            make_float2(o[n][2 * r], o[n][2 * r + 1]);
-      if (qt == 0 && tq == 0) {
-        part_ml[2 * pr] = m[r];
-        part_ml[2 * pr + 1] = l[r];
+        for (int n = 0; n < kVCols / 8; ++n)
+          *reinterpret_cast<float2*>(dst + n * 8) =
+              make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
+        if (half == 0 && tq == 0) {
+          part_ml[2 * pr] = mr;
+          part_ml[2 * pr + 1] = lr;
+        }
       }
     }
   }
@@ -518,20 +646,94 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-template <int D, int DV>
-int launch_mma(const void* q, const void* kp, const int* pt, const int* ctx,
-               void* out, float* part_o, float* part_ml, int S, int H,
-               int Np, int ps, int nseg, int seg_keys, float scale,
-               cudaStream_t st) {
-  using L = Layout<D, DV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mla_mma_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::kBytes);
+// ---------------------------------------------------------------------------
+// host: the pool's tensor map, cached; the launches
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+struct MapEntry {
+  const void* pool;
+  int ps, box_rows;
+  CUtensorMap map;
+};
+
+constexpr int kMapCache = 128;  // pools (layers) remembered
+std::mutex g_map_mu;
+MapEntry g_maps[kMapCache];
+int g_n_maps = 0, g_next_map = 0;
+EncodeTiled g_encode = nullptr;
+
+// The tensor map of a pool of bf16 rows [pages, ps, 576]: a box of 64
+// columns x box_rows rows x 1 page, 128-byte swizzle.  The page extent is
+// left open (2^31 - 1): the kernel reads only the pages the table names.
+cudaError_t pool_map(const void* pool, int ps, int box_rows,
+                     CUtensorMap* map) {
+  std::lock_guard<std::mutex> lock(g_map_mu);
+  for (int i = 0; i < g_n_maps; ++i)
+    if (g_maps[i].pool == pool && g_maps[i].ps == ps &&
+        g_maps[i].box_rows == box_rows) {
+      *map = g_maps[i].map;
+      return cudaSuccess;
+    }
+  if (g_encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    g_encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)ps, 0x7fffffffull};
+  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2,
+                                 (cuuint64_t)ps * kD * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  MapEntry& e = g_maps[g_next_map];
+  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+               const_cast<void*>(pool), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    e.pool = nullptr;
+    return cudaErrorInvalidValue;
+  }
+  e.pool = pool;
+  e.ps = ps;
+  e.box_rows = box_rows;
+  *map = e.map;
+  g_next_map = (g_next_map + 1) % kMapCache;
+  if (g_n_maps < kMapCache) ++g_n_maps;
+  return cudaSuccess;
+}
+
+int launch_wgmma(const void* q, const void* kp, const int* pt, const int* ctx,
+                 void* out, float* part_o, float* part_ml, int S, int H,
+                 int Np, int ps, int nseg, int seg_keys, float scale,
+                 cudaStream_t st) {
+  const int box_rows = ps < KT ? ps : KT;
+  CUtensorMap map;
+  cudaError_t err = pool_map(kp, ps, box_rows, &map);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mla_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Tile::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((H + kHeads - 1) / kHeads, nseg, S);
-  mla_mma_kernel<D, DV><<<grid, kThreads, L::kBytes, st>>>(
-      (const bf16*)q, (const bf16*)kp, pt, ctx, (bf16*)out, part_o, part_ml,
-      H, Np, ps, nseg, seg_keys, scale);
+  mla_wgmma_kernel<<<grid, kThreads, Tile::kSmem, st>>>(
+      map, (const bf16*)q, pt, ctx, (bf16*)out, part_o, part_ml, H, Np, ps,
+      box_rows, nseg, seg_keys, scale);
   return cudaGetLastError();
 }
 
@@ -555,12 +757,13 @@ int launch_fp32(const void* q, const void* kp, const int* pt, const int* ctx,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// C entry point (ctypes).  `use_bf16` selects the tensor-core kernel (D 576,
-// DV 512: deepseek-v2's latent and rope widths; keys a segment a multiple
-// of 64) over the scalar fp32 one (D <= 576, DV <= min(D, 512), keys a
-// segment a multiple of 32).  part_o [S, H, nseg, DV] and part_ml [S, H,
-// nseg, 2] fp32 are the segments' scratch (unused, may be null, when nseg
-// is 1).  Returns a cudaError_t code.
+// C entry points (ctypes).  `use_bf16` selects the wgmma kernel (D 576, DV
+// 512: deepseek-v2's latent and rope widths; a page size that is a power of
+// two from 8 to 256; keys a segment a multiple of 64) over the scalar fp32
+// one (D <= 576, DV <= min(D, 512), keys a segment a multiple of 32).
+// part_o [S, H, nseg, DV] and part_ml [S, H, nseg, 2] fp32 are the
+// segments' scratch (unused, may be null, when nseg is 1).  Return a
+// cudaError_t code.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -573,8 +776,9 @@ int mla_decode(const void* q, const void* k_pages, const void* page_table,
       nseg > 65535 || seg_keys <= 0 || (long long)nseg * seg_keys <
       (long long)Np * ps || DV <= 0 || DV > D || DV % 8 || D % 8)
     return cudaErrorInvalidValue;
-  if (use_bf16 ? (D != 576 || DV != 512 || seg_keys % kKeys)
-           : (D > kF32MaxD || DV > kF32MaxDV || seg_keys % kF32Keys))
+  if (use_bf16 ? (D != kD || DV != kDV || seg_keys % KT || ps < 8 ||
+                  ps > 256 || (ps & (ps - 1)))
+               : (D > kF32MaxD || DV > kF32MaxDV || seg_keys % kF32Keys))
     return cudaErrorInvalidValue;
   if (nseg > 1 && (part_o == nullptr || part_ml == nullptr))
     return cudaErrorInvalidValue;
@@ -584,11 +788,11 @@ int mla_decode(const void* q, const void* k_pages, const void* page_table,
   const int* ctx = static_cast<const int*>(context_lens);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
-  int err = use_bf16 ? launch_mma<576, 512>(q, k_pages, pt, ctx, out, po,
-                                            pml, S, H, Np, ps, nseg,
-                                            seg_keys, scale, st)
-                     : launch_fp32(q, k_pages, pt, ctx, out, po, pml, S, H, D,
-                                   DV, Np, ps, nseg, seg_keys, scale, st);
+  const int err =
+      use_bf16 ? launch_wgmma(q, k_pages, pt, ctx, out, po, pml, S, H, Np, ps,
+                              nseg, seg_keys, scale, st)
+               : launch_fp32(q, k_pages, pt, ctx, out, po, pml, S, H, D, DV,
+                             Np, ps, nseg, seg_keys, scale, st);
   if (err != cudaSuccess || nseg == 1) return err;
   if (use_bf16)
     mla_merge_kernel<bf16><<<S * H, kMergeThreads, 0, st>>>(
@@ -598,5 +802,8 @@ int mla_decode(const void* q, const void* k_pages, const void* page_table,
         po, pml, static_cast<float*>(out), nseg, DV);
   return cudaGetLastError();
 }
+
+// the bf16 kernel's dynamic shared memory
+int mla_decode_smem_bytes() { return (int)Tile::kSmem; }
 
 }  // extern "C"

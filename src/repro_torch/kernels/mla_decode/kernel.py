@@ -17,8 +17,9 @@ then writes fp32 partials and a second launch merges them.  Both counts
 come from the shapes alone, so the launch captures into a CUDA graph.
 
 A CUDA tensor launches the kernel on the current stream (or raises): the
-tensor-core kernel in bf16 (D 576 / v_dim 512 only, 16-byte aligned
-operands: another width raises `LaunchLimitError`), the scalar one in
+warp-specialised wgmma kernel in bf16 (D 576 / v_dim 512 only, a page
+size that is a power of two from 8 to 256, 16-byte aligned operands:
+another width or page size raises `LaunchLimitError`), the scalar one in
 fp32 (D <= 576, v_dim <= min(D, 512)).  A CPU tensor runs the plain
 version.  Each wrapper call that launches adds one to
 `LAUNCHES["mla_decode"]`, and each launched device kernel one to its
@@ -40,14 +41,16 @@ from repro_torch.utils.misc import cdiv
 NAME = "mla_decode"
 _LIB_NAME = "mla_decode"
 KV_TILE = 64  # keys a tile of the plain version and of the bf16 kernel
-MMA_DIMS = (576, 512)  # (D, v_dim) of the bf16 tensor-core kernel
+MMA_DIMS = (576, 512)  # (D, v_dim) of the bf16 wgmma kernel
+MMA_PAGE_SIZES = (8, 16, 32, 64, 128, 256)  # the bf16 kernel's TMA boxes
 FP32_MAX_DIMS = (576, 512)
 # keys of one segment are a multiple of this (the fp32 kernel's tile is
 # 32 keys, the bf16 kernel's 64)
 SEG_ALIGN = 64
 
 LAUNCHES: dict[str, int] = {NAME: 0}
-KERNEL_LAUNCHES: dict[str, int] = {"mla_mma_kernel": 0, "mla_fp32_kernel": 0,
+KERNEL_LAUNCHES: dict[str, int] = {"mla_wgmma_kernel": 0,
+                                   "mla_fp32_kernel": 0,
                                    "mla_merge_kernel": 0}
 
 
@@ -69,6 +72,8 @@ def library() -> ctypes.CDLL:
         f = lib.mla_decode
         f.argtypes = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P]
         f.restype = _I
+        lib.mla_decode_smem_bytes.argtypes = []
+        lib.mla_decode_smem_bytes.restype = _I
         _BOUND[id(lib)] = lib
     return lib
 
@@ -147,6 +152,9 @@ def mla_decode(q: torch.Tensor, k_pages: torch.Tensor,
         if (d, v_dim) != MMA_DIMS:
             raise LaunchLimitError(f"{NAME}: D / v_dim {d} / {v_dim} have no "
                                    f"bf16 tensor-core kernel ({MMA_DIMS})")
+        if ps not in MMA_PAGE_SIZES:
+            raise LaunchLimitError(f"{NAME}: page size {ps} has no bf16 "
+                                   f"kernel ({MMA_PAGE_SIZES})")
         _check_aligned(NAME, q, k_pages)
     elif d > FP32_MAX_DIMS[0] or v_dim > FP32_MAX_DIMS[1] or d % 8 \
             or v_dim % 8:
@@ -168,7 +176,7 @@ def mla_decode(q: torch.Tensor, k_pages: torch.Tensor,
             np_, ps, num_segments, seg_keys, scale, int(bf16), _stream(q))
     _raise_on(rc, NAME)
     LAUNCHES[NAME] += 1
-    KERNEL_LAUNCHES["mla_mma_kernel" if bf16 else "mla_fp32_kernel"] += 1
+    KERNEL_LAUNCHES["mla_wgmma_kernel" if bf16 else "mla_fp32_kernel"] += 1
     if num_segments > 1:
         KERNEL_LAUNCHES["mla_merge_kernel"] += 1
     return out

@@ -1,11 +1,12 @@
 """Host layer around the MLA latent decode kernel: the split-KV segment
 count of a launch, chosen from the shapes alone.
 
-A decode step of few sequences gives the kernel few blocks (one per 32
-heads and sequence: 32 at deepseek-v2's 128 heads and 8 sequences), too
+A decode step of few sequences gives the kernel few blocks (one per 64
+heads and sequence: 16 at deepseek-v2's 128 heads and 8 sequences), too
 few for the card's SMs, so the keys of each sequence are cut into
-segments until the grid holds about one block per SM, each segment at
-least `MIN_SEG_TILES` tiles long.  The choice reads no device data (the
+segments while the grid still fits in one wave (at most one block per
+SM: the kernel takes a whole SM's shared memory), each segment at least
+`MIN_SEG_TILES` tiles long.  The choice reads no device data (the
 context lengths stay on the card), so the step captures into a CUDA
 graph; segments past a row's context exit at once.
 """
@@ -16,7 +17,7 @@ import torch
 from repro_torch.kernels.mla_decode import kernel as K
 from repro_torch.utils.misc import cdiv
 
-HEADS_PER_BLOCK = 32  # the bf16 kernel's heads a block
+HEADS_PER_BLOCK = 64  # the bf16 kernel's heads a block: one wgmma M tile
 MIN_SEG_TILES = 4     # tiles of K.SEG_ALIGN keys a segment at least
 
 
@@ -31,7 +32,7 @@ def split(s: int, h: int, keys: int, sms: int) -> tuple[int, int]:
     page-table keys on a card of `sms` SMs."""
     blocks = s * cdiv(h, HEADS_PER_BLOCK)
     tiles = cdiv(max(keys, 1), K.SEG_ALIGN)
-    nseg = max(1, min(cdiv(sms, max(blocks, 1)), tiles // MIN_SEG_TILES))
+    nseg = max(1, min(sms // max(blocks, 1), tiles // MIN_SEG_TILES))
     seg_keys = cdiv(tiles, nseg) * K.SEG_ALIGN
     return cdiv(tiles * K.SEG_ALIGN, seg_keys), seg_keys
 

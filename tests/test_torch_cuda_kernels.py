@@ -41,7 +41,9 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
-from repro_torch.kernels._common import MMA_HEAD_DIMS, NEG_INF, chunk_cumsum
+from repro_torch.kernels._common import (
+    MMA_HEAD_DIMS, NEG_INF, LaunchLimitError, chunk_cumsum,
+)
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.mamba2 import kernel as SK
@@ -1468,10 +1470,20 @@ MLA_DECODE_CASES = [  # heads, r, rope, page, contexts, segments (None: split)
     # context, on the split the serving path picks and on one segment
     (128, 512, 64, 16, [0, 1, 17, 300, 2048, 1000, 64, 65], None),
     (128, 512, 64, 16, [0, 1, 17, 300, 2048, 1000, 64, 65], 1),
-    # 16 heads (one slab of a 32-head block idle), 4 segments of 64 keys
+    # 16 heads (rows 16-63 of the block's 64-head wgmma tile zero-filled),
+    # 4 segments of 64 keys
     (16, 512, 64, 16, [200, 0, 129], 4),
     # a single page
     (128, 512, 64, 16, [16, 3, 0], None),
+    # the wgmma kernel's edges: contexts around one 64-key tile and a
+    # 4096 one, split and on one segment
+    (128, 512, 64, 16, [63, 64, 65, 4096], None),
+    (128, 512, 64, 16, [63, 64, 65, 4096], 1),
+    # 64 heads: one block per (segment, sequence), no second half
+    (64, 512, 64, 16, [100, 0, 700], None),
+    # one sequence (a 256-page table) cut into the most segments the split
+    # gives: 16 of 256 keys (test_torch_mla.py pins the split)
+    (128, 512, 64, 16, [4080], None),
 ]
 # fp32 also at the reduced widths (r 64, rope 32) and at 20 heads
 MLA_FP32_CASES = MLA_DECODE_CASES + [
@@ -1494,10 +1506,10 @@ def _mla_case(dev, dtype, case, seed=0):
     return [t.to(dev) for t in (q, kp, pt, cl)]
 
 
-def _mla_check(cuda, dtype, case):
+def _mla_check(cuda, dtype, case, sign=1.0):
     q, kp, pt, cl = _mla_case(cuda, dtype, case)
     r, nseg = case[1], case[5]
-    scale = (128 + case[2]) ** -0.5
+    scale = sign * (128 + case[2]) ** -0.5
     keys = pt.shape[1] * kp.shape[1]
     if nseg is None:
         nseg, seg = aops.split(q.shape[0], q.shape[1], keys,
@@ -1511,7 +1523,8 @@ def _mla_check(cuda, dtype, case):
     want = AK.mla_decode_plain(q, kp, pt, cl, v_dim=r, scale=scale)
     torch.cuda.synchronize()
     assert AK.LAUNCHES["mla_decode"] == 1
-    kern = "mla_mma_kernel" if dtype == torch.bfloat16 else "mla_fp32_kernel"
+    kern = "mla_wgmma_kernel" if dtype == torch.bfloat16 \
+        else "mla_fp32_kernel"
     assert AK.KERNEL_LAUNCHES[kern] == 1
     assert AK.KERNEL_LAUNCHES["mla_merge_kernel"] == int(nseg > 1)
     assert got.dtype == dtype and got.shape == want.shape
@@ -1530,6 +1543,69 @@ def test_mla_decode_fp32_kernel_matches_plain(cuda, case):
     _mla_check(cuda, torch.float32, case)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nseg", [None, 1])
+def test_mla_decode_takes_a_negative_scale(cuda, dtype, nseg):
+    """A negative scale turns the largest raw score into the smallest
+    scaled one: each row's max is taken over the scaled scores."""
+    _mla_check(cuda, dtype,
+               (128, 512, 64, 16, [0, 1, 17, 300, 2048, 65], nseg), -1.0)
+
+
+def test_mla_decode_pages_far_apart(cuda):
+    """Every page of a tile far from its neighbours in a large pool (a
+    page-table entry per 16 keys, strides of ~1,000 pages): the TMA boxes
+    land where the plain gather puts them."""
+    g = torch.Generator().manual_seed(11)
+    ctx = [1000, 333]
+    np_ = 64
+    pool = 2 * np_ * 1009 + 1
+    q = torch.randn((2, 128, 576), generator=g).to(torch.bfloat16)
+    kp = torch.randn((pool, 16, 576), generator=g).to(torch.bfloat16)
+    idx = torch.arange(2 * np_) * 1009 + 1
+    pt = idx[torch.randperm(2 * np_, generator=g)].reshape(2, np_)
+    args = [t.to(cuda) for t in (q, kp, pt.to(torch.int32),
+                                 torch.tensor(ctx, dtype=torch.int32))]
+    for nseg, seg in ((1, np_ * 16), (4, np_ * 4)):
+        got = AK.mla_decode(*args, v_dim=512, scale=0.07, num_segments=nseg,
+                            seg_keys=seg)
+        want = AK.mla_decode_plain(*args, v_dim=512, scale=0.07)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nseg", [None, 1])
+def test_mla_decode_ignores_nan_past_the_context(cuda, dtype, nseg):
+    """Rows past each context (the rest of its last page, its later pages,
+    the pages no table names) filled with NaN give the same bits as the
+    pool with those rows zero: a whole-page load never lets them into
+    P.V."""
+    case = (128, 512, 64, 16, [63, 0, 65, 1000, 16, 130], nseg)
+    q, kp, pt, cl = _mla_case(cuda, dtype, case)
+    ps = kp.shape[1]
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for s, c in enumerate(cl.tolist()):
+        keys = torch.arange(c, device=cuda)
+        live[pt[s].long()[keys // ps], keys % ps] = True
+    zero = torch.where(live[..., None], kp, torch.zeros_like(kp))
+    nan = torch.where(live[..., None], kp, torch.full_like(kp, float("nan")))
+    if nseg is None:
+        nseg, seg = aops.split(q.shape[0], 128, pt.shape[1] * ps,
+                               torch.cuda.get_device_properties(
+                                   cuda).multi_processor_count)
+    else:
+        seg = -(-pt.shape[1] * ps // 64) * 64
+    outs = [AK.mla_decode(q, pool, pt, cl, v_dim=512, scale=0.07,
+                          num_segments=nseg, seg_keys=seg)
+            for pool in (zero, nan)]
+    want = AK.mla_decode_plain(q, zero, pt, cl, v_dim=512, scale=0.07)
+    assert torch.isfinite(outs[1]).all()
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].float(), want.float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
 def test_mla_decode_rejects_what_it_does_not_take(cuda):
     q, kp, pt, cl = _mla_case(cuda, torch.bfloat16,
                               (32, 64, 32, 16, [5], None))
@@ -1542,6 +1618,10 @@ def test_mla_decode_rejects_what_it_does_not_take(cuda):
     odd.copy_(q)
     with pytest.raises(ValueError, match="aligned"):
         AK.mla_decode(odd, kp, pt, cl, v_dim=512, scale=1.0)
+    q, kp, pt, cl = _mla_case(cuda, torch.bfloat16,
+                              (64, 512, 64, 24, [30], None))
+    with pytest.raises(LaunchLimitError, match="page size"):  # no TMA box
+        AK.mla_decode(q, kp, pt, cl, v_dim=512, scale=1.0)
 
 
 def test_mla_decode_captures_without_host_syncs(cuda):

@@ -241,10 +241,13 @@ def test_plain_mla_decode_matches_reference(case):
 
 
 def test_mla_decode_split_and_arguments():
-    # deepseek-v2's decode step on 132 SMs: 8 rows x 128 heads over a
-    # 2048-key table splits 5 ways; 64 rows fill the card unsplit
-    assert aops.split(8, 128, 2048, 132) == (5, 448)
+    # deepseek-v2's decode step on 132 SMs, 64 heads a block: 8 rows x
+    # 128 heads (16 blocks) over a 2048-key table split 8 ways into 128
+    # blocks, one wave; 64 rows (128 blocks) fill the card unsplit; one
+    # row takes the most segments, 16 of 256 keys (4 tiles each)
+    assert aops.split(8, 128, 2048, 132) == (8, 256)
     assert aops.split(64, 128, 4096, 132) == (1, 4096)
+    assert aops.split(1, 128, 4096, 132) == (16, 256)
     assert aops.split(1, 32, 16, 132) == (1, 64)
     for s, h, keys, sms in ((3, 8, 1000, 132), (8, 128, 17 * 16, 132)):
         nseg, seg = aops.split(s, h, keys, sms)
@@ -260,6 +263,31 @@ def test_mla_decode_split_and_arguments():
     with pytest.raises(ValueError, match="v_dim"):
         AK.mla_decode(tq, tkp, tpt, tctx, v_dim=q.shape[-1] + 8, scale=1.0)
 
+
+
+def test_mla_decode_probe_marks_every_phase():
+    """tools/mla_decode_probe.py stamps a copy of the latent decode's
+    source at named lines: every mark still lands (an edit to a marked
+    line fails here, not on the card), and the served source stays free
+    of the stamps."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" \
+        / "mla_decode_probe.py"
+    spec = importlib.util.spec_from_file_location("mla_decode_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    served = (pathlib.Path(AK.__file__).resolve().parents[2] / "csrc"
+              / "mla_decode.cu").read_text()
+    assert "clock64" not in served and "PROBE" not in served
+    text = probe.instrument(served)
+    for k in range(len(probe.PHASES)):
+        assert f"PROBE({k})" in text
+    assert text.count("PROBE_INIT") == 2 and text.count("PROBE_FLUSH") == 2
+    assert "mla_probe_read" in text and text.count("clock64") == 2
+    with pytest.raises(ValueError, match="move the marks"):
+        probe.instrument(served.replace("hopper::fence_regs(sc);",
+                                        "hopper::fence_regs(sc );"))
 
 FLASH_CASES = {  # (B, S, H, Dk, Dv, kv_len)
     "mla_widths_ragged": (3, 40, 2, 192, 128, [40, 17, 0]),

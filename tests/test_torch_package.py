@@ -1,8 +1,9 @@
 """Package-level contracts of the port: it imports neither JAX nor the JAX
 package, its copied host modules stay identical to the reference's,
 `chip_smoke.py` fails without the rest of the repository, a kernel
-library's name follows every header its source may include, and the
-serving launcher runs on the CPU."""
+library's name follows every header its source may include, its build
+keeps ptxas' report beside it, and the serving launcher runs on the
+CPU."""
 import os
 import pathlib
 import shutil
@@ -73,6 +74,46 @@ def test_library_name_hashes_every_header(tmp_path, monkeypatch):
     for n in ("a", "b"):
         assert _build.library_path(n) != before[n]
         assert _build.library_path(n).name.startswith(f"lib{n}-")
+
+
+def test_build_keeps_ptxas_report_beside_the_library(tmp_path, monkeypatch):
+    """One nvcc run (with -Xptxas -v) builds a library and keeps ptxas'
+    report beside it: `resource_usage` reads that report and compiles
+    nothing again; a library whose report is gone is rebuilt."""
+    from repro_torch.kernels import _build
+
+    csrc, calls = tmp_path / "csrc", tmp_path / "calls"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$*\" >> {calls}\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "echo lib > \"$out\"\n"
+        "echo \"ptxas info    : Compiling entry function 'k' for "
+        "'sm_90a'\" >&2\n"
+        "echo 'ptxas info    : Used 40 registers' >&2\n"
+        "echo 'nvcc: a line of no interest' >&2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_SECONDS", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    want = ["ptxas info    : Compiling entry function 'k' for 'sm_90a'",
+            "ptxas info    : Used 40 registers"]
+    assert _build.resource_usage("a") == want
+    assert _build.resource_usage("a") == want
+    runs = calls.read_text().splitlines()
+    assert len(runs) == 1 and "-Xptxas -v" in runs[0]
+    lib = _build.library_path("a")
+    assert lib.exists() and lib.with_suffix(".ptxas").exists()
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".ptxas").name])  # no temporary left
+    lib.with_suffix(".ptxas").unlink()
+    assert _build.build("a") == lib
+    assert len(calls.read_text().splitlines()) == 2
+    assert _build.resource_usage("a") == want
 
 
 def test_serve_launcher_runs_on_cpu():
