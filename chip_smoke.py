@@ -303,6 +303,38 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               3 greedy requests on the card (eager) and on the CPU in
               lockstep: identical tokens, logits within 5e-3, identical
               expert ids
+ 23. mtrain   MoE and MLA training (deepseek-v2), after phase 22 has freed
+              its served model: (a) the flash forward at key width 192 /
+              value width 128 without kv_len (the training path's
+              `flash_mma_kernel<192, 128, false>`) against its plain
+              version at the train shape (B 1, S 2048, 128 heads, causal)
+              in bf16 (atol 2e-2) and at a cut in fp32 (TF32 off, 1e-4),
+              its gradient (kernel forward + recompute backward) on the
+              card against the CPU in fp32 with and without kv_len
+              (1e-4), and its time at the train shape beside its bound,
+              its plain version and SDPA; (b) full-width deepseek-v2 cut
+              to 2 of its 60 layers (1 dense + 1 MoE, bf16, random
+              weights drawn on the card, 5.36 G parameters: params, grads
+              and fp32 moments 59.9 GiB) takes 1 + 3 AdamW steps at batch
+              1 x seq 2048 of Markov data through `trainer.train_step`
+              (the capacity dispatch: one group of 2048, capacity 96);
+              the launch counters are zeroed just before and read just
+              after: the flash forward 2 a layer a step (the forward and
+              its remat recompute), every launch `flash_mma_kernel`; the
+              grouped GEMM, the latent decode and the paged kernels never;
+              no plain version; every loss finite; step ms, tokens/s,
+              peak memory, the dropped share of the routed (token,
+              choice) pairs and the routing's load, aux, one profiled
+              step's top kernels and the step's parts (AdamW, the flash
+              backward, the MoE and attention layers, by CUDA events)
+              logged; (c) deepseek-v2's attention width, 2 layers (the
+              dense block's d_ff cut to 1024), 8 experts of ff 1024 top-6
+              with 2 shared, cf 1.25, a vocab of 32768, fp32 (TF32 off): 3
+              train steps at 2 x 128 on the card and on the CPU from the
+              same weights and batches: losses within 1e-4 relative, grad
+              norms within 1e-3, aux within 1e-5, the first step's MoE
+              forward with identical expert ids and identical kept /
+              dropped (token, choice) pairs
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -569,6 +601,27 @@ MLA_NEW_TOKENS = 32
 # MoE), 8 experts of ff 1024 top-6 with 2 shared, a vocab of 32768
 MLA_DIFF_CUT = dict(num_layers=2, vocab_size=32768, dtype="float32")
 MLA_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
+# phase 23: MoE and MLA training (deepseek-v2).  Full width, 2 of its 60
+# layers (1 dense + 1 MoE: 5.36 G parameters); bf16 params and grads and
+# the fp32 AdamW moments stand at 64.3 GB (59.9 GiB) of the card's 80
+MTRAIN = "flash_attention_fwd[192/128 train]"
+MTRAIN_LAYERS = 2
+MTRAIN_BATCH, MTRAIN_SEQ, MTRAIN_STEPS = 1, 2048, 3  # + 1 untimed warm-up
+MTRAIN_HEADS = 128
+# (a) the flash forward at 192 / 128 without kv_len: an fp32 cut (B, S, H),
+# and the gradient card vs CPU (B, S, H; with and without kv_len)
+MTRAIN_FLASH_FP32 = (2, 256, 16)
+MTRAIN_GRAD = (1, 256, 8)
+MTRAIN_GRAD_KV_LEN = [100]
+# (c) the card against the CPU in fp32: deepseek-v2's attention width, 2
+# layers (the lead dense block's d_ff cut to 1024), 8 experts of ff 1024
+# top-6 with 2 shared, cf 1.25, a vocab of 32768; 3 steps at 2 x 128
+MTRAIN_DIFF_CUT = dict(num_layers=2, d_ff=1024, vocab_size=32768,
+                       dtype="float32")
+MTRAIN_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
+MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, MTRAIN_DIFF_STEPS = 2, 128, 3
+# the aux is a mean of fp32 products over 256 tokens: 1e-5 absolute
+MTRAIN_AUX_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -3587,20 +3640,17 @@ def phase_mla_flash(torch, FK, kvl_serve, iters=10):
     return worst, row
 
 
-def prefill_profile(torch, eng, top=10):
-    """The first step of `eng` (a prefill, its requests added) under
-    `torch.profiler`: its wall, its kernels' summed device time and the
-    `top` kernels by device time, logged."""
+def profile_step(torch, step, tag, top=10):
+    """`step()` under `torch.profiler`: (its result, its wall ms, its
+    kernels' summed device ms); the wall, the sum, the idle share and the
+    `top` kernels by device time (with their share of the sum) logged."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = eng.step()
+        out = step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if not st["prefill"]:
-        raise AssertionError("prefill_profile: the first step did not "
-                             "prefill")
+        wall = 1e3 * (time.perf_counter() - t0)
     rows = []
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -3608,11 +3658,23 @@ def prefill_profile(torch, eng, top=10):
                 or ev.self_cuda_time_total
             rows.append((us, ev.count, ev.key))
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"prefill step (profiled): wall {1e3 * wall:.3f} ms, its kernels "
-        f"{busy:.3f} ms summed ({sum(r[1] for r in rows)} launches)")
+    log(f"{tag} (profiled): wall {wall:.3f} ms, its kernels {busy:.3f} ms "
+        f"summed ({sum(r[1] for r in rows)} launches), idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}")
     for us, count, name in sorted(rows, reverse=True)[:top]:
-        log(f"  {us / 1e3:8.3f} ms  x{count:4d}  {name[:90]}")
-    return dict(prefill_ms=1e3 * wall, prefill_kernels_ms=busy)
+        log(f"  {us / 1e3:8.3f} ms  {us / 1e3 / max(busy, 1e-9):6.3f}  "
+            f"x{count:5d}  {name[:90]}")
+    return out, wall, busy
+
+
+def prefill_profile(torch, eng, top=10):
+    """The first step of `eng` (a prefill, its requests added) profiled
+    (`profile_step`)."""
+    st, wall, busy = profile_step(torch, eng.step, "prefill step", top)
+    if not st["prefill"]:
+        raise AssertionError("prefill_profile: the first step did not "
+                             "prefill")
+    return dict(prefill_ms=wall, prefill_kernels_ms=busy)
 
 
 def phase_mla_serve(torch, kernel_modules):
@@ -3802,6 +3864,422 @@ def phase_mla_diff(torch):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 23: MoE and MLA training (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+
+def phase_mtrain_flash(torch, FK, iters=10):
+    """23 (a): the flash forward at key width 192 / value width 128
+    without kv_len (`flash_mma_kernel<192, 128, false>`, the training
+    path's instance) against its plain version at the train shape (B 1, S
+    2048, 128 heads, causal) in bf16 (atol 2e-2) and at MTRAIN_FLASH_FP32
+    in fp32 (TF32 off, 1e-4); the gradient (kernel forward + recompute
+    backward) on the card against the same on the CPU in fp32 at
+    MTRAIN_GRAD, with and without kv_len (1e-4); the forward timed at the
+    train shape beside its bound, its plain version and SDPA (a yardstick,
+    never called by the port).  Returns (worst forward error, timing
+    row)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    worst, row = 0.0, None
+    train = (MTRAIN_BATCH, MTRAIN_SEQ, MTRAIN_HEADS)
+    for dtype_name, (b, s, h), atol in (("bfloat16", train, 2e-2),
+                                        ("float32", MTRAIN_FLASH_FP32, 1e-4)):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, _, kw = mla_flash_inputs(torch, dtype, b, s, h, [s] * b, g)
+        o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+        want_o, want_lse = FK.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((o.float() - want_o.float()).abs().max())
+        err_lse = float((lse - want_lse).abs().max())
+        log(f"check {MTRAIN:18s} {dtype_name} B {b} S {s} H {h} (no "
+            f"kv_len): max_abs_err o {err:.3e} lse {err_lse:.3e} (atol "
+            f"{atol:g})")
+        if not (err <= atol and err_lse <= 1e-4):
+            raise AssertionError(f"{MTRAIN} {dtype_name}: error {err} / "
+                                 f"{err_lse} > {atol} / 1e-4")
+        worst = max(worst, err)
+        if dtype_name != "bfloat16":
+            continue
+        qd, kd, vd = (x.reshape(b, h, s, -1) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qd, kd, vd, is_causal=True,
+                                                  scale=kw["scale"])
+
+        def kernel():
+            return FK.flash_attention_fwd(q, k, v, **kw)
+
+        backend = sdpa_backend(torch, library)
+        ms = time_ms(torch, kernel, iters, flush)
+        ms_hidden = time_ms(torch, kernel, iters, flush,
+                            lead_cycles=2_000_000)
+        plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(
+            q, k, v, **kw), 2, flush)
+        lib_ms = None
+        if backend is not None:
+            from torch.nn.attention import sdpa_kernel
+
+            with sdpa_kernel([backend]):
+                lib_ms = time_ms(torch, library, iters, flush)
+        bound_ms, bound_by = mla_flash_bound(b, s, h, [s] * b, dtype_name)
+        log(f"time  {MTRAIN:37s} bf16 B {b} S {s} H {h} kernel_ms "
+            f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} (SDPA, "
+            f"backend {backend})  bound_ms {bound_ms:.5f} ({bound_by})  of "
+            f"the bound {bound_ms / ms:.3f}  kernel_ms with the enqueue "
+            f"hidden {ms_hidden:.4f}")
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, o, want_o, qd, kd, vd
+    # the gradient: autograd through the kernel on the card against the
+    # plain version on the CPU, the same inputs, fp32
+    b, s, h = MTRAIN_GRAD
+    cg = torch.Generator(device="cpu").manual_seed(SEED + 25)
+    inputs = [torch.randn((b, s, h, d), generator=cg) for d in (192, 192,
+                                                                128)]
+    w = torch.randn((b, s, h, 128), generator=cg)
+    for kvl in (None, MTRAIN_GRAD_KV_LEN):
+        grads = []
+        for dev in (DEVICE, "cpu"):
+            xs = [x.detach().to(dev).requires_grad_(True) for x in inputs]
+            kv_len = None if kvl is None else torch.tensor(
+                kvl, dtype=torch.int32, device=dev)
+            out = fops.flash_attention(*xs, causal=True, scale=192 ** -0.5,
+                                       kv_len=kv_len)
+            torch.sum(out * w.to(dev)).backward()
+            grads.append([x.grad.cpu() for x in xs])
+        gerr = max(float((a - c).abs().max()) for a, c in zip(*grads))
+        log(f"flash grad 192/128 B {b} S {s} H {h} kv_len {kvl} fp32 card "
+            f"vs cpu: max_abs_err {gerr:.3e} atol 1e-4  "
+            f"{'ok' if gerr <= 1e-4 else 'FAIL'}")
+        if not gerr <= 1e-4:
+            raise AssertionError("flash 192/128 gradient: card vs CPU "
+                                 "differ")
+    return worst, row
+
+
+def mtrain_split(torch, model, state, batch, step_ms):
+    """Where phase 23 (b)'s step goes: one step profiled, then, each with
+    CUDA events at the train shape (L2 flushed): the AdamW update over
+    this model's gradients (at lr 0, so the parameters keep their values;
+    the phase's last use of the moments), the flash recompute backward
+    alone, the MoE layer's capacity dispatch forward and forward +
+    backward, its three expert `torch.bmm` alone, and the MLA attention's
+    forward and forward + backward.  The step runs each layer's forward
+    twice (remat) and its backward once."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe as TMOE
+    from repro_torch.models.model import apply_train
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.trainer import train_step
+
+    _, wall, busy = profile_step(torch, lambda: train_step(
+        model, state, batch, **TRAIN_KW), "mtrain step", top=15)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    cfg, blk = model.cfg, model.blocks[0]
+    dt = cfg.param_dtype
+    t, s, h = MTRAIN_BATCH * MTRAIN_SEQ, MTRAIN_SEQ, cfg.num_q_heads
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+
+    params = list(model.parameters())
+    apply_train(model, batch)[0].backward()
+    grads = [p.grad for p in params]
+    split = {"adamw": time_ms(torch, lambda: adamw_update(
+        grads, state["opt"], params, lr=torch.zeros((), device=DEVICE)),
+        2, flush)}
+    del grads
+    for p in params:
+        p.grad = None
+    qp, kp = randn(1, h, s, 192), randn(1, h, s, 192)
+    vp, dop = randn(1, h, s, 128), randn(1, h, s, 128)
+    op, lse = fops.flash_forward(qp, kp, vp, group=1, causal=True,
+                                 scale=192 ** -0.5, q_offset=0)
+    split["flash_backward"] = time_ms(torch, lambda: fops.flash_backward(
+        qp, kp, vp, op, lse, dop, group=1, causal=True, scale=192 ** -0.5,
+        q_offset=0), 3, flush)
+    del qp, kp, vp, dop, op, lse
+    x = randn(MTRAIN_BATCH, s, cfg.d_model).requires_grad_(True)
+    pos = torch.arange(s, device=DEVICE)[None].expand(MTRAIN_BATCH, -1)
+
+    def fwd_bwd(f):
+        def call():
+            y = f()
+            y = y[0] + y[1] if isinstance(y, tuple) else y
+            y.float().sum().backward()
+        return call
+
+    def no_grad(f):
+        def call():
+            with torch.no_grad():
+                f()
+        return call
+
+    moe = lambda: blk.moe(x, mode="train")  # noqa: E731
+    attn = lambda: blk.attn.forward_train(x, pos)  # noqa: E731
+    _, _, cap = TMOE.capacity_layout(t, cfg.moe.num_experts,
+                                     cfg.moe.top_k, cfg.moe.capacity_factor)
+    xe = randn(cfg.moe.num_experts, cap, cfg.d_model)
+
+    def bmm3():
+        with torch.no_grad():
+            hid = torch.nn.functional.silu(torch.bmm(xe, blk.moe.w_gate)) \
+                * torch.bmm(xe, blk.moe.w_up)
+            torch.bmm(hid, blk.moe.w_down)
+    split |= {"moe_fwd": time_ms(torch, no_grad(moe), 5, flush),
+              "moe_fwd_bwd": time_ms(torch, fwd_bwd(moe), 3, flush),
+              "moe_bmm3_fwd": time_ms(torch, bmm3, 5, flush),
+              "attn_fwd": time_ms(torch, no_grad(attn), 5, flush),
+              "attn_fwd_bwd": time_ms(torch, fwd_bwd(attn), 3, flush)}
+    for p in params:
+        p.grad = None
+    e_bytes = 3 * blk.moe.w_gate.numel() * blk.moe.w_gate.element_size()
+    log("mtrain parts (CUDA events, L2 flushed, bf16, T "
+        f"{t}): " + "  ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; the three expert matrices hold {e_bytes / 1e9:.2f} GB "
+        f"({e_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    shares = {
+        "adamw": split["adamw"],
+        "attention (2 layers: 2 forwards + a backward each)": 2 * (
+            split["attn_fwd"] + split["attn_fwd_bwd"]),
+        "  of it the flash recompute backward": 2 * split["flash_backward"],
+        "MoE layer (2 forwards + a backward)": split["moe_fwd"]
+        + split["moe_fwd_bwd"],
+        "  of it the expert bmm (3 passes of the weights)": 3 * split[
+            "moe_bmm3_fwd"]}
+    log(f"mtrain step {step_ms:.1f} ms, by part: " + "; ".join(
+        f"{k} {v:.1f} ms ({v / step_ms:.3f})" for k, v in shares.items()))
+    return dict(profiled_ms=wall, profiled_kernels_ms=busy, **split)
+
+
+def phase_mtrain(torch, kernel_modules):
+    """23 (b): full-width deepseek-v2 cut to MTRAIN_LAYERS of its 60
+    layers (1 dense + 1 MoE), bf16, random weights drawn on the card,
+    takes 1 + MTRAIN_STEPS AdamW steps at batch 1 x seq 2048 of Markov
+    data (seed 1) through `trainer.train_step`.  The launch counters are
+    zeroed just before the steps and read just after: the flash forward
+    runs 2 a layer a step (the forward and its remat recompute), every
+    launch the tensor-core kernel; the grouped GEMM, the latent decode and
+    the paged kernels never; no plain version runs.  Every loss finite;
+    step ms, tokens/s, peak memory against the standing state, the share
+    of routed (token, choice) pairs dropped, each MoE call's busiest
+    expert and idle experts, aux, and a profiled step with its parts
+    (`mtrain_split`) logged.  Returns (flash launches, numbers)."""
+    import gc
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe as TMOE
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    K, FK, GK, AK = kernel_modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS[MLA_ARCH].replace(num_layers=MTRAIN_LAYERS)
+    m = cfg.mla
+    if (cfg.num_q_heads, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim) \
+            != (MTRAIN_HEADS, 192, 128):
+        raise AssertionError("phase 23 (a)'s flash shape is not the train "
+                             "path's")
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    state = make_train_state(model)
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    standing = sum(2 * p.numel() * p.element_size() + 8 * p.numel()
+                   for p in params)  # params, grads, fp32 mu and nu
+    t, k = MTRAIN_BATCH * MTRAIN_SEQ, cfg.moe.top_k
+    sg, groups, cap = TMOE.capacity_layout(t, cfg.moe.num_experts, k,
+                                           cfg.moe.capacity_factor)
+    steps = 1 + MTRAIN_STEPS
+    batches = markov_batches(torch, cfg, steps + 1, MTRAIN_BATCH,
+                             MTRAIN_SEQ, DEVICE)
+    torch.cuda.synchronize()
+    log(f"mtrain {MLA_ARCH}: {cfg.num_layers} of 60 layers ("
+        f"{cfg.moe.first_k_dense} dense), d_model {cfg.d_model}, "
+        f"{cfg.num_q_heads} heads, {cfg.moe.num_experts} experts top-{k} "
+        f"ff {cfg.moe.d_ff_expert} + {cfg.moe.num_shared_experts} shared, "
+        f"cf {cfg.moe.capacity_factor}, vocab {cfg.vocab_size}, {cfg.dtype}"
+        f": {n_params / 1e9:.3f} G parameters; params + grads + fp32 "
+        f"moments {standing / 2**30:.2f} GiB; batch {MTRAIN_BATCH} x seq "
+        f"{MTRAIN_SEQ}: T {t}, {groups} group(s) of {sg}, capacity {cap}; "
+        f"set-up {time.perf_counter() - t0:.1f}s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    # each MoE call's kept (token, choice) pairs, its busiest expert's
+    # routed pairs and its experts without one, on the device
+    kept, loads = [], []
+    for blk in model.decoder_blocks():
+        if hasattr(blk, "moe"):
+            slots = blk.moe.capacity_slots
+
+            def record(topi, cap_, slots=slots):
+                slot, keep = slots(topi, cap_)
+                kept.append(keep.sum())
+                load = torch.bincount(topi.reshape(-1),
+                                      minlength=cfg.moe.num_experts)
+                loads.append(torch.stack([load.max(), (load == 0).sum()]))
+                return slot, keep
+            blk.moe.capacity_slots = record
+    n_moe = len(model.blocks)
+    before = [p.detach().clone() for p in model.blocks[0].attn.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (K, FK, GK, AK):
+        mod.reset_launches()
+    losses, ces, auxes, gnorms, times = [], [], [], [], []
+    with counted_plain((FK, "flash_attention_fwd_plain"),
+                       (GK, "grouped_gemm_plain"),
+                       (AK, "mla_decode_plain")) as plain_calls:
+        for i, batch in enumerate(batches[:steps]):
+            t0 = time.perf_counter()
+            state, met = train_step(model, state, batch, **TRAIN_KW)
+            losses.append(float(met["loss"]))
+            ces.append(float(met["ce"]))
+            auxes.append(float(met["aux"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"mtrain step {i}{' (warm-up)' if i == 0 else ''}: loss "
+                f"{losses[-1]:.4f} ce {ces[-1]:.4f} aux {auxes[-1]:.5f} "
+                f"grad_norm {gnorms[-1]:.4f} lr {float(met['lr']):.2e} "
+                f"{times[-1] * 1e3:.1f} ms")
+    launches = {"flash_attention_fwd": FK.LAUNCHES["flash_attention_fwd"],
+                **FK.KERNEL_LAUNCHES}
+    others = {**K.LAUNCHES, **GK.LAUNCHES, **AK.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    # every MoE call: each step's forward, then its remat recompute
+    dropped = [1 - float(x) / (t * k) for x in kept]
+    timed = times[1:]
+    tok_s = t * len(timed) / sum(timed)
+    log(f"mtrain {len(timed)} timed steps: mean_step_ms "
+        f"{sum(timed) / len(timed) * 1e3:.1f}  tokens_per_s {tok_s:.1f}  "
+        f"max_memory_allocated_gib {peak / 2**30:.2f} (standing state "
+        f"{standing / 2**30:.2f} GiB, of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f})  "
+        f"flash launches {launches}  other kernels {others}  plain calls "
+        f"{plain_calls}")
+    log(f"mtrain routed (token, choice) pairs dropped per MoE call: "
+        f"{[round(x, 5) for x in dropped]} (capacity {cap} of {t * k} "
+        f"pairs over {cfg.moe.num_experts} experts, a mean load of "
+        f"{t * k / cfg.moe.num_experts:g}); busiest expert's pairs and "
+        f"experts with none, per call: {[x.tolist() for x in loads]}; "
+        f"aux {auxes}")
+    if not all(math.isfinite(x) for x in losses + gnorms + auxes):
+        raise AssertionError(f"mtrain: non-finite loss, aux or grad norm: "
+                             f"{losses} {auxes} {gnorms}")
+    if abs(ces[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"mtrain: step 0 ce {ces[0]} is not within 1.0 "
+                             f"of ln V = {math.log(cfg.vocab_size):.2f}")
+    if len(kept) != 2 * n_moe * steps:
+        raise AssertionError(f"mtrain: {len(kept)} MoE calls, expected "
+                             f"{2 * n_moe * steps}")
+    want = 2 * MTRAIN_LAYERS * steps
+    if launches != {"flash_attention_fwd": want, "flash_mma_kernel": want,
+                    "flash_fwd_kernel": 0}:
+        raise AssertionError(f"mtrain: flash launches {launches}, expected "
+                             f"{want}, every one flash_mma_kernel")
+    if any(others.values()) or any(plain_calls.values()):
+        raise AssertionError(f"mtrain: serving kernels or plain versions "
+                             f"ran: {others} {plain_calls}")
+    # every matrix changes; bf16 norm scales near 1 may round back
+    stuck = [n for (n, p), b in zip(model.blocks[0].attn.named_parameters(),
+                                    before)
+             if p.ndim == 2 and torch.equal(p.detach(), b)]
+    if stuck:
+        raise AssertionError(f"mtrain: parameters did not change: {stuck}")
+    del before
+    numbers = mtrain_split(torch, model, state, batches[steps],
+                           1e3 * sum(timed) / len(timed))
+    del model, state, batches, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention_fwd"], dict(
+        step_ms=1e3 * sum(timed) / len(timed), tokens_per_s=tok_s,
+        peak_gib=peak / 2**30, standing_gib=standing / 2**30,
+        dropped=dropped, **numbers)
+
+
+def phase_mtrain_diff(torch):
+    """23 (c): deepseek-v2's attention width with its MoE cut
+    (MTRAIN_DIFF_CUT, MTRAIN_DIFF_EXPERTS: 1 dense + 1 MoE layer), fp32
+    with TF32 off: MTRAIN_DIFF_STEPS train steps at 2 x 128 on the card
+    and on the CPU from the same weights (the card model a copy of the CPU
+    one) and batches: losses within TDIFF_LOSS_RTOL relative, grad norms
+    within TDIFF_GNORM_RTOL, aux within MTRAIN_AUX_ATOL; the first step's
+    MoE forward chooses the same experts and keeps and drops the same
+    (token, choice) pairs on both."""
+    import copy
+    import dataclasses
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    base = ARCHS[MLA_ARCH]
+    cfg = base.replace(moe=dataclasses.replace(base.moe,
+                                               **MTRAIN_DIFF_EXPERTS),
+                       **MTRAIN_DIFF_CUT)
+    cpu_model = weights.init_random(cfg, SEED, device="cpu")
+    models = {DEVICE: copy.deepcopy(cpu_model).to(DEVICE), "cpu": cpu_model}
+    del cpu_model
+    runs, routed = {}, {}
+    for dev in list(models):
+        model = models.pop(dev)
+        seen = routed[dev] = []
+        for blk in model.decoder_blocks():
+            if hasattr(blk, "moe"):
+                slots = blk.moe.capacity_slots
+
+                def record(topi, cap, slots=slots, seen=seen):
+                    slot, keep = slots(topi, cap)
+                    seen.append((topi.cpu(), keep.cpu()))
+                    return slot, keep
+                blk.moe.capacity_slots = record
+        state = make_train_state(model)
+        out = []
+        for batch in markov_batches(torch, cfg, MTRAIN_DIFF_STEPS,
+                                    MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, dev):
+            state, met = train_step(model, state, batch, **TRAIN_KW)
+            out.append((float(met["loss"]), float(met["grad_norm"]),
+                        float(met["aux"])))
+        runs[dev] = out
+        del model, state
+    card, cpu = runs[DEVICE], runs["cpu"]
+    worst_l = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card, cpu))
+    worst_g = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(card, cpu))
+    worst_a = max(abs(a[2] - b[2]) for a, b in zip(card, cpu))
+    (ids_d, keep_d), (ids_c, keep_c) = routed[DEVICE][0], routed["cpu"][0]
+    same_ids, same_keep = torch.equal(ids_d, ids_c), torch.equal(keep_d,
+                                                                 keep_c)
+    later = sum(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(routed[DEVICE][1:], routed["cpu"][1:]))
+    log(f"mtrain diff fp32 {MTRAIN_DIFF_STEPS} steps batch "
+        f"{MTRAIN_DIFF_BATCH} x seq {MTRAIN_DIFF_SEQ}, cuts "
+        f"{MTRAIN_DIFF_CUT} {MTRAIN_DIFF_EXPERTS} (top-{cfg.moe.top_k}, "
+        f"cf {cfg.moe.capacity_factor}): (loss, grad_norm, aux) card "
+        f"{card} cpu {cpu}; loss rel {worst_l:.3e} (bound "
+        f"{TDIFF_LOSS_RTOL:g}), grad_norm rel {worst_g:.3e} (bound "
+        f"{TDIFF_GNORM_RTOL:g}), aux abs {worst_a:.3e} (bound "
+        f"{MTRAIN_AUX_ATOL:g})")
+    log(f"mtrain diff first MoE forward: expert ids identical {same_ids}, "
+        f"kept / dropped pairs identical {same_keep} ({int(keep_c.sum())} "
+        f"of {keep_c.numel()} kept); later MoE calls identical {later} of "
+        f"{len(routed['cpu']) - 1}")
+    if not (worst_l <= TDIFF_LOSS_RTOL and worst_g <= TDIFF_GNORM_RTOL
+            and worst_a <= MTRAIN_AUX_ATOL):
+        raise AssertionError("mtrain diff: training on the card and on the "
+                             "CPU differ")
+    if not (same_ids and same_keep):
+        raise AssertionError("mtrain diff: the card and the CPU routed or "
+                             "dropped differently")
+
+
 def main() -> int:
     import torch
 
@@ -3963,6 +4441,15 @@ def main() -> int:
     phase_mla_diff(torch)
     lap("22 mla")
 
+    # 23. MoE and MLA training (deepseek-v2): (a) the flash forward at 192 /
+    # 128 without kv_len against its plain version, its gradient card vs
+    # CPU, timed; (b) full-width deepseek-v2 (2 layers) trained through
+    # `train_step`; (c) the card against the CPU in fp32
+    mtrain_err, mtrain_time = phase_mtrain_flash(torch, FK)
+    mtrain_launches, _ = phase_mtrain(torch, (K, FK, GK, AK))
+    phase_mtrain_diff(torch)
+    lap("23 mtrain")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -3992,6 +4479,9 @@ def main() -> int:
                         replaces=FLASH_REPLACES,
                         launches=mla_launches["flash_attention_fwd"],
                         max_abs_err=mla_flash_err, **mla_flash_time))
+    kernels.append(dict(name=MTRAIN, route="cuda", source=FLASH_SOURCE,
+                        replaces=FLASH_REPLACES, launches=mtrain_launches,
+                        max_abs_err=mtrain_err, **mtrain_time))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,9 @@ the output.  A CUDA tensor launches the kernel on the current stream (or
 raises): the tensor-core kernel in bf16 (Dk = Dv = 64 or 128, or Dk 192
 / Dv 128; other widths raise), the scalar fp32 kernel in fp32.  A CPU tensor runs the
 plain version.  Each kernel launch adds
-one to `LAUNCHES["flash_attention_fwd"]`.
+one to `LAUNCHES["flash_attention_fwd"]` and one to its device kernel's
+`KERNEL_LAUNCHES` entry (`flash_mma_kernel` in bf16, `flash_fwd_kernel`
+in fp32).
 """
 from __future__ import annotations
 
@@ -40,11 +42,14 @@ MMA_SPLIT_DIMS = ((192, 128),)
 _LIB_NAME = "flash_attention"
 
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0}
+KERNEL_LAUNCHES: dict[str, int] = {"flash_mma_kernel": 0,
+                                   "flash_fwd_kernel": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 _P = ctypes.c_void_p
@@ -169,4 +174,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(q.dtype == torch.bfloat16), _stream(q))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES["flash_mma_kernel" if q.dtype == torch.bfloat16
+                    else "flash_fwd_kernel"] += 1
     return o, lse

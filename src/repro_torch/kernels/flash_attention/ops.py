@@ -19,10 +19,10 @@ the recompute backward of the reference.
             Under causal masking the query rows that precede a KV block
             are sliced off: their P is exactly zero there.
 
-D is not padded to the TPU's 128 lanes.  The forward also takes a value
-width other than the key width and a per-batch `kv_len` (MLA's expanded
-prefill, serving only): the backward raises on either until MLA training
-is ported.
+D is not padded to the TPU's 128 lanes.  Both directions take a value
+width other than the key width (MLA's expanded form: 192 / 128) and a
+per-batch `kv_len` that masks the keys at or past each row's length, as
+the reference's `_block_mask` does; `kv_len` has no gradient.
 """
 from __future__ import annotations
 
@@ -83,9 +83,12 @@ def flash_forward(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 
 
 def flash_backward(qp, kp, vp, op, lse, dop, *, group: int, causal: bool,
-                   scale: float, q_offset: int, kv_block: int = BWD_KV_BLOCK):
+                   scale: float, q_offset: int,
+                   kv_len: torch.Tensor | None = None,
+                   kv_block: int = BWD_KV_BLOCK):
     """`ref._flash_vjp_bwd` on the packed layout: (dq, dk, dv) with the
-    shapes and dtypes of (qp, kp, vp)."""
+    shapes and dtypes of (qp, kp, vp [B, Hkv, Skv, Dv]); kv_len [B]
+    (optional) masks keys >= kv_len[b], as in the forward."""
     rows = qp.shape[2]
     skv = kp.shape[2]
     dev = qp.device
@@ -106,9 +109,12 @@ def flash_backward(qp, kp, vp, op, lse, dop, *, group: int, causal: bool,
         qs, dos = qf[:, :, r0:], dof[:, :, r0:]
         s = torch.matmul(qs, kc.transpose(-1, -2)) * scale
         p = torch.exp(s - lse_safe[:, :, r0:, None])
+        kv_pos = torch.arange(k0, k1, device=dev)
         if causal:
-            kv_pos = torch.arange(k0, k1, device=dev)
             p = torch.where(kv_pos[None, :] <= q_pos[r0:, None], p, 0.0)
+        if kv_len is not None:
+            live = kv_pos[None, :] < kv_len[:, None]  # [B, keys]
+            p = torch.where(live[:, None, None, :], p, 0.0)
         dp = torch.matmul(dos, vc.transpose(-1, -2))
         ds = p * (dp - delta[:, :, r0:, None]) * scale
         dq[:, :, r0:] += torch.matmul(ds, kc)
@@ -128,22 +134,17 @@ class FlashAttention(torch.autograd.Function):
         vp = v.permute(0, 2, 1, 3).contiguous()
         op, lse = flash_forward(qp, kp, vp, group=hq // hkv, causal=causal,
                                 scale=scale, q_offset=q_offset, kv_len=kv_len)
-        ctx.save_for_backward(qp, kp, vp, op, lse)
+        ctx.save_for_backward(qp, kp, vp, op, lse, kv_len)
         ctx.cfg = (hq // hkv, causal, scale, q_offset, sq)
-        ctx.forward_only = kv_len is not None or v.shape[3] != k.shape[3]
         return unpack_q(op, sq)
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.forward_only:
-            raise NotImplementedError(
-                "flash_attention: the backward of a kv_len-masked or "
-                "mixed-width (MLA) forward is not ported yet")
-        qp, kp, vp, op, lse = ctx.saved_tensors
+        qp, kp, vp, op, lse, kv_len = ctx.saved_tensors
         group, causal, scale, q_offset, sq = ctx.cfg
         dq, dk, dv = flash_backward(
             qp, kp, vp, op, lse, pack_q(do, kp.shape[1]), group=group,
-            causal=causal, scale=scale, q_offset=q_offset)
+            causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len)
         return (unpack_q(dq, sq), dk.permute(0, 2, 1, 3),
                 dv.permute(0, 2, 1, 3), None, None, None, None)
 

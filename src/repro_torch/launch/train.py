@@ -1,5 +1,5 @@
-"""Training launcher: AdamW steps of a dense model on synthetic Markov
-data, on one device.
+"""Training launcher: AdamW steps of a dense or MoE model (MLA included)
+on synthetic Markov data, on one device.
 
     python -m repro_torch.launch.train --arch smollm-135m [--reduced] \
         [--device cpu] [--steps N] [--global-batch B] [--seq S] \
@@ -7,7 +7,8 @@ data, on one device.
 
 Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights are
 random from seed 0; the data is `MarkovDataset(vocab, seed=1)`.  Prints
-`step i loss ... gnorm ...` per step, then a summary line with tokens/s
+`step i loss ... aux ... gnorm ...` per step (aux: the MoE blocks'
+load-balance loss, inside the loss), then a summary line with tokens/s
 (over the steps after the first, which also builds the kernels) and the
 peak device memory.  With --ckpt-dir it resumes from the latest
 checkpoint there, saves asynchronously every --ckpt-every steps and at
@@ -99,9 +100,9 @@ def main(argv: list[str] | None = None) -> None:
         state, m = train_step(model, state, batch, **step_kw)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # waits
         times.append(time.perf_counter() - t0)
-        print(f"step {i} loss {loss:.4f} gnorm {gnorm:.4f} "
-              f"lr {float(m['lr']):.3e} ({times[-1] * 1e3:.1f} ms)",
-              flush=True)
+        print(f"step {i} loss {loss:.4f} aux {float(m['aux']):.4f} gnorm "
+              f"{gnorm:.4f} lr {float(m['lr']):.3e} ({times[-1] * 1e3:.1f} "
+              f"ms)", flush=True)
         if args.ckpt_dir and ((i + 1) % args.ckpt_every == 0
                               or stop["now"] or i + 1 == args.steps):
             ckpt.save_async(args.ckpt_dir, state_tensors(model, state),

@@ -24,7 +24,8 @@ keys [wk_b . latent | k_rope] and values wv_b . latent through the flash
 forward at key width nope + rope, value width v, keys masked at each
 row's query length); decode the absorbed form (q_nope . wk_b in fp32,
 the latent decode kernel over the pages with V the latent prefix of each
-row, then . wv_b in fp32).
+row, then . wv_b in fp32).  Training runs the prefill's expanded form
+without the cache write or the length mask.
 """
 from __future__ import annotations
 
@@ -159,7 +160,7 @@ class Attention(nn.Module):
 
 class MLAAttention(nn.Module):
     """deepseek-v2's multi-head latent attention (the reference's
-    `_mla_attention`), for the padded serving modes.  Leaves: `wkv_a`,
+    `_mla_attention`), for the padded serving modes and training.  Leaves: `wkv_a`,
     `kv_norm`, `wk_b`, `wv_b`, `wo`, and `wq_a` / `q_norm` / `wq_b`, or
     `wq` where `q_lora_rank` is 0.  The layer's cache is one page pool of
     [latent | k_rope] rows, k_pages [1, 1, P, ps, r + rope]."""
@@ -218,6 +219,17 @@ class MLAAttention(nn.Module):
                               self.cfg.rope_theta)[:, :, 0]
         return latent, k_rope
 
+    def _expand(self, q_nope, q_rope, latent, k_rope):
+        """The expanded form's (q, k, v): per-head keys [wk_b . latent |
+        k_rope broadcast over the heads] and values wv_b . latent."""
+        b, s, _ = latent.shape
+        m, h = self.cfg.mla, self.cfg.num_q_heads
+        k_nope = self.wk_b(latent).reshape(b, s, h, m.qk_nope_dim)
+        v = self.wv_b(latent).reshape(b, s, h, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_dim)], dim=-1)
+        return torch.cat([q_nope, q_rope], dim=-1), k, v
+
     def _write_rows(self, latent, k_rope, k_pages, meta) -> None:
         """The step's [latent | k_rope] rows into this layer's pages at the
         write index (in place)."""
@@ -239,15 +251,10 @@ class MLAAttention(nn.Module):
         expansion keeps its score buffers small; the flash forward never
         holds one), so it takes this path too.  Returns [B, S, d]."""
         b, s, _ = x.shape
-        m, h = self.cfg.mla, self.cfg.num_q_heads
         q_nope, q_rope = self.q(x, positions)
         latent, k_rope = self.latent(x, positions)
         self._write_rows(latent, k_rope, k_pages, meta)
-        k_nope = self.wk_b(latent).reshape(b, s, h, m.qk_nope_dim)
-        v = self.wv_b(latent).reshape(b, s, h, m.v_head_dim)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            b, s, h, m.qk_rope_dim)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
+        q, k, v = self._expand(q_nope, q_rope, latent, k_rope)
         o = flash_attention(q, k, v, causal=True, scale=self.scale,
                             kv_len=meta["query_lens"])
         return self.wo(o.reshape(b, s, -1).to(x.dtype))
@@ -279,4 +286,13 @@ class MLAAttention(nn.Module):
 
     def forward_train(self, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("MLA training is not ported yet")
+        """Causal self-attention over the sequence in the expanded form
+        (the reference's mode="train"): `forward_prefill` without the
+        cache write or the key-length mask.  x [B, S, d]; positions
+        [B, S].  Returns [B, S, d]."""
+        b, s, _ = x.shape
+        q_nope, q_rope = self.q(x, positions)
+        latent, k_rope = self.latent(x, positions)
+        q, k, v = self._expand(q_nope, q_rope, latent, k_rope)
+        o = flash_attention(q, k, v, causal=True, scale=self.scale)
+        return self.wo(o.reshape(b, s, -1).to(x.dtype))

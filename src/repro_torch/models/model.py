@@ -1,15 +1,16 @@
 """Decoder models: the dense and MoE families, the hybrid family (zamba2)
-and the ssm family (xlstm), their serving steps and the dense training
-loss.
+and the ssm family (xlstm), their serving steps and the training loss of
+the dense and MoE families.
 
 Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
 smollm).  MoE `Model` (family "moe", llama4-maverick): the same stack,
 `first_k_dense` leading dense blocks (`lead_blocks`) then blocks whose
-FFN is the dropless `MoE` (`models/moe.py`), -> `ln_f` -> the untied
-`lm_head`.  deepseek-v2 is a MoE model whose blocks hold MLA
-(`MLAAttention`) in place of GQA; it serves on the padded step only, as
-in the reference.  Hybrid `Model` (family "hybrid", zamba2): embed ->
+FFN is the `MoE` (`models/moe.py`: dropless when serving, the capacity
+dispatch in training), -> `ln_f` -> the untied `lm_head`.  deepseek-v2
+is a MoE model whose blocks hold MLA (`MLAAttention`) in place of GQA;
+it serves on the padded step only, as in the reference.  Hybrid `Model`
+(family "hybrid", zamba2): embed ->
 [(period-1) Mamba2 blocks, then the ONE weight-shared decoder block] x
 n_attn, then the tail Mamba2 blocks (`hybrid_layout`) -> `ln_f` -> the
 untied `lm_head`.  Each Mamba2 block is pre-normed (`mamba_ln`) and
@@ -29,7 +30,9 @@ Entry points (ports of `repro.models.model`):
                  context in the pages (dense and moe)
   apply_decode   padded [B, 1] decode batch (every family)
   apply_train    causal attention over whole sequences, every block
-                 rematerialised in the backward, masked fp32 CE (dense)
+                 rematerialised in the backward, masked fp32 CE plus the
+                 MoE blocks' load-balance aux (dense and moe; MoE blocks
+                 on the capacity dispatch, MLA in its expanded form)
 
 The serving cache (`make_cache`) is the reference's tree: {"attn":
 {"k_pages", "v_pages"}} for the attention layers (none for xlstm; MLA's
@@ -80,15 +83,21 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
                              fused=cfg.fused_mlp)
 
-    def ffn(self, x: torch.Tensor, *, mode: str = "serve") -> torch.Tensor:
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """The serving FFN: the MLP, or the MoE's dropless path."""
         if hasattr(self, "moe"):
-            return self.moe(x, mode=mode)[0]
+            return self.moe(x)[0]
         return self.mlp(x)
 
-    def forward_train(self, x: torch.Tensor,
-                      positions: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, positions: torch.Tensor):
+        """(x after the block, the MoE's load-balance aux fp32 0-d, or
+        None for a dense block)."""
         x = x + self.attn.forward_train(self.ln1(x), positions)
-        return x + self.ffn(self.ln2(x), mode="train")
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h, mode="train")
+            return x + y, aux
+        return x + self.mlp(h), None
 
     def forward_serve(self, x: torch.Tensor, positions: torch.Tensor,
                       k_pages: torch.Tensor, v_pages: torch.Tensor | None,
@@ -523,9 +532,10 @@ def apply_train(model: Model, batch: dict):
     'positions'?: [B, S]} as tensors on the model's device.  Each block
     runs under `torch.utils.checkpoint`, so the backward recomputes it,
     as the reference's `jax.checkpoint` over the layer scan does.
-    Returns (loss, {"ce", "aux", "tokens"}); aux is 0 for a dense
-    model."""
-    if model.cfg.family != "dense":
+    Returns (loss, {"ce", "aux", "tokens"}): loss = ce + aux, aux the
+    MoE blocks' load-balance losses summed in block order (0 for a dense
+    model)."""
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training of family={model.cfg.family!r} is not ported yet")
     inputs, labels = batch["inputs"], batch["labels"]
@@ -534,15 +544,18 @@ def apply_train(model: Model, batch: dict):
     if positions is None:
         positions = default_positions(b, s, labels.device)
     x = L.embed(model.embed, inputs)
-    for blk in model.blocks:
-        x = checkpoint(blk.forward_train, x, positions, use_reentrant=False)
+    aux = torch.zeros((), dtype=torch.float32, device=labels.device)
+    for blk in model.decoder_blocks():
+        x, a = checkpoint(blk.forward_train, x, positions,
+                          use_reentrant=False)
+        if a is not None:
+            aux = aux + a
     logp = torch.log_softmax(model.head(x), dim=-1)
     mask = (labels >= 0).float()
     ll = torch.gather(logp, -1,
                       torch.clamp(labels, min=0).long()[..., None])[..., 0]
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = -torch.sum(ll * mask) / denom
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux,
                   "tokens": mask.sum().to(torch.int32)}

@@ -59,9 +59,9 @@ Counts = list[dict[str, int]]
 
 def kernel_counters() -> Counts:
     """Every launch counter of the kernel wrappers."""
-    return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, SK.LAUNCHES,
-            SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES, GK.LAUNCHES,
-            GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES]
+    return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, FK.KERNEL_LAUNCHES,
+            SK.LAUNCHES, SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES,
+            GK.LAUNCHES, GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES]
 
 
 def counted(fn: Callable, counters: Counts | None = None):

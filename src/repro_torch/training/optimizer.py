@@ -5,6 +5,14 @@ parameter dtype, and each update runs in fp32 and is cast back to the
 parameter's dtype: no fp32 master copy, as in the reference.
 `torch.optim.AdamW` keeps its moments in the parameter dtype, so for bf16
 parameters it computes a different function.
+
+The update is in place, as the reference's jitted update effectively is
+(XLA reuses the donated buffers): each parameter and its two moments are
+written one tensor at a time, in slices of at most `UPDATE_CHUNK`
+elements, so no fp32 temporary outgrows a slice (a whole-tensor form
+makes 5 GB temporaries for each expert matrix of deepseek-v2).  Every
+slice runs the reference's elementwise expressions in its order, so the
+result is bit for bit the whole-tensor form's.
 """
 from __future__ import annotations
 
@@ -38,26 +46,36 @@ def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
     return base_lr * warm * cos
 
 
+UPDATE_CHUNK = 1 << 26  # elements a slice: 256 MB of fp32
+
+
+def _slices(t: torch.Tensor):
+    """Views of `t`'s elements, flat, in slices of UPDATE_CHUNK."""
+    return t.view(-1).split(UPDATE_CHUNK)
+
+
 def adamw_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.1, clip_norm=1.0):
-    """Returns (new_params, new_opt_state, metrics).  Grad-norm clipping is
-    global; weight decay is decoupled (AdamW).  Nothing is updated in
-    place: the caller copies `new_params` into its parameters."""
+    """Updates `params` and the moments of `opt_state` in place and returns
+    (params, opt_state with the new count, metrics).  Grad-norm clipping
+    is global and computed first; weight decay is decoupled (AdamW)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = opt_state["count"] + 1
     cf = count.to(torch.float32)
     bc1 = 1 - b1 ** cf
     bc2 = 1 - b2 ** cf
-    new_p, new_mu, new_nu = [], [], []
-    for g, mu, nu, p in zip(grads, opt_state["mu"], opt_state["nu"], params):
-        g = g.to(torch.float32) * scale
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * torch.square(g)
-        step_ = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        step_ = step_ + weight_decay * p.to(torch.float32)
-        new_p.append((p.to(torch.float32) - lr * step_).to(p.dtype))
-        new_mu.append(mu)
-        new_nu.append(nu)
-    return (new_p, {"mu": new_mu, "nu": new_nu, "count": count},
+    with torch.no_grad():
+        for g, mu, nu, p in zip(grads, opt_state["mu"], opt_state["nu"],
+                                params):
+            for gs, ms, ns, ps in zip(_slices(g), _slices(mu), _slices(nu),
+                                      _slices(p)):
+                gs = gs.to(torch.float32) * scale
+                ms.copy_(b1 * ms + (1 - b1) * gs)
+                ns.copy_(b2 * ns + (1 - b2) * torch.square(gs))
+                step_ = (ms / bc1) / (torch.sqrt(ns / bc2) + eps)
+                step_ = step_ + weight_decay * ps.to(torch.float32)
+                ps.copy_((ps.to(torch.float32) - lr * step_).to(ps.dtype))
+    return (params, {"mu": opt_state["mu"], "nu": opt_state["nu"],
+                     "count": count},
             {"grad_norm": gnorm, "lr": torch.as_tensor(lr)})

@@ -1,8 +1,9 @@
 """Train step: loss -> grads -> AdamW, with optional gradient accumulation
 over microbatches.  The port of `repro.training.trainer` on one device.
 
-The parameters live in the `Model` and are updated in place; the train
-state holds the rest: {"opt": {"mu", "nu", "count"}, "step"}.  The
+The parameters live in the `Model` and are updated in place by
+`adamw_update` (no second parameter list is made); the train state holds
+the rest (its moments updated in place too): {"opt": {"mu", "nu", "count"}, "step"}.  The
 moments follow `list(model.parameters())` order.  The serving path keeps
 its parameters frozen (`requires_grad=False`); `make_train_state` turns
 gradients on.
@@ -64,13 +65,12 @@ def train_step(model: Model, state: dict, batch: dict, *,
         loss, ce, aux = (x / microbatches for x in (loss, ce, aux))
     lr = cosine_schedule(state["step"], base_lr=base_lr, warmup=warmup,
                          total=total_steps)
-    new_params, new_opt, opt_metrics = adamw_update(
+    _, new_opt, opt_metrics = adamw_update(
         grads, state["opt"], params, lr=lr, weight_decay=weight_decay,
         clip_norm=clip_norm)
-    with torch.no_grad():
-        for p, new in zip(params, new_params):
-            p.copy_(new)
-            p.grad = None
+    del grads
+    for p in params:
+        p.grad = None
     return ({"opt": new_opt, "step": state["step"] + 1},
             {"loss": loss, **opt_metrics, "ce": ce, "aux": aux})
 

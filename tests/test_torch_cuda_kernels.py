@@ -1696,6 +1696,67 @@ def test_flash_mla_widths_match_plain(cuda, dtype, case):
     assert not o[dead].any()
 
 
+MLA_TRAIN_FLASH_CASES = [  # B, S, H: MLA's training forward, no kv_len
+    (2, 130, 2),  # three 64-key tiles, a ragged last one
+    (1, 256, 128),  # deepseek-v2's 128 heads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_TRAIN_FLASH_CASES)
+def test_flash_mla_train_widths_match_plain(cuda, dtype, case):
+    """Key width 192 / value width 128 without kv_len (the training
+    path's instance, `flash_mma_kernel<192, 128, false>` in bf16; the
+    scalar kernel in fp32) against the plain version."""
+    b, s, h = case
+    g = torch.Generator().manual_seed(6)
+    q, k = (torch.randn((b, s, h, 192), generator=g).to(dtype)
+            for _ in range(2))
+    v = torch.randn((b, s, h, 128), generator=g).to(dtype)
+    bq = fops.pick_block_q(s, 1)
+    qp = fops.pack_q(q, h).reshape(b * h, s // bq, bq, 192).contiguous()
+    kp, vp = (x.permute(0, 2, 1, 3).reshape(b * h, s, x.shape[3])
+              .contiguous() for x in (k, v))
+    kw = dict(block_q=bq, group=1, scale=192 ** -0.5, causal=True,
+              q_offset=0)
+    kernel = "flash_mma_kernel" if dtype == torch.bfloat16 \
+        else "flash_fwd_kernel"
+    n0 = FK.KERNEL_LAUNCHES[kernel]
+    o, lse = FK.flash_attention_fwd(qp.to(cuda), kp.to(cuda), vp.to(cuda),
+                                    **kw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert FK.KERNEL_LAUNCHES[kernel] == n0 + 1
+    torch.testing.assert_close(o.cpu().float(), want_o.float(),
+                               atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse.cpu(), want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kv_len", [None, [100, 256]])
+@pytest.mark.parametrize("group", [1, 2])
+def test_flash_mixed_width_gradient_on_card_matches_cpu(cuda, kv_len,
+                                                        group):
+    """192 / 128 in fp32: autograd through the kernel's forward and the
+    recompute backward (with the kv_len mask) on the card against the
+    same on the CPU (the plain forward)."""
+    b, s, hkv = 2, 256, 4
+    g = torch.Generator().manual_seed(7)
+    inputs = [torch.randn((b, s, hkv * group, 192), generator=g),
+              torch.randn((b, s, hkv, 192), generator=g),
+              torch.randn((b, s, hkv, 128), generator=g)]
+    w = torch.randn((b, s, hkv * group, 128), generator=g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        kvl = None if kv_len is None else torch.tensor(
+            kv_len, dtype=torch.int32, device=dev)
+        out = fops.flash_attention(*xs, causal=True, kv_len=kvl)
+        torch.sum(out * w.to(dev)).backward()
+        grads.append([x.grad.cpu() for x in xs])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(128, 8, 128, 512), (128, 64, 512, 128)])
 def test_mla_absorbed_products_sum_in_fp32(cuda, shape):
     """The decode's q_abs / wv_b products at deepseek-v2's widths: bf16

@@ -15,7 +15,8 @@ from numpy seeds:
   * the widened flash forward's plain version (key width 192, value width
     128, ragged `kv_len` with a 0) against `flash_attention_xla(...,
     kv_len=)` and `mha_reference` at 1e-5; the training path (equal
-    widths, no kv_len) bit for bit what it was; the backward refused;
+    widths, no kv_len) bit for bit what it was (the backward of every
+    forward: `tests/test_torch_train_layers.py`);
   * `apply_prefill` / `apply_decode` logits against `M.apply_prefill` /
     `M.apply_decode` at 1e-4, with `first_k_dense` 0 and 1;
   * the port's `Engine` against the JAX `Engine` token for token on the
@@ -189,11 +190,11 @@ def test_mla_attention_matches_reference(q_lora, flags):
 
 
 def test_mla_attention_refuses_unified_and_training():
+    """The unified packed step is refused (MLA serves on the padded step);
+    training is ported (`tests/test_torch_train_layers.py`)."""
     _, _, attn = _layer(64, False, False)
     with pytest.raises(ValueError, match="unified packed step"):
         attn(torch.zeros((1, 2, 256)), None, None, None, {})
-    with pytest.raises(NotImplementedError, match="MLA training"):
-        attn.forward_train(torch.zeros((1, 2, 256)), None)
 
 
 # ---------------------------------------------------------------------------
@@ -363,18 +364,6 @@ def test_flash_training_path_unchanged(causal, q_offset):
     assert x.grad is not None and y.grad.abs().sum() > 0
 
 
-def test_flash_backward_refuses_mla_forward():
-    g = torch.Generator().manual_seed(1)
-    q = torch.randn((1, 8, 2, 48), generator=g, requires_grad=True)
-    k = torch.randn((1, 8, 2, 48), generator=g)
-    v = torch.randn((1, 8, 2, 32), generator=g)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fops.flash_attention(q, k, v).sum().backward()
-    with pytest.raises(NotImplementedError, match="backward"):
-        fops.flash_attention(q, k, k, kv_len=torch.tensor(
-            [5], dtype=torch.int32)).sum().backward()
-
-
 # ---------------------------------------------------------------------------
 # the model's serving steps and the weight bridge
 # ---------------------------------------------------------------------------
@@ -507,9 +496,6 @@ def test_packed_chunked_and_prefix_cached_mla_refused(dsv2):
         TM.apply_unified(model, {}, {})
     with pytest.raises(ValueError, match="MLA"):
         TM.apply_prefill_cached(model, {}, {})
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training"):
-        TM.apply_train(model, {"inputs": ids, "labels": ids})
 
 
 def test_serve_launcher_runs_mla_on_cpu():

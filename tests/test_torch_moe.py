@@ -164,15 +164,6 @@ def test_moe_matches_dropless_reference(mav, top_k, case):
     assert float(aux) == 0.0
 
 
-def test_moe_refuses_training(mav):
-    moe = mav[4].blocks[0].moe
-    with pytest.raises(NotImplementedError, match="moe_ffn"):
-        moe(torch.zeros((1, 2, mav[1].d_model)), mode="train")
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training"):
-        TM.apply_train(mav[4], {"inputs": ids, "labels": ids})
-
-
 @pytest.mark.parametrize("sizes", [(3, 3, 3, 3), (0, 12, 0, 0),
                                    (5, 0, 0, 7), (0, 70, 2, 0)])
 @pytest.mark.parametrize("glu", [False, True])
