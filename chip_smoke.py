@@ -335,6 +335,35 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               norms within 1e-3, aux within 1e-5, the first step's MoE
               forward with identical expert ids and identical kept /
               dropped (token, choice) pairs
+ 24. rtrain   training of the recurrent families, after phase 23 has
+              freed its model: (a) zamba2's SSD at its training shape (B
+              4, L 2048, H 32, P 128, N 64, G 1, chunk 128, from the zero
+              state): the bf16 kernel against its plain version (2e-2),
+              the trainable Function's bf16 forward bit for bit the op it
+              wraps, its fp32 gradients (kernel forward, recompute
+              backward) on the card against the CPU at a cut (1e-4 x each
+              gradient's largest element), the kernel's ms beside its
+              plain version and bound, the Function's forward and forward
+              + backward ms; (b) the same for xlstm's mLSTM (B 4, L 1024,
+              H 4, P 512, chunk 64); the D 64 flash forward at zamba2's
+              training attention (B 4, S 2048, 32 heads, group 1) against
+              its plain version and timed beside SDPA; (c) full-size
+              zamba2-1.2b (38 layers, bf16, random weights from seed 0)
+              takes 1 + 3 AdamW steps at batch 4 x seq 2048 of Markov data
+              through `trainer.train_step`; the launch counters are zeroed
+              just before and read just after: `ssd_mma_kernel` 64 a step
+              (32 Mamba2 layers, each forward and its remat recompute),
+              `flash_mma_kernel` 6 (the shared block, not rematerialised),
+              no paged, MoE, latent-decode or fp32 scalar kernel, no plain
+              version; every loss finite; step ms, tokens/s, peak memory,
+              one profiled step's idle share and top kernels, and the
+              step's parts (AdamW, the SSD's forwards and recompute
+              backward, the flash backward) logged; (d) the same for
+              xlstm-350m (24 layers) at 4 x 1024: `mlstm_mma_kernel` 42 a
+              step, and the sLSTM loop's forward + backward as a part;
+              (e) reduced zamba2 and xlstm in fp32 (TF32 off), 3 steps at
+              2 x 128 on the card and on the CPU: losses within 1e-4
+              relative, grad norms within 1e-3
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -622,6 +651,31 @@ MTRAIN_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
 MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, MTRAIN_DIFF_STEPS = 2, 128, 3
 # the aux is a mean of fp32 products over 256 tokens: 1e-5 absolute
 MTRAIN_AUX_ATOL = 1e-5
+# phase 24: training of the recurrent families, zamba2-1.2b at 4 x 2048
+# and xlstm-350m at 4 x 1024, full size (their kernels' rows in the
+# kernels' JSON: the shapes these steps give them)
+RTRAIN_SSD = "ssd_chunked_fwd[train]"
+RTRAIN_MLSTM = "mlstm_chunked_fwd[train]"
+RTRAIN_FLASH = "flash_attention_fwd[64 train, 32 heads]"
+HTRAIN_BATCH, HTRAIN_SEQ = 4, 2048
+XTRAIN_BATCH, XTRAIN_SEQ = 4, 1024
+RTRAIN_STEPS = 3  # + 1 untimed warm-up step
+# (a) zamba2's SSD (B, L, H, P, N, G, chunk) and (b) xlstm's mLSTM (B, L,
+# H, P, chunk, gates, state) at those shapes, from the zero state; their
+# fp32 gradients card vs CPU at two-chunk cuts, within 1e-4 x the largest
+# element of each gradient (the recompute backward's sums in another
+# order on each side; the CPU tests hold it to the reference at 1e-5)
+RTRAIN_SSD_CASE = (HTRAIN_BATCH, HTRAIN_SEQ, 32, 128, 64, 1, 128)
+RTRAIN_MLSTM_CASE = (XTRAIN_BATCH, XTRAIN_SEQ, 4, 512, 64, "normal", "empty")
+RTRAIN_SSD_GRAD = (2, 256, 4, 128, 64, 1, 128)
+RTRAIN_MLSTM_GRAD = (2, 128, 2, 512, 64, "normal", "empty")
+RTRAIN_GRAD_RTOL = 1e-4
+# zamba2's shared attention in training: 32 heads of D 64, group 1
+RTRAIN_FLASH_CASE = (HTRAIN_BATCH, HTRAIN_SEQ, HTRAIN_SEQ, 32, 32, 64, True,
+                     0, "bfloat16")
+# (e) the reduced forms, fp32, 3 steps at 2 x 128, card vs CPU (phase
+# 10's bounds)
+RDIFF_BATCH, RDIFF_SEQ, RDIFF_STEPS = 2, 128, 3
 
 
 def log(msg: str) -> None:
@@ -3641,22 +3695,25 @@ def phase_mla_flash(torch, FK, kvl_serve, iters=10):
 
 
 def profile_step(torch, step, tag, top=10):
-    """`step()` under `torch.profiler`: (its result, its wall ms, its
-    kernels' summed device ms); the wall, the sum, the idle share and the
-    `top` kernels by device time (with their share of the sum) logged."""
-    act = torch.profiler.ProfilerActivity
+    """`step()` under `torch.profiler`, the device activity alone: (its
+    result, its wall ms, its kernels' summed device ms); the wall, the
+    sum, the idle share and the `top` kernels by device time (with their
+    share of the sum) logged.  The device events are summed from the
+    profiler's raw results (its per-event tables take minutes to build
+    for a step of ~10^5 kernels)."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", None) \
-                or ev.self_cuda_time_total
-            rows.append((us, ev.count, ev.key))
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    rows = [(us, n, name) for name, (us, n) in by_name.items()]
     busy = sum(r[0] for r in rows) / 1e3
     log(f"{tag} (profiled): wall {wall:.3f} ms, its kernels {busy:.3f} ms "
         f"summed ({sum(r[1] for r in rows)} launches), idle share "
@@ -4280,6 +4337,485 @@ def phase_mtrain_diff(torch):
                              "dropped differently")
 
 
+def ssd_op_inputs(torch, case, dtype_name, device, seed=40):
+    """The SSD op's inputs (x, dt, a, b, c, d) on `device`, drawn like
+    `ssd_inputs`'s (training has no initial state)."""
+    bsz, l, h, p, n, grp, _ = case
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((bsz, l, h, p), generator=g).to(dtype)
+    dt = torch.randn((bsz, l, h), generator=g).abs() * 0.5 + 0.01
+    a = -torch.randn((h,), generator=g).abs() - 0.1
+    bm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
+    cm = torch.randn((bsz, l, grp, n), generator=g).to(dtype)
+    d = torch.randn((h,), generator=g)
+    return tuple(t.to(device) for t in (x, dt, a, bm, cm, d))
+
+
+def mlstm_op_inputs(torch, case, dtype_name, device, seed=41):
+    """The mLSTM op's inputs (q, k, v, igate, fgate) on `device`, drawn
+    like `mlstm_inputs`'s (forget bias 2)."""
+    bsz, l, h, p = case[:4]
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((bsz, l, h, p), generator=g).to(dtype)
+               for _ in range(3))
+    ig = torch.randn((bsz, l, h), generator=g)
+    fg = torch.randn((bsz, l, h), generator=g) + 2.0
+    return tuple(t.to(device) for t in (q, k, v, ig, fg))
+
+
+def trainable_grad_diff(torch, fn, inputs):
+    """fn (a trainable Function) on the card and on the CPU from the same
+    fp32 inputs against one cotangent: the largest gradient error of any
+    input relative to that gradient's largest element."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 27)
+    grads = []
+    w = None
+    for dev in (DEVICE, "cpu"):
+        xs = [t.detach().to(dev).requires_grad_(True) for t in inputs]
+        y = fn(*xs)
+        if w is None:
+            w = torch.randn(y.shape, generator=g)
+        (y * w.to(dev)).sum().backward()
+        grads.append([x.grad.cpu() for x in xs])
+    worst = 0.0
+    for a, b in zip(*grads):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("trainable gradient: non-finite on the card")
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def fwd_bwd_ms(torch, fn, inputs, flush, iters=3):
+    """(forward ms, forward + backward ms) of a trainable Function on
+    `inputs` (bf16 on the card), CUDA events, L2 flushed."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        dy = fn(*xs).float().normal_().to(xs[0].dtype)
+
+    def step():
+        for x in xs:
+            x.grad = None
+        fn(*xs).backward(dy)
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: fn(*xs), iters, flush)
+    return fwd, time_ms(torch, step, iters, flush)
+
+
+def phase_rtrain_kernels(torch, SK, MK, FK, iters=10):
+    """24 (a), (b): zamba2's SSD (RTRAIN_SSD_CASE) and xlstm's mLSTM
+    (RTRAIN_MLSTM_CASE) at their training shapes, from the zero state:
+    the bf16 kernel against its plain version (SSD 2e-2; mLSTM h 8e-3 x
+    max |h|, the state 2e-5 x max), the trainable Function's bf16 forward
+    bit for bit the op it wraps (one kernel launch), its fp32 gradients
+    card vs CPU at a cut (RTRAIN_GRAD_RTOL x max), and the kernel's ms
+    beside its plain version and its bound, the Function's forward and
+    forward + backward ms (the backward the recompute form); then the D
+    64 flash forward at zamba2's training attention (RTRAIN_FLASH_CASE)
+    against its plain version (2e-2) and timed beside its plain version,
+    SDPA and its bound.  Returns ({row: max abs error}, {row: timing
+    numbers})."""
+    from repro_torch.kernels.mamba2 import ops as sops
+    from repro_torch.kernels.mlstm import ops as mops
+
+    F = torch.nn.functional
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    errs, rows, fb = {}, {}, {}
+    # (a) the SSD
+    case = RTRAIN_SSD_CASE
+    chunk = case[-1]
+    args = ssd_inputs(torch, case, "bfloat16")
+    args = args[:5] + (torch.zeros_like(args[5]),)
+    got = SK.ssd_chunked_fwd(*args, chunk=chunk)
+    want = SK.ssd_chunked_fwd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    err, bound, abs_err = ssd_err(torch, got, want, "bfloat16")
+    log(f"rtrain check {RTRAIN_SSD} bf16 {case}: err {err:.3e} bound "
+        f"{bound:g}  {'ok' if err <= bound else 'FAIL'}")
+    if not err <= bound:
+        raise AssertionError("rtrain: the SSD kernel disagrees with its plain "
+                             "version at the training shape")
+    errs[RTRAIN_SSD] = abs_err
+    ms = time_ms(torch, lambda: SK.ssd_chunked_fwd(*args, chunk=chunk), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: SK.ssd_chunked_fwd_plain(
+        *args, chunk=chunk), 2, flush)
+    bound_ms, bound_by = ssd_bound(case, "bfloat16")
+    rows[RTRAIN_SSD] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    del args, got, want
+    ops_in = ssd_op_inputs(torch, case, "bfloat16", DEVICE)
+    fn = lambda *t: sops.mamba2_ssd_trainable(*t, chunk=chunk)  # noqa: E731
+    SK.reset_launches()
+    with torch.no_grad():
+        same = torch.equal(fn(*ops_in), sops.mamba2_ssd(*ops_in,
+                                                        chunk=chunk)[0])
+    if not (same and SK.KERNEL_LAUNCHES["ssd_mma_kernel"] == 2):
+        raise AssertionError(f"rtrain: the SSD Function's forward is not the "
+                             f"op's ({same}, {SK.KERNEL_LAUNCHES})")
+    fb["ssd"] = fwd_bwd_ms(torch, fn, ops_in, flush)
+    del ops_in
+    gerr = trainable_grad_diff(torch, lambda *t: sops.mamba2_ssd_trainable(
+        *t, chunk=RTRAIN_SSD_GRAD[-1]), ssd_op_inputs(
+            torch, RTRAIN_SSD_GRAD, "float32", "cpu"))
+    log(f"rtrain {RTRAIN_SSD}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+        f"bound_ms {bound_ms:.5f} ({bound_by}); the Function bf16 forward "
+        f"{fb['ssd'][0]:.4f} ms, forward + recompute backward "
+        f"{fb['ssd'][1]:.4f} ms; fp32 gradient card vs cpu at "
+        f"{RTRAIN_SSD_GRAD}: {gerr:.3e} x max (bound {RTRAIN_GRAD_RTOL:g})")
+    if not gerr <= RTRAIN_GRAD_RTOL:
+        raise AssertionError("rtrain: SSD gradients differ card vs CPU")
+    # (b) the mLSTM
+    case = RTRAIN_MLSTM_CASE
+    chunk, p = case[4], case[3]
+    args = mlstm_inputs(torch, case, "bfloat16")
+    kw = dict(chunk=chunk, scale=p ** -0.5)
+    got = MK.mlstm_chunked_fwd(*args, **kw)
+    want = MK.mlstm_chunked_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    worst, ok = 0.0, True
+    for name, a, b in zip(("h", "C", "n", "m"), got, want):
+        e = float((a.float() - b.float()).abs().max())
+        rtol = MLSTM_BF16_H_RTOL if name == "h" else MLSTM_FP32_RTOL
+        ok = ok and e <= rtol * max(1.0, float(b.float().abs().max()))
+        worst = max(worst, e)
+    log(f"rtrain check {RTRAIN_MLSTM} bf16 {case}: max abs err {worst:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("rtrain: the mLSTM kernel disagrees with its "
+                             "plain version at the training shape")
+    errs[RTRAIN_MLSTM] = worst
+    ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd(*args, **kw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd_plain(*args, **kw),
+                       2, flush)
+    bound_ms, bound_by = mlstm_bound(case, "bfloat16")
+    rows[RTRAIN_MLSTM] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    del args, got, want
+    ops_in = mlstm_op_inputs(torch, case, "bfloat16", DEVICE)
+    fn = lambda *t: mops.mlstm_trainable(*t, chunk=chunk)  # noqa: E731
+    MK.reset_launches()
+    with torch.no_grad():
+        same = torch.equal(fn(*ops_in), mops.mlstm_chunked(*ops_in,
+                                                           chunk=chunk)[0])
+    if not (same and MK.KERNEL_LAUNCHES["mlstm_mma_kernel"] == 2):
+        raise AssertionError(f"rtrain: the mLSTM Function's forward is not "
+                             f"the op's ({same}, {MK.KERNEL_LAUNCHES})")
+    fb["mlstm"] = fwd_bwd_ms(torch, fn, ops_in, flush)
+    del ops_in
+    gerr = trainable_grad_diff(torch, lambda *t: mops.mlstm_trainable(
+        *t, chunk=RTRAIN_MLSTM_GRAD[4]), mlstm_op_inputs(
+            torch, RTRAIN_MLSTM_GRAD, "float32", "cpu"))
+    log(f"rtrain {RTRAIN_MLSTM}: kernel_ms {ms:.4f}  plain_ms "
+        f"{plain_ms:.4f}  bound_ms {bound_ms:.5f} ({bound_by}); the "
+        f"Function bf16 forward {fb['mlstm'][0]:.4f} ms, forward + "
+        f"recompute backward {fb['mlstm'][1]:.4f} ms; fp32 gradient card "
+        f"vs cpu at {RTRAIN_MLSTM_GRAD[:5]}: {gerr:.3e} x max (bound "
+        f"{RTRAIN_GRAD_RTOL:g})")
+    if not gerr <= RTRAIN_GRAD_RTOL:
+        raise AssertionError("rtrain: mLSTM gradients differ card vs CPU")
+    # the D 64 flash forward at zamba2's training attention
+    case = RTRAIN_FLASH_CASE
+    fargs, fkw, (q, k, v) = flash_inputs(torch, case)
+    o, lse = FK.flash_attention_fwd(*fargs, **fkw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(*fargs, **fkw)
+    torch.cuda.synchronize()
+    err = float((o.float() - want_o.float()).abs().max())
+    err_lse = float((lse - want_lse).abs().max())
+    log(f"rtrain check {RTRAIN_FLASH} bf16 {case[:6]}: max_abs_err o "
+        f"{err:.3e} lse {err_lse:.3e} (atol 2e-2 / 1e-4)")
+    if not (err <= ATOL["bfloat16"] and err_lse <= 1e-4):
+        raise AssertionError("rtrain: the flash kernel disagrees with its "
+                             "plain version at zamba2's training shape")
+    errs[RTRAIN_FLASH] = err
+    del o, lse, want_o, want_lse
+    qt, kt, vt = (x.transpose(1, 2).contiguous().to(DEVICE)
+                  for x in (q, k, v))
+    ms = time_ms(torch, lambda: FK.flash_attention_fwd(*fargs, **fkw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(
+        *fargs, **fkw), 2, flush)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters, flush)
+    bound_ms, bound_by = flash_bound(case)
+    rows[RTRAIN_FLASH] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    log(f"time  {RTRAIN_FLASH} bf16 B {case[0]} S {case[1]} H {case[3]} "
+        f"kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+        f"{lib_ms:.4f} (SDPA)  bound_ms {bound_ms:.5f} ({bound_by})")
+    return errs, rows
+
+
+def span_wrappers(torch, spans):
+    """(call, backward): `call(name, fn)` is fn with each call timed by
+    two CUDA events on the current stream, appended to spans[name];
+    `backward(name, fn)` is fn (a layer of one tensor) with its backward
+    timed so: an identity Function on its output records the first event
+    when the output's gradient arrives, one on its input the second when
+    the input's gradient is done."""
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, event):
+            ctx.event = event
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.event.record()
+            return g, None
+
+    def pair(name):
+        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+        spans.setdefault(name, []).append(ev)
+        return ev
+
+    def call(name, fn):
+        def timed(*a, **kw):
+            start, end = pair(name)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            return out
+        return timed
+
+    def backward(name, fn):
+        def marked(u):
+            start, end = pair(name)
+            return Mark.apply(fn(Mark.apply(u, end)), start)
+        return marked
+    return call, backward
+
+
+def rtrain_parts(torch, model, state, batch, step_ms):
+    """Where a phase 24 step goes: one step profiled (the device activity
+    alone: wall, its kernels' sum, the idle share against the profiled
+    wall and against `step_ms`, the timed steps' mean), then one more
+    step with its parts timed by CUDA events on the stream
+    (`span_wrappers`): the step itself; AdamW; each scan's forward op
+    (the kernel and its host layer: the gates' cumsum, the copies; in its
+    layer's forward and in the remat recompute) and its recompute
+    backward; for zamba2 the flash backward of each shared-block use, for
+    xlstm each sLSTM block's forward and backward.  A span is the time on
+    the stream between its two events, the device's idle gaps inside it
+    included (the sLSTM's per-token loop is host-bound); the rest of the
+    step is by difference."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2 import ops as m2ops
+    from repro_torch.kernels.mlstm import ops as mlops
+    from repro_torch.training import trainer
+
+    cfg = model.cfg
+    hybrid = cfg.family == "hybrid"
+    tag = "htrain" if hybrid else "xtrain"
+    t0 = time.perf_counter()
+    _, wall, busy = profile_step(torch, lambda: trainer.train_step(
+        model, state, batch, **TRAIN_KW), f"{tag} step", top=12)
+    log(f"{tag} profiled step with its processing "
+        f"{time.perf_counter() - t0:.1f}s; idle share against the "
+        f"unprofiled step ({step_ms:.1f} ms): "
+        f"{max(0.0, 1 - busy / step_ms):.3f}")
+    spans = {}
+    call, backward = span_wrappers(torch, spans)
+    if hybrid:
+        scan, ops, fwd = "SSD", m2ops, "mamba2_ssd"
+        patches = [(fops, "flash_backward", "flash backward")]
+    else:
+        scan, ops, fwd = "mLSTM", mlops, "mlstm_chunked"
+        patches = []
+        for blk in model.slstm:
+            blk.forward_train = backward("sLSTM backward", call(
+                "sLSTM forward", blk.forward_train))
+    patches += [(trainer, "adamw_update", "AdamW"),
+                (ops, fwd, f"{scan} forward op ({fwd})"),
+                (ops, "recompute_grads", f"{scan} recompute backward")]
+    saved = [(owner, attr, getattr(owner, attr))
+             for owner, attr, _ in patches]
+    for owner, attr, name in patches:
+        setattr(owner, attr, call(name, getattr(owner, attr)))
+    try:
+        torch.cuda.synchronize()
+        call("step", trainer.train_step)(model, state, batch, **TRAIN_KW)
+        torch.cuda.synchronize()
+    finally:
+        for owner, attr, f in saved:
+            setattr(owner, attr, f)
+        for blk in ([] if hybrid else model.slstm):
+            del blk.forward_train
+    parts = {name: (len(evs), sum(a.elapsed_time(b) for a, b in evs))
+             for name, evs in spans.items()}
+    span_ms = parts.pop("step")[1]
+    rest = span_ms - sum(ms for _, ms in parts.values())
+    log(f"{tag} step timed by its parts (CUDA events, bf16): "
+        f"{span_ms:.1f} ms; " + "; ".join(
+            f"{name} x{n} {ms:.1f} ms ({ms / span_ms:.3f})"
+            for name, (n, ms) in parts.items())
+        + f"; the rest, by difference, {rest:.1f} ms "
+        f"({rest / span_ms:.3f})")
+    return dict(profiled_ms=wall, profiled_kernels_ms=busy,
+                idle_share=max(0.0, 1 - busy / step_ms), parts_step_ms=span_ms,
+                **{f"{name} ms": ms for name, (_, ms) in parts.items()})
+
+
+def phase_rtrain_model(torch, arch, batch_size, seq, kernel_modules):
+    """24 (c) / (d): full-size `arch` (zamba2-1.2b or xlstm-350m, bf16,
+    random weights from SEED) takes 1 + RTRAIN_STEPS AdamW steps at
+    batch_size x seq of Markov data (seed 1) through `train_step`.  The
+    launch counters are zeroed just before the steps and read just after:
+    zamba2 launches `ssd_mma_kernel` twice a Mamba2 layer a step (the
+    forward and its remat recompute) and `flash_mma_kernel` once a use of
+    the shared block (not rematerialised); xlstm `mlstm_mma_kernel`
+    twice an mLSTM layer a step; no other kernel (paged, MoE, latent
+    decode, the fp32 scalar ones) and no plain version.  Every loss
+    finite, step 0's ce within 1.0 of ln V, every matrix of the first
+    recurrent block changed.  Step ms, tokens/s, peak memory against the
+    standing state, and the step's parts (`rtrain_parts`) logged.
+    Returns (the launches by kernel, numbers)."""
+    import gc
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import hybrid_layout, xlstm_layout
+    from repro_torch.models.ssm_blocks import prefill_chunk
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    K, FK, SK, MK, GK, AK = kernel_modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS[arch]
+    tag = "htrain" if cfg.family == "hybrid" else "xtrain"
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    state = make_train_state(model)
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    standing = sum(2 * p.numel() * p.element_size() + 8 * p.numel()
+                   for p in params)  # params, grads, fp32 mu and nu
+    steps = 1 + RTRAIN_STEPS
+    batches = markov_batches(torch, cfg, steps + 1, batch_size, seq, DEVICE)
+    torch.cuda.synchronize()
+    log(f"{tag} {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}: {n_params / 1e9:.3f} G parameters; params + grads + "
+        f"fp32 moments {standing / 2**30:.2f} GiB; batch {batch_size} x seq "
+        f"{seq}; set-up {time.perf_counter() - t0:.1f}s")
+    ssm = cfg.ssm
+    if cfg.family == "hybrid":
+        n_mamba, n_attn, _ = hybrid_layout(cfg)
+        want = {"ssd_mma_kernel": 2 * n_mamba * steps,
+                "flash_mma_kernel": n_attn * steps}
+        first = model.mamba[0]
+        shape = (batch_size, seq, ssm.num_heads, ssm.head_dim,
+                 ssm.state_dim, ssm.num_groups, prefill_chunk(cfg, seq))
+        attn = (batch_size, seq, seq, cfg.num_q_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim)
+        if shape != RTRAIN_SSD_CASE or attn != RTRAIN_FLASH_CASE[:6]:
+            raise AssertionError(f"{tag}: 24 (a)'s shapes are not the "
+                                 f"step's: {shape} {attn}")
+    else:
+        n_m, _, _ = xlstm_layout(cfg)
+        want = {"mlstm_mma_kernel": 2 * n_m * steps}
+        first = model.mlstm[0]
+        shape = (batch_size, seq, ssm.num_heads, ssm.head_dim,
+                 prefill_chunk(cfg, seq))
+        if shape != RTRAIN_MLSTM_CASE[:5]:
+            raise AssertionError(f"{tag}: 24 (b)'s shape is not the "
+                                 f"step's: {shape}")
+    before = [p.detach().clone() for p in first.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_modules:
+        mod.reset_launches()
+    losses, ces, gnorms, times = [], [], [], []
+    with counted_plain((FK, "flash_attention_fwd_plain"),
+                       (SK, "ssd_chunked_fwd_plain"),
+                       (MK, "mlstm_chunked_fwd_plain"),
+                       (GK, "grouped_gemm_plain"),
+                       (AK, "mla_decode_plain")) as plain_calls:
+        for i, batch in enumerate(batches[:steps]):
+            t0 = time.perf_counter()
+            state, met = train_step(model, state, batch, **TRAIN_KW)
+            losses.append(float(met["loss"]))
+            ces.append(float(met["ce"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: loss "
+                f"{losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} lr "
+                f"{float(met['lr']):.2e} {times[-1] * 1e3:.1f} ms")
+    launches = {**FK.KERNEL_LAUNCHES, **SK.KERNEL_LAUNCHES,
+                **MK.KERNEL_LAUNCHES}
+    others = {**K.LAUNCHES, **GK.LAUNCHES, **AK.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[1:]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    tok_s = batch_size * seq * len(timed) / sum(timed)
+    log(f"{tag} {len(timed)} timed steps: mean_step_ms {step_ms:.1f}  "
+        f"tokens_per_s {tok_s:.1f}  max_memory_allocated_gib "
+        f"{peak / 2**30:.2f} (standing state {standing / 2**30:.2f} GiB)  "
+        f"kernel launches {launches}  other kernels {others}  plain calls "
+        f"{plain_calls}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm: "
+                             f"{losses} {gnorms}")
+    if abs(ces[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"{tag}: step 0 ce {ces[0]} is not within 1.0 "
+                             f"of ln V = {math.log(cfg.vocab_size):.2f}")
+    expected = {k: want.get(k, 0) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{expected}")
+    if any(others.values()) or any(plain_calls.values()):
+        raise AssertionError(f"{tag}: serving kernels or plain versions "
+                             f"ran: {others} {plain_calls}")
+    stuck = [n for (n, p), b in zip(first.named_parameters(), before)
+             if p.ndim == 2 and torch.equal(p.detach(), b)]
+    if stuck:
+        raise AssertionError(f"{tag}: parameters did not change: {stuck}")
+    del before
+    numbers = rtrain_parts(torch, model, state, batches[steps], step_ms)
+    del model, state, batches, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, tokens_per_s=tok_s,
+                          peak_gib=peak / 2**30,
+                          standing_gib=standing / 2**30, **numbers)
+
+
+def phase_rtrain_diff(torch):
+    """24 (e): reduced zamba2-1.2b and xlstm-350m in fp32 (TF32 off; the
+    scalar SSD, mLSTM and flash kernels), RDIFF_STEPS train steps at
+    RDIFF_BATCH x RDIFF_SEQ on the card and on the CPU from the same
+    weights (one seed, the CPU generator) and batches: losses within
+    TDIFF_LOSS_RTOL relative, grad norms within TDIFF_GNORM_RTOL."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    for arch in (HYBRID_ARCH, XLSTM_ARCH):
+        cfg = reduced(ARCHS[arch])
+        runs = []
+        for dev in (DEVICE, "cpu"):
+            model = weights.init_random(cfg, SEED, device=dev)
+            state = make_train_state(model)
+            out = []
+            for batch in markov_batches(torch, cfg, RDIFF_STEPS, RDIFF_BATCH,
+                                        RDIFF_SEQ, dev):
+                state, m = train_step(model, state, batch, **TRAIN_KW)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append(out)
+            del model, state
+        worst_l = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(*runs))
+        worst_g = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(*runs))
+        log(f"rtrain diff {arch} reduced {cfg.dtype} {RDIFF_STEPS} steps "
+            f"batch {RDIFF_BATCH} x seq {RDIFF_SEQ}: card {runs[0]} cpu "
+            f"{runs[1]}; loss rel {worst_l:.3e} (bound {TDIFF_LOSS_RTOL:g}), "
+            f"grad_norm rel {worst_g:.3e} (bound {TDIFF_GNORM_RTOL:g})")
+        if not (worst_l <= TDIFF_LOSS_RTOL and worst_g <= TDIFF_GNORM_RTOL):
+            raise AssertionError(f"rtrain diff: {arch} trains differently on "
+                                 f"the card and on the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -4450,6 +4986,20 @@ def main() -> int:
     phase_mtrain_diff(torch)
     lap("23 mtrain")
 
+    # 24. training of the recurrent families: (a) / (b) zamba2's SSD and
+    # xlstm's mLSTM at their training shapes (kernel vs plain, the
+    # trainable Functions' forward and gradients, timed) and the D 64
+    # flash at zamba2's training attention; (c) / (d) full-size zamba2 and
+    # xlstm trained through `train_step`; (e) the card against the CPU
+    rtrain_err, rtrain_time = phase_rtrain_kernels(torch, SK, MK, FK)
+    kmods = (K, FK, SK, MK, GK, AK)
+    htrain_launches, _ = phase_rtrain_model(
+        torch, HYBRID_ARCH, HTRAIN_BATCH, HTRAIN_SEQ, kmods)
+    xtrain_launches, _ = phase_rtrain_model(
+        torch, XLSTM_ARCH, XTRAIN_BATCH, XTRAIN_SEQ, kmods)
+    phase_rtrain_diff(torch)
+    lap("24 rtrain")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -4482,6 +5032,17 @@ def main() -> int:
     kernels.append(dict(name=MTRAIN, route="cuda", source=FLASH_SOURCE,
                         replaces=FLASH_REPLACES, launches=mtrain_launches,
                         max_abs_err=mtrain_err, **mtrain_time))
+    for name, source, replaces, launched in (
+            (RTRAIN_SSD, SSD_SOURCE, SSD_REPLACES,
+             htrain_launches["ssd_mma_kernel"]),
+            (RTRAIN_MLSTM, MLSTM_SOURCE, MLSTM_REPLACES,
+             xtrain_launches["mlstm_mma_kernel"]),
+            (RTRAIN_FLASH, FLASH_SOURCE, FLASH_REPLACES,
+             htrain_launches["flash_mma_kernel"])):
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launched,
+                            max_abs_err=rtrain_err[name],
+                            **rtrain_time[name]))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

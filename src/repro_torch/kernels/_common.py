@@ -1,7 +1,8 @@
 """What every kernel wrapper shares: the mask value, the choice between
 the CUDA kernel and the plain version, the launch plumbing, the
-online-softmax step of the plain versions, and the within-chunk cumsum of
-the chunked scans' log-decays (Mamba2's dt * A, mLSTM's log forget gate).
+online-softmax step of the plain versions, the within-chunk cumsum of
+the chunked scans' log-decays (Mamba2's dt * A, mLSTM's log forget gate),
+and the recompute backward of the scans' trainable Functions.
 
 A wrapper given CUDA tensors launches its kernel on the current stream
 and raises when the launch fails; given CPU tensors it runs its plain
@@ -130,3 +131,22 @@ def chunk_cumsum(la: torch.Tensor) -> torch.Tensor:
     before = torch.cat([torch.zeros_like(tot[:, :, :1]),
                         _running_sum(tot, 2)[:, :, :-1]], 2)
     return (inner + before[:, :, :, None]).flatten(2, 3)
+
+
+def recompute_grads(ctx, fn, grad_out: torch.Tensor) -> tuple:
+    """The backward of a Function whose forward ran a kernel and saved
+    only its inputs: re-run `fn`, a differentiable PyTorch form of the
+    same function, on the saved inputs and differentiate it against
+    `grad_out`.  Returns one gradient per forward argument (None for an
+    input that needs none and for the trailing non-tensor arguments),
+    each in its input's dtype."""
+    inputs = ctx.saved_tensors
+    want = [i for i in range(len(inputs)) if ctx.needs_input_grad[i]]
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(i in want)
+              for i, t in enumerate(inputs)]
+        got = torch.autograd.grad(fn(*xs), [xs[i] for i in want], grad_out)
+    grads = [None] * len(ctx.needs_input_grad)
+    for i, g in zip(want, got):
+        grads[i] = g.to(inputs[i].dtype)
+    return tuple(grads)

@@ -1,5 +1,5 @@
-"""Training launcher: AdamW steps of a dense or MoE model (MLA included)
-on synthetic Markov data, on one device.
+"""Training launcher: AdamW steps of a dense, MoE (MLA included), hybrid
+(zamba2) or ssm (xlstm) model on synthetic Markov data, on one device.
 
     python -m repro_torch.launch.train --arch smollm-135m [--reduced] \
         [--device cpu] [--steps N] [--global-batch B] [--seq S] \
@@ -9,10 +9,12 @@ Runs on the GPU (`cuda`) unless `--device cpu` is given.  Weights are
 random from seed 0; the data is `MarkovDataset(vocab, seed=1)`.  Prints
 `step i loss ... aux ... gnorm ...` per step (aux: the MoE blocks'
 load-balance loss, inside the loss), then a summary line with tokens/s
-(over the steps after the first, which also builds the kernels) and the
-peak device memory.  With --ckpt-dir it resumes from the latest
-checkpoint there, saves asynchronously every --ckpt-every steps and at
-the end, and on SIGTERM saves once more and exits.  `--profile` then
+(over the steps after the first, which also builds the kernels), the
+peak device memory and the launches of the flash, SSD and mLSTM kernels
+(each wrapper's count, and by device kernel).  With --ckpt-dir it
+resumes from the latest checkpoint there, saves asynchronously every
+--ckpt-every steps and at the end, and on SIGTERM saves once more and
+exits.  `--profile` then
 runs two more steps under `torch.profiler` and prints device time by
 kernel and the device's idle share of the unprofiled step time.  One
 device: no mesh and no sharding.
@@ -28,6 +30,8 @@ import torch
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.mamba2 import kernel as SK
+from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.launch.profiling import profiler, report
 from repro_torch.training import checkpoint as C
 from repro_torch.training.data import DataState, MarkovDataset
@@ -83,7 +87,8 @@ def main(argv: list[str] | None = None) -> None:
     signal.signal(signal.SIGTERM, _sigterm)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    FK.reset_launches()
+    for mod in (FK, SK, MK):
+        mod.reset_launches()
     step_kw = dict(base_lr=args.lr, warmup=20, total_steps=args.steps,
                    microbatches=args.microbatches)
     times = []
@@ -123,8 +128,12 @@ def main(argv: list[str] | None = None) -> None:
     print(f"trained {len(times)} steps of {cfg.name} ({cfg.num_layers} "
           f"layers, batch {args.global_batch} x seq {args.seq}) on {where}: "
           f"{tok_s:.1f} tokens/s over the last {len(timed)} steps, peak "
-          f"memory {peak}, flash kernel launches "
-          f"{FK.LAUNCHES['flash_attention_fwd']}")
+          f"memory {peak}, " + ", ".join(
+              f"{what} kernel launches {mod.LAUNCHES[fn]} "
+              f"{mod.KERNEL_LAUNCHES}" for what, mod, fn in (
+                  ("flash", FK, "flash_attention_fwd"),
+                  ("ssd", SK, "ssd_chunked_fwd"),
+                  ("mlstm", MK, "mlstm_chunked_fwd"))))
     if args.profile:
         n = 2
         batches = [next_batch() for _ in range(n)]

@@ -1,6 +1,6 @@
 """Decoder models: the dense and MoE families, the hybrid family (zamba2)
-and the ssm family (xlstm), their serving steps and the training loss of
-the dense and MoE families.
+and the ssm family (xlstm), their serving steps and their training
+loss.
 
 Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
@@ -29,10 +29,12 @@ Entry points (ports of `repro.models.model`):
   apply_prefill_cached  padded [B, S] chunks resumed after a prior
                  context in the pages (dense and moe)
   apply_decode   padded [B, 1] decode batch (every family)
-  apply_train    causal attention over whole sequences, every block
-                 rematerialised in the backward, masked fp32 CE plus the
-                 MoE blocks' load-balance aux (dense and moe; MoE blocks
-                 on the capacity dispatch, MLA in its expanded form)
+  apply_train    causal attention and the recurrent scans over whole
+                 sequences, the reference's blocks rematerialised in the
+                 backward, masked fp32 CE plus the MoE blocks'
+                 load-balance aux (every family; MoE blocks on the
+                 capacity dispatch, MLA in its expanded form, the SSD and
+                 mLSTM on their kernels with the recompute backward)
 
 The serving cache (`make_cache`) is the reference's tree: {"attn":
 {"k_pages", "v_pages"}} for the attention layers (none for xlstm; MLA's
@@ -129,6 +131,19 @@ def xlstm_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     period = cfg.ssm.slstm_period
     n_s = cfg.num_layers // period
     return cfg.num_layers - n_s, n_s, period - 1
+
+
+def stack_order(n_rec: int, n_mid: int, group: int):
+    """The layer order of a `hybrid_layout` / `xlstm_layout` stack:
+    ("rec", i) for the i-th recurrent layer (Mamba2 / mLSTM) and ("mid",
+    g) for the g-th layer between groups (the shared block's g-th use /
+    the g-th sLSTM): [group rec + 1 mid] * n_mid, then the tail of rec."""
+    for g in range(n_mid):
+        for i in range(g * group, (g + 1) * group):
+            yield "rec", i
+        yield "mid", g
+    for i in range(n_mid * group, n_rec):
+        yield "rec", i
 
 
 def moe_layout(cfg: ModelConfig) -> tuple[int, int]:
@@ -410,25 +425,17 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
         return x
     valid, seq_lens = _serve_masks(mode, meta, x.shape[1])
     conv, ssm = cache["mamba"]["conv"], cache["mamba"]["ssm"]
-
-    def mamba(i: int, x: torch.Tensor) -> torch.Tensor:
+    for kind, i in stack_order(*hybrid_layout(cfg)):
+        if kind == "mid":
+            x = model.shared.forward_serve(x, positions, kp[i], vp[i], meta,
+                                           mode=mode, kernel_cfg=kernel_cfg)
+            continue
         h, new_conv, new_ssm = model.mamba[i](
             model.mamba_ln[i](x), mode=mode, conv_state=conv[i],
             ssm_state=ssm[i], valid=valid, seq_lens=seq_lens)
         conv[i].copy_(new_conv)
         ssm[i].copy_(new_ssm)
-        return x + h
-
-    n_mamba, n_attn, group = hybrid_layout(cfg)
-    off = 0
-    for g in range(n_attn):
-        for i in range(off, off + group):
-            x = mamba(i, x)
-        off += group
-        x = model.shared.forward_serve(x, positions, kp[g], vp[g], meta,
-                                       mode=mode, kernel_cfg=kernel_cfg)
-    for i in range(off, n_mamba):  # tail
-        x = mamba(i, x)
+        x = x + h
     return x
 
 
@@ -438,26 +445,18 @@ def _xlstm_forward(model: Model, x: torch.Tensor, cache: dict, meta: dict,
     order), writing the mLSTM / sLSTM cache rows in place."""
     valid, seq_lens = _serve_masks(mode, meta, x.shape[1])
     mc, sc = cache["mlstm"], cache["slstm"]
-
-    def run(blk, ln, leaves: dict, i: int, x: torch.Tensor, **kw):
+    for kind, i in stack_order(*xlstm_layout(model.cfg)):
+        if kind == "rec":
+            blk, ln, leaves, kw = (model.mlstm[i], model.mlstm_ln[i], mc,
+                                   {"seq_lens": seq_lens})
+        else:
+            blk, ln, leaves, kw = model.slstm[i], model.slstm_ln[i], sc, {}
         h, new = blk(ln(x), mode=mode, cache={k: t[i] for k, t in
                                                leaves.items()},
                      valid=valid, **kw)
         for k, t in new.items():
             leaves[k][i].copy_(t)
-        return x + h
-
-    n_m, n_s, group = xlstm_layout(model.cfg)
-    off = 0
-    for g in range(n_s):
-        for i in range(off, off + group):
-            x = run(model.mlstm[i], model.mlstm_ln[i], mc, i, x,
-                    seq_lens=seq_lens)
-        off += group
-        x = run(model.slstm[g], model.slstm_ln[g], sc, g, x)
-    for i in range(off, n_m):  # tail
-        x = run(model.mlstm[i], model.mlstm_ln[i], mc, i, x,
-                seq_lens=seq_lens)
+        x = x + h
     return x
 
 
@@ -527,17 +526,47 @@ def default_positions(b: int, s: int, device=None) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _residual_train(blk, ln, x: torch.Tensor) -> torch.Tensor:
+    """One pre-normed residual recurrent layer of training: x +
+    blk.forward_train(ln(x))."""
+    return x + blk.forward_train(ln(x))
+
+
+def _recurrent_train(model: Model, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """The hybrid and xlstm training stacks (`repro.models.model.
+    _hybrid_forward` / `_xlstm_forward` in mode "train"): each Mamba2 /
+    mLSTM layer body rematerialised, the shared block and the sLSTM
+    blocks not; the shared block's weights collect one gradient summed
+    over its uses."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        order = stack_order(*hybrid_layout(cfg))
+        rec, rec_ln = model.mamba, model.mamba_ln
+    else:
+        order = stack_order(*xlstm_layout(cfg))
+        rec, rec_ln = model.mlstm, model.mlstm_ln
+    for kind, i in order:
+        if kind == "rec":
+            x = checkpoint(_residual_train, rec[i], rec_ln[i], x,
+                           use_reentrant=False)
+        elif cfg.family == "hybrid":
+            x = model.shared.forward_train(x, positions)[0]
+        else:
+            x = _residual_train(model.slstm[i], model.slstm_ln[i], x)
+    return x
+
+
 def apply_train(model: Model, batch: dict):
     """batch: {'inputs': [B, S] ids, 'labels': [B, S] (< 0: ignored),
-    'positions'?: [B, S]} as tensors on the model's device.  Each block
-    runs under `torch.utils.checkpoint`, so the backward recomputes it,
-    as the reference's `jax.checkpoint` over the layer scan does.
-    Returns (loss, {"ce", "aux", "tokens"}): loss = ce + aux, aux the
-    MoE blocks' load-balance losses summed in block order (0 for a dense
-    model)."""
-    if model.cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training of family={model.cfg.family!r} is not ported yet")
+    'positions'?: [B, S]} as tensors on the model's device.  The blocks
+    the reference runs under `jax.checkpoint` run under
+    `torch.utils.checkpoint`, so the backward recomputes them: every
+    dense / MoE block, and each Mamba2 and mLSTM layer body (norm, block,
+    residual); the hybrid's shared attention block and the sLSTM blocks
+    keep their activations, as in the reference.  Returns (loss, {"ce",
+    "aux", "tokens"}): loss = ce + aux, aux the MoE blocks' load-balance
+    losses summed in block order (0 for every other family)."""
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     positions = batch.get("positions")
@@ -545,11 +574,14 @@ def apply_train(model: Model, batch: dict):
         positions = default_positions(b, s, labels.device)
     x = L.embed(model.embed, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=labels.device)
-    for blk in model.decoder_blocks():
-        x, a = checkpoint(blk.forward_train, x, positions,
-                          use_reentrant=False)
-        if a is not None:
-            aux = aux + a
+    if model.cfg.family in ("hybrid", "ssm"):
+        x = _recurrent_train(model, x, positions)
+    else:
+        for blk in model.decoder_blocks():
+            x, a = checkpoint(blk.forward_train, x, positions,
+                              use_reentrant=False)
+            if a is not None:
+                aux = aux + a
     logp = torch.log_softmax(model.head(x), dim=-1)
     mask = (labels >= 0).float()
     ll = torch.gather(logp, -1,

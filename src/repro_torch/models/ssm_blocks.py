@@ -13,8 +13,15 @@ old state for the sLSTM.
 Prefill runs the chunked scans on the CUDA kernels (`kernels/mamba2/ops.py:
 mamba2_ssd`, `kernels/mlstm/ops.py:mlstm_chunked`); the one-token decode
 steps and the sLSTM's per-token recurrence run in PyTorch ops, as the
-reference runs them outside any Pallas kernel.  Training of these
-families is not ported: mode "train" raises.
+reference runs them outside any Pallas kernel.
+
+Training is each block's `forward_train(u)`, the reference's mode
+"train": the conv from a zero state, no mask, the scan chunk of
+`prefill_chunk`, the scans from the zero state through the trainable
+Functions (`mamba2_ssd_trainable`, `mlstm_trainable`: the kernel forward,
+the recompute backward), the sLSTM's per-token loop from (0, 0, 0, -inf)
+with every step in the autograd graph.  The serving `forward` refuses
+mode "train", so a serving call cannot reach a training form.
 """
 from __future__ import annotations
 
@@ -49,11 +56,11 @@ def mamba2_cache_specs(cfg: ModelConfig, batch: int) \
 
 
 def _check_mode(mode: str, cfg: ModelConfig) -> None:
-    """The serving modes; training of the recurrent families is not
-    ported."""
+    """The serving modes; training goes through `forward_train`."""
     if mode == "train":
         raise NotImplementedError(
-            f"training of the {cfg.family} family is not ported yet")
+            f"training of the {cfg.family} blocks runs through "
+            f"forward_train, not the serving forward")
     if mode not in ("prefill", "decode"):
         raise ValueError(mode)
 
@@ -95,19 +102,14 @@ class Mamba2Block(nn.Module):
         self.out_proj = L.Linear(d_inner, cfg.d_model, dtype=dt,
                                  device=device)
 
-    def forward(self, u: torch.Tensor, *, mode: str, conv_state: torch.Tensor,
-                ssm_state: torch.Tensor, valid: torch.Tensor | None = None,
-                seq_lens: torch.Tensor | None = None):
-        """u [B, S, d]; conv_state [B, K-1, conv_dim]; ssm_state [B, H, N, P]
-        fp32; valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens
-        from the given state) or "decode" (S = 1).  Returns (out [B, S, d],
-        new conv state, new ssm state)."""
-        _check_mode(mode, self.cfg)
+    def _project(self, u: torch.Tensor, conv_state, seq_lens):
+        """in_proj, the causal conv from `conv_state` (None: zeros), SiLU
+        and the split: (z, x [B, S, H, P], B / C [B, S, G, N], dt [B, S,
+        H] fp32 softplus'd, the new conv state)."""
         s = self.cfg.ssm
         b, slen, _ = u.shape
         d_inner, conv_dim = mamba2_dims(self.cfg)
         gn = s.num_groups * s.state_dim
-
         zxbcdt = self.in_proj(u)
         z = zxbcdt[..., :d_inner]
         xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
@@ -121,6 +123,25 @@ class Mamba2Block(nn.Module):
         cmat = xbc[..., d_inner + gn:].reshape(b, slen, s.num_groups,
                                                s.state_dim)
         dt = F.softplus(dt + self.dt_bias)
+        return z, x, bmat, cmat, dt, new_conv
+
+    def _out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """The gated RMSNorm and out_proj of the scan's y [B, S, H, P]."""
+        b, slen = z.shape[:2]
+        y = y.reshape(b, slen, -1)
+        return self.out_proj(self.norm(y * F.silu(z)))
+
+    def forward(self, u: torch.Tensor, *, mode: str, conv_state: torch.Tensor,
+                ssm_state: torch.Tensor, valid: torch.Tensor | None = None,
+                seq_lens: torch.Tensor | None = None):
+        """u [B, S, d]; conv_state [B, K-1, conv_dim]; ssm_state [B, H, N, P]
+        fp32; valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens
+        from the given state) or "decode" (S = 1).  Returns (out [B, S, d],
+        new conv state, new ssm state)."""
+        _check_mode(mode, self.cfg)
+        slen = u.shape[1]
+        z, x, bmat, cmat, dt, new_conv = self._project(u, conv_state,
+                                                       seq_lens)
         if valid is not None:
             dt = torch.where(valid[..., None], dt, 0.0)  # state-neutral
         a = -torch.exp(self.a_log)
@@ -133,9 +154,17 @@ class Mamba2Block(nn.Module):
             y, new_ssm = m2.decode_step(x[:, 0], dt[:, 0], a, bmat[:, 0],
                                         cmat[:, 0], self.d_skip, ssm_state)
             y = y[:, None]
-        y = y.reshape(b, slen, d_inner)
-        y = self.norm(y * F.silu(z))
-        return self.out_proj(y), new_conv, new_ssm
+        return self._out(y, z), new_conv, new_ssm
+
+    def forward_train(self, u: torch.Tensor) -> torch.Tensor:
+        """The reference's mode "train": u [B, S, d] from the zero conv and
+        SSD states, the SSD through `mamba2_ssd_trainable`.  Returns out
+        [B, S, d]."""
+        z, x, bmat, cmat, dt, _ = self._project(u, None, None)
+        y = m2.mamba2_ssd_trainable(
+            x, dt, -torch.exp(self.a_log), bmat, cmat, self.d_skip,
+            chunk=prefill_chunk(self.cfg, u.shape[1]))
+        return self._out(y, z)
 
 
 # ---------------------------------------------------------------------------
@@ -199,21 +228,16 @@ class MLSTMBlock(nn.Module):
         self.out_proj = L.Linear(d_inner, cfg.d_model, dtype=dt,
                                  device=device)
 
-    def forward(self, u: torch.Tensor, *, mode: str,
-                cache: dict[str, torch.Tensor],
-                valid: torch.Tensor | None = None,
-                seq_lens: torch.Tensor | None = None):
-        """u [B, S, d]; cache {'conv', 'c', 'n', 'm'} (`mlstm_cache_specs`);
-        valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens from
-        the given state) or "decode" (S = 1).  Returns (out [B, S, d], the
-        new cache)."""
-        _check_mode(mode, self.cfg)
+    def _project(self, u: torch.Tensor, conv_state, seq_lens):
+        """in_proj, the causal conv of x_in from `conv_state` (None:
+        zeros), SiLU, q / k / v [B, S, H, P] and the gate preactivations
+        [B, S, H] fp32: (z, q, k, v, ig, fg, the new conv state)."""
         s = self.cfg.ssm
         b, slen, _ = u.shape
         d_inner = xlstm_inner(self.cfg)
         xz = self.in_proj(u)
         x_in, z = xz[..., :d_inner], xz[..., d_inner:]
-        x_conv, new_conv = L.causal_conv1d(x_in, self.conv_w, cache["conv"],
+        x_conv, new_conv = L.causal_conv1d(x_in, self.conv_w, conv_state,
                                            seq_lens=seq_lens)
         x_conv = F.silu(x_conv)
 
@@ -225,6 +249,26 @@ class MLSTMBlock(nn.Module):
         v = heads(self.wv(x_in))
         gates = self.w_gates(x_conv.float())
         ig, fg = gates[..., :s.num_heads], gates[..., s.num_heads:]
+        return z, q, k, v, ig, fg, new_conv
+
+    def _out(self, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """RMSNorm(h) * SiLU(z) and out_proj of h [B, S, H, P]."""
+        b, slen = z.shape[:2]
+        h = h.reshape(b, slen, -1).to(z.dtype)
+        return self.out_proj(self.norm(h) * F.silu(z))
+
+    def forward(self, u: torch.Tensor, *, mode: str,
+                cache: dict[str, torch.Tensor],
+                valid: torch.Tensor | None = None,
+                seq_lens: torch.Tensor | None = None):
+        """u [B, S, d]; cache {'conv', 'c', 'n', 'm'} (`mlstm_cache_specs`);
+        valid [B, S] bool; seq_lens [B].  Mode "prefill" (S tokens from
+        the given state) or "decode" (S = 1).  Returns (out [B, S, d], the
+        new cache)."""
+        _check_mode(mode, self.cfg)
+        slen = u.shape[1]
+        z, q, k, v, ig, fg, new_conv = self._project(u, cache["conv"],
+                                                     seq_lens)
         if valid is not None:  # state-neutral padding: f -> 1, i -> 0
             ig = torch.where(valid[..., None], ig, -30.0)
             fg = torch.where(valid[..., None], fg, 30.0)
@@ -237,9 +281,16 @@ class MLSTMBlock(nn.Module):
             h, (c, n, m) = mlk.decode_step(q[:, 0], k[:, 0], v[:, 0],
                                            ig[:, 0], fg[:, 0], state)
             h = h[:, None]
-        h = h.reshape(b, slen, d_inner).to(u.dtype)
-        h = self.norm(h) * F.silu(z)
-        return self.out_proj(h), {"conv": new_conv, "c": c, "n": n, "m": m}
+        return self._out(h, z), {"conv": new_conv, "c": c, "n": n, "m": m}
+
+    def forward_train(self, u: torch.Tensor) -> torch.Tensor:
+        """The reference's mode "train": u [B, S, d] from the zero conv
+        state and the empty memory, the mLSTM through `mlstm_trainable`.
+        Returns out [B, S, d]."""
+        z, q, k, v, ig, fg, _ = self._project(u, None, None)
+        h = mlk.mlstm_trainable(q, k, v, ig, fg,
+                                chunk=prefill_chunk(self.cfg, u.shape[1]))
+        return self._out(h, z)
 
 
 def _slstm_cell(x_pre: torch.Tensor, r: torch.Tensor, state, nh: int):
@@ -284,6 +335,35 @@ class SLSTMBlock(nn.Module):
         self.up = L.Linear(d, 2 * d, dtype=dt, device=device)
         self.down = L.Linear(d, cfg.d_model, dtype=dt, device=device)
 
+    def _out(self, hs: list[torch.Tensor], dtype) -> torch.Tensor:
+        """The per-token h [B, d] stacked -> RMSNorm -> up -> gated GELU ->
+        down."""
+        y = self.norm(torch.stack(hs, 1).to(dtype))
+        gu = self.up(y)
+        d = gu.shape[-1] // 2
+        return self.down(F.gelu(gu[..., :d], approximate="tanh")
+                         * gu[..., d:])
+
+    def _scan(self, u: torch.Tensor, st, valid=None):
+        """The per-token recurrence of u [B, S, d] from st = (h, c, n, m)
+        each [B, d] fp32, then the output layers.  Where `valid` [B, S]
+        is False a row's four state leaves stay as they were.  Returns
+        (out [B, S, d], the final state)."""
+        b, slen, d = u.shape
+        nh = self.cfg.ssm.num_heads
+        x_pre = self.w_in(u).float().reshape(b, slen, 4, d)
+        r = self.r.float()
+        hs = []
+        for t in range(slen):
+            new = _slstm_cell(x_pre[:, t], r, st, nh)
+            if valid is not None:
+                keep = valid[:, t, None]
+                new = tuple(torch.where(keep, nv, ov)
+                            for nv, ov in zip(new, st))
+            st = new
+            hs.append(st[0])
+        return self._out(hs, u.dtype), st
+
     def forward(self, u: torch.Tensor, *, mode: str,
                 cache: dict[str, torch.Tensor],
                 valid: torch.Tensor | None = None):
@@ -292,21 +372,18 @@ class SLSTMBlock(nn.Module):
         state leaves of that row untouched.  Returns (out [B, S, d], the
         new cache)."""
         _check_mode(mode, self.cfg)
-        b, slen, d = u.shape
-        nh = self.cfg.ssm.num_heads
-        x_pre = self.w_in(u).float().reshape(b, slen, 4, d)
-        r = self.r.float()
         if valid is None:
-            valid = torch.ones((b, slen), dtype=torch.bool, device=u.device)
-        st = (cache["h"], cache["c"], cache["n"], cache["m"])
-        hs = []
-        for t in range(slen):
-            new = _slstm_cell(x_pre[:, t], r, st, nh)
-            keep = valid[:, t, None]
-            st = tuple(torch.where(keep, nv, ov) for nv, ov in zip(new, st))
-            hs.append(st[0])
-        y = torch.stack(hs, 1).to(u.dtype)
-        y = self.norm(y)
-        gu = self.up(y)
-        y = self.down(F.gelu(gu[..., :d], approximate="tanh") * gu[..., d:])
-        return y, dict(zip(("h", "c", "n", "m"), st))
+            valid = torch.ones(u.shape[:2], dtype=torch.bool,
+                               device=u.device)
+        out, st = self._scan(u, tuple(cache[k] for k in ("h", "c", "n", "m")),
+                             valid)
+        return out, dict(zip(("h", "c", "n", "m"), st))
+
+    def forward_train(self, u: torch.Tensor) -> torch.Tensor:
+        """The reference's mode "train": u [B, S, d] through the per-token
+        recurrence from (h, c, n, m) = (0, 0, 0, -inf), every step kept in
+        the autograd graph.  Returns out [B, S, d]."""
+        zeros = torch.zeros((u.shape[0], u.shape[2]), dtype=torch.float32,
+                            device=u.device)
+        return self._scan(u, (zeros, zeros, zeros,
+                              torch.full_like(zeros, -torch.inf)))[0]

@@ -1800,3 +1800,62 @@ def test_mla_engine_on_card_matches_cpu(cuda):
             assert AK.LAUNCHES["mla_decode"] == \
                 cfg.num_layers * eng.device_calls["decode"]
     assert outs[0] == outs[1] == outs[2]
+
+
+def _trainable_case(which, dev, dtype, seed=40):
+    """(the Function, the forward op it wraps, inputs, a cotangent) at a
+    two-chunk shape: the SSD (B 2, L 256, H 4, P 128, N 64, G 1, chunk
+    128) or the mLSTM (B 2, L 128, H 2, P 64, chunk 64), from the zero
+    state."""
+    if which == "ssd":
+        case = (2, 256, 4, 128, 64, 1, 128)
+        args = _ssd_inputs(dev, dtype, case, seed=seed)[:6]
+        fn = lambda *t: sops.mamba2_ssd_trainable(*t, chunk=128)  # noqa
+        op = lambda *t: sops.mamba2_ssd(*t, chunk=128)[0]  # noqa: E731
+    else:
+        case = (2, 128, 2, 64, 64)
+        args = _mlstm_inputs(dev, dtype, case, state=False, seed=seed)[:5]
+        fn = lambda *t: mops.mlstm_trainable(*t, chunk=64)  # noqa: E731
+        op = lambda *t: mops.mlstm_chunked(*t, chunk=64)[0]  # noqa: E731
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(args[0].shape, generator=g).to(dev)
+    return fn, op, args, w
+
+
+@pytest.mark.parametrize("which", ["ssd", "mlstm"])
+def test_trainable_gradient_on_card_matches_cpu(cuda, which):
+    """The Function (kernel forward, recompute backward) on the card
+    against the same on the CPU, fp32 with TF32 off: every input's
+    gradient within 1e-4 x its largest element."""
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        fn, _, args, w = _trainable_case(which, "cpu", torch.float32)
+        xs = [t.to(dev).requires_grad_(True) for t in args]
+        (fn(*xs) * w.to(dev)).sum().backward()
+        grads.append([x.grad.cpu() for x in xs])
+    for i, (a, b) in enumerate(zip(*grads)):
+        assert torch.isfinite(a).all(), i
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   msg=f"{which} input {i}")
+
+
+@pytest.mark.parametrize("which", ["ssd", "mlstm"])
+def test_trainable_bf16_forward_is_the_op_one_launch(cuda, which):
+    """In bf16 the Function's forward is the op bit for bit (the
+    tensor-core kernel), one launch a forward and none in the backward."""
+    fn, op, args, w = _trainable_case(which, cuda, torch.bfloat16)
+    mod, kern = (SK, "ssd_mma_kernel") if which == "ssd" else \
+        (MK, "mlstm_mma_kernel")
+    want = op(*args)
+    xs = [t.clone().requires_grad_(True) for t in args]
+    mod.reset_launches()
+    got = fn(*xs)
+    torch.cuda.synchronize()
+    assert mod.KERNEL_LAUNCHES[kern] == 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    (got.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert sum(mod.KERNEL_LAUNCHES.values()) == 1
+    assert all(x.grad is not None and x.grad.dtype == x.dtype
+               and torch.isfinite(x.grad.float()).all() for x in xs)

@@ -208,7 +208,3 @@ def test_padded_engine_rejects_what_is_not_ported(zamba):
         TEngine(tcfg, model, device="cpu", enable_chunked_prefill=True)
     with pytest.raises(ValueError, match="packed step"):
         TM.apply_unified(model, {}, {})
-    with pytest.raises(NotImplementedError, match="training"):
-        TM.apply_train(model, {"inputs": torch.zeros((1, 4), dtype=torch.long),
-                               "labels": torch.zeros((1, 4),
-                                                     dtype=torch.long)})

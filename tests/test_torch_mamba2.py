@@ -197,6 +197,8 @@ def test_mamba2_block_prefill_then_decode_matches_reference():
 
 
 def test_mamba2_block_train_mode_is_not_ported():
+    """The serving forward refuses mode "train": training runs through
+    `forward_train`."""
     cfg = treduced(TARCHS["zamba2-1.2b"]).replace(dtype="float32")
     model = weights.init_random(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="training"):

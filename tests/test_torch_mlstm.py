@@ -261,6 +261,8 @@ def test_block_cache_specs_match_reference(xlstm):
 
 
 def test_xlstm_train_mode_is_not_ported(xlstm):
+    """The serving forward of both xLSTM blocks refuses mode "train":
+    training runs through `forward_train`."""
     _, tcfg, _, model = xlstm
     u = torch.zeros((1, 4, tcfg.d_model))
     for blk in (model.mlstm[0], model.slstm[0]):
