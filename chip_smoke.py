@@ -32,7 +32,10 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               rows: `prefill_attention_cached`), and at the speculative
               verify step's shapes (smollm's heads: 8 decode rows at
               contexts of 128-1100, then 8 chunk rows of q 2-5 ending at
-              contexts of 130-1100), in fp32 with TF32 off (atol
+              contexts of 130-1100), at qwen2-vl-2b's heads (Hkv 2, group
+              6, D 128: six live rows in a decode block of 8, 96 rows a
+              Q-Block) and musicgen-large's (Hkv 32, group 1, D 64) on
+              the packed step's layout, in fp32 with TF32 off (atol
               1e-4) and bf16 (atol 2e-2: a bf16 output ulp near 1 is
               7.8e-3, and p is rounded to bf16 before p.V on both sides;
               bf16 prefill runs the tensor-core kernel, fp32 the scalar
@@ -49,7 +52,11 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               Q-Block prefill and both decode kernels at zamba2-1.2b's
               shapes (padded prefill; Hkv 32, group 1 decode), both
               decode kernels at qwen2.5-3b's heads (D 128, group 8), the
-              Q-Block prefill at the verify shapes; the folded C3 launch beside the two launches it replaces (the
+              Q-Block prefill at the verify shapes, the Q-Block prefill
+              and the decode kernels at qwen2-vl-2b's and
+              musicgen-large's heads (rows of the kernels' JSON, named
+              "<kernel>[<arch>]", with phase 25's launches); the folded
+              C3 launch beside the two launches it replaces (the
               `segment_reduce` row of the kernels' JSON is the folded
               launch)
   5. serve    full-width smollm-135m (bf16, random seeded weights) serves
@@ -364,6 +371,34 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               (e) reduced zamba2 and xlstm in fp32 (TF32 off), 3 steps at
               2 x 128 on the card and on the CPU: losses within 1e-4
               relative, grad norms within 1e-3
+ 25. families the audio and vlm families, each freed before the next:
+              musicgen-large (48 layers, Hkv 32, group 1, D 64, no
+              position encoding) and qwen2-vl-2b (28 layers, Hkv 2, group
+              6, D 128, M-RoPE over [3, 1, T] positions, a 151,936
+              vocabulary) at full size, bf16, random weights from seed 0:
+              (a) phase 5's trace (8 requests of 128-1024 tokens, 32 new,
+              max_seqs 8, chunked at 512, request 3 sampled) on a pool of
+              1024 pages through the packed fused step, graphs then eager
+              (`graphs_vs_eager`: bit for bit); every paged kernel
+              launched, each C3 decode on the folded kernel, nothing else
+              and no plain version; the decode graph's replay against its
+              byte bound (every matrix but the embedding table, plus the
+              live rows' KV, at 3.35 TB/s); the flash forward at the
+              training attention (B 4, S 2048) against its plain version
+              and timed beside SDPA; (b) the served model trained, 1 + 2
+              AdamW steps at 4 x 2048 of seeded [B, S, d] bf16
+              embeddings (the stub frontend's), Markov labels and, for
+              qwen2-vl, Qwen2-VL patch-grid positions: `flash_mma_kernel`
+              twice a layer a step, nothing else; finite losses, step 0's
+              ce within 1.0 of ln V, peak under 79 GiB, one profiled
+              step's idle share; (c) a 2-layer full-width fp32 cut card
+              vs CPU: 3 greedy requests in lockstep (identical tokens,
+              logits within 5e-3), one train step (loss 1e-4 relative,
+              grad norm 1e-3); (d) for qwen2-vl the cut with `fused_qkv`
+              and `fused_mlp` holding the same weights concatenated,
+              against the unfused model on the card: identical greedy
+              tokens, logits within 1e-4, one train step's loss within
+              1e-5 relative
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -453,7 +488,31 @@ PAGED_SHAPES = {
         page_sizes=(16,), ctx=(128, 301, 517, 640, 777, 901, 1033, 1100),
         num_segments=16, qlens=(2, 3, 4, 5, 5, 4, 3, 2),
         pf_ctx=(130, 260, 515, 641, 799, 900, 1003, 1100), stride=None),
+    # phase 25's packed step at qwen2-vl-2b's heads (Hkv 2, group 6, D 128:
+    # six live rows in a decode block of 8, a Q-Block of 16 x 6 = 96 rows)
+    # and at musicgen-large's (Hkv 32, group 1, D 64): the decode region's
+    # contexts and a fresh and a resumed chunk, packed back to back
+    "qwen2-vl-2b": dict(
+        page_sizes=(16,), ctx=(0, 1, 33, 300, 777, 1024, 1500, 2048),
+        num_segments=16, qlens=(200, 312, 0, 0, 0, 0, 0, 0),
+        pf_ctx=(200, 1312, 0, 0, 0, 0, 0, 0), stride=None),
+    "musicgen-large": dict(
+        page_sizes=(16,), ctx=(0, 1, 17, 100, 511, 1000, 1500, 2048),
+        num_segments=16, qlens=(200, 312, 0, 0, 0, 0, 0, 0),
+        pf_ctx=(200, 1312, 0, 0, 0, 0, 0, 0), stride=None),
 }
+# phase 25: the audio and vlm families at full size
+FAMILY_ARCHS = ("musicgen-large", "qwen2-vl-2b")
+FAMILY_PAGES = 1024  # KV pool of the serve trace: 16384 token slots
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 2048
+FAMILY_TRAIN_STEPS = 2  # + 1 untimed warm-up step
+FAMILY_PEAK_GIB = 79.0
+FAMILY_DIFF_LAYERS = 2  # the full-width fp32 cut of (c) and (d)
+FAMILY_DIFF_TRAIN = (2, 256)  # batch x seq of (c)'s and (d)'s train step
+FUSED_LOGIT_ATOL, FUSED_LOSS_RTOL = 1e-4, 1e-5
+# the paged kernels' rows of phase 25's shapes in the kernels' JSON
+FAMILY_PAGED = ("paged_decode", "paged_decode_segmented", "segment_reduce",
+                "paged_prefill_qblock")
 PAGED_BLOCK_Q = 16
 DIFF_LOGIT_ATOL = 5e-3
 # graphed against eager steps of one engine configuration: the same kernels
@@ -896,6 +955,8 @@ def phase_check(torch, K, tops):
                             f"({arch} shapes, {dtype_name}, page {ps})")
                     base = name.split("[")[0]
                     errs[base] = max(errs.get(base, 0.0), err)
+                    key = f"{base}[{arch}]"
+                    errs[key] = max(errs.get(key, 0.0), err)
                 if shp["ctx"] is None:
                     continue  # the prefill alone
                 merged = calls[MERGED][0]()
@@ -910,6 +971,8 @@ def phase_check(torch, K, tops):
                         f"{float((merged.float() - pair.float()).abs().max())}")
                 log(f"check {MERGED} {arch} {dtype_name} page {ps}: the bits "
                     f"of paged_decode_segmented + segment_reduce")
+                key = f"segment_reduce[{arch}]"
+                errs[key] = max(errs.get(key, 0.0), errs[f"{MERGED}[{arch}]"])
                 if shp["ctx"][0] == 0:  # exact zeros for a dead decode row
                     for out in (calls["paged_decode"][0](), merged):
                         if not bool((out[0] == 0).all()):
@@ -1051,7 +1114,10 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
     (the rows of the kernels' JSON), the two launches it folds timed as
     one call, then, logged only, the Q-Block prefill and the decode
     kernels at zamba2's shapes, the decode kernels at qwen2.5-3b's
-    heads and the Q-Block prefill at the verify rows' shapes."""
+    heads and the Q-Block prefill at the verify rows' shapes; then the
+    Q-Block prefill and the decode kernels at qwen2-vl-2b's and
+    musicgen-large's heads, returned as rows "<name>[<arch>]" (the
+    folded launch also as "segment_reduce[<arch>]")."""
     dtype = getattr(torch, dtype_name)
     ps = 16
     tile = tops.default_tile(ps)
@@ -1088,6 +1154,14 @@ def phase_time(torch, K, tops, dtype_name="bfloat16", iters=20):
         lib = library_calls(torch, x)
         for name in names:
             row(name, calls, lib, x, arch)
+        del calls, x, lib
+    for arch in FAMILY_ARCHS:
+        calls, x = kernel_calls(torch, K, dtype, ps, tile, tops, arch)
+        lib = library_calls(torch, x)
+        for name in ("paged_prefill_qblock", "paged_decode",
+                     "paged_decode_segmented", MERGED):
+            rows[f"{name}[{arch}]"] = row(name, calls, lib, x, arch)
+        rows[f"segment_reduce[{arch}]"] = rows[f"{MERGED}[{arch}]"]
         del calls, x, lib
     return rows
 
@@ -4816,6 +4890,440 @@ def phase_rtrain_diff(torch):
                                  f"the card and on the CPU")
 
 
+
+# ---------------------------------------------------------------------------
+# the audio and vlm families (musicgen-large, qwen2-vl-2b)
+# ---------------------------------------------------------------------------
+
+
+def patch_grid_positions(torch, b, s, g):
+    """[3, B, S] int32 Qwen2-VL positions drawn from `g`: each row a few
+    text tokens (t = h = w = index), one image of hh x ww patches (t the
+    image's start for all of them, h / w the start plus the patch's row /
+    column), then text again from the start plus max(hh, ww)."""
+    pos = torch.zeros((3, b, s), dtype=torch.int32)
+    for i in range(b):
+        side = max(3, int((s // 2) ** 0.5))  # an image <= half the row
+        pre = int(torch.randint(1, max(2, s // 32), (1,), generator=g))
+        hh, ww = (int(x) for x in torch.randint(2, side + 1, (2,),
+                                                generator=g))
+        pos[:, i, :pre] = torch.arange(pre, dtype=torch.int32)
+        j = torch.arange(hh * ww, dtype=torch.int32)
+        end = pre + hh * ww
+        pos[0, i, pre:end] = pre
+        pos[1, i, pre:end] = pre + j // ww
+        pos[2, i, pre:end] = pre + j % ww
+        pos[:, i, end:] = pre + max(hh, ww) + torch.arange(
+            s - end, dtype=torch.int32)
+    return pos
+
+
+def family_batch(torch, cfg, b, s, device, seed):
+    """A training batch of `cfg`'s stub frontend: [B, S, d] embeddings
+    (standard normal, drawn from `seed`, in the parameter dtype), labels
+    from the Markov stream, and for "mrope" patch-grid positions."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    batch = markov_batches(torch, cfg, 1, b, s, device)[0]
+    batch["inputs"] = torch.randn((b, s, cfg.d_model), generator=g).to(
+        device=device, dtype=cfg.param_dtype)
+    if cfg.rope_style == "mrope":
+        batch["positions"] = patch_grid_positions(torch, b, s, g).to(device)
+    return batch
+
+
+def decode_graph_bound(eng):
+    """(bound ms, weight bytes, KV bytes) of the packed step's decode-only
+    graph on its last inputs: every matrix but the embedding table read
+    once (the head included) and the live rows' K / V at their contexts
+    (the graph's static host buffer keeps the last upload), at 3.35 TB/s."""
+    keys = [k for k in eng.compile_events
+            if k[0] == "unified" and k[2] == eng.max_seqs]
+    ctx = eng._compiled[keys[-1]].inputs.host["context_lens"]
+    live = int(ctx[:eng.max_seqs].sum())
+    cfg = eng.cfg
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in eng.model.named_parameters()
+                  if n != "embed")
+    kv = (live * cfg.num_layers * 2 * cfg.num_kv_heads
+          * cfg.resolved_head_dim * cfg.param_dtype.itemsize)
+    return (weights + kv) / HBM_BYTES_PER_S * 1e3, weights, kv
+
+
+def phase_family_serve(torch, arch, kernel_modules):
+    """25 (a): full-size `arch` (bf16, random weights from SEED) serves
+    phase 5's 8 requests (128-1024 tokens, 32 new, max_seqs 8, chunked at
+    512, request 3 sampled) through the packed fused step, graphs then
+    eager: identical tokens, counters, compile_events and logits
+    (`graphs_vs_eager`); every paged kernel launched, each C3 decode on
+    the folded kernel, no training, MoE or latent kernel; the attention
+    configs' variants and Q-Block are those phase 3 checked (gqa and
+    segmented, block_q 16; the segment count is a launch argument).
+    The decode graph's replay against its byte bound.  Returns (the
+    model, the graphed run's launches by Pallas function, numbers)."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, State
+
+    K, FK, SK, MK, GK, AK = kernel_modules
+    cfg = ARCHS[arch]
+    t0 = time.perf_counter()
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv_tok = cfg.num_layers * 2 * hkv * dh * cfg.param_dtype.itemsize
+    log(f"fserve {arch}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_q_heads}/{hkv} D {dh} vocab {cfg.vocab_size} rope "
+        f"{cfg.rope_style} {cfg.dtype}: {n_params / 1e9:.3f} G parameters, "
+        f"weights in {time.perf_counter() - t0:.1f}s; KV {kv_tok} B a token, "
+        f"the pool {FAMILY_PAGES} pages x {cfg.page_size} = "
+        f"{FAMILY_PAGES * cfg.page_size} tokens, "
+        f"{FAMILY_PAGES * cfg.page_size * kv_tok / 1e9:.2f} GB")
+    eng_kw = dict(max_seqs=8, num_pages=FAMILY_PAGES, max_model_len=2048,
+                  enable_chunked_prefill=True, max_prefill_tokens=512,
+                  seed=SEED, debug_logits=True, device=DEVICE)
+    served = serve_prompts(torch, cfg.vocab_size)[2]
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=32,
+                        **(SERVE_SAMPLED if i == 3 else {}))
+                for i, p in enumerate(served)]
+
+    with counted_plain((K, "paged_decode_plain"),
+                       (K, "paged_decode_segmented_merged_plain"),
+                       (K, "paged_prefill_qblock_plain")) as plain_calls:
+        run = serve_run(torch, Engine(cfg, model, **eng_kw), requests(),
+                        f"fserve {arch}")
+    eng, reqs = run["eng"], run["reqs"]
+    launches = dict(K.LAUNCHES)
+    others = {**FK.LAUNCHES, **SK.LAUNCHES, **MK.LAUNCHES, **GK.LAUNCHES,
+              **AK.LAUNCHES}
+    if not all(r.state is State.FINISHED and len(r.output) == 32
+               for r in reqs):
+        raise AssertionError(f"fserve {arch}: not every request finished")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"fserve {arch}: a paged kernel was never "
+                             f"launched: {launches}")
+    if any(others.values()) or any(plain_calls.values()):
+        raise AssertionError(f"fserve {arch}: other kernels or plain "
+                             f"versions ran: {others} {plain_calls}")
+    check_paged_routes(K, launches, f"fserve {arch}", cfg.dtype)
+    cfgs = {(k.variant, k.block_q,
+             k.num_segments if k.variant == "segmented" else None)
+            for _, _, _, k in eng.compile_events}
+    log(f"fserve {arch} kernel configs {sorted(cfgs, key=str)}")
+    if {v for v, _, _ in cfgs} - {"gqa", "segmented"} \
+            or {bq for _, bq, _ in cfgs} != {PAGED_BLOCK_Q}:
+        raise AssertionError(f"fserve {arch}: configs phase 3 did not "
+                             f"check: {cfgs}")
+    toks = sum(len(r.output) for r in reqs)
+    prompt_toks = sum(r.num_prompt_tokens for r in reqs)
+    wall = run["wall"]
+    log(f"fserve {arch} steps {len(run['stats'])}  prompt_tokens "
+        f"{prompt_toks}  new_tokens {toks}  wall_s {wall:.3f}  "
+        f"new_tok_per_s {toks / wall:.1f}  dispatch "
+        f"{dict(eng.dispatch_counts)}  launches {launches}  "
+        f"launched_token_slots {eng.launched_token_slots}")
+    cost = replay_cost(torch, eng, top=6)
+    bound_ms, wbytes, kvbytes = decode_graph_bound(eng)
+    log(f"fserve {arch} decode graph: replay {cost['decode_replay_ms']:.4f} "
+        f"ms against its byte bound {bound_ms:.4f} ms (weights "
+        f"{wbytes / 1e9:.3f} GB + the live rows' KV {kvbytes / 1e9:.3f} GB at"
+        f" 3.35 TB/s): {cost['decode_replay_ms'] / bound_ms:.2f}x")
+    del eng
+    eager = serve_run(torch, Engine(cfg, model, cuda_graphs=False, **eng_kw),
+                      requests(), f"fserve {arch} eager")
+    walls = graphs_vs_eager(torch, f"fserve {arch}", run, eager, cfg.dtype)
+    del run, eager
+    return model, launches, dict(
+        wall_s=wall, new_tokens=toks, prompt_tokens=prompt_toks,
+        decode_bound_ms=bound_ms, **cost, **walls)
+
+
+def phase_family_flash(torch, FK, cfg, iters=10):
+    """25 (b)'s flash forward at `cfg`'s training attention (B 4, S 2048,
+    causal, bf16) against its plain version (2e-2 on o, 1e-4 on the lse)
+    and timed beside its plain version, SDPA and its bound.  Returns
+    (the max abs error, the row's numbers)."""
+    F = torch.nn.functional
+    case = (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ,
+            cfg.num_q_heads, cfg.num_kv_heads, cfg.resolved_head_dim, True,
+            0, "bfloat16")
+    args, kw, (q, k, v) = flash_inputs(torch, case)
+    o, lse = FK.flash_attention_fwd(*args, **kw)
+    want_o, want_lse = FK.flash_attention_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((o.float() - want_o.float()).abs().max())
+    err_lse = float((lse - want_lse).abs().max())
+    log(f"ftrain check flash {cfg.name} bf16 {case[:6]} block_q "
+        f"{kw['block_q']} x group {kw['group']}: max_abs_err o {err:.3e} "
+        f"lse {err_lse:.3e} (atol 2e-2 / 1e-4)")
+    if not (err <= ATOL["bfloat16"] and err_lse <= 1e-4):
+        raise AssertionError(f"ftrain: the flash kernel disagrees with its "
+                             f"plain version at {cfg.name}'s training shape")
+    del o, lse, want_o, want_lse
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().to(DEVICE)
+                  for x in (q, k, v))
+    ms = time_ms(torch, lambda: FK.flash_attention_fwd(*args, **kw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: FK.flash_attention_fwd_plain(
+        *args, **kw), 2, flush)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters, flush)
+    bound_ms, bound_by = flash_bound(case)
+    log(f"time  flash {cfg.name} bf16 B {case[0]} S {case[1]} Hq {case[3]} "
+        f"Hkv {case[4]} D {case[5]} kernel_ms {ms:.4f}  plain_ms "
+        f"{plain_ms:.4f}  library_ms {lib_ms:.4f} (SDPA)  bound_ms "
+        f"{bound_ms:.5f} ({bound_by})")
+    return err, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_family_train(torch, arch, model, kernel_modules):
+    """25 (b): the served full-size `arch` trained through `train_step`,
+    1 + FAMILY_TRAIN_STEPS AdamW steps at 4 x 2048 of [B, S, d] bf16
+    embeddings (the stub frontend's, seeded), Markov labels and, for
+    qwen2-vl, patch-grid [3, B, S] positions.  The launch counters are
+    zeroed just before and read just after: `flash_mma_kernel` twice a
+    layer a step (the forward and its remat recompute), no other kernel,
+    no plain version.  Every loss finite, step 0's ce within 1.0 of ln V,
+    every matrix of block 0 changed.  Step ms, tokens/s, peak memory
+    (halving B above FAMILY_PEAK_GIB), one profiled step's idle share.
+    Returns (the flash launches, numbers)."""
+    import gc
+
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    K, FK, SK, MK, GK, AK = kernel_modules
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = make_train_state(model)
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    standing = sum(2 * p.numel() * p.element_size() + 8 * p.numel()
+                   for p in params)
+    b, s = FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ
+    steps = 1 + FAMILY_TRAIN_STEPS
+    first = model.blocks[0]
+    before = [p.detach().clone() for p in first.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_modules:
+        mod.reset_launches()
+    losses, ces, gnorms, times = [], [], [], []
+    with counted_plain((FK, "flash_attention_fwd_plain"),
+                       (K, "paged_prefill_qblock_plain"),
+                       (GK, "grouped_gemm_plain")) as plain_calls:
+        for i in range(steps):
+            batch = family_batch(torch, cfg, b, s, DEVICE, SEED + 10 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = train_step(model, state, batch, **TRAIN_KW)
+            losses.append(float(met["loss"]))
+            ces.append(float(met["ce"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"ftrain {arch} step {i}{' (warm-up)' if i == 0 else ''}: "
+                f"loss {losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} "
+                f"{times[-1] * 1e3:.1f} ms")
+    launches = dict(FK.KERNEL_LAUNCHES)
+    others = {**K.LAUNCHES, **SK.LAUNCHES, **MK.LAUNCHES, **GK.LAUNCHES,
+              **AK.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[1:]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    tok_s = b * s * len(timed) / sum(timed)
+    flops = 8 * n_params * b * s  # 2 forward + 4 backward + 2 remat
+    log(f"ftrain {arch}: {n_params / 1e9:.3f} G parameters, batch {b} x "
+        f"seq {s}: mean_step_ms {step_ms:.1f}  tokens_per_s {tok_s:.1f}  "
+        f"max_memory_allocated_gib {peak / 2**30:.2f} (standing state "
+        f"{standing / 2**30:.2f} GiB)  8 N T = {flops:.3e} FLOP a step, "
+        f"{flops / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms at 989 TFLOP/s "
+        f"({flops / PEAK_FLOPS['bfloat16'] * 1e3 / step_ms:.3f} of the "
+        f"step)  kernel launches {launches}  plain calls {plain_calls}")
+    if peak / 2**30 > FAMILY_PEAK_GIB:
+        raise AssertionError(f"ftrain {arch}: peak {peak / 2**30:.1f} GiB "
+                             f"over {FAMILY_PEAK_GIB}: halve the batch")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"ftrain {arch}: non-finite loss or grad norm:"
+                             f" {losses} {gnorms}")
+    if abs(ces[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"ftrain {arch}: step 0 ce {ces[0]} is not "
+                             f"within 1.0 of ln V")
+    want = {k: 0 for k in launches}
+    want["flash_mma_kernel"] = 2 * cfg.num_layers * steps
+    if launches != want or any(others.values()) \
+            or any(plain_calls.values()):
+        raise AssertionError(f"ftrain {arch}: launches {launches} (want "
+                             f"{want}), others {others}, plain "
+                             f"{plain_calls}")
+    stuck = [n for (n, p), b0 in zip(first.named_parameters(), before)
+             if p.ndim == 2 and torch.equal(p.detach(), b0)]
+    if stuck:
+        raise AssertionError(f"ftrain {arch}: parameters did not change: "
+                             f"{stuck}")
+    del before
+    batch = family_batch(torch, cfg, b, s, DEVICE, SEED + 20)
+    _, wall, busy = profile_step(
+        torch, lambda: train_step(model, state, batch, **TRAIN_KW),
+        f"ftrain {arch} step", top=8)
+    del state, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_mma_kernel"], dict(
+        step_ms=step_ms, tokens_per_s=tok_s, peak_gib=peak / 2**30,
+        standing_gib=standing / 2**30, profiled_ms=wall,
+        profiled_kernels_ms=busy, idle_share=max(0.0, 1 - busy / wall))
+
+
+def family_train_losses(torch, models, cfg, seed):
+    """One `train_step` of each of `models` ({tag: model}, each on its
+    own device) on the same [2, 256] batch of `cfg`'s frontend: {tag:
+    (loss, grad norm)}."""
+    from repro_torch.training.trainer import make_train_state, train_step
+
+    out = {}
+    for tag, model in models.items():
+        dev = next(model.parameters()).device
+        batch = family_batch(torch, cfg, *FAMILY_DIFF_TRAIN, dev, seed)
+        _, m = train_step(model, make_train_state(model), batch, **TRAIN_KW)
+        out[tag] = (float(m["loss"]), float(m["grad_norm"]))
+        model.requires_grad_(False)
+    return out
+
+
+def fused_copy(torch, model, cfg):
+    """A `fused_qkv` + `fused_mlp` model of `cfg`'s shapes on `model`'s
+    device holding `model`'s weights: wqkv = [wq | wk | wv] (their biases
+    likewise), gate_up = [gate | up]."""
+    from repro_torch.models.model import Model
+
+    fcfg = cfg.replace(fused_qkv=True, fused_mlp=True)
+    dev = next(model.parameters()).device
+    fused = Model(fcfg, device=dev)
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in fused.named_parameters():
+            if ".wqkv." in name:
+                parts = [src[name.replace("wqkv", w)] for w in ("wq", "wk",
+                                                                 "wv")]
+            elif ".gate_up." in name:
+                parts = [src[name.replace("gate_up", w)]
+                         for w in ("gate", "up")]
+            else:
+                parts = [src[name]]
+            p.copy_(torch.cat(parts, dim=-1))
+    return fused
+
+
+def phase_family_diff(torch, arch, seed):
+    """25 (c): `arch` at full width cut to FAMILY_DIFF_LAYERS layers, fp32
+    (TF32 off), card against CPU: 3 greedy requests of 8 tokens in
+    lockstep (identical tokens, logits within 5e-3, `lockstep_diff`),
+    then one train step of the same models: the loss within 1e-4 relative, the grad
+    norm within 1e-3.  (d) for qwen2-vl: the cut again on the card with
+    `fused_qkv` and `fused_mlp` holding the same weights concatenated,
+    against the unfused model: the same greedy tokens, logits within
+    FUSED_LOGIT_ATOL, one train step's loss within FUSED_LOSS_RTOL."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch].replace(dtype="float32", num_layers=FAMILY_DIFF_LAYERS)
+    models = {dev: weights.init_random(cfg, SEED, device=dev)
+              for dev in (DEVICE, "cpu")}
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (37, 70, 101)]
+    worst = lockstep_diff(torch, f"fdiff {arch}", cfg, models, prompts, 8,
+                          dict(max_seqs=4, num_pages=64, max_model_len=256,
+                               seed=SEED, debug_logits=True))[2]
+    got = family_train_losses(torch, models, cfg, seed)
+    (lc, gc_), (l0, g0) = got[DEVICE], got["cpu"]
+    rel_l, rel_g = abs(lc - l0) / abs(l0), abs(gc_ - g0) / abs(g0)
+    log(f"fdiff {arch} train step fp32 {FAMILY_DIFF_TRAIN}: card {got[DEVICE]}"
+        f" cpu {got['cpu']}: loss rel {rel_l:.3e} (bound "
+        f"{TDIFF_LOSS_RTOL:g}), grad_norm rel {rel_g:.3e} (bound "
+        f"{TDIFF_GNORM_RTOL:g})")
+    if not (rel_l <= TDIFF_LOSS_RTOL and rel_g <= TDIFF_GNORM_RTOL):
+        raise AssertionError(f"fdiff {arch}: training differs card vs CPU")
+    if cfg.rope_style != "mrope":
+        return dict(serve_logit_diff=worst, train_loss_rel=rel_l)
+    # (d) fused against unfused, both on the card, holding the weights of
+    # the card's model after its step
+    base = models.pop(DEVICE)
+    del models
+    pair = {"unfused": base, "fused": fused_copy(torch, base, cfg)}
+    fworst = fused_lockstep(torch, cfg, pair, prompts)
+    got = family_train_losses(torch, pair, cfg, seed + 1)
+    rel_f = abs(got["fused"][0] - got["unfused"][0]) / abs(got["unfused"][0])
+    log(f"fused {arch} train step fp32: fused {got['fused']} unfused "
+        f"{got['unfused']}: loss rel {rel_f:.3e} (bound "
+        f"{FUSED_LOSS_RTOL:g})")
+    if not rel_f <= FUSED_LOSS_RTOL:
+        raise AssertionError(f"fused {arch}: the fused layouts train "
+                             f"differently")
+    return dict(serve_logit_diff=worst, train_loss_rel=rel_l,
+                fused_logit_diff=fworst, fused_loss_rel=rel_f)
+
+
+def fused_lockstep(torch, cfg, pair, prompts):
+    """The same greedy requests through the packed step of both models of
+    `pair` on the card, stepped in lockstep: identical tokens, logits
+    within FUSED_LOGIT_ATOL.  Returns the worst logit difference."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    engines, reqs = [], []
+    for model in pair.values():
+        eng = Engine(cfg, model, max_seqs=4, num_pages=64, max_model_len=256,
+                     seed=SEED, debug_logits=True, device=DEVICE)
+        rs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
+        for r in rs:
+            eng.add_request(r)
+        engines.append(eng)
+        reqs.append(rs)
+    worst = 0.0
+    while engines[0].sched.has_work:
+        for e in engines:
+            e.step()
+        a, b = (e.last_step_logits for e in engines)
+        worst = max(worst, float((a - b).abs().max()))
+    same = [r.output for r in reqs[0]] == [r.output for r in reqs[1]]
+    log(f"fused {cfg.name} {cfg.num_layers} layers fp32 on the card: "
+        f"tokens_identical {same}  max_abs_logit_diff {worst:.3e} (bound "
+        f"{FUSED_LOGIT_ATOL:g})")
+    if not same or engines[1].sched.has_work or not worst <= FUSED_LOGIT_ATOL:
+        raise AssertionError("fused: the fused layouts serve differently")
+    return worst
+
+
+def phase_families(torch, kernel_modules):
+    """25: each of musicgen-large and qwen2-vl-2b at full size served
+    (a) and trained (b), the flash forward at its training shape checked
+    and timed, then (c) / (d) its fp32 cut card vs CPU (and fused vs
+    unfused).  Returns {arch: (serve launches, flash launches, flash
+    error, flash row, numbers)}."""
+    import gc
+
+    FK = kernel_modules[1]
+    out = {}
+    for i, arch in enumerate(FAMILY_ARCHS):
+        t0 = time.perf_counter()
+        model, launches, serve = phase_family_serve(torch, arch,
+                                                    kernel_modules)
+        ferr, frow = phase_family_flash(torch, FK, model.cfg)
+        flash, train = phase_family_train(torch, arch, model, kernel_modules)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        diff = phase_family_diff(torch, arch, SEED + 7 + i)
+        log(f"families {arch}: {time.perf_counter() - t0:.1f}s")
+        out[arch] = (launches, flash, ferr, frow,
+                     dict(serve=serve, train=train, diff=diff))
+    return out
+
 def main() -> int:
     import torch
 
@@ -5000,6 +5508,13 @@ def main() -> int:
     phase_rtrain_diff(torch)
     lap("24 rtrain")
 
+    # 25. the audio and vlm families: musicgen-large and qwen2-vl-2b at
+    # full size (a) served graphed and eager, (b) trained, with the flash
+    # forward at each training shape checked and timed; (c) the card
+    # against the CPU, (d) fused against unfused layouts
+    families = phase_families(torch, kmods)
+    lap("25 families")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -5043,6 +5558,17 @@ def main() -> int:
                             replaces=replaces, launches=launched,
                             max_abs_err=rtrain_err[name],
                             **rtrain_time[name]))
+    for arch, (served, flash_n, ferr, frow, _) in families.items():
+        for name in FAMILY_PAGED:
+            key = f"{name}[{arch}]"
+            kernels.append(dict(name=key, route="cuda", source=KERNEL_SOURCE,
+                                replaces=REPLACES[name],
+                                launches=served[name], max_abs_err=errs[key],
+                                **times[key]))
+        kernels.append(dict(
+            name=f"{FLASH}[{paged_heads(arch)[2]} train, {arch}]",
+            route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
+            launches=flash_n, max_abs_err=ferr, **frow))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

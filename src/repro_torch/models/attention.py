@@ -58,36 +58,63 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         rotary_dim: int | None = None) -> torch.Tensor:
+    """The model's position encoding of x [..., S, H, D] (the reference's
+    `_rope`): RoPE over positions [..., S], M-RoPE over [3, ..., S] (t / h
+    / w rows), or none."""
+    if cfg.rope_style == "rope":
+        return L.apply_rope(x, positions, cfg.rope_theta, rotary_dim)
+    if cfg.rope_style == "mrope":
+        return L.apply_mrope(x, positions, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return x
+
+
+def temporal(positions: torch.Tensor) -> torch.Tensor:
+    """The in-sequence positions [..., S] behind positions [..., S] or
+    M-RoPE's [3, ..., S]: its temporal row, where the KV rows are
+    written (the reference's `positions[0]`)."""
+    return positions[0] if positions.ndim == 3 else positions
+
+
 class Attention(nn.Module):
+    """GQA attention.  Leaves `wq`, `wk`, `wv` (biased where `qkv_bias`),
+    `wo`; with `fused_qkv` one `wqkv` [d, (Hq + 2 Hkv) Dh] in place of the
+    three, its output split at Hq Dh and (Hq + Hkv) Dh (the reference's
+    `_qkv`)."""
+
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.fused_qkv:
-            raise NotImplementedError("fused wqkv weights are not ported yet")
-        if cfg.rope_style != "rope":
-            raise NotImplementedError(
-                f"rope_style={cfg.rope_style!r} is not ported yet")
         self.cfg = cfg
         dh = cfg.resolved_head_dim
         dt = cfg.param_dtype
-        self.wq = L.Linear(cfg.d_model, cfg.num_q_heads * dh,
-                           bias=cfg.qkv_bias, dtype=dt, device=device)
-        self.wk = L.Linear(cfg.d_model, cfg.num_kv_heads * dh,
-                           bias=cfg.qkv_bias, dtype=dt, device=device)
-        self.wv = L.Linear(cfg.d_model, cfg.num_kv_heads * dh,
-                           bias=cfg.qkv_bias, dtype=dt, device=device)
-        self.wo = L.Linear(cfg.num_q_heads * dh, cfg.d_model, dtype=dt,
-                           device=device)
+        hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+        if cfg.fused_qkv:
+            self.wqkv = L.Linear(cfg.d_model, (hq + 2 * hkv) * dh,
+                                 bias=cfg.qkv_bias, dtype=dt, device=device)
+        else:
+            self.wq = L.Linear(cfg.d_model, hq * dh, bias=cfg.qkv_bias,
+                               dtype=dt, device=device)
+            self.wk = L.Linear(cfg.d_model, hkv * dh, bias=cfg.qkv_bias,
+                               dtype=dt, device=device)
+            self.wv = L.Linear(cfg.d_model, hkv * dh, bias=cfg.qkv_bias,
+                               dtype=dt, device=device)
+        self.wo = L.Linear(hq * dh, cfg.d_model, dtype=dt, device=device)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         b, s, _ = x.shape
         cfg = self.cfg
         dh = cfg.resolved_head_dim
-        q = self.wq(x).reshape(b, s, cfg.num_q_heads, dh)
-        k = self.wk(x).reshape(b, s, cfg.num_kv_heads, dh)
-        v = self.wv(x).reshape(b, s, cfg.num_kv_heads, dh)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+        if cfg.fused_qkv:
+            q, k, v = self.wqkv(x).split([hq * dh, hkv * dh, hkv * dh],
+                                         dim=-1)
+        else:
+            q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        q = rope(cfg, q.reshape(b, s, hq, dh), positions)
+        k = rope(cfg, k.reshape(b, s, hkv, dh), positions)
+        return q, k, v.reshape(b, s, hkv, dh)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 k_pages: torch.Tensor, v_pages: torch.Tensor, meta: dict,
@@ -167,9 +194,6 @@ class MLAAttention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.rope_style != "rope":
-            raise NotImplementedError(
-                f"rope_style={cfg.rope_style!r} is not ported yet")
         self.cfg = cfg
         m = cfg.mla
         h, dt = cfg.num_q_heads, cfg.param_dtype
@@ -205,8 +229,7 @@ class MLAAttention(nn.Module):
             else self.wq(x)
         q = q.reshape(b, s, self.cfg.num_q_heads,
                       m.qk_nope_dim + m.qk_rope_dim)
-        q_rope = L.apply_rope(q[..., m.qk_nope_dim:], positions,
-                              self.cfg.rope_theta)
+        q_rope = rope(self.cfg, q[..., m.qk_nope_dim:], positions)
         return q[..., :m.qk_nope_dim], q_rope
 
     def latent(self, x: torch.Tensor, positions: torch.Tensor):
@@ -215,8 +238,8 @@ class MLAAttention(nn.Module):
         r = self.cfg.mla.kv_lora_rank
         kv = self.wkv_a(x)
         latent = self.kv_norm(kv[..., :r])
-        k_rope = L.apply_rope(kv[..., r:][:, :, None, :], positions,
-                              self.cfg.rope_theta)[:, :, 0]
+        k_rope = rope(self.cfg, kv[..., r:][:, :, None, :],
+                      positions)[:, :, 0]
         return latent, k_rope
 
     def _expand(self, q_nope, q_rope, latent, k_rope):

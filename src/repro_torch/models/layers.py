@@ -6,6 +6,8 @@ Norms, RoPE and the output logits run in fp32, as in the reference.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -87,20 +89,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rot.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x [..., S, H, D]; positions [3, ..., S]
+    (t / h / w rows); `sections` split the D/2 frequency pairs across the
+    three rows (pair f takes the row of the section it falls in), each
+    pair rotated by the half-rotation convention of `apply_rope`."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    freqs = rope_frequencies(d, theta, x.device)  # [d/2]
+    # [d/2] in {0, 1, 2}: device ops on Python ints, so that a CUDA graph
+    # capture makes no host-to-device copy
+    pair = torch.arange(d // 2, device=x.device)
+    sec_id = sum((pair >= edge).long()
+                 for edge in itertools.accumulate(sections[:-1]))
+    ang_all = positions[..., None].float() * freqs  # [3, ..., S, d/2]
+    # the reference's one-hot contraction picks one row per pair exactly
+    angles = torch.gather(ang_all, 0, sec_id.expand_as(ang_all[:1]))[0]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xf = x.float()
+    x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
 class MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)).  `fused` holds gate and up as
+    one `gate_up` [d, 2 d_ff] matmul whose output splits at d_ff, gate
+    first (the reference's fused layout)."""
 
     def __init__(self, d: int, d_ff: int, *, dtype: torch.dtype, device=None,
                  fused: bool = False):
         super().__init__()
         if fused:
-            raise NotImplementedError(
-                "fused gate|up MLP weights are not ported yet")
-        self.gate = Linear(d, d_ff, dtype=dtype, device=device)
-        self.up = Linear(d, d_ff, dtype=dtype, device=device)
+            self.gate_up = Linear(d, 2 * d_ff, dtype=dtype, device=device)
+        else:
+            self.gate = Linear(d, d_ff, dtype=dtype, device=device)
+            self.up = Linear(d, d_ff, dtype=dtype, device=device)
         self.down = Linear(d_ff, d, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "gate_up"):
+            gate, up = self.gate_up(x).chunk(2, dim=-1)
+            return self.down(F.silu(gate) * up)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 

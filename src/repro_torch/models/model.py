@@ -4,7 +4,12 @@ loss.
 
 Dense `Model`: embed -> L decoder blocks (RMSNorm, GQA attention, RMSNorm,
 SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
-smollm).  MoE `Model` (family "moe", llama4-maverick): the same stack,
+smollm).  The audio (musicgen-large: no position encoding) and vlm
+(qwen2-vl-2b: M-RoPE over [3, B, S] t / h / w positions) families are
+this dense decoder, as in the reference; they take [B, S, d] embedding
+inputs where the reference does (`Model.embed_inputs`) and decode token
+ids.  Any block may hold the fused `wqkv` / `gate_up` layouts.  MoE
+`Model` (family "moe", llama4-maverick): the same stack,
 `first_k_dense` leading dense blocks (`lead_blocks`) then blocks whose
 FFN is the `MoE` (`models/moe.py`: dropless when serving, the capacity
 dispatch in training), -> `ln_f` -> the untied `lm_head`.  deepseek-v2
@@ -57,7 +62,7 @@ from repro_torch.core.paged.kv_cache import (
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import (Attention, MLAAttention,
-                                          kv_cache_dims)
+                                          kv_cache_dims, temporal)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import (
     Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
@@ -146,6 +151,12 @@ def stack_order(n_rec: int, n_mid: int, group: int):
         yield "rec", i
 
 
+# the families whose model is the decoder stack of `Block`s: the audio
+# (musicgen) and vlm (qwen2-vl) backbones are the dense decoder, as in the
+# reference
+DECODER_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
 def moe_layout(cfg: ModelConfig) -> tuple[int, int]:
     """(leading dense blocks, the blocks after them): `first_k_dense`
     leading blocks keep the SwiGLU MLP in a MoE model."""
@@ -164,27 +175,21 @@ def attn_layer_count(cfg: ModelConfig) -> int:
 
 
 class Model(nn.Module):
-    """Dense decoder (family "dense"), MoE decoder (family "moe"), zamba2
-    hybrid (family "hybrid") or xlstm (family "ssm").  Parameters are
-    allocated empty: fill them with `weights.from_jax_params` or
-    `weights.init_random`."""
+    """Dense decoder (families "dense", "audio" and "vlm"), MoE decoder
+    (family "moe"), zamba2 hybrid (family "hybrid") or xlstm (family
+    "ssm").  Parameters are allocated empty: fill them with
+    `weights.from_jax_params` or `weights.init_random`."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
-                or (cfg.mla.kv_lora_rank and cfg.family != "moe"):
-            raise NotImplementedError(
-                f"family={cfg.family!r} (MLA: {bool(cfg.mla.kv_lora_rank)})"
-                " is not ported yet (dense, moe with or without MLA, "
-                "hybrid and ssm only)")
-        if cfg.input_kind != "tokens":
-            raise NotImplementedError("embedding inputs are not ported yet")
+        if cfg.family not in DECODER_FAMILIES + ("hybrid", "ssm"):
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         dt = cfg.param_dtype
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, dtype=dt, device=device),
             requires_grad=False)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in DECODER_FAMILIES:
             lead, n_blocks = moe_layout(cfg)
             use_moe = cfg.moe.num_experts > 0
             self.lead_blocks = nn.ModuleList(
@@ -222,6 +227,15 @@ class Model(nn.Module):
         """The dense / moe block stack in layer order (the leading dense
         blocks first), one KV layer each."""
         return [*self.lead_blocks, *self.blocks]
+
+    def embed_inputs(self, inputs: torch.Tensor) -> torch.Tensor:
+        """[B, S, d] embedding inputs (`input_kind` "embeds": the
+        frontend's frame or patch embeddings) cast to the parameter dtype;
+        token ids [B, S] through the table (the reference's
+        `_embed_inputs`)."""
+        if self.cfg.input_kind == "embeds" and inputs.ndim == 3:
+            return inputs.to(self.cfg.param_dtype)
+        return L.embed(self.embed, inputs)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + output projection; fp32 logits."""
@@ -275,7 +289,8 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
 
     `cache` is the attention pages {"k_pages", "v_pages"} (the "attn"
     entry of `make_cache`).  batch (tensors on the model's device): inputs
-    [1, T] token ids, positions [1, T] absolute per-token positions,
+    [1, T] token ids, positions [1, T] absolute per-token positions
+    ([3, 1, T] for "mrope"),
     page_table [S, Np], context_lens [S], query_lens [S], query_start_loc
     [S+1], slot_mapping [1, T] pool-local KV write slots (trash slot for
     padded tokens).
@@ -311,7 +326,7 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     if max_draft and not sample:
         raise ValueError("speculative verify samples: it needs sample=True")
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe") or cfg.mla.kv_lora_rank:
+    if cfg.family not in DECODER_FAMILIES or cfg.mla.kv_lora_rank:
         raise ValueError(f"the packed step needs page-addressable context: "
                          f"unsupported for family={cfg.family!r}/MLA")
     inputs = batch["inputs"]
@@ -398,14 +413,15 @@ def _serve_masks(mode: str, meta: dict, s: int):
 def _add_write_index(meta: dict, cache: dict, positions: torch.Tensor,
                      valid: torch.Tensor) -> None:
     """The step's KV write index (`write_index`, shared by every attention
-    layer): slots from `physical_slots`, invalid tokens aimed at the trash
-    slot and dropped.  Nothing for a model without attention layers."""
+    layer): slots from `physical_slots` at the positions' temporal row,
+    invalid tokens aimed at the trash slot and dropped.  Nothing for a
+    model without attention layers."""
     if "attn" not in cache:
         return
     kp = cache["attn"]["k_pages"]  # [n_attn, Hkv, 1, P, ps, D]
     num_pages, ps = kp.shape[3], kp.shape[4]
-    slots = physical_slots(meta["page_table"], positions, valid, ps,
-                           num_pages)
+    slots = physical_slots(meta["page_table"], temporal(positions), valid,
+                           ps, num_pages)
     meta["write_index"] = write_index(slots.reshape(1, -1), num_pages * ps)
 
 
@@ -417,7 +433,7 @@ def _serve_forward(model: Model, x: torch.Tensor, positions: torch.Tensor,
     if cfg.family == "ssm":
         return _xlstm_forward(model, x, cache, meta, mode=mode)
     kp, vp = cache["attn"]["k_pages"], cache["attn"].get("v_pages")
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in DECODER_FAMILIES:
         for i, blk in enumerate(model.decoder_blocks()):
             x = blk.forward_serve(x, positions, kp[i],
                                   None if vp is None else vp[i], meta,
@@ -464,7 +480,8 @@ def _xlstm_forward(model: Model, x: torch.Tensor, cache: dict, meta: dict,
 def apply_prefill(model: Model, cache: dict, batch: dict, *,
                   kernel_cfg=None):
     """Fresh prompts at context 0, padded to [B, S].  batch (tensors on the
-    model's device): inputs [B, S] ids, positions [B, S], page_table
+    model's device): inputs [B, S] ids or [B, S, d] embeddings (`input_kind`
+    "embeds"), positions [B, S] ([3, B, S] for "mrope"), page_table
     [B, Np], context_lens [B] and query_lens [B] (equal).  `cache` holds
     B slot rows of any state cache (the engine passes zeroed rows and
     merges them back).  Returns (last_token_logits [B, V] f32, cache)."""
@@ -475,7 +492,8 @@ def apply_prefill(model: Model, cache: dict, batch: dict, *,
 def apply_prefill_cached(model: Model, cache: dict, batch: dict, *,
                          kernel_cfg=None):
     """Resumed prefill at context > 0: only this step's chunk of each
-    prompt is embedded and computed (inputs [B, S] the chunk's ids,
+    prompt is embedded and computed (inputs [B, S] the chunk's ids or
+    [B, S, d] embeddings,
     positions absolute, context_lens = prior context + chunk, query_lens
     = chunk; page_table [B, np_b] may be narrowed to the context's
     pages).  The prior context (earlier chunks, a prefix-cache hit, or
@@ -485,7 +503,7 @@ def apply_prefill_cached(model: Model, cache: dict, batch: dict, *,
     page-addressable; MLA's latent rows serve fresh prompts only, as in
     the reference).  Returns (last_token_logits [B, V] f32, cache)."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe") or cfg.mla.kv_lora_rank:
+    if cfg.family not in DECODER_FAMILIES or cfg.mla.kv_lora_rank:
         raise ValueError(f"resumed prefill needs page-addressable context: "
                          f"unsupported for family={cfg.family!r}/MLA")
     return _prefill(model, cache, batch, "prefill_cached", kernel_cfg)
@@ -495,10 +513,10 @@ def _prefill(model: Model, cache: dict, batch: dict, mode: str,
              kernel_cfg):
     meta = {k: batch[k] for k in ("page_table", "context_lens", "query_lens")}
     inputs, positions = batch["inputs"], batch["positions"]
-    b, s = inputs.shape
+    b, s = inputs.shape[:2]
     valid, _ = _serve_masks(mode, meta, s)
     _add_write_index(meta, cache, positions, valid)
-    x = _serve_forward(model, L.embed(model.embed, inputs), positions,
+    x = _serve_forward(model, model.embed_inputs(inputs), positions,
                        cache, meta, mode=mode, kernel_cfg=kernel_cfg)
     # the head is row-wise: it runs on each row's last valid token only
     last = torch.clamp(meta["query_lens"].long() - 1, min=0)
@@ -507,13 +525,15 @@ def _prefill(model: Model, cache: dict, batch: dict, mode: str,
 
 @torch.no_grad()
 def apply_decode(model: Model, cache: dict, batch: dict, *, kernel_cfg=None):
-    """One token for each of B slots.  batch: inputs [B, 1] ids, positions
-    [B, 1] (-1 on dead slots), page_table [B, Np], context_lens [B] (0 on
+    """One token for each of B slots.  batch: inputs [B, 1] ids (also for
+    an embeddings model: it decodes token ids, as the reference's engine
+    gives them), positions [B, 1] (-1 on dead slots; [3, B, 1] for
+    "mrope"), page_table [B, Np], context_lens [B] (0 on
     dead slots).  No host read of device data: the engine captures it
     into a CUDA graph.  Returns (logits [B, V] f32, cache)."""
     meta = {k: batch[k] for k in ("page_table", "context_lens")}
     positions = batch["positions"]
-    valid = (positions >= 0) & (meta["context_lens"][:, None] > 0)
+    valid = (temporal(positions) >= 0) & (meta["context_lens"][:, None] > 0)
     _add_write_index(meta, cache, positions, valid)
     x = _serve_forward(model, L.embed(model.embed, batch["inputs"]),
                        positions, cache, meta, mode="decode",
@@ -521,9 +541,14 @@ def apply_decode(model: Model, cache: dict, batch: dict, *, kernel_cfg=None):
     return model.head(x[:, 0]), cache
 
 
-def default_positions(b: int, s: int, device=None) -> torch.Tensor:
-    """[B, S] int32 positions 0..S-1 of every row."""
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+def default_positions(cfg: ModelConfig, b: int, s: int,
+                      device=None) -> torch.Tensor:
+    """[B, S] int32 positions 0..S-1 of every row; for "mrope" the same
+    in each of the three rows, [3, B, S]."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    if cfg.rope_style == "mrope":
+        pos = pos[None].expand(3, b, s)
+    return pos
 
 
 def _residual_train(blk, ln, x: torch.Tensor) -> torch.Tensor:
@@ -558,8 +583,9 @@ def _recurrent_train(model: Model, x: torch.Tensor,
 
 
 def apply_train(model: Model, batch: dict):
-    """batch: {'inputs': [B, S] ids, 'labels': [B, S] (< 0: ignored),
-    'positions'?: [B, S]} as tensors on the model's device.  The blocks
+    """batch: {'inputs': [B, S] ids or [B, S, d] embeddings (`input_kind`
+    "embeds"), 'labels': [B, S] (< 0: ignored), 'positions'?: [B, S], or
+    [3, B, S] for "mrope"} as tensors on the model's device.  The blocks
     the reference runs under `jax.checkpoint` run under
     `torch.utils.checkpoint`, so the backward recomputes them: every
     dense / MoE block, and each Mamba2 and mLSTM layer body (norm, block,
@@ -571,8 +597,8 @@ def apply_train(model: Model, batch: dict):
     b, s = labels.shape
     positions = batch.get("positions")
     if positions is None:
-        positions = default_positions(b, s, labels.device)
-    x = L.embed(model.embed, inputs)
+        positions = default_positions(model.cfg, b, s, labels.device)
+    x = model.embed_inputs(inputs)
     aux = torch.zeros((), dtype=torch.float32, device=labels.device)
     if model.cfg.family in ("hybrid", "ssm"):
         x = _recurrent_train(model, x, positions)

@@ -19,7 +19,9 @@ returns the step's device outputs (a tuple):
                call copies into the same buffers (the host arrays through
                one pinned buffer, the device tensors by a device-to-device
                copy on the stream) and replays the graph.  Its outputs are
-               static buffers that the next replay overwrites.
+               static buffers that the next replay overwrites.  The
+               buffers take the shapes of the first call's arrays (an
+               M-RoPE model's [3, 1, T] positions as any other).
 
 A capture that fails raises; nothing carries on eagerly.  The cyclic
 garbage collector is off during a capture (`gc_paused`).

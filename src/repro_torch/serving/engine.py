@@ -2,7 +2,8 @@
 and the padded per-kind step.
 
 Port of `repro.serving.engine.Engine`.  With
-`packed_attention=True` (the default for dense and moe models) every scheduled
+`packed_attention=True` (the default for the dense, moe, audio and vlm
+families; M-RoPE models get [3, 1, T] positions, `_positions`) every scheduled
 piece of work — decode rows (q = 1), fresh prefill chunks and resumed
 chunks — is packed into ONE [1, T] token stream and run by ONE
 `apply_unified` call per step, with the last-token gather and sampling
@@ -157,7 +158,7 @@ def _page_addressable(cfg: ModelConfig) -> bool:
     """Every layer's context lives in the KV pages, per token: the
     attention families without MLA (the packed step, prefix caching and
     chunked prefill need it), as the reference's gates read."""
-    return cfg.family in ("dense", "moe") and not cfg.mla.kv_lora_rank
+    return cfg.family in M.DECODER_FAMILIES and not cfg.mla.kv_lora_rank
 
 
 @dataclasses.dataclass
@@ -892,6 +893,15 @@ class Engine:
         self.last_step_stats = stats
         return stats
 
+    def _positions(self, pos: np.ndarray) -> np.ndarray:
+        """A batch's positions: [1, T] / [B, S] as packed, or for "mrope"
+        the same row in each of the three, [3, 1, T] / [3, B, S] (token
+        ids only: t = h = w, as the reference's `_positions`)."""
+        if self.cfg.rope_style != "mrope":
+            return pos
+        return np.ascontiguousarray(np.broadcast_to(pos[None],
+                                                    (3,) + pos.shape))
+
     def _page_slots(self, row: np.ndarray, positions: np.ndarray) \
             -> np.ndarray:
         """Pool-local flat KV slots for in-sequence `positions` through one
@@ -1011,7 +1021,8 @@ class Engine:
         pack = _PackedLaunch(rows=rows, prefill_reqs=list(prefill_reqs),
                              profile=profile, kcfg=kcfg, tokens=t,
                              sampling=rows_sampling, spec_lens=spec_lens)
-        batch = {"inputs": tokens, "positions": pos, "page_table": pt,
+        batch = {"inputs": tokens, "positions": self._positions(pos),
+                 "page_table": pt,
                  "context_lens": ctx, "query_lens": qlens,
                  "query_start_loc": qsl, "slot_mapping": slots,
                  "token_source": src}
@@ -1239,8 +1250,8 @@ class Engine:
         key = (kind, b, s, kcfg)
         fn = self._get_fn(*key)
         self.device_calls[phase] += 1
-        batch = {"inputs": tokens, "positions": pos, "page_table": pt,
-                 "context_lens": ctx, "query_lens": qlens}
+        batch = {"inputs": tokens, "positions": self._positions(pos),
+                 "page_table": pt, "context_lens": ctx, "query_lens": qlens}
         if tel:
             t_launch = tel.clock.now()
             tel.record_phase("pack", t_pack, t_launch, tokens=b * s)
@@ -1273,7 +1284,7 @@ class Engine:
         key = ("decode", b, 1, kcfg)
         fn = self._get_fn(*key)
         self.device_calls["decode"] += 1
-        batch = {"inputs": tokens, "positions": pos,
+        batch = {"inputs": tokens, "positions": self._positions(pos),
                  "page_table": self.page_table.copy(), "context_lens": ctx}
         if tel:
             t_launch = tel.clock.now()

@@ -27,19 +27,31 @@ def make_train_state(model: Model) -> dict:
 
 
 def _value_and_grad(model: Model, params, batch):
+    """(loss, metrics, grads); a parameter the loss does not reach (the
+    embedding table of a model fed embeddings) gets a zero gradient, as
+    `jax.grad` gives it."""
     for p in params:
         p.grad = None
     loss, metrics = apply_train(model, batch)
     loss.backward()
-    return loss.detach(), metrics, [p.grad for p in params]
+    return loss.detach(), metrics, [
+        torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+
+
+def _micro(name: str, v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """The i-th of n sequential slices of a batch entry along its batch
+    axis: axis 1 of M-RoPE's [3, B, S] positions, else axis 0."""
+    axis = 1 if name == "positions" and v.ndim == 3 else 0
+    return v.unflatten(axis, (n, v.shape[axis] // n)).select(axis, i)
 
 
 def train_step(model: Model, state: dict, batch: dict, *,
                base_lr: float = 3e-4, warmup: int = 100,
                total_steps: int = 10_000, weight_decay: float = 0.1,
                clip_norm: float = 1.0, microbatches: int = 1):
-    """One optimizer step on `batch` ({'inputs', 'labels'} [B, S] tensors
-    on the model's device).  With microbatches > 1 the gradients of
+    """One optimizer step on `batch` ({'inputs' [B, S] ids or [B, S, d]
+    embeddings, 'labels' [B, S], 'positions'? [B, S] or [3, B, S]}
+    tensors on the model's device).  With microbatches > 1 the gradients of
     sequential slices of the batch are summed in fp32 and averaged, as the
     reference's scan does.  Returns (new_state, {"loss", "grad_norm",
     "lr", "ce", "aux"}), each a 0-d tensor; ce and aux are averaged over
@@ -53,8 +65,8 @@ def train_step(model: Model, state: dict, batch: dict, *,
                 for p in params]
         loss = ce = aux = 0.0
         for i in range(microbatches):
-            micro = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                  *v.shape[1:])[i] for k, v in batch.items()}
+            micro = {k: _micro(k, v, i, microbatches)
+                     for k, v in batch.items()}
             l_, m, g = _value_and_grad(model, params, micro)
             for acc, gi in zip(gsum, g):
                 acc.add_(gi)

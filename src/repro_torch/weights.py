@@ -1,16 +1,22 @@
 """Model weights: carried over from the JAX reference's parameter pytree,
 drawn at random from a seed, or handed back in the reference's layout.
 
-The JAX `M.init` pytree of a dense model is
+The JAX `M.init` pytree of a dense model (families "dense", "audio" and
+"vlm") is
 
     {"embed": {"table": [V, d]}, "ln_f": {"scale": [d]},
      "blocks": {"ln1": {"scale": [L, d]},
-                "attn": {"wq": {"w": [L, d, Hq*Dh]}, "wk", "wv", "wo"},
+                "attn": {"wq": {"w": [L, d, Hq*Dh], ["b": [L, Hq*Dh]]},
+                         "wk", "wv", "wo"},
                 "ln2": {"scale": [L, d]},
                 "mlp": {"gate": {"w": [L, d, F]}, "up", "down"}},
      ["lm_head": {"w": [d, V]}]}
 
-with the blocks stacked on a leading [L] axis by `jax.vmap`.  A MoE
+with the blocks stacked on a leading [L] axis by `jax.vmap`.  With
+`fused_qkv` "attn" holds {"wqkv": {"w": [L, d, (Hq + 2 Hkv) Dh], ["b"]},
+"wo"}, and with `fused_mlp` "mlp" holds {"gate_up": {"w": [L, d, 2 F]},
+"down"}, in every decoder block (a MoE model's lead blocks and zamba2's
+shared block too; MLA and the MoE's shared expert keep their leaves).  A MoE
 model's blocks hold, in place of "mlp",
 
     "moe": {"router": {"w": [L, d, E]} (fp32), "w_gate": [L, E, d, ff],
@@ -62,7 +68,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import MLAAttention
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.model import Block, Model
+from repro_torch.models.model import DECODER_FAMILIES, Block, Model
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm_blocks import Mamba2Block, MLSTMBlock, SLSTMBlock
 
@@ -95,7 +101,9 @@ def _attn_leaves(attn):
             else:
                 yield (name, "w"), mod.w
         return
-    yield from _linear_leaves(attn, ("wq", "wk", "wv", "wo"))
+    yield from _linear_leaves(
+        attn, ("wqkv", "wo") if hasattr(attn, "wqkv")
+        else ("wq", "wk", "wv", "wo"))
 
 
 def _block_leaves(blk: Block):
@@ -108,7 +116,9 @@ def _block_leaves(blk: Block):
         for path, t in _moe_leaves(blk.moe):
             yield ("moe",) + path, t
         return
-    for name in ("gate", "up", "down"):
+    names = (("gate_up", "down") if hasattr(blk.mlp, "gate_up")
+             else ("gate", "up", "down"))
+    for name in names:
         yield ("mlp", name, "w"), getattr(blk.mlp, name).w
 
 
@@ -165,7 +175,7 @@ def _leaves(model: Model):
     yield ("ln_f", "scale"), None, model.ln_f.scale
     if model.lm_head is not None:
         yield ("lm_head", "w"), None, model.lm_head.w
-    if model.cfg.family in ("dense", "moe"):
+    if model.cfg.family in DECODER_FAMILIES:
         for j, blk in enumerate(model.lead_blocks):
             for path, t in _block_leaves(blk):
                 yield ("lead_blocks", j) + path, None, t
@@ -191,19 +201,12 @@ def _leaves(model: Model):
         yield ("shared",) + path, None, t
 
 
-def _check_layouts(cfg: ModelConfig) -> None:
-    if cfg.fused_qkv or cfg.fused_mlp:
-        raise NotImplementedError(
-            "fused wqkv / gate_up layouts are not ported yet")
-
-
 @torch.no_grad()
 def from_jax_params(cfg: ModelConfig, params_np: dict,
                     device="cuda") -> Model:
     """The port's `Model` holding exactly the values of the reference's
     parameter pytree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`)."""
-    _check_layouts(cfg)
     model = Model(cfg, device="cpu")
     for path, i, t in _leaves(model):
         src = params_np
@@ -243,7 +246,6 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
         one seed: a comparison across devices moves one model to the
         other device.
     """
-    _check_layouts(cfg)
     dev = torch.device(device)
     on_device = cfg.family == "moe"
     gen = torch.Generator(device=dev if on_device else "cpu")

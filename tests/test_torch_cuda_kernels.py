@@ -109,6 +109,8 @@ CASES = [  # hkv, group, page, tile, contexts, head dim
     (1, 2, 16, 8, [100, 0, 31], 256),
     # 12 rows: a block of 8 and a block of 4 live rows out of 8
     (1, 12, 16, 8, [90, 0, 47], 64),
+    # qwen2-vl-2b's heads: group 6, six live rows in a block of 8, D 128
+    (2, 6, 16, 16, [0, 1, 33, 300, 777, 2048], 128),
 ]
 # the unified op's prefill half takes head dims 64 and 128 in bf16 (the
 # tensor-core kernel) and, in fp32, Q-blocks of 16 x group rows that fit
@@ -392,6 +394,9 @@ MMA_PREFILL_CASES = [  # hkv, group, page, D, block_q, contexts, query lens
     (3, 3, 24, 64, 16, [200, 1312, 5], [200, 312, 5]),
     # 24 rows a Q-Block: the second warp slab is half empty
     (2, 3, 16, 64, 8, [33, 90, 0], [33, 20, 0]),
+    # qwen2-vl-2b's heads: 16 x 6 = 96 rows a Q-Block (6 slabs), D 128, a
+    # fresh and a resumed chunk, an empty slot
+    (2, 6, 16, 128, 16, [200, 1312, 0, 37], [200, 312, 0, 37]),
 ]
 
 
@@ -431,6 +436,7 @@ FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, q_offset
     (1, 128, 128, 16, 2, 128, False, 0),  # bidirectional, 8 rows a token
     (1, 100, 100, 6, 2, 40, True, 0),  # ragged KV tile, D 40
     (1, 64, 64, 2, 1, 256, True, 0),  # D 256: ~219 KB of shared memory
+    (1, 64, 64, 12, 2, 128, True, 0),  # qwen2-vl-2b's heads: group 6
 ]
 
 
@@ -486,6 +492,7 @@ MMA_FLASH_CASES = [  # B, Sq, Skv, Hq, Hkv, D, causal, q_offset
     (1, 64, 100, 8, 2, 128, False, 0),  # bidirectional, ragged KV tile
     (2, 192, 192, 4, 4, 64, True, 0),  # MHA, three 64-key tiles
     (1, 16, 0, 4, 2, 64, False, 0),  # no keys: every row dead
+    (2, 64, 64, 12, 2, 128, True, 0),  # qwen2-vl-2b: group 6, 48 rows
 ]
 
 
@@ -935,6 +942,20 @@ def test_graphed_packed_step_matches_eager(cuda):
         enable_chunked_prefill=True, max_prefill_tokens=32)
     assert all(isinstance(geng._compiled[k], cuda_graphs.GraphedStep)
                for k in geng.compile_events)
+
+
+def test_graphed_packed_step_matches_eager_mrope(cuda):
+    """Reduced qwen2-vl-2b (M-RoPE: the [3, 1, T] positions a static input
+    of the graphs, q / k / v biases), fp32, chunked at 32, greedy and
+    sampled requests: the graphed packed step equals the eager step bit
+    for bit."""
+    geng, _ = _graphs_vs_eager(
+        "qwen2-vl-2b", _prompts_for("qwen2-vl-2b", (5, 40, 17, 70, 3, 33), 1),
+        cuda, sampled=True, max_seqs=4, num_pages=64, max_model_len=256,
+        enable_chunked_prefill=True, max_prefill_tokens=32)
+    shapes = {tuple(geng._compiled[k].inputs.host["positions"].shape)
+              for k in geng.compile_events}
+    assert shapes and all(len(sh) == 3 and sh[0] == 3 for sh in shapes)
 
 
 def test_graphed_packed_step_matches_eager_under_preemption(cuda):

@@ -115,7 +115,7 @@ def test_prefill_decode_consistency(zamba):
     pt = torch.arange(1, 1 + b * np_, dtype=torch.int32).reshape(b, np_)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, tcfg.vocab_size, size=(b, s + 1)))
-    pos = TM.default_positions(b, s + 1)
+    pos = TM.default_positions(tcfg, b, s + 1)
 
     def prefill(n):
         cache = TM.make_cache(tcfg, max_seqs=b, num_pages=b * np_ + 2,

@@ -155,7 +155,8 @@ def test_prefill_then_resumed_chunk_equals_whole_prefill(smollm, split):
         tokens = torch.zeros((1, s_pad), dtype=torch.long)
         tokens[0, :n] = torch.from_numpy(ids)
         return TM.apply_prefill(model, cache, {
-            "inputs": tokens, "positions": TM.default_positions(1, s_pad),
+            "inputs": tokens,
+            "positions": TM.default_positions(tcfg, 1, s_pad),
             "page_table": pt, "context_lens": torch.tensor([n]),
             "query_lens": torch.tensor([n])})[0]
 
@@ -167,7 +168,8 @@ def test_prefill_then_resumed_chunk_equals_whole_prefill(smollm, split):
     tokens = torch.zeros((1, 32), dtype=torch.long)
     tokens[0, :c] = torch.from_numpy(prompt[split:])
     got, _ = TM.apply_prefill_cached(model, cache, {
-        "inputs": tokens, "positions": TM.default_positions(1, 32) + split,
+        "inputs": tokens,
+        "positions": TM.default_positions(tcfg, 1, 32) + split,
         "page_table": pt, "context_lens": torch.tensor([total]),
         "query_lens": torch.tensor([c])})
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

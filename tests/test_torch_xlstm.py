@@ -144,7 +144,7 @@ def test_prefill_decode_consistency(xlstm):
     pt = torch.zeros((b, 2), dtype=torch.int32)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, tcfg.vocab_size, size=(b, s + 1)))
-    pos = TM.default_positions(b, s + 1)
+    pos = TM.default_positions(tcfg, b, s + 1)
 
     def prefill(n):
         cache = TM.make_cache(tcfg, max_seqs=b, num_pages=2, device="cpu")
