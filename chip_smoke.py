@@ -399,6 +399,39 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               against the unfused model on the card: identical greedy
               tokens, logits within 1e-4, one train step's loss within
               1e-5 relative
+ 26. tp       tensor-parallel serving, the expert-parallel MoE and the
+              gradient collectives, in 4 ranks of one gloo world sharing
+              the card (`launch.mesh.spawn_ranks`; ranks 0-2 the tp 3
+              group), eager: (a) the paged kernels at smollm-135m's heads
+              over tp 3 (Hkv 1, group 3, D 64; checked in phase 3 as
+              "smollm-135m/tp3", the folded C3 launch bit for bit) and the
+              grouped GEMM's tail launch at deepseek-v2's 40 experts a
+              rank (rank 0's routing of (d)'s rows; also phase 21's E 40
+              case) against their plain versions (the grouped GEMM each
+              element within two bf16 ulps of its own magnitude, plus
+              one flip of the gate or up product's bf16 rounding, plus
+              2^-16 of the largest output; the margin and what a kernel
+              one row off per group reads logged), each timed with the
+              enqueue hidden beside its plain version, a library
+              yardstick and its bound; (b) fp32 (TF32 off) full-width
+              smollm-135m on phase 5's trace (8 requests, prompts
+              128-1024, 32 new, max_seqs 8, chunked at 512, greedy) at tp
+              1 here and at tp 3 in the ranks: tokens identical on every
+              rank and to tp 1, logits within 1e-5, one unified call a
+              step on each rank; (c) the same in bf16: every rank's
+              tokens and logits bit-equal to rank 0's, the tokens those
+              of tp 1 (a difference only at a near-tie of tp 1: its top-2
+              margin within one bf16 ulp of its largest logit), the walls
+              of tp 1 and tp 3 and the all-gathers' share of the tp 3
+              run (CUDA events around each on rank 0's stream); (d)
+              `moe_ffn_dropless_ep` at 4 ranks on deepseek-v2's MoE layer
+              at full width (160 experts of d 5120, ff 1536, top-6, 2
+              shared; 40 a rank) at 8 and 520 rows against one device's
+              `MoE.forward` within 2e-2 in bf16, and a fp32 cut (E 8, d
+              512, ff 1024) within 2e-5; (e) `int8_ef_allgather` (one step
+              within 0.02, 50 steps with error feedback within 0.002) and
+              `bf16_psum` (0.01) on CUDA tensors at 4 ranks.  Any rank's
+              failure fails the run
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -500,6 +533,13 @@ PAGED_SHAPES = {
         page_sizes=(16,), ctx=(0, 1, 17, 100, 511, 1000, 1500, 2048),
         num_segments=16, qlens=(200, 312, 0, 0, 0, 0, 0, 0),
         pf_ctx=(200, 1312, 0, 0, 0, 0, 0, 0), stride=None),
+    # phase 26's packed step at smollm's heads over tp 3 (`tp`: the heads
+    # of one rank, Hkv 1, group 3, D 64): the decode region's contexts and
+    # a fresh and a resumed chunk, packed back to back
+    "smollm-135m/tp3": dict(
+        page_sizes=(16,), ctx=(0, 1, 17, 100, 511, 1000, 1500, 2048),
+        num_segments=16, qlens=(200, 312, 0, 0, 0, 0, 0, 0),
+        pf_ctx=(200, 1312, 0, 0, 0, 0, 0, 0), stride=None, tp=3),
 }
 # phase 25: the audio and vlm families at full size
 FAMILY_ARCHS = ("musicgen-large", "qwen2-vl-2b")
@@ -735,6 +775,26 @@ RTRAIN_FLASH_CASE = (HTRAIN_BATCH, HTRAIN_SEQ, HTRAIN_SEQ, 32, 32, 64, True,
 # (e) the reduced forms, fp32, 3 steps at 2 x 128, card vs CPU (phase
 # 10's bounds)
 RDIFF_BATCH, RDIFF_SEQ, RDIFF_STEPS = 2, 128, 3
+# phase 26: tensor-parallel serving and the expert-parallel MoE, ranks of
+# one gloo world sharing the card (walls of ranks that share one card and
+# gather through the host: not a tensor-parallel deployment's speed)
+TP = 3  # smollm-135m's 3 KV heads, one a rank
+TP_SHAPES = "smollm-135m/tp3"
+TP_ENGINE = dict(max_seqs=8, num_pages=2048, max_model_len=2048,
+                 enable_chunked_prefill=True, max_prefill_tokens=512,
+                 seed=SEED, debug_logits=True, device=DEVICE,
+                 cuda_graphs=False)
+TP_NEW_TOKENS = 32
+TP_LOGIT_ATOL = 1e-5
+TP_LEAD_CYCLES = 2_000_000  # the spin that hides a timed call's enqueue
+EP_ARCH = "deepseek-v2-236b"
+EP_RANKS = 4
+EP_SEED = SEED + 26
+EP_ROWS = (8, 520)
+EP_ATOL, EP_FP32_ATOL = 2e-2, 2e-5
+EP_FP32_CUT = dict(d_model=512, moe=dict(num_experts=8, d_ff_expert=1024))
+EP_ROW = f"moe_grouped_gemm[{EP_ARCH} ep{EP_RANKS} tail]"
+COLL_EF_STEPS = 50
 
 
 def log(msg: str) -> None:
@@ -812,11 +872,13 @@ def tile_view(pages, tile):
 
 def paged_heads(arch):
     """(hkv, group, head_dim, page_size) of the model a shape set is for
-    (a set's name is the model's, or the model's and a "/" suffix)."""
+    (a set's name is the model's, or the model's and a "/" suffix); the
+    KV heads of one rank where the set names a tensor-parallel `tp`."""
     from repro_torch.configs import ARCHS
 
     cfg = ARCHS[arch.split("/")[0]]
-    return (cfg.num_kv_heads, cfg.num_q_heads // cfg.num_kv_heads,
+    tp = PAGED_SHAPES.get(arch, {}).get("tp", 1)
+    return (cfg.num_kv_heads // tp, cfg.num_q_heads // cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.page_size)
 
 
@@ -3242,6 +3304,89 @@ def moe_weights(torch, e, d, ff, dtype, g):
                                             ((e, ff, d), ff))]
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude x > 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def bf16_ulps(torch, x):
+    """One bf16 ulp at each element's own magnitude (fp32)."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def moe_pair_tolerances(torch, GK, ws, xs, off, h_plain, ys_plain, tail):
+    """Per-element tolerances of the pair check where cuBLAS's plain
+    products sum in another order than the kernel (E 40 at ff 1536): each
+    output is held to two bf16 ulps of its own magnitude (the kernel's one
+    rounding and the plain's last), h also to one flip of the gate or up
+    product's rounding to bf16 (|b| |silu'(a)| ulp(a) + |silu(a)| ulp(b):
+    both round a and b before silu and the product, as the reference does;
+    an h near 0 moves by many of its own ulps), and both to a floor of
+    2^-16 of the largest |output| for sums that cancel towards 0."""
+    wg, wu, _ = ws
+    a = GK.grouped_gemm_plain(xs, wg, off, tail=tail).float()
+    b = GK.grouped_gemm_plain(xs, wu, off, tail=tail).float()
+    sig = torch.sigmoid(a)
+    dsilu = (sig * (1 + a * (1 - sig))).abs()
+    flip = (b.abs() * dsilu * bf16_ulps(torch, a)
+            + (a * sig).abs() * bf16_ulps(torch, b))
+    tols = []
+    for want, extra in ((h_plain, flip), (ys_plain, 0.0)):
+        floor = 2.0 ** -16 * float(want.float().abs().max())
+        tols.append(2 * bf16_ulps(torch, want) + extra + floor)
+    return tols
+
+
+def moe_pair_check(torch, GK, ws, xs, off, atol, tag, tail=False,
+                   wrong=False):
+    """Both grouped GEMM launches (gate / up fused, then down) against
+    their plain versions on the same inputs: h and ys each within `atol`
+    (None: each element within `moe_pair_tolerances`; the log gives the margin, the largest
+    error over its tolerance, and with `wrong` what a kernel that gives
+    one row per group to the next expert reads: the plain pair over
+    offsets moved one row on).  Returns (the worst error, (h, ys))."""
+    wg, wu, wd = ws
+    h = GK.grouped_gemm(xs, wg, off, wu, tail=tail)
+    ys = GK.grouped_gemm(h, wd, off, tail=tail)
+    h_plain = GK.grouped_gemm_plain(xs, wg, off, wu, tail=tail)
+    ys_plain = GK.grouped_gemm_plain(h, wd, off, tail=tail)
+    torch.cuda.synchronize()
+    pairs = ((h, h_plain), (ys, ys_plain))
+    errs = [max_err(torch, MOE, got, want) for got, want in pairs]
+    if atol is not None:
+        log(f"check {MOE:18s} {tag}: max_abs_err h {errs[0]:.3e} ys "
+            f"{errs[1]:.3e} (tolerance {atol:g}, max |ys| "
+            f"{float(ys_plain.float().abs().max()):.3f})")
+        if not all(e <= atol for e in errs):
+            raise AssertionError(f"{MOE} {tag}: error {errs} > {atol}")
+        return max(errs), (h, ys)
+    tols = moe_pair_tolerances(torch, GK, ws, xs, off, h_plain, ys_plain,
+                               tail)
+    ratios = [float(((got.float() - want.float()).abs() / tol).max())
+              for (got, want), tol in zip(pairs, tols)]
+    ulps = [float(((got.float() - want.float()).abs()
+                   / bf16_ulps(torch, want)).max()) for got, want in pairs]
+    msg = ""
+    if wrong:
+        moved = torch.minimum(off + 1, off[-1:]).to(off.dtype)
+        moved[0] = off[0]
+        h_bad = GK.grouped_gemm_plain(xs, wg, moved, wu, tail=tail)
+        ys_bad = GK.grouped_gemm_plain(h, wd, moved, tail=tail)
+        bad = [float(((got.float() - want.float()).abs() / tol).max())
+               for got, want, tol in ((h_bad, h_plain, tols[0]),
+                                      (ys_bad, ys_plain, tols[1]))]
+        msg = (f"; a kernel one row off per group reads "
+               f"{bad[0]:.3g} / {bad[1]:.3g} of it")
+    log(f"check {MOE:18s} {tag}: max_abs_err h {errs[0]:.3e} ys "
+        f"{errs[1]:.3e}, in own-magnitude bf16 ulps {ulps[0]:.3f} / "
+        f"{ulps[1]:.3f}, margin (error over tolerance) {ratios[0]:.3f} / "
+        f"{ratios[1]:.3f}{msg}")
+    if not all(r <= 1 for r in ratios):
+        raise AssertionError(f"{MOE} {tag}: error over tolerance {ratios}")
+    return max(errs), (h, ys)
+
+
 def phase_moe_check(torch, GK):
     """21 (a): the grouped GEMM (both launches: gate / up fused, then
     down) against its plain version on the same inputs, at every case of
@@ -3262,22 +3407,11 @@ def phase_moe_check(torch, GK):
                                                      gh), e)
                 xs = torch.randn((rows, d), generator=g,
                                  device=DEVICE).to(dtype)
-                h = GK.grouped_gemm(xs, wg, off, wu)
-                ys = GK.grouped_gemm(h, wd, off)
-                h_plain = GK.grouped_gemm_plain(xs, wg, off, wu)
-                ys_plain = GK.grouped_gemm_plain(h, wd, off)
-                torch.cuda.synchronize()
-                err_h = max_err(torch, MOE, h, h_plain)
-                err_y = max_err(torch, MOE, ys, ys_plain)
-                log(f"check {MOE:18s} E {e} d {d} ff {ff} {dtype_name} "
-                    f"rows {rows} {case:10s}: max_abs_err h {err_h:.3e} "
-                    f"ys {err_y:.3e} (atol {atol:g}, max |ys| "
-                    f"{float(ys_plain.float().abs().max()):.3f})")
-                if not (err_h <= atol and err_y <= atol):
-                    raise AssertionError(f"{MOE} {dtype_name} rows {rows} "
-                                         f"{case}: error {err_h} / {err_y} "
-                                         f"> {atol}")
-                worst = max(worst, err_h, err_y)
+                err, _ = moe_pair_check(
+                    torch, GK, (wg, wu, wd), xs, off, atol,
+                    f"E {e} d {d} ff {ff} {dtype_name} rows {rows} "
+                    f"{case:10s}")
+                worst = max(worst, err)
         if dtype_name == "bfloat16":
             kept = (wg, wu, wd)
         del wg, wu, wd
@@ -5324,6 +5458,532 @@ def phase_families(torch, kernel_modules):
                      dict(serve=serve, train=train, diff=diff))
     return out
 
+# ---------------------------------------------------------------------------
+# 26. tensor-parallel serving, the expert-parallel MoE and the gradient
+# collectives: ranks of one gloo world sharing the card
+# ---------------------------------------------------------------------------
+
+
+def tp_cfg(dtype_name):
+    from repro_torch.configs import ARCHS
+
+    return ARCHS[ARCH].replace(dtype=dtype_name)
+
+
+def tp_leg(torch, dtype_name, tp=1, group=None, timed=None):
+    """Full-width smollm-135m in `dtype_name` (random weights from SEED)
+    serves phase 5's 8 prompts greedily, eager, at `tp` (over `group`),
+    after a throwaway warm-up engine; `serve_run`'s result.  `timed`:
+    called after the warm-up, it returns an undo called after the run."""
+    from repro_torch import weights
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+
+    cfg = tp_cfg(dtype_name)
+    _, warm_prompts, served = serve_prompts(torch, cfg.vocab_size)
+    kw = dict(TP_ENGINE, tp=tp, tp_group=group)
+    model = weights.init_random(cfg, SEED, device=DEVICE)
+    warm = Engine(cfg, model, **kw)  # cuts the model to the rank's heads
+    warm.generate([Request(prompt=p, max_new_tokens=4)
+                   for p in warm_prompts])
+    del warm
+    eng = Engine(cfg, model, **kw)
+    torch.cuda.synchronize()
+    undo = timed() if timed else None
+    try:
+        return serve_run(torch, eng, [Request(prompt=list(p),
+                                              max_new_tokens=TP_NEW_TOKENS)
+                                      for p in served],
+                         f"tp {tp} {dtype_name}")
+    finally:
+        if undo:
+            undo()
+
+
+def logits_digest(torch, logits):
+    """One sha256 over every step's logits bytes: equal digests, equal
+    bits."""
+    import hashlib
+
+    uint8 = torch.uint8
+    h = hashlib.sha256()
+    for x in logits:
+        h.update(x.detach().contiguous().cpu().view(-1).view(uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def ep_experts(torch, e_range, d, ff, dtype):
+    """w_gate, w_up [n, d, ff] and w_down [n, ff, d] of experts `e_range`,
+    each expert drawn on the card from a generator seeded by its id (so a
+    rank draws its own experts, and one device all of them, alike), at the
+    reference's init scale."""
+    outs = ([], [], [])
+    for e in e_range:
+        g = torch.Generator(device=DEVICE).manual_seed(EP_SEED * 1000 + e)
+        for out, shape, fan in zip(outs, ((d, ff), (d, ff), (ff, d)),
+                                   (d, d, ff)):
+            out.append((torch.randn(shape, generator=g, device=DEVICE)
+                        * fan ** -0.5).to(dtype))
+    return [torch.stack(o) for o in outs]
+
+
+def ep_cfg(cut):
+    """deepseek-v2's MoE layer at full width (bf16), or the fp32 cut."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[EP_ARCH]
+    if not cut:
+        return cfg.replace(dtype="bfloat16")
+    return cfg.replace(dtype="float32", d_model=EP_FP32_CUT["d_model"],
+                       moe=dataclasses.replace(cfg.moe,
+                                               **EP_FP32_CUT["moe"]))
+
+
+def ep_layer(torch, cfg, experts):
+    """deepseek-v2's MoE layer holding `experts` (an id range; None: the
+    router alone, for its routing), its router and shared experts drawn
+    on the card from EP_SEED."""
+    from torch import nn
+
+    from repro_torch.models.moe import MoE
+
+    m, d = cfg.moe, cfg.d_model
+    moe = MoE(cfg, device="meta")
+    g = torch.Generator(device=DEVICE).manual_seed(EP_SEED)
+
+    def param(shape, fan, dtype):
+        return nn.Parameter((torch.randn(shape, generator=g, device=DEVICE)
+                             * fan ** -0.5).to(dtype), requires_grad=False)
+
+    moe.router.w = param((d, m.num_experts), d, torch.float32)
+    if experts is None:
+        return moe
+    ffs = m.d_ff_expert * m.num_shared_experts
+    moe.shared.gate.w = param((d, ffs), d, cfg.param_dtype)
+    moe.shared.up.w = param((d, ffs), d, cfg.param_dtype)
+    moe.shared.down.w = param((ffs, d), ffs, cfg.param_dtype)
+    for name, w in zip(("w_gate", "w_up", "w_down"),
+                       ep_experts(torch, experts, d, m.d_ff_expert,
+                                  cfg.param_dtype)):
+        setattr(moe, name, nn.Parameter(w, requires_grad=False))
+    return moe
+
+
+def ep_inputs(torch, cfg, rows):
+    g = torch.Generator(device="cpu").manual_seed(EP_SEED + rows)
+    return torch.randn((rows, cfg.d_model), generator=g).to(
+        DEVICE, cfg.param_dtype)
+
+
+def ep_reference(torch):
+    """The one-device dropless MoE (`MoE.forward`, every expert) on each
+    case of (d): {(cut, rows): y as fp32 numpy}."""
+    import gc
+
+    out = {}
+    for cut in (False, True):
+        cfg = ep_cfg(cut)
+        moe = ep_layer(torch, cfg, range(cfg.moe.num_experts))
+        with torch.no_grad():
+            for rows in EP_ROWS:
+                out[cut, rows] = moe(ep_inputs(torch, cfg, rows))[0] \
+                    .float().cpu().numpy()
+        del moe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_launch(torch, cfg, rank, n, rows):
+    """(xs, offsets, experts, local rows, touched experts) of the grouped
+    GEMM launch rank `rank` of `n` makes in `moe_ffn_dropless_ep` on
+    `rows` rows of (d): the tail launch, rows routed elsewhere last."""
+    moe = ep_layer(torch, cfg, None)
+    e_loc = cfg.moe.num_experts // n
+    xt = ep_inputs(torch, cfg, rows)
+    _, topi = moe.route(xt)
+    e_flat = topi.reshape(-1) - rank * e_loc
+    local = (e_flat >= 0) & (e_flat < e_loc)
+    ids, order = torch.sort(torch.where(local, e_flat, e_loc), stable=True)
+    offsets = torch.searchsorted(ids, torch.arange(e_loc + 1,
+                                                   device=DEVICE),
+                                 out_int32=True)
+    xs = xt[order // cfg.moe.top_k]
+    bounds = [int(v) for v in offsets.tolist()]
+    touched = sum(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+    return xs, offsets, e_loc, bounds[-1], touched
+
+
+def phase_tp_kernels(torch, K, GK, GO, tops, errs, iters=20):
+    """26 (a): the paged kernels at smollm's heads over tp 3 (checked
+    against their plain versions in phase 3, TP_SHAPES) and the grouped
+    GEMM at deepseek-v2's E / 4 = 40 experts a rank (phase 21's routings,
+    then the tail launch of rank 0's routing of (d)'s 8 and 520 rows),
+    checked here, each timed with
+    the enqueue hidden behind a spin, beside its plain version, a library
+    yardstick and its bound.  Returns the JSON rows' numbers by name."""
+    F = torch.nn.functional
+    dtype_name = "bfloat16"
+    ps = 16
+    tile = tops.default_tile(ps)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    calls, x = kernel_calls(torch, K, torch.bfloat16, ps, tile, tops,
+                            TP_SHAPES)
+    lib = library_calls(torch, x)
+    rows = {}
+    for name in ("paged_decode", "paged_decode_segmented", MERGED,
+                 "paged_prefill_qblock"):
+        kfn, pfn = calls[name]
+        ms = time_ms(torch, kfn, iters, flush, lead_cycles=TP_LEAD_CYCLES)
+        plain_ms = time_ms(torch, pfn, 3, flush)
+        lib_ms = (time_ms(torch, lib[name], iters, flush,
+                          lead_cycles=TP_LEAD_CYCLES)
+                  if name in lib else None)
+        bound_ms, bound_by = bounds(name, x, dtype_name)
+        log(f"tp time {name:37s} {TP_SHAPES} bf16 kernel_ms {ms:.4f}  "
+            f"plain_ms {plain_ms:.4f}  library_ms "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
+            f"{bound_ms:.5f} ({bound_by})  of the bound {bound_ms / ms:.3f}")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=errs[f"{name}[{TP_SHAPES}]"])
+    # the segment_reduce row is the folded launch that computes it on the
+    # serving path
+    rows["segment_reduce"] = dict(rows.pop(MERGED),
+                                  max_abs_err=errs[f"segment_reduce"
+                                                   f"[{TP_SHAPES}]"])
+    del calls, x, lib
+    cfg = ep_cfg(False)
+    e_loc = cfg.moe.num_experts // EP_RANKS
+    d, ff = cfg.d_model, cfg.moe.d_ff_expert
+    ws = ep_experts(torch, range(e_loc), d, ff, torch.bfloat16)
+    wg, wu, wd = ws
+    # phase 21's routings at a rank's 40 experts, then the tail launches
+    # (each element to its own magnitude, `moe_pair_tolerances`: the plain
+    # product sums in cuBLAS's order)
+    gh = torch.Generator(device="cpu").manual_seed(EP_SEED)
+    worst, ep_rows = 0.0, {}
+    for n_rows in MOE_ROWS:
+        for case in MOE_ROUTINGS:
+            if case == "long" and n_rows <= MOE_LONG_GROUP:
+                continue
+            off = moe_offsets(torch, moe_routing(torch, case, n_rows, e_loc,
+                                                 gh), e_loc)
+            xs = torch.randn((n_rows, d), generator=gh).to(DEVICE,
+                                                           torch.bfloat16)
+            err, _ = moe_pair_check(torch, GK, ws, xs, off, None,
+                                    f"E {e_loc} d {d} ff {ff} bf16 rows "
+                                    f"{n_rows} {case:10s}")
+            worst = max(worst, err)
+    for n_rows in EP_ROWS:
+        xs, off, _, live, touched = ep_rank_launch(torch, cfg, 0, EP_RANKS,
+                                                   n_rows)
+        err, (h, ys) = moe_pair_check(
+            torch, GK, ws, xs, off, None,
+            f"E_loc {e_loc} tail, rank 0 of {EP_RANKS}: rows {xs.shape[0]} "
+            f"({live} local, {touched} experts touched)", tail=True,
+            wrong=True)
+        tail_zero = bool((ys[live:] == 0).all()) \
+            and bool((h[live:] == 0).all())
+        log(f"tp check {MOE} tail rows zero {tail_zero}")
+        if not tail_zero:
+            raise AssertionError(f"{MOE} tail launch wrote the tail rows")
+        worst = max(worst, err)
+        bounds_h = [int(v) for v in off.tolist()]
+        groups = [(e, lo, hi) for e, (lo, hi) in
+                  enumerate(zip(bounds_h, bounds_h[1:])) if hi > lo]
+
+        def kernel():
+            return GO.expert_ffn(xs, off, wg, wu, wd, tail=True)
+
+        def plain():
+            return GK.grouped_gemm_plain(GK.grouped_gemm_plain(
+                xs, wg, off, wu, tail=True), wd, off, tail=True)
+
+        def library():
+            outs = []
+            for e, lo, hi in groups:
+                a = xs[lo:hi]
+                hh = F.silu(torch.matmul(a, wg[e])) * torch.matmul(a, wu[e])
+                outs.append(torch.matmul(hh, wd[e]))
+            return torch.cat(outs)
+
+        ms = time_ms(torch, kernel, iters, flush,
+                     lead_cycles=TP_LEAD_CYCLES)
+        plain_ms = time_ms(torch, plain, 3, flush)
+        lib_ms = time_ms(torch, library, iters, flush,
+                         lead_cycles=TP_LEAD_CYCLES)
+        bound_ms, bound_by = moe_bound(live, touched, d, ff, dtype_name)
+        log(f"tp time {MOE} E_loc {e_loc} rows {xs.shape[0]} ({live} "
+            f"local) kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+            f"library_ms {lib_ms:.4f}  bound_ms {bound_ms:.5f} ({bound_by})"
+            f"  of the bound {bound_ms / ms:.3f}")
+        ep_rows[n_rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+    rows[EP_ROW] = dict(ep_rows[EP_ROWS[0]], max_abs_err=worst)
+    del ws, wg, wu, wd, h, ys
+    torch.cuda.empty_cache()
+    return rows
+
+
+def timed_gathers(torch, A, events):
+    """Wrap the attention layers' all-gather between two CUDA events on the
+    current stream, appended to `events`: gloo's gather makes the stream
+    wait for the gathered rows, so each pair spans the stream's wait on
+    one gather (read after the run: no synchronisation inside it);
+    returns the undo."""
+    inner = A.all_gather_heads
+
+    def wrapped(o, shard):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(o, shard)
+        b.record()
+        events.append((a, b))
+        return out
+
+    A.all_gather_heads = wrapped
+    return lambda: setattr(A, "all_gather_heads", inner)
+
+
+def tp_rank(rank, world):
+    """One rank of phase 26 (a process of its own, one gloo world of
+    EP_RANKS ranks on the one card).  Ranks 0..TP-1: (b) fp32 and (c) bf16
+    serving at tp TP, the bf16 run's all-gathers timed; every rank: (d) `moe_ffn_dropless_ep` on its E / n experts and (e) the
+    collectives on CUDA tensors.  Returns plain data (numpy, never a
+    tensor: a tensor would cross through shared memory)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels.moe import kernel as GK
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.models import attention as A
+    from repro_torch.models.moe import moe_ffn_dropless_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    group = dist.new_group(list(range(TP)), backend="gloo")
+    out = {}
+    if rank < TP:
+        events = []
+        for dtype_name in ("float32", "bfloat16"):
+            run = tp_leg(torch, dtype_name, TP, group, timed=(
+                lambda: timed_gathers(torch, A, events))
+                if dtype_name == "bfloat16" else None)
+            leg = dict(tokens=[r.output for r in run["reqs"]],
+                       device_calls=dict(run["eng"].device_calls),
+                       steps=len(run["stats"]), wall=run["wall"],
+                       digest=logits_digest(torch, run["logits"]),
+                       launches=dict(K.LAUNCHES),
+                       kernels=dict(K.KERNEL_LAUNCHES),
+                       pool=run["stats"][-1]["pool"]["num_devices"])
+            if rank == 0:  # the others' are checked bit-equal to these
+                leg["logits"] = [x.cpu().numpy() for x in run["logits"]]
+            out[dtype_name] = leg
+        torch.cuda.synchronize()
+        out["gathers"] = dict(calls=len(events), s=sum(
+            a.elapsed_time(b) for a, b in events) / 1e3, wall=run["wall"],
+            steps=len(run["stats"]))
+        del run, events
+        torch.cuda.empty_cache()
+    ep = {}
+    for cut in (False, True):
+        cfg = ep_cfg(cut)
+        e_loc = cfg.moe.num_experts // world
+        moe = ep_layer(torch, cfg, range(rank * e_loc, (rank + 1) * e_loc))
+        for rows in EP_ROWS:
+            xt = ep_inputs(torch, cfg, rows)
+            with torch.no_grad():
+                moe_ffn_dropless_ep(moe, xt)  # warm
+                torch.cuda.synchronize()
+                GK.reset_launches()
+                t0 = time.perf_counter()
+                y, _ = moe_ffn_dropless_ep(moe, xt)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            ep[cut, rows] = dict(y=y.float().cpu().numpy(), s=dt,
+                                 launches=dict(GK.KERNEL_LAUNCHES),
+                                 experts=moe.w_gate.shape[0])
+        del moe
+        torch.cuda.empty_cache()
+    out["ep"] = ep
+    g = torch.arange(32, dtype=torch.float32, device=DEVICE).reshape(4, 8) \
+        / 7.3
+    mine = g[rank].clone()
+    one, _ = collectives.int8_ef_allgather(mine, None,
+                                           torch.zeros_like(mine))
+    ef, acc = torch.zeros_like(mine), torch.zeros_like(mine,
+                                                       dtype=torch.float64)
+    for _ in range(COLL_EF_STEPS):
+        s, ef = collectives.int8_ef_allgather(mine, None, ef)
+        acc += s
+    bf16 = collectives.bf16_psum({"g": mine}, None)["g"]
+    out["coll"] = dict(exact=g.sum(0).cpu().numpy(), int8=one.cpu().numpy(),
+                       int8_mean=(acc / COLL_EF_STEPS).cpu().numpy(),
+                       bf16=bf16.cpu().numpy(),
+                       device=f"{one.device} {bf16.device}")
+    return out
+
+
+def top2_margin(torch, row):
+    """(top-1 minus top-2 logit, one bf16 ulp of the largest |logit|) of
+    a logits row."""
+    top = torch.topk(row.float(), 2).values
+    big = float(row.float().abs().max())
+    return float(top[0] - top[1]), 2.0 ** (math.floor(math.log2(big)) - 7)
+
+
+def tp_bf16_verdict(torch, tp1, leg):
+    """(c): the tp TP tokens against tp 1's.  Identical passes; else the
+    first step where a row's argmax differs must be a near-tie of tp 1:
+    its top-2 margin within one bf16 ulp of the row's largest logit."""
+    tokens1 = [r.output for r in tp1["reqs"]]
+    if leg["tokens"] == tokens1:
+        return "tokens identical"
+    for step, (x, y) in enumerate(zip(tp1["logits"], leg["logits"])):
+        am = torch.from_numpy(y).argmax(-1)
+        rows = (x.argmax(-1).cpu() != am).nonzero().flatten().tolist()
+        for row in rows:
+            margin, ulp = top2_margin(torch, x[row])
+            log(f"tp bf16: step {step + 1} row {row} tp 1 top-2 margin "
+                f"{margin:.4e} (one bf16 ulp of its largest logit "
+                f"{ulp:.4e})")
+            if margin > ulp:
+                raise AssertionError(f"tp {TP} bf16 tokens part from tp 1's "
+                                     f"at step {step + 1} off a near-tie "
+                                     f"(margin {margin} > {ulp})")
+        if rows:
+            return f"tokens part at step {step + 1}, a near-tie"
+    raise AssertionError(f"tp {TP} bf16 tokens differ from tp 1's with no "
+                         f"step's argmax differing")
+
+
+def phase_tp(torch, kernel_modules, tops, errs):
+    """26: (a) the kernels at the new launch shapes (`phase_tp_kernels`);
+    (b) fp32 (TF32 off) and (c) bf16 full-width smollm-135m at tp 1 here
+    and at tp TP in ranks 0..TP-1 of one gloo world of EP_RANKS processes
+    sharing the card, eager, on phase 5's trace; (d) deepseek-v2's MoE
+    layer expert-parallel over the EP_RANKS ranks against one device's
+    `MoE.forward`; (e) the collectives on CUDA tensors.  Any rank's
+    failure fails the phase.  Returns (JSON rows by name, launches by
+    name, numbers)."""
+    import gc
+    import shutil
+    import types
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    K, GK, GO = kernel_modules[0], kernel_modules[4], kernel_modules[5]
+    rows = phase_tp_kernels(torch, K, GK, GO, tops, errs)
+    tp1 = {}
+    for dtype_name in ("float32", "bfloat16"):
+        tp1[dtype_name] = tp_leg(torch, dtype_name)
+        run = tp1[dtype_name]
+        log(f"tp 1 {dtype_name} eager: steps {len(run['stats'])} wall "
+            f"{run['wall']:.3f}s  device_calls "
+            f"{dict(run['eng'].device_calls)}")
+        run["eng"] = None
+        gc.collect()
+    ref = ep_reference(torch)
+    torch.cuda.empty_cache()
+    store = ROOT / "build" / "tp"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = spawn_ranks(tp_rank, EP_RANKS, backend="gloo",
+                      init_file=str(store / "store"))
+    log(f"tp ranks: {EP_RANKS} processes over gloo on the one card, "
+        f"{time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(store, ignore_errors=True)
+    # (b) / (c)
+    for dtype_name in ("float32", "bfloat16"):
+        tokens1 = [r.output for r in tp1[dtype_name]["reqs"]]
+        legs = [r[dtype_name] for r in res[:TP]]
+        same_tokens = all(leg["tokens"] == legs[0]["tokens"] for leg in legs)
+        same_bits = all(leg["digest"] == legs[0]["digest"] for leg in legs)
+        one_call = all(leg["device_calls"] == {"unified": leg["steps"]}
+                       and leg["pool"] == TP for leg in legs)
+        log(f"tp {TP} {dtype_name}: steps {legs[0]['steps']} wall rank 0 "
+            f"{legs[0]['wall']:.3f}s (tp 1 eager "
+            f"{tp1[dtype_name]['wall']:.3f}s)  ranks' tokens identical "
+            f"{same_tokens}  logits bit-equal across ranks {same_bits}  "
+            f"one unified call a step on every rank {one_call}")
+        if not (same_tokens and one_call):
+            raise AssertionError(f"tp {TP} {dtype_name}: ranks disagree or "
+                                 f"a step made other calls")
+        if dtype_name == "float32":
+            diff = max(float((a.cpu() - torch.from_numpy(b)).abs().max())
+                       for a, b in zip(tp1[dtype_name]["logits"],
+                                       legs[0]["logits"]))
+            log(f"tp {TP} fp32 vs tp 1: tokens identical "
+                f"{legs[0]['tokens'] == tokens1}  max_abs_logit_diff "
+                f"{diff:.3e} (bound {TP_LOGIT_ATOL:g})")
+            if legs[0]["tokens"] != tokens1 or not diff <= TP_LOGIT_ATOL:
+                raise AssertionError(f"tp {TP} fp32 differs from tp 1")
+        else:
+            if not same_bits:
+                raise AssertionError(f"tp {TP} bf16 logits differ across "
+                                     f"ranks")
+            log(f"tp {TP} bf16 vs tp 1: "
+                f"{tp_bf16_verdict(torch, tp1[dtype_name], legs[0])}")
+    launches = res[0]["bfloat16"]["launches"]
+    check_paged_routes(types.SimpleNamespace(
+        KERNEL_LAUNCHES=res[0]["bfloat16"]["kernels"]), launches,
+        f"tp {TP} bf16 rank 0", "bfloat16")
+    if any(launches[name] == 0 for name in REPLACES):
+        raise AssertionError(f"tp {TP}: a paged kernel never launched: "
+                             f"{launches}")
+    gat = res[0]["gathers"]
+    share = gat["s"] / gat["wall"]
+    log(f"tp {TP} bf16 all-gathers (the stream's wait on each, CUDA "
+        f"events on rank 0): {gat['calls']} calls over {gat['steps']} steps, "
+        f"{gat['s'] * 1e3:.1f} ms of the run's {gat['wall'] * 1e3:.1f} ms "
+        f"wall: share {share:.3f}, {gat['s'] / gat['calls'] * 1e3:.3f} ms a "
+        f"gather")
+    # (d)
+    for (cut, n_rows), want in ref.items():
+        atol = EP_FP32_ATOL if cut else EP_ATOL
+        errs_r = [float(np.abs(r["ep"][cut, n_rows]["y"] - want).max())
+                  for r in res]
+        walls = [r["ep"][cut, n_rows]["s"] * 1e3 for r in res]
+        log(f"tp ep {'fp32 cut' if cut else 'bf16 full width'} rows "
+            f"{n_rows}: {res[0]['ep'][cut, n_rows]['experts']} experts a "
+            f"rank, max_abs_err by rank "
+            f"{' '.join(f'{e:.3e}' for e in errs_r)} (atol {atol:g}, max |y| "
+            f"{float(np.abs(want).max()):.3f}); host ms by rank "
+            f"{' '.join(f'{w:.2f}' for w in walls)}")
+        if not max(errs_r) <= atol:
+            raise AssertionError(f"moe_ffn_dropless_ep differs from "
+                                 f"MoE.forward: {errs_r} > {atol}")
+    ep_launches = sum(res[0]["ep"][False, n]["launches"]["moe_mma_kernel"]
+                      for n in EP_ROWS)
+    # (e)
+    for rank, r in enumerate(res):
+        c = r["coll"]
+        scale = float(np.abs(c["exact"]).max())
+        rel = float(np.abs(c["int8"] - c["exact"]).max()) / scale
+        rel50 = float(np.abs(c["int8_mean"] - c["exact"]).max()) / scale
+        relb = float(np.abs(c["bf16"] - c["exact"]).max()) / scale
+        log(f"tp collectives rank {rank} ({c['device']}): int8 one step "
+            f"{rel:.3e} (< 0.02), {COLL_EF_STEPS} steps with feedback "
+            f"{rel50:.3e} (< 0.002), bf16 {relb:.3e} (< 0.01)")
+        if not (rel < 0.02 and rel50 < 0.002 and relb < 0.01):
+            raise AssertionError(f"collectives rank {rank} off bounds")
+    counts = {name: launches[name] for name in
+              ("paged_decode", "paged_decode_segmented", "segment_reduce",
+               "paged_prefill_qblock")}
+    counts[EP_ROW] = ep_launches
+    return rows, counts, dict(gather_share=share)
+
+
 def main() -> int:
     import torch
 
@@ -5515,6 +6175,14 @@ def main() -> int:
     families = phase_families(torch, kmods)
     lap("25 families")
 
+    # 26. tensor-parallel serving, the expert-parallel MoE and the gradient
+    # collectives in 4 gloo ranks sharing the card: (a) the kernels at the
+    # new launch shapes; (b) / (c) smollm-135m at tp 1 and tp 3, fp32 and
+    # bf16; (d) deepseek-v2's MoE layer over 4 ranks; (e) the collectives
+    tp_rows, tp_launches, _ = phase_tp(torch, (K, FK, SK, MK, GK, GO), tops,
+                                       errs)
+    lap("26 tp")
+
     # the segment_reduce row is the folded launch that computes it on the
     # main path (its standalone kernel is checked and timed, never served)
     times["segment_reduce"] = times[MERGED]
@@ -5569,6 +6237,13 @@ def main() -> int:
             name=f"{FLASH}[{paged_heads(arch)[2]} train, {arch}]",
             route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
             launches=flash_n, max_abs_err=ferr, **frow))
+    for name in FAMILY_PAGED:
+        kernels.append(dict(name=f"{name}[{TP_SHAPES}]", route="cuda",
+                            source=KERNEL_SOURCE, replaces=REPLACES[name],
+                            launches=tp_launches[name], **tp_rows[name]))
+    kernels.append(dict(name=EP_ROW, route="cuda", source=MOE_SOURCE,
+                        replaces=MOE_REPLACES, launches=tp_launches[EP_ROW],
+                        **tp_rows[EP_ROW]))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,5 @@
+"""Assigned-architecture config (see registry.py for the definition)."""
+from repro_torch.configs.registry import ARCHS
+
+CONFIG = ARCHS["xlstm-350m"]
+

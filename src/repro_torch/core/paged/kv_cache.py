@@ -22,8 +22,10 @@ class ShardingError(ValueError):
     """A launch or mesh configuration violates the sharding contract.
 
     Raised with the offending shapes in the message wherever a paged
-    kernel requires a shard-local (single-pool) view, or where a launch
-    layout cannot be split as requested.
+    kernel requires a shard-local (single-pool) view, or where a mesh
+    executor cannot split the model as requested (head counts not
+    divisible by tp, a process group of the wrong size, an unsupported
+    engine path).
     """
 
 
@@ -39,21 +41,64 @@ def require_single_pool(k_pages: torch.Tensor, site: str) -> None:
         )
 
 
-def make_kv_cache(num_layers: int, num_kv_heads: int, num_pools: int,
-                  pages_per_pool: int, page_size: int, k_dim: int,
-                  v_dim: int, dtype: torch.dtype,
-                  device) -> dict[str, torch.Tensor]:
-    """Zeroed {'k_pages', 'v_pages'} of shape
+def local_kv_heads(num_kv_heads: int, num_devices: int,
+                   *, num_q_heads: int | None = None) -> int:
+    """Per-rank KV head count under head-axis tensor parallelism.
+
+    Whole heads per rank keep every page gather rank-local and the math
+    that of one device, so both head counts must divide evenly."""
+    if num_kv_heads % num_devices:
+        raise ShardingError(
+            f"cannot shard num_kv_heads={num_kv_heads} across "
+            f"tp={num_devices} devices: the KV pool is split on the head "
+            f"axis in whole heads (num_kv_heads % tp must be 0)"
+        )
+    if num_q_heads is not None and num_q_heads % num_devices:
+        raise ShardingError(
+            f"cannot shard num_q_heads={num_q_heads} across "
+            f"tp={num_devices} devices: query heads are split in whole "
+            f"GQA groups (num_q_heads % tp must be 0)"
+        )
+    return num_kv_heads // num_devices
+
+
+def make_kv_cache_specs(num_layers: int, num_kv_heads: int, num_pools: int,
+                        pages_per_pool: int, page_size: int, k_dim: int,
+                        v_dim: int, dtype: torch.dtype) \
+        -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """{'k_pages', 'v_pages'}: (shape, dtype) of
     [L, Hkv, num_pools, pages_per_pool, page_size, k_dim / v_dim]; v_dim 0
     means V is a view into the K rows (MLA's latent) and only 'k_pages'
-    is made, as the reference's `make_kv_cache_specs`."""
+    is listed, as the reference's `make_kv_cache_specs`."""
     lead = (num_layers, num_kv_heads, num_pools, pages_per_pool, page_size)
-    cache = {"k_pages": torch.zeros(lead + (k_dim,), dtype=dtype,
-                                    device=device)}
+    specs = {"k_pages": (lead + (k_dim,), dtype)}
     if v_dim:
-        cache["v_pages"] = torch.zeros(lead + (v_dim,), dtype=dtype,
-                                       device=device)
-    return cache
+        specs["v_pages"] = (lead + (v_dim,), dtype)
+    return specs
+
+
+def shard_cache_specs(specs: dict, num_devices: int) -> dict:
+    """Per-rank view of `make_kv_cache_specs`: the head axis (dim 1) is
+    divided across the ranks, everything else is replicated."""
+    out = {}
+    for name, (shape, dtype) in specs.items():
+        local = local_kv_heads(shape[1], num_devices)
+        out[name] = (shape[:1] + (local,) + tuple(shape[2:]), dtype)
+    return out
+
+
+def make_kv_cache(num_layers: int, num_kv_heads: int, num_pools: int,
+                  pages_per_pool: int, page_size: int, k_dim: int,
+                  v_dim: int, dtype: torch.dtype, device,
+                  num_devices: int = 1) -> dict[str, torch.Tensor]:
+    """Zeroed tensors of `make_kv_cache_specs`; with `num_devices` > 1
+    one rank's pool (`shard_cache_specs`), allocated at that size."""
+    specs = shard_cache_specs(
+        make_kv_cache_specs(num_layers, num_kv_heads, num_pools,
+                            pages_per_pool, page_size, k_dim, v_dim, dtype),
+        num_devices)
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in specs.items()}
 
 
 def physical_slots(page_table: torch.Tensor, positions: torch.Tensor,

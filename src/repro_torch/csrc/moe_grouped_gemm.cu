@@ -50,7 +50,12 @@
 // Every block checks the offsets it reads (0 <= offsets[e] <=
 // offsets[e + 1] <= offsets[E] == R) and traps otherwise: the wrapper
 // cannot read the device's offsets without a host sync, and a bad group
-// must not read or write outside the rows.
+// must not read or write outside the rows.  With `tail` set the groups may
+// end before the last row (offsets[E] <= R): the rows past offsets[E]
+// belong to no expert and no block touches them.  The expert-parallel MoE
+// launches so, its rows routed to other ranks' experts sorted to the tail
+// (the wrapper zeroes the output's tail, as jax.lax.ragged_dot leaves
+// rows outside every group).
 //
 // The entry point is a plain C function (device pointers, shapes, the
 // stream) returning cudaGetLastError(), loaded from Python with ctypes.
@@ -81,12 +86,14 @@ __host__ __device__ constexpr size_t mma_smem_bytes(bool glu) {
 }
 
 // [lo, hi) of expert e's rows; traps on offsets that break the contract
+// (the groups end at R, or with `tail` at most at R)
 __device__ __forceinline__ void group_bounds(const int* offsets, int e,
-                                             int E, int R, int& lo,
-                                             int& hi) {
+                                             int E, int R, int tail,
+                                             int& lo, int& hi) {
   lo = __ldg(offsets + e);
   hi = __ldg(offsets + e + 1);
-  if (__ldg(offsets + E) != R || lo < 0 || lo > hi || hi > R) __trap();
+  const int end = __ldg(offsets + E);
+  if ((tail ? end > R : end != R) || lo < 0 || lo > hi || hi > R) __trap();
 }
 
 __device__ __forceinline__ float silu(float x) {
@@ -108,11 +115,11 @@ __global__ void __launch_bounds__(kMmaThreads)
     moe_mma_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w0,
                    const bf16* __restrict__ w1,
                    const int* __restrict__ offsets, bf16* __restrict__ out,
-                   int R, int E, int K, int N) {
+                   int R, int tail, int E, int K, int N) {
   using namespace mma_bf16;
   const int e = blockIdx.y;
   int lo, hi;
-  group_bounds(offsets, e, E, R, lo, hi);
+  group_bounds(offsets, e, E, R, tail, lo, hi);
   if (lo == hi) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -221,10 +228,11 @@ __global__ void __launch_bounds__(kFThreads)
                     const float* __restrict__ w0,
                     const float* __restrict__ w1,
                     const int* __restrict__ offsets,
-                    float* __restrict__ out, int R, int E, int K, int N) {
+                    float* __restrict__ out, int R, int tail, int E, int K,
+                    int N) {
   const int e = blockIdx.y;
   int lo, hi;
-  group_bounds(offsets, e, E, R, lo, hi);
+  group_bounds(offsets, e, E, R, tail, lo, hi);
   if (lo == hi) return;
   __shared__ float sa[kFBM][kFBK + 1];
   __shared__ float sg[kFBK][kFBN];
@@ -286,8 +294,8 @@ __global__ void __launch_bounds__(kFThreads)
 
 template <bool kGLU>
 cudaError_t launch_mma(const void* xs, const void* w0, const void* w1,
-                       const int* offsets, void* out, int R, int E, int K,
-                       int N, cudaStream_t stream) {
+                       const int* offsets, void* out, int R, int tail, int E,
+                       int K, int N, cudaStream_t stream) {
   static bool attr_set = false;  // once per process, before any capture
   const size_t smem = mma_smem_bytes(kGLU);
   if (!attr_set) {
@@ -300,20 +308,20 @@ cudaError_t launch_mma(const void* xs, const void* w0, const void* w1,
   const dim3 grid((N + kBN - 1) / kBN, E);
   moe_mma_kernel<kGLU><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(xs), static_cast<const bf16*>(w0),
-      static_cast<const bf16*>(w1), offsets, static_cast<bf16*>(out), R, E,
-      K, N);
+      static_cast<const bf16*>(w1), offsets, static_cast<bf16*>(out), R,
+      tail, E, K, N);
   return cudaGetLastError();
 }
 
 template <bool kGLU>
 cudaError_t launch_fp32(const void* xs, const void* w0, const void* w1,
-                        const int* offsets, void* out, int R, int E, int K,
-                        int N, cudaStream_t stream) {
+                        const int* offsets, void* out, int R, int tail, int E,
+                        int K, int N, cudaStream_t stream) {
   const dim3 grid((N + kFBN - 1) / kFBN, E);
   moe_fp32_kernel<kGLU><<<grid, kFThreads, 0, stream>>>(
       static_cast<const float*>(xs), static_cast<const float*>(w0),
       static_cast<const float*>(w1), offsets, static_cast<float*>(out), R,
-      E, K, N);
+      tail, E, K, N);
   return cudaGetLastError();
 }
 
@@ -326,20 +334,22 @@ extern "C" {
 int moe_grouped_gemm_uses_mma(int bf16) { return bf16 != 0; }
 
 // out [R, N] = glu ? silu(xs . w0[e]) * (xs . w1[e]) : xs . w0[e] over each
-// expert's rows; xs [R, K], w0 / w1 [E, K, N], offsets [E + 1] int32.
+// expert's rows; xs [R, K], w0 / w1 [E, K, N], offsets [E + 1] int32 ending
+// at R, or with `tail` at most at R (the rows past offsets[E] untouched).
 int moe_grouped_gemm(const void* xs, const void* w0, const void* w1,
                      const void* offsets, void* out, int R, int E, int K,
-                     int N, int glu, int bf16, void* stream) {
+                     int N, int glu, int bf16, int tail, void* stream) {
   if (R < 0 || E <= 0 || E > 65535 || K <= 0 || N <= 0)
     return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   const int* off = static_cast<const int*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return glu ? launch_mma<true>(xs, w0, w1, off, out, R, E, K, N, s)
-               : launch_mma<false>(xs, w0, w1, off, out, R, E, K, N, s);
-  return glu ? launch_fp32<true>(xs, w0, w1, off, out, R, E, K, N, s)
-             : launch_fp32<false>(xs, w0, w1, off, out, R, E, K, N, s);
+    return glu ? launch_mma<true>(xs, w0, w1, off, out, R, tail, E, K, N, s)
+               : launch_mma<false>(xs, w0, w1, off, out, R, tail, E, K, N,
+                                   s);
+  return glu ? launch_fp32<true>(xs, w0, w1, off, out, R, tail, E, K, N, s)
+             : launch_fp32<false>(xs, w0, w1, off, out, R, tail, E, K, N, s);
 }
 
 }  // extern "C"

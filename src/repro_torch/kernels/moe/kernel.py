@@ -5,7 +5,10 @@ its launch counter, and its plain PyTorch version.
 [E + 1] int32 (expert e's rows are [offsets[e], offsets[e + 1]), the last
 offset R), out [R, N] = xs . w0[e] over each expert's rows, or with `w1`
 the SwiGLU pair silu(xs . w0[e]) * (xs . w1[e]) in one launch; w0 / w1
-[E, K, N].  It is the product the reference computes with
+[E, K, N].  With `tail=True` the groups may end before R (offsets[E] <=
+R): the rows past offsets[E] belong to no expert and come out zero, as
+`jax.lax.ragged_dot` leaves rows outside every group (the
+expert-parallel MoE's rows routed to other ranks).  It is the product the reference computes with
 `jax.lax.ragged_dot` in `repro/models/moe.py:moe_ffn_dropless`, outside
 any Pallas kernel: no Pallas kernel is replaced.  The offsets stay on
 the device: the kernel's grid is fixed by (N, E), so the launch reads no
@@ -19,7 +22,7 @@ launch), fp32 the scalar one (`moe_fp32_kernel`).  Each kernel launch
 adds one to `LAUNCHES["moe_grouped_gemm"]` and one to the launched
 kernel's `KERNEL_LAUNCHES` entry.  The wrapper cannot read the device's
 offsets without a host sync, so the kernel checks them (0 <= offsets[e]
-<= offsets[e + 1] <= offsets[E] == R) and traps on a violation; the
+<= offsets[e + 1] <= offsets[E] == R, or <= R with `tail`) and traps on a violation; the
 plain version raises ValueError.
 """
 from __future__ import annotations
@@ -57,7 +60,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load(_LIB_NAME)
     if id(lib) not in _BOUND:
         f = lib.moe_grouped_gemm
-        f.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        f.argtypes = [_P] * 5 + [_I] * 7 + [_P]
         f.restype = _I
         lib.moe_grouped_gemm_uses_mma.argtypes = [_I]
         lib.moe_grouped_gemm_uses_mma.restype = _I
@@ -65,24 +68,27 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def group_bounds(offsets: torch.Tensor, rows: int) -> list[int]:
+def group_bounds(offsets: torch.Tensor, rows: int,
+                 tail: bool = False) -> list[int]:
     """The offsets on the host, checked against the contract."""
     bounds = [int(v) for v in offsets.tolist()]
-    if bounds[-1] != rows or bounds[0] < 0 or any(
+    end_ok = bounds[-1] <= rows if tail else bounds[-1] == rows
+    if not end_ok or bounds[0] < 0 or any(
             a > b for a, b in zip(bounds, bounds[1:])):
         raise ValueError(f"{NAME}: offsets {bounds} must rise from >= 0 to "
-                         f"R = {rows}")
+                         f"{'at most ' if tail else ''}R = {rows}")
     return bounds
 
 
 def grouped_gemm_plain(xs: torch.Tensor, w0: torch.Tensor,
                        offsets: torch.Tensor,
-                       w1: torch.Tensor | None = None) -> torch.Tensor:
+                       w1: torch.Tensor | None = None, *,
+                       tail: bool = False) -> torch.Tensor:
     """The kernel's function in PyTorch ops: one product (two with `w1`)
     per expert that has rows, in the operands' dtype."""
-    out = torch.empty((xs.shape[0], w0.shape[2]), dtype=xs.dtype,
-                      device=xs.device)
-    bounds = group_bounds(offsets, xs.shape[0])
+    bounds = group_bounds(offsets, xs.shape[0], tail)
+    out = (torch.zeros if tail else torch.empty)(
+        (xs.shape[0], w0.shape[2]), dtype=xs.dtype, device=xs.device)
     for e, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
         if hi == lo:
             continue
@@ -93,10 +99,12 @@ def grouped_gemm_plain(xs: torch.Tensor, w0: torch.Tensor,
 
 
 def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
-                 w1: torch.Tensor | None = None) -> torch.Tensor:
+                 w1: torch.Tensor | None = None, *,
+                 tail: bool = False) -> torch.Tensor:
     """xs [R, K] sorted by expert; w0 (and w1) [E, K, N] in xs's dtype;
     offsets [E + 1] int32.  Returns [R, N] in xs's dtype:
-    xs . w0[e], or silu(xs . w0[e]) * (xs . w1[e]) with `w1`."""
+    xs . w0[e], or silu(xs . w0[e]) * (xs . w1[e]) with `w1`; with `tail`
+    zeros on the rows past offsets[E]."""
     if xs.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{NAME}: xs must be float32 or bfloat16, got "
                         f"{xs.dtype}")
@@ -120,7 +128,7 @@ def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
         raise ValueError(f"{NAME}: offsets {tuple(offsets.shape)} must be "
                          f"[E + 1 = {e + 1}]")
     if not _on_card(NAME, xs, offsets, *ws):
-        return grouped_gemm_plain(xs, w0, offsets, w1)
+        return grouped_gemm_plain(xs, w0, offsets, w1, tail=tail)
     for t in (xs, offsets, *ws):
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: the CUDA kernel needs contiguous "
@@ -128,13 +136,14 @@ def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
     bf16 = int(xs.dtype == torch.bfloat16)
     if bf16:  # the tensor-core kernel copies its tiles with cp.async
         _check_aligned(NAME, xs, *ws)
-    out = torch.empty((r, n), dtype=xs.dtype, device=xs.device)
+    out = (torch.zeros if tail else torch.empty)(
+        (r, n), dtype=xs.dtype, device=xs.device)
     with torch.cuda.device(xs.device):
         lib = library()
         rc = lib.moe_grouped_gemm(
             _ptr(xs), _ptr(w0), _ptr(w0 if w1 is None else w1),
             _ptr(offsets), _ptr(out), r, e, k, n, int(w1 is not None), bf16,
-            _stream(xs))
+            int(tail), _stream(xs))
     _raise_on(rc, NAME)
     LAUNCHES[NAME] += 1
     KERNEL_LAUNCHES["moe_mma_kernel" if lib.moe_grouped_gemm_uses_mma(bf16)

@@ -7,7 +7,9 @@ the reference computes with three `jax.lax.ragged_dot`s: rows xs [R, d]
 sorted by expert, offsets [E + 1] int32 on the rows' device, weights
 w_gate / w_up [E, d, ff] and w_down [E, ff, d].  Returns ys [R, d] in xs's
 dtype; h [R, ff] is rounded to xs's dtype between the launches, as the
-reference's bf16 ragged_dot rounds it.
+reference's bf16 ragged_dot rounds it.  `tail=True`: the groups may end
+before R, the rows past offsets[E] come out zero (the expert-parallel
+MoE's rows of other ranks' experts).
 """
 from __future__ import annotations
 
@@ -18,6 +20,6 @@ from repro_torch.kernels.moe import kernel as K
 
 def expert_ffn(xs: torch.Tensor, offsets: torch.Tensor,
                w_gate: torch.Tensor, w_up: torch.Tensor,
-               w_down: torch.Tensor) -> torch.Tensor:
-    h = K.grouped_gemm(xs, w_gate, offsets, w_up)
-    return K.grouped_gemm(h, w_down, offsets)
+               w_down: torch.Tensor, *, tail: bool = False) -> torch.Tensor:
+    h = K.grouped_gemm(xs, w_gate, offsets, w_up, tail=tail)
+    return K.grouped_gemm(h, w_down, offsets, tail=tail)

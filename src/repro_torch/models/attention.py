@@ -26,6 +26,17 @@ row's query length); decode the absorbed form (q_nope . wk_b in fp32,
 the latent decode kernel over the pages with V the latent prefix of each
 row, then . wv_b in fp32).  Training runs the prefill's expanded form
 without the cache write or the length mask.
+
+Tensor parallelism (`shard`, a `distributed.sharding.ShardCtx` of size
+> 1; the unified step only, the reference's `_local_heads` and its one
+collective): q / k / v keep this rank's Hq / tp and Hkv / tp heads (the
+`wq` / `wk` / `wv` leaves already cut to them by
+`param_sharding.shard_serve_params`, or the rank's block sliced out of a
+replicated fused `wqkv`'s projection), the KV write and the unified
+attention run on the rank's pool of Hkv / tp heads, and one all-gather
+of the attention output on the head axis reassembles the full head set
+before the replicated `wo`.  Every other mode, and MLA, raises
+`ShardingError` under a split.
 """
 from __future__ import annotations
 
@@ -34,7 +45,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import backend as attn_backend
-from repro_torch.core.paged.kv_cache import scatter_kv
+from repro_torch.core.paged.kv_cache import ShardingError, scatter_kv
+from repro_torch.distributed.sharding import all_gather_heads
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 
@@ -56,6 +68,28 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
+
+
+def _split(shard) -> bool:
+    return shard is not None and shard.size > 1
+
+
+def _local_heads(x: torch.Tensor, n_local: int, shard) -> torch.Tensor:
+    """This rank's contiguous head block of a [B, S, H, D] projection: x
+    itself where the projection's leaves were cut to the local heads,
+    else (a replicated fused `wqkv`) block `shard.rank` of the full set.
+    RoPE is per head and position, so slicing after it equals slicing
+    before."""
+    if x.shape[2] == n_local:
+        return x
+    return x[:, :, shard.rank * n_local:(shard.rank + 1) * n_local]
+
+
+def _refuse_split(shard, mode: str) -> None:
+    if _split(shard):
+        raise ShardingError(
+            f"the mesh executor only runs the packed unified step; "
+            f"attention mode={mode!r} cannot run under tp={shard.size}")
 
 
 def rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -82,7 +116,9 @@ class Attention(nn.Module):
     """GQA attention.  Leaves `wq`, `wk`, `wv` (biased where `qkv_bias`),
     `wo`; with `fused_qkv` one `wqkv` [d, (Hq + 2 Hkv) Dh] in place of the
     three, its output split at Hq Dh and (Hq + Hkv) Dh (the reference's
-    `_qkv`)."""
+    `_qkv`).  Under tensor parallelism `wq` / `wk` / `wv` may hold only
+    a rank's heads (`param_sharding.shard_serve_params`): the head counts
+    of q / k / v follow the leaves' widths."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -112,19 +148,24 @@ class Attention(nn.Module):
                                          dim=-1)
         else:
             q, k, v = self.wq(x), self.wk(x), self.wv(x)
-        q = rope(cfg, q.reshape(b, s, hq, dh), positions)
-        k = rope(cfg, k.reshape(b, s, hkv, dh), positions)
-        return q, k, v.reshape(b, s, hkv, dh)
+        q = rope(cfg, q.reshape(b, s, -1, dh), positions)
+        k = rope(cfg, k.reshape(b, s, -1, dh), positions)
+        return q, k, v.reshape(b, s, -1, dh)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 k_pages: torch.Tensor, v_pages: torch.Tensor, meta: dict,
-                kernel_cfg=None) -> torch.Tensor:
+                kernel_cfg=None, shard=None) -> torch.Tensor:
         """x [1, T, d]; k/v_pages this layer's [Hkv, 1, P, ps, D] cache
-        (written in place).  meta: page_table, context_lens, query_lens,
-        query_start_loc, num_decode_seqs, and the step's write index
-        `write_index` (`kv_cache.write_index` of slot_mapping).  Returns [1, T, d]."""
+        (written in place; under `shard` the rank's Hkv / tp heads).
+        meta: page_table, context_lens, query_lens, query_start_loc,
+        num_decode_seqs, and the step's write index `write_index`
+        (`kv_cache.write_index` of slot_mapping).  Returns [1, T, d]."""
         b, t, _ = x.shape
         q, k, v = self.qkv(x, positions)
+        if _split(shard):
+            q = _local_heads(q, self.cfg.num_q_heads // shard.size, shard)
+            k = _local_heads(k, self.cfg.num_kv_heads // shard.size, shard)
+            v = _local_heads(v, self.cfg.num_kv_heads // shard.size, shard)
         scatter_kv(k_pages, k[0].transpose(0, 1), meta["write_index"])
         scatter_kv(v_pages, v[0].transpose(0, 1), meta["write_index"])
         o = attn_backend.unified_attention(
@@ -132,8 +173,13 @@ class Attention(nn.Module):
             meta["context_lens"], meta["query_start_loc"],
             meta["query_lens"], num_decode_seqs=meta["num_decode_seqs"],
             scale=self.cfg.resolved_head_dim ** -0.5, kernel_cfg=kernel_cfg,
-        )[None]
-        return self.wo(o.reshape(b, t, -1).to(x.dtype))
+        )
+        if _split(shard):
+            # the step's one collective: the ranks hold disjoint contiguous
+            # head blocks, so gathering them in rank order gives one
+            # device's o exactly
+            o = all_gather_heads(o, shard)
+        return self.wo(o[None].reshape(b, t, -1).to(x.dtype))
 
     def _write_kv(self, k, v, k_pages, v_pages, meta) -> None:
         """Write the step's K / V rows [B, S, Hkv, D] into this layer's
@@ -145,11 +191,13 @@ class Attention(nn.Module):
 
     def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
                         k_pages: torch.Tensor, v_pages: torch.Tensor,
-                        meta: dict, kernel_cfg=None) -> torch.Tensor:
+                        meta: dict, kernel_cfg=None,
+                        shard=None) -> torch.Tensor:
         """Chunks of prompts: fresh at context 0, or resumed after a prior
         context in the pages (positions absolute, context_lens = prior +
         chunk).  x [B, S, d]; positions [B, S]; meta: page_table,
         context_lens, query_lens and the write index.  Returns [B, S, d]."""
+        _refuse_split(shard, "prefill")
         b, s, _ = x.shape
         q, k, v = self.qkv(x, positions)
         self._write_kv(k, v, k_pages, v_pages, meta)
@@ -161,10 +209,12 @@ class Attention(nn.Module):
 
     def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
                        k_pages: torch.Tensor, v_pages: torch.Tensor,
-                       meta: dict, kernel_cfg=None) -> torch.Tensor:
+                       meta: dict, kernel_cfg=None,
+                       shard=None) -> torch.Tensor:
         """One token per slot.  x [B, 1, d]; positions [B, 1] (-1 on dead
         slots); meta: page_table, context_lens (0 on dead slots) and the
         write index.  Returns [B, 1, d]."""
+        _refuse_split(shard, "decode")
         b = x.shape[0]
         q, k, v = self.qkv(x, positions)
         self._write_kv(k, v, k_pages, v_pages, meta)
@@ -260,19 +310,28 @@ class MLAAttention(nn.Module):
         scatter_kv(k_pages, row.reshape(1, -1, row.shape[-1]),
                    meta["write_index"])
 
-    def forward(self, *args, **kwargs):
+    def forward(self, *args, shard=None, **kwargs):
+        self._refuse_split(shard)
         raise ValueError("the unified packed step is unsupported for MLA: "
                          "it serves on the padded per-kind step")
 
+    @staticmethod
+    def _refuse_split(shard) -> None:
+        if _split(shard):
+            raise ShardingError(
+                "MLA attention has a single latent KV head and cannot be "
+                f"head-sharded (requested tp={shard.size})")
+
     def forward_prefill(self, x: torch.Tensor, positions: torch.Tensor,
                         k_pages: torch.Tensor, v_pages, meta: dict,
-                        kernel_cfg=None) -> torch.Tensor:
+                        kernel_cfg=None, shard=None) -> torch.Tensor:
         """Fresh prompts at context 0 in the expanded form.  x [B, S, d];
         positions [B, S]; k_pages [1, 1, P, ps, r + rope] (v_pages None);
         meta: query_lens and the write index.  `cfg.mla_fused_prefill`
         computes the same function (the reference's per-KV-block
         expansion keeps its score buffers small; the flash forward never
         holds one), so it takes this path too.  Returns [B, S, d]."""
+        self._refuse_split(shard)
         b, s, _ = x.shape
         q_nope, q_rope = self.q(x, positions)
         latent, k_rope = self.latent(x, positions)
@@ -284,12 +343,13 @@ class MLAAttention(nn.Module):
 
     def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
                        k_pages: torch.Tensor, v_pages, meta: dict,
-                       kernel_cfg=None) -> torch.Tensor:
+                       kernel_cfg=None, shard=None) -> torch.Tensor:
         """One token per slot in the absorbed form.  x [B, 1, d];
         positions [B, 1] (-1 on dead slots); meta: page_table,
         context_lens (0 on dead slots) and the write index.  The kernel
         config is not read: the latent decode has one path, as the
         reference's.  Returns [B, 1, d]."""
+        self._refuse_split(shard)
         b = x.shape[0]
         m, h = self.cfg.mla, self.cfg.num_q_heads
         r = m.kv_lora_rank

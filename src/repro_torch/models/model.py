@@ -59,11 +59,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged.kv_cache import (
     make_kv_cache, physical_slots, write_index,
 )
+from repro_torch.distributed.sharding import expert_group
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import (Attention, MLAAttention,
                                           kv_cache_dims, temporal)
-from repro_torch.models.moe import MoE
+from repro_torch.models.moe import MoE, moe_ffn_dropless_ep
 from repro_torch.models.ssm_blocks import (
     Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
     mlstm_cache_specs, slstm_cache_specs,
@@ -91,8 +92,14 @@ class Block(nn.Module):
                              fused=cfg.fused_mlp)
 
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
-        """The serving FFN: the MLP, or the MoE's dropless path."""
+        """The serving FFN: the MLP, or the MoE's dropless path; that path
+        expert-parallel over the active expert group
+        (`sharding.use_expert_group`) where the config sets
+        `moe_ep_serve`, as the reference's `_decoder_block`."""
         if hasattr(self, "moe"):
+            group = expert_group()
+            if self.moe.ep_serve and group is not None:
+                return moe_ffn_dropless_ep(self.moe, x, group)[0]
             return self.moe(x)[0]
         return self.mlp(x)
 
@@ -246,10 +253,11 @@ class Model(nn.Module):
 
 
 def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
-               device) -> dict[str, dict[str, torch.Tensor]]:
+               device, tp: int = 1) -> dict[str, dict[str, torch.Tensor]]:
     """The empty serving cache: {"attn": {"k_pages", "v_pages"}} of
-    [n_attn, Hkv, 1, num_pages, page_size, head_dim] in the param dtype
-    (one pool: a single device) when the model has attention layers (MLA:
+    [n_attn, Hkv / tp, 1, num_pages, page_size, head_dim] in the param
+    dtype (one pool; at tp > 1 one rank's whole heads of every page, the
+    rank's block of the head axis) when the model has attention layers (MLA:
     {"k_pages"} of [n_attn, 1, 1, num_pages, page_size, r + rope],
     `kv_cache_dims`); for
     the hybrid family {"mamba": {"conv": [n_mamba, max_seqs, K-1,
@@ -263,7 +271,7 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
         hkv, dk, dv = kv_cache_dims(cfg)
         cache["attn"] = make_kv_cache(
             attn_layer_count(cfg), hkv, 1, num_pages, cfg.page_size, dk, dv,
-            cfg.param_dtype, device)
+            cfg.param_dtype, device, num_devices=tp)
     if cfg.family == "hybrid":
         groups = {"mamba": (hybrid_layout(cfg)[0], mamba2_cache_specs)}
     elif cfg.family == "ssm":
@@ -284,7 +292,8 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
 @torch.no_grad()
 def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
                   num_decode_seqs: int = 0, sample: bool = False,
-                  return_logits: bool = False, max_draft: int = 0):
+                  return_logits: bool = False, max_draft: int = 0,
+                  shard=None):
     """Token-packed unified step.
 
     `cache` is the attention pages {"k_pages", "v_pages"} (the "attn"
@@ -322,7 +331,14 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     as the reference returns its new cache).  Returns (last_logits [S, V]
     f32, cache) without sampling; (tokens [S] i32, cache) with it; with
     `max_draft = K`, (tokens [S, K+1] i32, num_emitted [S] i32, cache);
-    `return_logits=True` inserts last_logits before the cache."""
+    `return_logits=True` inserts last_logits before the cache.
+
+    `shard` (`distributed.sharding.ShardCtx`) marks one rank of a
+    head-parallel step (`serving/executor.py`): `cache` holds the rank's
+    Hkv / tp heads, each attention layer computes its head block and
+    all-gathers the outputs, so everything after it (the MLP or MoE, the
+    head, sampling and the verify epilogue) runs replicated and alike on
+    every rank."""
     if max_draft and not sample:
         raise ValueError("speculative verify samples: it needs sample=True")
     cfg = model.cfg
@@ -344,7 +360,7 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     x = L.embed(model.embed, inputs)  # [1, T, d]
     for i, blk in enumerate(model.decoder_blocks()):
         x = x + blk.attn(blk.ln1(x), positions, kp[i], vp[i], meta,
-                         kernel_cfg=kernel_cfg)
+                         kernel_cfg=kernel_cfg, shard=shard)
         x = x + blk.ffn(blk.ln2(x))
     # per-sequence last-token rows of the packed stream; the head is
     # row-wise, so it runs on these [S] rows instead of all T

@@ -56,11 +56,23 @@ The training forward (`mode="train"`), general in top_k:
 
 Every shape follows from T, so the training forward reads nothing on the
 host either, and `torch.utils.checkpoint`'s recompute takes the same
-routing.  The expert-parallel `moe_ffn_dropless_ep` is not ported.
+routing.
+
+The expert-parallel serving form, `moe_ffn_dropless_ep` (the
+reference's, over a process group where the reference has a mesh axis):
+each of the n ranks keeps E / n experts (`shard_experts`, placed once
+with the parameters: `param_sharding.shard_serve_experts`), routes every
+token as the dropless path does (the activations are replicated between
+blocks), runs the rows routed to its own experts on the grouped GEMM with
+E / n groups (the rest sorted to the tail, which the kernel leaves alone
+and the combine weighs by zero), and one fp32 `all_reduce` over the
+group sums the ranks' outputs; the shared experts are added after it.
+No token moves between ranks.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -88,6 +100,8 @@ class MoE(nn.Module):
         d, ff, e = cfg.d_model, m.d_ff_expert, m.num_experts
         dt = cfg.param_dtype
         self.top_k = m.top_k
+        self.num_experts = e  # the router's; the stacks may hold E / n
+        self.ep_serve = cfg.moe_ep_serve
         self.capacity_factor = m.capacity_factor
         self.aux_coef = m.router_aux_coef
         self.router = L.Linear(d, e, dtype=torch.float32, device=device)
@@ -144,6 +158,11 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, *, mode: str = "serve"):
         """x [..., d] -> (y in x's dtype, aux fp32 0-d): mode "serve" the
         dropless path (aux 0), "train" the capacity dispatch."""
+        if self.w_gate.shape[0] != self.num_experts:
+            raise ValueError(
+                f"this MoE layer holds {self.w_gate.shape[0]} of its "
+                f"{self.num_experts} experts (shard_experts): it runs only "
+                f"expert parallel, inside use_expert_group")
         if mode == "train":
             return self.forward_train(x)
         d = x.shape[-1]
@@ -210,3 +229,63 @@ class MoE(nn.Module):
         top1 = torch.nn.functional.one_hot(topi[:, 0], e).float()
         aux = e * torch.sum(top1.mean(0) * probs.mean(0)) * self.aux_coef
         return y.to(x.dtype).reshape(x.shape), aux
+
+
+def shard_experts(moe: MoE, n: int, rank: int) -> MoE:
+    """Cut, in place, `moe`'s expert stacks to rank `rank`'s block of E / n
+    experts (the router and the shared experts stay whole); returns it."""
+    e = moe.num_experts
+    if e % n:
+        raise ValueError(f"{e} experts do not split over {n} ranks")
+    e_loc = e // n
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(moe, name)
+        setattr(moe, name, nn.Parameter(
+            w.data[rank * e_loc:(rank + 1) * e_loc].clone(),
+            requires_grad=w.requires_grad))
+    return moe
+
+
+def moe_ffn_dropless_ep(moe: MoE, x: torch.Tensor, group=None):
+    """The expert-parallel dropless MoE over process group `group` (None:
+    the default group), the reference's `moe_ffn_dropless_ep`: x [..., d]
+    replicated on every rank -> (y in x's dtype, replicated; aux fp32 0,
+    as serving's).  `moe` holds this rank's E / n experts (`shard_experts`,
+    placed once with the parameters).  Falls back to the plain dropless
+    form when E does not divide over the ranks."""
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    e = moe.num_experts
+    if e % n:
+        return moe(x)
+    e_loc = e // n
+    if moe.w_gate.shape[0] != e_loc:
+        raise ValueError(
+            f"moe_ffn_dropless_ep over {n} ranks needs the layer cut to "
+            f"its {e_loc} experts a rank (shard_experts), but it holds "
+            f"{moe.w_gate.shape[0]}")
+    ws = (moe.w_gate, moe.w_up, moe.w_down)
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    t, k = xt.shape[0], moe.top_k
+    topw, topi = moe.route(xt)
+    e_flat = topi.reshape(-1) - rank * e_loc  # the local expert id
+    local = (e_flat >= 0) & (e_flat < e_loc)
+    key = torch.where(local, e_flat, e_loc)  # other ranks' rows: the tail
+    ids, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        ids, torch.arange(e_loc + 1, device=x.device), out_int32=True)
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(t * k, device=x.device))
+    xs = xt[order // k].to(ws[0].dtype)
+    ys = moe_ops.expert_ffn(xs, offsets, *ws, tail=True)
+    rows = ys[pos].float().reshape(t, k, d)
+    w = topw * local.reshape(t, k)
+    y = w[:, 0, None] * rows[:, 0]
+    for j in range(1, k):
+        y = y + w[:, j, None] * rows[:, j]
+    dist.all_reduce(y, group=group)
+    if moe.shared is not None:
+        y = y + moe.shared(xt).float()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y.to(x.dtype).reshape(x.shape), aux

@@ -124,7 +124,18 @@ tree picks captures its graph at first use, as any new key does.
 `max_prefill_tokens="auto"` takes a loaded tree's exported budget, else
 the Hopper cost model's (`autotune.costmodel`).
 
-Not ported yet (see ROADMAP.md): the tp executor.
+Tensor parallelism (`Engine(tp=N, tp_group=G)`, packed step only): the
+step runs through `serving/executor.py`'s `TensorParallelExecutor` on
+every rank of a `torch.distributed` group of N ranks (None: the default
+group), each rank holding Hkv / N heads of the KV pool and of `wq` / `wk`
+/ `wv`, with one all-gather of the attention output a layer.  Every rank
+runs the same engine on the same requests: the host schedule is
+deterministic and the sampled tokens come from replicated logits, so
+every rank packs the same batch each step and makes one step call
+(`device_calls == {"unified": steps}`).  The step runs eager
+(`cuda_graphs=True` on the card raises `ShardingError`); a step's `"pool"`
+is `alloc.mesh_stats(tp)`, the telemetry's and `BatchProfile`'s `tp` is
+N.  The engine's model becomes this rank's shard (cut in place).
 """
 from __future__ import annotations
 
@@ -146,6 +157,7 @@ from repro_torch.models import sampling
 from repro_torch.serving import cuda_graphs
 from repro_torch.serving.cuda_graphs import TokenCopies
 from repro_torch.serving.draft import Drafter, SpecConfig
+from repro_torch.serving.executor import make_executor
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import PENDING_TOKEN, Request, State
 from repro_torch.serving.scheduler import Scheduler
@@ -219,8 +231,11 @@ class Engine:
         telemetry=None,
         refit=None,
         device="cuda",
+        tp: int = 1,
+        tp_group=None,
     ):
         self.cfg = cfg
+        self.tp = tp
         self.device = torch.device(device)
         self.model = model.to(self.device)
         # obs.Telemetry | None.  None (the default) disables every hook
@@ -242,7 +257,7 @@ class Engine:
                 num_kv_heads=max(cfg.num_kv_heads, 1),
                 head_dim=cfg.resolved_head_dim,
                 page_size=cfg.page_size,
-                tp=1)
+                tp=tp)
         self.max_seqs = max_seqs
         self.num_pages = num_pages
         self.pages_per_seq = cdiv(max_model_len, cfg.page_size)
@@ -286,6 +301,18 @@ class Engine:
         self.spec_stats = {"proposed": 0, "accepted": 0, "emitted": 0,
                            "steps": 0}
         self._step_spec = (0, 0, 0)  # (proposed, accepted, emitted)
+        # CUDA graphs: the card only; one memory pool and one capture
+        # stream for all of the engine's graphs
+        self._graphs = cuda_graphs and self.device.type == "cuda"
+        # where the packed step runs: tp = 1 calls `apply_unified` as it
+        # always has; tp > 1 runs this rank's head block of it, with the
+        # model's qkv leaves cut to the rank's heads and its KV pool
+        # allocated at them
+        self.executor = make_executor(
+            cfg, tp=tp, group=tp_group, max_seqs=max_seqs,
+            fused=self._fused, packed=self._packed,
+            max_draft=self.max_draft, graphs=self._graphs)
+        self.model = self.executor.place_params(self.model)
         if enable_prefix_caching or enable_chunked_prefill:
             assert _page_addressable(cfg), (
                 "prefix caching / chunked prefill need page-addressable "
@@ -325,8 +352,8 @@ class Engine:
                                prefix_cache=self.prefix_cache,
                                enable_chunked_prefill=enable_chunked_prefill,
                                telemetry=telemetry, drafter=self.drafter)
-        self.cache = M.make_cache(cfg, max_seqs=max_seqs,
-                                  num_pages=num_pages, device=self.device)
+        self.cache = self.executor.place_cache(
+            max_seqs=max_seqs, num_pages=num_pages, device=self.device)
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
         self.step_idx = 0
         self.prefilled_tokens = 0  # uncached prompt tokens computed
@@ -349,9 +376,6 @@ class Engine:
         # key -> {"flops", "bytes_accessed"}: `_exe_cost`, stamped once
         # per key (telemetry only)
         self._launch_costs: dict[tuple, dict] = {}
-        # CUDA graphs: the card only; one memory pool and one capture
-        # stream for all of the engine's graphs
-        self._graphs = cuda_graphs and self.device.type == "cuda"
         self.graph_stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
         if self._graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -390,7 +414,8 @@ class Engine:
         if key not in self._compiled:
             self.compile_events.append(key)
             if kind == "unified":
-                body = functools.partial(self._unified_body, kcfg)
+                body = functools.partial(self._unified_body,
+                                         self.executor.build_unified(kcfg))
             elif kind == "decode":
                 body = functools.partial(self._decode_body, kcfg)
             elif kind == "prefill":
@@ -409,22 +434,19 @@ class Engine:
                 self._compiled[key] = cuda_graphs.EagerStep(body, self.device)
         return self._compiled[key]
 
-    def _unified_body(self, kcfg, batch: dict) -> tuple:
+    def _unified_body(self, step, batch: dict) -> tuple:
         """(ids, last logits [S, V]) fused; (last logits,) two-dispatch.
         A spec engine's ids are [S, K+2]: the verify tokens, then the
-        accept count."""
+        accept count.  `step` is the executor's `build_unified` callable
+        of the launch's kernel config."""
         if not self._fused:
-            logits, _ = M.apply_unified(
-                self.model, self.cache["attn"], batch, kernel_cfg=kcfg,
-                num_decode_seqs=self.max_seqs)
+            logits, _ = step(self.model, self.cache["attn"], batch)
             return (logits,)
         # a graph always reads the noise buffer (greedy rows ignore it); an
         # eager all-greedy step skips the filter, as the one-call sampler did
         noise = self._noise if self._graphs or self._noisy else None
-        *ids, logits, _ = M.apply_unified(
-            self.model, self.cache["attn"], dict(batch, noise=noise),
-            kernel_cfg=kcfg, num_decode_seqs=self.max_seqs, sample=True,
-            return_logits=True, max_draft=self.max_draft)
+        *ids, logits, _ = step(self.model, self.cache["attn"],
+                               dict(batch, noise=noise))
         if self._spec:
             toks, emitted = ids
             return torch.cat([toks, emitted[:, None]], dim=1), logits
@@ -566,6 +588,7 @@ class Engine:
             avg_query_len=next_power_of_2(max(total // nseq, 1)),
             total_tokens=next_power_of_2(total),
             spec_tokens=next_power_of_2(spec_total) if spec_total else 0,
+            tp=self.tp,
         )
 
     def _decode_profile(self, reqs: list[Request]) -> heuristics.BatchProfile:
@@ -575,6 +598,7 @@ class Engine:
             group=self._group, page_size=self.cfg.page_size,
             decode_share=1.0, avg_query_len=1,
             total_tokens=next_power_of_2(len(reqs)),
+            tp=self.tp,
         )
 
     def _prefill_profile(self, reqs: list[Request]) -> heuristics.BatchProfile:
@@ -587,6 +611,7 @@ class Engine:
             decode_share=0.0,
             avg_query_len=next_power_of_2(max(total // len(reqs), 1)),
             total_tokens=next_power_of_2(total),
+            tp=self.tp,
         )
 
     def _dispatch(self, phase: str, profile: heuristics.BatchProfile) \
@@ -879,7 +904,7 @@ class Engine:
                 self.sched.finish(req)
                 if slot is not None:
                     self.page_table[slot] = 0
-        stats["pool"] = self.alloc.mesh_stats(1)
+        stats["pool"] = self.alloc.mesh_stats(self.tp)
         stats["sampled_tokens"] = len(self._emitted)
         if tel:
             t_end = tel.clock.now()
