@@ -107,13 +107,13 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               prompts are served once before to capture it), and on the
               CPU: the logit gap within 2 x the CPU's own bf16-vs-fp32 gap;
               then three more fp32 legs, identical tokens and logits
-              within 5e-3: phase 5's shared-prefix trace with prefix
-              caching on (packed, in lockstep, the same cached tokens on
-              both), the padded step with chunked prefill at 64 (resumed
+              within 5e-3: 4 of phase 5's shared-prefix requests, 16 new
+              tokens, with prefix caching on (packed, in lockstep, the
+              same cached tokens on both), the padded step with chunked prefill at 64 (resumed
               chunks run `apply_prefill_cached` on the card's fp32 prefill
               kernel), `stream()` on the card against `generate()` on
               the CPU, launch by launch, and speculative decoding (4
-              prompts, two a repeated cycle, 16 greedy tokens, draft_k
+              prompts, two a repeated cycle, 8 greedy tokens, draft_k
               4): the same spec stats on both
   7. flash    the flash-attention forward kernel (o and lse) against its
               plain version on the card at the shape the train phase gives
@@ -136,7 +136,7 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               counters are zeroed just before and read just after: the
               flash kernel runs 2 x 30 x 6 times (each block's forward and
               its remat recompute), the paged kernels never
- 10. tdiff    full width in fp32 (TF32 off): 3 train steps at batch 2 x
+ 10. tdiff    full width in fp32 (TF32 off): 2 train steps at batch 2 x
               seq 256 on the card and on the CPU from the same weights and
               batches: losses within 1e-4 relative, grad norms within 1e-3
  11. ssd      the Mamba2 SSD kernel (y and the final state) against its
@@ -336,7 +336,7 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               backward, the MoE and attention layers, by CUDA events)
               logged; (c) deepseek-v2's attention width, 2 layers (the
               dense block's d_ff cut to 1024), 8 experts of ff 1024 top-6
-              with 2 shared, cf 1.25, a vocab of 32768, fp32 (TF32 off): 3
+              with 2 shared, cf 1.25, a vocab of 32768, fp32 (TF32 off): 2
               train steps at 2 x 128 on the card and on the CPU from the
               same weights and batches: losses within 1e-4 relative, grad
               norms within 1e-3, aux within 1e-5, the first step's MoE
@@ -356,7 +356,7 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               training attention (B 4, S 2048, 32 heads, group 1) against
               its plain version and timed beside SDPA; (c) full-size
               zamba2-1.2b (38 layers, bf16, random weights from seed 0)
-              takes 1 + 3 AdamW steps at batch 4 x seq 2048 of Markov data
+              takes 1 + 1 AdamW steps at batch 4 x seq 2048 of Markov data
               through `trainer.train_step`; the launch counters are zeroed
               just before and read just after: `ssd_mma_kernel` 64 a step
               (32 Mamba2 layers, each forward and its remat recompute),
@@ -366,7 +366,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               one profiled step's idle share and top kernels, and the
               step's parts (AdamW, the SSD's forwards and recompute
               backward, the flash backward) logged; (d) the same for
-              xlstm-350m (24 layers) at 4 x 1024: `mlstm_mma_kernel` 42 a
+              xlstm-350m cut to 12 of its 24 layers at 4 x 1024:
+              `mlstm_mma_kernel` 22 a
               step, and the sLSTM loop's forward + backward as a part;
               (e) reduced zamba2 and xlstm in fp32 (TF32 off), 3 steps at
               2 x 128 on the card and on the CPU: losses within 1e-4
@@ -375,7 +376,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               musicgen-large (48 layers, Hkv 32, group 1, D 64, no
               position encoding) and qwen2-vl-2b (28 layers, Hkv 2, group
               6, D 128, M-RoPE over [3, 1, T] positions, a 151,936
-              vocabulary) at full size, bf16, random weights from seed 0:
+              vocabulary) at full size, bf16, random weights from seed 0
+              drawn on the card:
               (a) phase 5's trace (8 requests of 128-1024 tokens, 32 new,
               max_seqs 8, chunked at 512, request 3 sampled) on a pool of
               1024 pages through the packed fused step, graphs then eager
@@ -415,7 +417,7 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               enqueue hidden beside its plain version, a library
               yardstick and its bound; (b) fp32 (TF32 off) full-width
               smollm-135m on phase 5's trace (8 requests, prompts
-              128-1024, 32 new, max_seqs 8, chunked at 512, greedy) at tp
+              128-1024, 16 new, max_seqs 8, chunked at 512, greedy) at tp
               1 here and at tp 3 in the ranks: tokens identical on every
               rank and to tp 1, logits within 1e-5, one unified call a
               step on each rank; (c) the same in bf16: every rank's
@@ -432,6 +434,34 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               within 0.02, 50 steps with error feedback within 0.002) and
               `bf16_psum` (0.01) on CUDA tensors at 4 ranks.  Any rank's
               failure fails the run
+ 27. mesh     training on a (data 2, model 2) mesh of 4 gloo ranks sharing
+              the card (`launch.mesh.make_mesh`, `param_sharding.
+              assign_param_shardings`, `train_step` under `use_rules`):
+              (c) the flash forward at one rank's heads of (b) (B 2, S
+              1024, 8 / 1 heads, D 128, bf16) against its plain version
+              and timed beside SDPA and its bound, its gradient card vs
+              CPU at a cut (fp32, 1e-4); (b)'s one-device run; (a) in the
+              ranks, fp32 (TF32 off): qwen2.5-3b at full width cut to 2
+              of its 36 layers, B 4 x S 256, FSDP + sequence
+              parallelism, 2 steps against the same on one device (every
+              rank runs both): losses 1e-5 relative, grad norms 1e-4,
+              every gradient leaf of both steps on each rank's blocks
+              within 1e-5 of the leaf's largest element; deepseek-v2's
+              reduced MoE cut (B 2 x S 16, capacity factor 0.5): the
+              first forward's expert ids and kept pairs identical to one
+              device's; (b) bf16 qwen2.5-3b at full width cut to 18 of
+              its 36 layers (drawn on the card), 4 x 1024, FSDP, 1 + 2
+              steps: losses and grad norms finite and equal on every
+              rank, every step's loss within 1e-4 relative of one
+              device's, the grad norms within 1e-3 on the initial weights
+              and 1e-2 after the real update (logged beside a one-device
+              control with 2 microbatches); each rank's
+              peak memory and share of the parameters; the step's wall
+              and rank 0's stream wait on collectives (CUDA events); the
+              flash kernel launched twice a layer a step on rank 0; (c)
+              `pipeline_apply` over the 4 ranks on CUDA tensors against
+              the sequential product (1e-5).  Any rank's failure fails
+              the run
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -570,6 +600,9 @@ PREEMPT_ENGINE = dict(max_seqs=4, num_pages=13, max_model_len=128)
 # the shared-prefix trace (phases 5 and 6): 8 requests of one 768-token
 # prefix and 64-256 tokens of their own, 32 new tokens each, chunked at 512
 SHARED_PREFIX, SHARED_OWN, SHARED_REQUESTS = 768, (64, 256), 8
+# phase 6's prefix-caching leg (card vs CPU in lockstep): its requests and
+# new tokens
+DIFF_SHARED, DIFF_SHARED_NEW = 4, 16
 # phase 5 (c): speculative decoding, up to SPEC_DRAFT_K drafts a request a
 # step; half the prompts repeat a cycle of SPEC_CYCLE tokens (drawn)
 SPEC_DRAFT_K, SPEC_CYCLE = 4, (3, 8)
@@ -655,7 +688,7 @@ TRAIN_KW = dict(base_lr=1e-3, warmup=1, total_steps=100)
 # tokens and the grad norm a sum over 135M squares, each after 30 layers
 # of fp32 GEMMs summed in another order on each side (~1e-6 relative
 # expected): 1e-4 and 1e-3 leave room without hiding a wrong kernel.
-TDIFF_BATCH, TDIFF_SEQ, TDIFF_STEPS = 2, 256, 3
+TDIFF_BATCH, TDIFF_SEQ, TDIFF_STEPS = 2, 256, 2
 TDIFF_LOSS_RTOL, TDIFF_GNORM_RTOL = 1e-4, 1e-3
 # phase 19: the spaces the sweep times, at the heads of the models served
 # by the packed step (smollm-135m), the padded step (zamba2-1.2b's
@@ -747,7 +780,7 @@ MTRAIN_GRAD_KV_LEN = [100]
 MTRAIN_DIFF_CUT = dict(num_layers=2, d_ff=1024, vocab_size=32768,
                        dtype="float32")
 MTRAIN_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
-MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, MTRAIN_DIFF_STEPS = 2, 128, 3
+MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, MTRAIN_DIFF_STEPS = 2, 128, 2
 # the aux is a mean of fp32 products over 256 tokens: 1e-5 absolute
 MTRAIN_AUX_ATOL = 1e-5
 # phase 24: training of the recurrent families, zamba2-1.2b at 4 x 2048
@@ -758,7 +791,8 @@ RTRAIN_MLSTM = "mlstm_chunked_fwd[train]"
 RTRAIN_FLASH = "flash_attention_fwd[64 train, 32 heads]"
 HTRAIN_BATCH, HTRAIN_SEQ = 4, 2048
 XTRAIN_BATCH, XTRAIN_SEQ = 4, 1024
-RTRAIN_STEPS = 3  # + 1 untimed warm-up step
+XTRAIN_LAYERS = 12  # of xlstm-350m's 24: the depth this phase trains
+RTRAIN_STEPS = 1  # + 1 untimed warm-up step
 # (a) zamba2's SSD (B, L, H, P, N, G, chunk) and (b) xlstm's mLSTM (B, L,
 # H, P, chunk, gates, state) at those shapes, from the zero state; their
 # fp32 gradients card vs CPU at two-chunk cuts, within 1e-4 x the largest
@@ -784,7 +818,7 @@ TP_ENGINE = dict(max_seqs=8, num_pages=2048, max_model_len=2048,
                  enable_chunked_prefill=True, max_prefill_tokens=512,
                  seed=SEED, debug_logits=True, device=DEVICE,
                  cuda_graphs=False)
-TP_NEW_TOKENS = 32
+TP_NEW_TOKENS = 16
 TP_LOGIT_ATOL = 1e-5
 TP_LEAD_CYCLES = 2_000_000  # the spin that hides a timed call's enqueue
 EP_ARCH = "deepseek-v2-236b"
@@ -795,6 +829,38 @@ EP_ATOL, EP_FP32_ATOL = 2e-2, 2e-5
 EP_FP32_CUT = dict(d_model=512, moe=dict(num_experts=8, d_ff_expert=1024))
 EP_ROW = f"moe_grouped_gemm[{EP_ARCH} ep{EP_RANKS} tail]"
 COLL_EF_STEPS = 50
+# phase 27: training on a (data 2, model 2) mesh, ranks of one gloo world
+# sharing the card (walls of ranks that share one card and reduce through
+# the host: not a mesh deployment's speed)
+MESH_ARCH = "qwen2.5-3b"
+MESH_SHAPE, MESH_RANKS = (2, 2), 4
+MESH_FP32_LAYERS, MESH_FP32_BATCH, MESH_FP32_SEQ = 2, 4, 256
+MESH_BF16_BATCH, MESH_BF16_SEQ = 4, 1024
+MESH_BF16_LAYERS = 18  # of its 36 layers: the phase's time
+MESH_BF16_STEPS = 2  # + 1 warm-up step
+MESH_REF_AT_ONCE = 2  # ranks running (a)'s one-device run together
+MESH_LOSS_RTOL, MESH_GNORM_RTOL, MESH_PARAM_TOL = 1e-5, 1e-4, 1e-5
+# (b) bf16 mesh vs one device, every step's loss and grad norm.  Steps 0
+# and 1 see the initial weights (TRAIN_KW's lr is 0 at step 0); step 2
+# follows a real update, after which AdamW (each element divided by its
+# own gradient's magnitude) has moved elements whose bf16 gradients
+# differ only by rounding (the mesh rounds its partial sums to bf16
+# before it adds them) by up to lr: that grad norm is held more loosely.
+# A control that changes only the order of the sums (one device, 2
+# microbatches) is logged beside it: how much one update amplifies a
+# rounding difference.  Readings on the H100 (deterministic run to run):
+# losses 7.9e-6 to 1.95e-5, grad norms 1.5e-4 / 3.2e-4 / 4.25e-3.
+MESH_BF16_RTOL, MESH_BF16_GNORM_RTOL, MESH_BF16_UPDATE_RTOL = 1e-4, 1e-3, 1e-2
+MESH_KW = dict(base_lr=1e-2, warmup=5, total_steps=60)
+# one rank's flash launches of (b): B 4 / data 2, 16 / 2 query heads, 2 / 2
+# KV heads, D 128; the gradient card vs CPU at a cut of those heads
+MESH_FLASH_CASE = (MESH_BF16_BATCH // 2, MESH_BF16_SEQ, MESH_BF16_SEQ, 8, 1,
+                   128, True, 0, "bfloat16")
+MESH_FLASH_GRAD = (1, 256, 256, 8, 1, 128, True, 0, "float32")
+MESH_FLASH = f"{FLASH}[{MESH_ARCH} mesh 2x2: 8 / 1 heads a rank]"
+MESH_MOE = dict(arch="deepseek-v2-236b", batch=2, seq=16,
+                capacity_factor=0.5)
+MESH_PIPE = (8, 6, 2, 16)  # layers, microbatches, rows a microbatch, width
 
 
 def log(msg: str) -> None:
@@ -1958,9 +2024,10 @@ def phase_diff_legs(torch, K):
                 debug_logits=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     # 1. the shared-prefix trace, prefix caching on, packed
-    shared = shared_prefix_prompts(torch, g, cfg.vocab_size)
+    # half of phase 5 (b)'s requests, 16 new tokens
+    shared = shared_prefix_prompts(torch, g, cfg.vocab_size)[:DIFF_SHARED]
     engines, *_ = lockstep_diff(
-        torch, "diff prefix-caching", cfg, models, shared, 32,
+        torch, "diff prefix-caching", cfg, models, shared, DIFF_SHARED_NEW,
         base | dict(max_seqs=8, num_pages=1024, max_model_len=2048,
                     enable_chunked_prefill=True, max_prefill_tokens=512,
                     enable_prefix_caching=True))
@@ -2025,7 +2092,7 @@ def phase_diff_legs(torch, K):
     # on both sides (lockstep_diff compares each step's emitted tokens)
     prompts = spec_prompts(torch, g, cfg.vocab_size, (90, 70, 101, 37))
     engines, *_ = lockstep_diff(
-        torch, "diff spec", cfg, models, prompts, 16,
+        torch, "diff spec", cfg, models, prompts, 8,
         base | dict(speculative=True, draft_k=SPEC_DRAFT_K))
     stats = [e.spec_stats for e in engines]
     log(f"diff spec: spec_stats card {stats[0]}  cpu {stats[1]}")
@@ -4894,6 +4961,8 @@ def phase_rtrain_model(torch, arch, batch_size, seq, kernel_modules):
     torch.cuda.empty_cache()
     cfg = ARCHS[arch]
     tag = "htrain" if cfg.family == "hybrid" else "xtrain"
+    if tag == "xtrain":
+        cfg = cfg.replace(num_layers=XTRAIN_LAYERS)
     t0 = time.perf_counter()
     model = weights.init_random(cfg, SEED, device=DEVICE)
     state = make_train_state(model)
@@ -5102,7 +5171,9 @@ def phase_family_serve(torch, arch, kernel_modules):
     K, FK, SK, MK, GK, AK = kernel_modules
     cfg = ARCHS[arch]
     t0 = time.perf_counter()
-    model = weights.init_random(cfg, SEED, device=DEVICE)
+    # drawn on the card (no card-vs-CPU leg reads these weights): seconds,
+    # where a CPU draw of 3.2 G parameters takes ~25
+    model = weights.init_random(cfg, SEED, device=DEVICE, on_device=True)
     n_params = sum(p.numel() for p in model.parameters())
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     kv_tok = cfg.num_layers * 2 * hkv * dh * cfg.param_dtype.itemsize
@@ -5176,25 +5247,30 @@ def phase_family_serve(torch, arch, kernel_modules):
 
 def phase_family_flash(torch, FK, cfg, iters=10):
     """25 (b)'s flash forward at `cfg`'s training attention (B 4, S 2048,
-    causal, bf16) against its plain version (2e-2 on o, 1e-4 on the lse)
-    and timed beside its plain version, SDPA and its bound.  Returns
-    (the max abs error, the row's numbers)."""
-    F = torch.nn.functional
+    causal, bf16): `flash_check_time`."""
     case = (FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ,
             cfg.num_q_heads, cfg.num_kv_heads, cfg.resolved_head_dim, True,
             0, "bfloat16")
+    return flash_check_time(torch, FK, case, f"ftrain {cfg.name}", iters)
+
+
+def flash_check_time(torch, FK, case, tag, iters=10):
+    """The flash forward at `case` (bf16) against its plain version (2e-2
+    on o, 1e-4 on the lse) and timed beside its plain version, SDPA and
+    its bound.  Returns (the max abs error, the row's numbers)."""
+    F = torch.nn.functional
     args, kw, (q, k, v) = flash_inputs(torch, case)
     o, lse = FK.flash_attention_fwd(*args, **kw)
     want_o, want_lse = FK.flash_attention_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((o.float() - want_o.float()).abs().max())
     err_lse = float((lse - want_lse).abs().max())
-    log(f"ftrain check flash {cfg.name} bf16 {case[:6]} block_q "
-        f"{kw['block_q']} x group {kw['group']}: max_abs_err o {err:.3e} "
-        f"lse {err_lse:.3e} (atol 2e-2 / 1e-4)")
+    log(f"{tag} check flash bf16 {case[:6]} block_q {kw['block_q']} x "
+        f"group {kw['group']}: max_abs_err o {err:.3e} lse {err_lse:.3e} "
+        f"(atol 2e-2 / 1e-4)")
     if not (err <= ATOL["bfloat16"] and err_lse <= 1e-4):
-        raise AssertionError(f"ftrain: the flash kernel disagrees with its "
-                             f"plain version at {cfg.name}'s training shape")
+        raise AssertionError(f"{tag}: the flash kernel disagrees with its "
+                             f"plain version at {case}")
     del o, lse, want_o, want_lse
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     qt, kt, vt = (x.transpose(1, 2).contiguous().to(DEVICE)
@@ -5206,7 +5282,7 @@ def phase_family_flash(torch, FK, cfg, iters=10):
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters, flush)
     bound_ms, bound_by = flash_bound(case)
-    log(f"time  flash {cfg.name} bf16 B {case[0]} S {case[1]} Hq {case[3]} "
+    log(f"time  flash {tag} bf16 B {case[0]} S {case[1]} Hq {case[3]} "
         f"Hkv {case[4]} D {case[5]} kernel_ms {ms:.4f}  plain_ms "
         f"{plain_ms:.4f}  library_ms {lib_ms:.4f} (SDPA)  bound_ms "
         f"{bound_ms:.5f} ({bound_by})")
@@ -5984,6 +6060,493 @@ def phase_tp(torch, kernel_modules, tops, errs):
     return rows, counts, dict(gather_share=share)
 
 
+def mesh_batches(cfg, n, b, s):
+    """n global Markov batches as numpy (crossing into the ranks)."""
+    from repro_torch.training.data import DataState, MarkovDataset
+
+    ds, dstate, out = MarkovDataset(cfg.vocab_size, seed=1), \
+        DataState(seed=1), []
+    for _ in range(n):
+        batch, dstate = ds.batch(dstate, batch_size=b, seq_len=s)
+        out.append({k: v.copy() for k, v in batch.items()})
+    return out
+
+
+def mesh_gpu(torch, batch):
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def mesh_steps(torch, model, state, batches, record=None, kw=None):
+    """`train_step` over `batches` (numpy, global) with the schedule `kw`
+    (MESH_KW); (state, metrics by step, walls in s).  `record(step,
+    grads)` sees each update's complete gradients before the clip."""
+    from repro_torch.training import trainer as T
+
+    inner, metrics, walls = T.adamw_update, [], []
+    if record is not None:
+        def recording(grads, opt_state, params, **kw):
+            record(len(metrics), grads)
+            return inner(grads, opt_state, params, **kw)
+        T.adamw_update = recording
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = T.train_step(model, state, mesh_gpu(torch, batch),
+                                    **(kw or MESH_KW))
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        T.adamw_update = inner
+    return state, metrics, walls
+
+
+def mesh_expert_ids(torch, model_mod_moe):
+    """(ids, undo): `MoE.route`'s top-k ids of each call, on the CPU."""
+    ids, inner = [], model_mod_moe.MoE.route
+
+    def route(self, xt, probs=None):
+        topw, topi = inner(self, xt, probs)
+        ids.append(topi.cpu().numpy())
+        return topw, topi
+
+    model_mod_moe.MoE.route = route
+    return ids, lambda: setattr(model_mod_moe.MoE, "route", inner)
+
+
+def mesh_timed_collectives(torch, spmd_mod, dist, events):
+    """Wrap the port's all-gathers and every all-reduce between two CUDA
+    events on the current stream (gloo makes the stream wait for the
+    collective's result), appended to `events`; returns the undo."""
+    gather, reduce_ = spmd_mod.gather_ranks, dist.all_reduce
+
+    def timed(fn):
+        def wrapped(*a, **kw):
+            x = torch.cuda.Event(enable_timing=True)
+            y = torch.cuda.Event(enable_timing=True)
+            x.record()
+            out = fn(*a, **kw)
+            y.record()
+            events.append((x, y))
+            return out
+        return wrapped
+
+    spmd_mod.gather_ranks, dist.all_reduce = timed(gather), timed(reduce_)
+
+    def undo():
+        spmd_mod.gather_ranks, dist.all_reduce = gather, reduce_
+    return undo
+
+
+def mesh_fp32_leg(torch, mesh):
+    """27 (a) in one rank: full-width qwen2.5-3b cut to MESH_FP32_LAYERS
+    layers, fp32, 2 steps on one device (this rank, the whole model)
+    then on the mesh with FSDP: losses and grad norms, and each gradient
+    leaf of both steps on this rank's blocks against the one-device
+    leaf's largest element."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import param_sharding as PS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import trainer as T
+
+    import gc
+
+    import torch.distributed as dist
+
+    cfg = ARCHS[MESH_ARCH].replace(num_layers=MESH_FP32_LAYERS,
+                                   dtype="float32")
+    batches = mesh_batches(cfg, 2, MESH_FP32_BATCH, MESH_FP32_SEQ)
+    rules = SH.make_rules(fsdp=True, sp=True)
+    ref = {}  # this rank's blocks of the one-device gradients, each max
+    # the one-device run (~19 GB at its peak) in every rank, two ranks at
+    # a time: four at once do not fit the card
+    for turn in range(0, dist.get_world_size(), MESH_REF_AT_ONCE):
+        if turn <= dist.get_rank() < turn + MESH_REF_AT_ONCE:
+            model = weights.init_random(cfg, SEED, device=DEVICE,
+                                        on_device=True)
+            names = [n for n, _ in model.named_parameters()]
+            layouts = PS.param_layouts(model, mesh_shape=mesh.shape,
+                                       fsdp=True, batch_axes=rules["batch"])
+
+            def keep_blocks(step, grads):
+                for name, g in zip(names, grads):
+                    ref[(step, name)] = (PS.cut_block(g, layouts[name],
+                                                      mesh).clone(),
+                                         float(g.abs().max()))
+
+            state = T.make_train_state(model)
+            _, one, _ = mesh_steps(torch, model, state, batches,
+                                   keep_blocks)
+            del model, state
+            torch.cuda.empty_cache()
+        dist.barrier()
+    model = weights.init_random(cfg, SEED, device=DEVICE, on_device=True)
+    PS.assign_param_shardings(model, mesh=mesh, fsdp=True,
+                              batch_axes=rules["batch"])
+    worst = {}
+
+    def compare(step, grads):
+        for name, g in zip(names, grads):
+            block, top = ref[(step, name)]
+            err = float((g - block).abs().max()) / max(top, 1e-30)
+            worst[name] = max(worst.get(name, 0.0), err)
+
+    state = T.make_train_state(model)
+    with SH.use_rules(mesh, rules):
+        _, got, _ = mesh_steps(torch, model, state, batches, compare)
+    ref.clear()
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(one=one, mesh=got, worst_grad=max(worst.values()),
+                worst_leaf=max(worst, key=worst.get))
+
+
+def mesh_moe_leg(torch, mesh):
+    """27 (a)'s MoE cut in one rank: reduced deepseek-v2 (tests/
+    test_torch_mesh_training.py (c): B 2 x S 16, capacity factor 0.5,
+    fp32): the first forward's expert ids and kept pairs on one device
+    and on the mesh (one group: every rank routes all of it)."""
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed import param_sharding as PS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    base = reduced(ARCHS[MESH_MOE["arch"]])
+    cfg = base.replace(dtype="float32", moe=base.moe.__class__(**{
+        **base.moe.__dict__, "capacity_factor": MESH_MOE["capacity_factor"]}))
+    batch = mesh_gpu(torch, mesh_batches(cfg, 1, MESH_MOE["batch"],
+                                         MESH_MOE["seq"])[0])
+    out = {}
+    for where in ("one", "mesh"):
+        model = weights.init_random(cfg, SEED, device=DEVICE)
+        rules = SH.make_rules(fsdp=True, sp=True)
+        ids, undo = mesh_expert_ids(torch, moe_mod)
+        kept, inner = [], moe_mod.MoE.capacity_slots
+
+        def counted(self, topi, cap):
+            slot, k = inner(self, topi, cap)
+            kept.append(int(k.sum()))
+            return slot, k
+
+        moe_mod.MoE.capacity_slots = counted
+        try:
+            with torch.no_grad():
+                if where == "one":
+                    loss, m = M.apply_train(model, batch)
+                else:
+                    PS.assign_param_shardings(model, mesh=mesh, fsdp=True,
+                                              batch_axes=rules["batch"])
+                    with SH.use_rules(mesh, rules):
+                        loss, m = M.apply_train(
+                            model, PS.assign_batch_shardings(
+                                batch, mesh=mesh,
+                                batch_axes=rules["batch"]))
+        finally:
+            undo()
+            moe_mod.MoE.capacity_slots = inner
+        out[where] = dict(ids=ids, kept=kept, loss=float(loss),
+                          aux=float(m["aux"]))
+    return out
+
+
+def mesh_bf16_leg(torch, mesh, rank, batches):
+    """27 (b) in one rank: qwen2.5-3b at full width, MESH_BF16_LAYERS of
+    its 36 layers, in bf16 (drawn on the card), placed with FSDP, 1 + MESH_BF16_STEPS steps at MESH_BF16_BATCH
+    x MESH_BF16_SEQ: losses, walls, peak memory, the local share of the
+    parameters, the flash launches and the stream's wait on collectives
+    (rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import param_sharding as PS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.training import trainer as T
+
+    cfg = ARCHS[MESH_ARCH].replace(num_layers=MESH_BF16_LAYERS)
+    t0 = time.perf_counter()
+    held_before = torch.cuda.memory_reserved() / 2**30
+    model = weights.init_random(cfg, SEED, device=DEVICE, on_device=True)
+    n_whole = sum(p.numel() for p in model.parameters())
+    rules = SH.make_rules(fsdp=True, sp=True)
+    PS.assign_param_shardings(model, mesh=mesh, fsdp=True,
+                              batch_axes=rules["batch"])
+    state = T.make_train_state(model)
+    n_local = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    events, undo = [], None
+    with SH.use_rules(mesh, rules):
+        state, m0, w0 = mesh_steps(torch, model, state, batches[:1],
+                                   kw=TRAIN_KW)
+        if rank == 0:
+            undo = mesh_timed_collectives(torch, spmd, dist, events)
+        try:
+            _, ms, ws = mesh_steps(torch, model, state, batches[1:],
+                                   kw=TRAIN_KW)
+        finally:
+            if undo is not None:
+                undo()
+    torch.cuda.synchronize()
+    waits = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    out = dict(losses=[m["loss"] for m in m0 + ms],
+               gnorms=[m["grad_norm"] for m in m0 + ms], walls=w0 + ws,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               share=n_local / n_whole, n_whole=n_whole, setup_s=setup_s,
+               held_before_gib=held_before,
+               launches=dict(FK.LAUNCHES), kernels=dict(FK.KERNEL_LAUNCHES),
+               collectives=len(events), wait_s=waits)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pipeline_leg(torch):
+    """27 (c)'s pipeline in one rank: `pipeline_apply` over the world's
+    ranks as stages, fp32 on the card, and the sequential product."""
+    from repro_torch.distributed import pipeline
+
+    n_layers, m, mb, d = MESH_PIPE
+    g = torch.Generator(device="cpu").manual_seed(SEED + 27)
+    w = (torch.randn((n_layers, d, d), generator=g) * 0.3).to(DEVICE)
+    x = torch.randn((m, mb, d), generator=g).to(DEVICE)
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+
+    def stage_fn(ws, h):
+        for wl in ws:
+            h = torch.tanh(h @ wl)
+        return h
+
+    got = pipeline.pipeline_apply(stage_fn, pipeline.stage_split(
+        w, world)[rank], x)
+    return float((got - stage_fn(w, x)).abs().max())
+
+
+def mesh_rank(rank, world, bf16_batches):
+    """One rank of phase 27 (a process of its own, one gloo world of
+    MESH_RANKS ranks on the one card, the (data 2, model 2) mesh): (a) the
+    fp32 cut and the MoE cut, (b) full-size bf16, (c) the pipeline.
+    Returns plain data."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device_type="cuda")
+    out = {"coord": dict(mesh.coord)}
+    t0 = time.perf_counter()
+    out["fp32"] = mesh_fp32_leg(torch, mesh)
+    out["moe"] = mesh_moe_leg(torch, mesh)
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bf16"] = mesh_bf16_leg(torch, mesh, rank, bf16_batches)
+    out["b_s"] = time.perf_counter() - t0
+    out["pipeline_err"] = mesh_pipeline_leg(torch)
+    return out
+
+
+def mesh_one_device_rank(rank, world, batches):
+    """27 (b)'s one-device run, in a process of its own (its ~47 GB are
+    the card's again when it exits, before the ranks start): full-size
+    qwen2.5-3b bf16, the same weights and batches; then the control, the
+    same with 2 microbatches (the same sums in another rounding).  Returns
+    {"one", "control"}: each {losses, gnorms, walls}."""
+    import torch
+
+    from repro_torch import weights
+    from repro_torch.configs import ARCHS
+    from repro_torch.training import trainer as T
+
+    torch.cuda.set_device(0)
+    cfg = ARCHS[MESH_ARCH].replace(num_layers=MESH_BF16_LAYERS)
+    out = {}
+    for name, kw in (("one", TRAIN_KW),
+                     ("control", dict(TRAIN_KW, microbatches=2))):
+        model = weights.init_random(cfg, SEED, device=DEVICE,
+                                    on_device=True)
+        state = T.make_train_state(model)
+        _, metrics, walls = mesh_steps(torch, model, state, batches, kw=kw)
+        out[name] = dict(losses=[m["loss"] for m in metrics],
+                         gnorms=[m["grad_norm"] for m in metrics],
+                         walls=walls)
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(torch, FK):
+    """27: training on a (data 2, model 2) mesh of MESH_RANKS gloo ranks
+    sharing the card: (c) the flash forward at one rank's heads checked
+    and timed, and its gradient card vs CPU; (b)'s one-device bf16 run;
+    then the ranks: (a) fp32 mesh vs one device (losses 1e-5 relative,
+    grad norms 1e-4, every gradient leaf of both steps 1e-5 of its
+    largest element; the MoE cut's expert ids and kept pairs identical),
+    (b) bf16 at full width, MESH_BF16_LAYERS of 36 layers (finite losses
+    and grad norms equal on every rank, every step's within
+    MESH_BF16_RTOL / MESH_BF16_GNORM_RTOL / MESH_BF16_UPDATE_RTOL relative
+    of one device; peak
+    memory, the share of the parameters a rank holds, the step's wall and
+    the stream's wait on collectives),
+    (c) `pipeline_apply` on CUDA tensors against the sequential product
+    (1e-5).  Any rank's failure fails the phase.  Returns (the JSON row's
+    numbers, its launches)."""
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import spawn_ranks
+
+    # (c) the flash forward at one rank's heads of (b)'s launches
+    err, row = flash_check_time(torch, FK, MESH_FLASH_CASE, "mesh")
+    _, _, inputs = flash_inputs(torch, MESH_FLASH_GRAD, seed=27)
+    w = torch.randn(inputs[0].shape,
+                    generator=torch.Generator(device="cpu").manual_seed(28))
+    grads = []
+    for dev in (DEVICE, "cpu"):
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        torch.sum(fops.flash_attention(*xs, causal=True)
+                  * w.to(dev)).backward()
+        grads.append([x.grad.cpu() for x in xs])
+    gerr = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"mesh flash grad {MESH_FLASH_GRAD[:6]} fp32 card vs cpu: "
+        f"max_abs_err {gerr:.3e} (atol 1e-4)")
+    if not gerr <= 1e-4:
+        raise AssertionError("mesh: the flash gradient differs card vs CPU")
+    cfg = ARCHS[MESH_ARCH].replace(num_layers=MESH_BF16_LAYERS)
+    batches = mesh_batches(cfg, 1 + MESH_BF16_STEPS, MESH_BF16_BATCH,
+                           MESH_BF16_SEQ)
+    store = ROOT / "build" / "mesh"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ref = spawn_ranks(mesh_one_device_rank, 1, backend="gloo",
+                      init_file=str(store / "one"), args=(batches,))[0]
+    one_losses, one_gnorms, one_walls = (ref["one"][k] for k in (
+        "losses", "gnorms", "walls"))
+    log(f"mesh one device {MESH_ARCH} bf16 {cfg.num_layers} layers "
+        f"{MESH_BF16_BATCH} x {MESH_BF16_SEQ}: losses {one_losses} walls "
+        f"{[round(x, 3) for x in one_walls]} s ({time.perf_counter() - t0:.1f}s"
+        f" with its process)")
+    t0 = time.perf_counter()
+    res = spawn_ranks(mesh_rank, MESH_RANKS, backend="gloo",
+                      init_file=str(store / "store"), args=(batches,))
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"mesh ranks: {MESH_RANKS} processes over gloo on the one card, "
+        f"{time.perf_counter() - t0:.1f}s; (a) {res[0]['a_s']:.1f}s (b) "
+        f"{res[0]['b_s']:.1f}s")
+    # (a)
+    for r, out in enumerate(res):
+        a = out["fp32"]
+        for i, (one, got) in enumerate(zip(a["one"], a["mesh"])):
+            dl = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+            dg = abs(got["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            if r == 0:
+                log(f"mesh fp32 {MESH_ARCH} {MESH_FP32_LAYERS} layers step "
+                    f"{i}: loss {got['loss']:.7f} (one device "
+                    f"{one['loss']:.7f}, rel {dl:.2e}) grad_norm "
+                    f"{got['grad_norm']:.6f} ({one['grad_norm']:.6f}, rel "
+                    f"{dg:.2e})")
+            if not (dl <= MESH_LOSS_RTOL and dg <= MESH_GNORM_RTOL):
+                raise AssertionError(f"mesh fp32: rank {r} step {i} differs "
+                                     f"from one device: {got} {one}")
+        log(f"mesh fp32 rank {r} {out['coord']}: gradient leaves of both "
+            f"steps within {a['worst_grad']:.2e} of each leaf's largest "
+            f"element (worst {a['worst_leaf']}; bound {MESH_PARAM_TOL:g})")
+        if not a["worst_grad"] <= MESH_PARAM_TOL:
+            raise AssertionError(f"mesh fp32: rank {r}'s gradient blocks "
+                                 f"differ from one device's")
+        moe = out["moe"]
+        same_ids = len(moe["one"]["ids"]) == len(moe["mesh"]["ids"]) and all(
+            (a_ == b_).all() for a_, b_ in zip(moe["one"]["ids"],
+                                               moe["mesh"]["ids"]))
+        if r == 0:
+            log(f"mesh moe cut: expert ids identical {same_ids} over "
+                f"{len(moe['one']['ids'])} MoE calls; kept pairs of "
+                f"{moe['one']['ids'][0].size} routed a call: one "
+                f"{moe['one']['kept']} mesh {moe['mesh']['kept']}; loss "
+                f"{moe['mesh']['loss']:.7f} ({moe['one']['loss']:.7f}) aux "
+                f"{moe['mesh']['aux']:.7f} ({moe['one']['aux']:.7f})")
+        if not same_ids or moe["one"]["kept"] != moe["mesh"]["kept"]:
+            raise AssertionError(f"mesh moe: rank {r}'s routing or drops "
+                                 f"differ from one device's")
+    # (b) every step (MESH_BF16_RTOL's comment)
+    losses = [out["bf16"]["losses"] for out in res]
+    gnorms = [out["bf16"]["gnorms"] for out in res]
+    b0 = res[0]["bf16"]
+
+    def rel(got, want):
+        return [abs(a_ - b_) / abs(b_) for a_, b_ in zip(got, want)]
+    rels, grels = rel(losses[0], one_losses), rel(gnorms[0], one_gnorms)
+    crels = rel(ref["control"]["losses"], one_losses)
+    cgrels = rel(ref["control"]["gnorms"], one_gnorms)
+    log(f"mesh bf16 {MESH_ARCH} {cfg.num_layers} layers on {MESH_SHAPE}: "
+        f"losses {losses[0]} (one device {one_losses}; rel "
+        f"{[f'{x:.2e}' for x in rels]}, bound {MESH_BF16_RTOL:g}); grad "
+        f"norms {gnorms[0]} (one device {one_gnorms}; rel "
+        f"{[f'{x:.2e}' for x in grels]}, bound {MESH_BF16_GNORM_RTOL:g} on "
+        f"the initial weights, {MESH_BF16_UPDATE_RTOL:g} after the update);"
+        f" equal on every rank "
+        f"{all(x == losses[0] for x in losses) and all(x == gnorms[0] for x in gnorms)}")
+    log(f"mesh bf16 control (one device, 2 microbatches) against one "
+        f"device: losses rel {[f'{x:.2e}' for x in crels]}, grad norms rel "
+        f"{[f'{x:.2e}' for x in cgrels]}")
+    if not (all(math.isfinite(x) for x in losses[0] + gnorms[0])
+            and len(rels) == len(grels) == 1 + MESH_BF16_STEPS
+            and all(x == losses[0] for x in losses)
+            and all(x == gnorms[0] for x in gnorms)
+            and max(rels) <= MESH_BF16_RTOL
+            and max(grels[:2]) <= MESH_BF16_GNORM_RTOL
+            and max(grels[2:]) <= MESH_BF16_UPDATE_RTOL):
+        raise AssertionError(f"mesh bf16: losses {losses} grad norms "
+                             f"{gnorms} against one device {one_losses} "
+                             f"{one_gnorms}")
+    for r, out in enumerate(res):
+        b = out["bf16"]
+        log(f"mesh bf16 rank {r} {out['coord']}: peak memory "
+            f"{b['peak_gib']:.2f} GiB, parameters held {b['share']:.4f} of "
+            f"{b['n_whole']} (set-up {b['setup_s']:.1f}s; "
+            f"{b['held_before_gib']:.2f} GiB reserved before it)")
+    timed = b0["walls"][1:]
+    step_s = sum(timed) / len(timed)
+    log(f"mesh bf16 step walls {[round(x, 3) for x in b0['walls']]} s "
+        f"(one device {[round(x, 3) for x in one_walls]} s); rank 0's stream "
+        f"waits {b0['wait_s']:.3f} s on {b0['collectives']} collectives in "
+        f"the {len(timed)} timed steps: {b0['wait_s'] / sum(timed):.3f} of "
+        f"them (ranks sharing one card, reduced through the host: not a "
+        f"mesh deployment's speed)")
+    want = 2 * cfg.num_layers * len(b0["walls"])
+    launched = b0["kernels"].get("flash_mma_kernel", 0)
+    log(f"mesh bf16 rank 0 flash launches {b0['launches']} kernels "
+        f"{b0['kernels']} (expected {want}: each layer's forward and its "
+        f"recompute, every step)")
+    if launched != want or b0["launches"]["flash_attention_fwd"] != want:
+        raise AssertionError(f"mesh bf16: flash launches {b0['kernels']}, "
+                             f"expected {want}")
+    # (c)
+    perr = max(out["pipeline_err"] for out in res)
+    log(f"mesh pipeline {MESH_PIPE} (L, M, mb, d) over {MESH_RANKS} stages, "
+        f"fp32 on the card: max_abs_err {perr:.3e} (atol 1e-5)")
+    if not perr <= 1e-5:
+        raise AssertionError("mesh pipeline differs from the sequential "
+                             "product")
+    row = dict(row, max_abs_err=err)
+    return row, launched, dict(step_s=step_s, wait_share=b0["wait_s"]
+                               / sum(timed))
+
+
 def main() -> int:
     import torch
 
@@ -6244,6 +6807,14 @@ def main() -> int:
     kernels.append(dict(name=EP_ROW, route="cuda", source=MOE_SOURCE,
                         replaces=MOE_REPLACES, launches=tp_launches[EP_ROW],
                         **tp_rows[EP_ROW]))
+    # 27. training on a (data 2, model 2) mesh in 4 gloo ranks sharing the
+    # card: (a) fp32 cut and MoE cut vs one device, (b) full-size bf16, (c)
+    # the flash at one rank's heads, the pipeline
+    mesh_row, mesh_launches, _ = phase_mesh(torch, FK)
+    lap("27 mesh")
+    kernels.append(dict(name=MESH_FLASH, route="cuda", source=FLASH_SOURCE,
+                        replaces=FLASH_REPLACES, launches=mesh_launches,
+                        **mesh_row))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

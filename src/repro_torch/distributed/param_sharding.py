@@ -17,15 +17,34 @@ its expert stacks are cut to E / n a rank where the layer serves expert
 parallel (`shard_serve_experts`).  Each rank's KV pool is allocated at its
 own Hkv / tp heads (`models.model.make_cache(tp=)`).
 
-The training half of the reference (FSDP `param_spec`,
-`assign_param_shardings`) waits for the port's distributed training.
+Training on a (data, model) mesh (the reference's `param_spec` family,
+path + shape rules with divisibility guards):
+
+  * expert weights (w_gate / w_up / w_down, [E, d, ff]): E on 'model'
+    (expert parallelism), d on the FSDP data axes when enabled;
+  * the embedding table [V, d]: V on 'model' (vocab-parallel logits), d
+    on the FSDP axes;
+  * other >= 2-D weights: of the last two dims, the larger-priority
+    divisible dim goes on 'model' (the output dim first: column-parallel;
+    the input dim first for the row-parallel `wo`, `down`, `out_proj`),
+    the other on the FSDP axes when divisible (ZeRO-3);
+  * 1-D leaves (norm scales, biases, gate vectors): replicated.
+
+The reference stacks each block group's leaves on a leading [L] axis and
+applies these rules to the stacked leaf, so a stacked 1-D leaf ([L, n])
+takes the generic rule on (L, n); the port holds the leaf unstacked and
+takes the reference's spec less its [L] entry (`stacked=L`).  The AdamW
+moments inherit their parameter's layout.  A spec is the reference's
+PartitionSpec as a tuple: per dim None, "model", or the batch axes.
 """
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.core.paged.kv_cache import local_kv_heads
+from repro_torch.core.paged.kv_cache import ShardingError, local_kv_heads
+from repro_torch.distributed import spmd
 from repro_torch.models.moe import MoE, shard_experts
 
 SERVE_HEAD_PARALLEL = ("wq", "wk", "wv")
@@ -90,3 +109,172 @@ def shard_serve_experts(model: nn.Module, group) -> nn.Module:
                 and moe.w_gate.shape[0] == moe.num_experts:
             shard_experts(moe, n, rank)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Training: FSDP / tensor-parallel placement on the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+EXPERT_NAMES = ("w_gate", "w_up", "w_down")
+
+# Megatron pairing: column-parallel ops shard the OUTPUT dim (no comm),
+# row-parallel ops shard the INPUT dim (their input arrives already sharded
+# from the preceding column-parallel op; one reduction closes the block).
+ROW_PARALLEL = ("wo", "down", "out_proj")
+
+
+def _axes_size(mesh_shape, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh_shape[a]
+    return n
+
+
+def param_spec(name: str, shape, *, mesh_shape, fsdp: bool,
+               batch_axes: tuple, stacked: int | None = None) -> tuple:
+    """The reference's `param_spec` of the port's parameter `name` (a
+    `named_parameters` name) of `shape`: for each dim None, "model" or the
+    batch axes.  `mesh_shape` maps each mesh axis to its size (the
+    reference reads nothing else of the mesh); `stacked` is the length of
+    the reference's leading [L] axis where the reference stacks this leaf
+    (the spec is computed on the stacked shape, then its [L] entry
+    dropped)."""
+    shape = ((stacked,) if stacked else ()) + tuple(shape)
+    parts = name.split(".")
+    ndim = len(shape)
+    model_n = mesh_shape["model"]
+    data_n = _axes_size(mesh_shape, batch_axes)
+    wdata = tuple(batch_axes) if fsdp else None
+    spec: list = [None] * ndim
+    if ndim == 0:
+        return ()
+    if parts[-1] in EXPERT_NAMES and ndim >= 3:  # [(L,) E, d, ff]
+        e_dim = ndim - 3
+        if shape[e_dim] % model_n == 0:
+            spec[e_dim] = "model"
+        if wdata and shape[e_dim + 1] % data_n == 0:
+            spec[e_dim + 1] = wdata
+    elif ndim > 1:
+        d0, d1 = ndim - 2, ndim - 1
+        # embedding table [V, d]: vocab-parallel; row-parallel: input
+        # dim first; else the output dim first (column-parallel)
+        if parts == ["embed"] or any(n in parts for n in ROW_PARALLEL):
+            cand = [d0, d1]
+        else:
+            cand = [d1, d0]
+        model_dim = next((i for i in cand if shape[i] % model_n == 0), None)
+        if model_dim is not None:
+            spec[model_dim] = "model"
+        if wdata:
+            other = d0 if model_dim == d1 else d1
+            if other != model_dim and shape[other] % data_n == 0:
+                spec[other] = wdata
+    return tuple(spec[1:] if stacked else spec)
+
+
+def reference_stacks(model: nn.Module) -> dict:
+    """{parameter name: the length of the reference's stacked [L] axis, or
+    None where the reference holds the leaf unstacked}."""
+    from repro_torch.weights import _leaves
+
+    counts: dict = {}
+    leaves = list(_leaves(model))
+    for path, i, _ in leaves:
+        if i is not None:
+            counts[path] = counts.get(path, 0) + 1
+    by_id = {id(t): (counts[path] if i is not None else None)
+             for path, i, t in leaves}
+    return {name: by_id[id(p)] for name, p in model.named_parameters()}
+
+
+def _mesh_axes(entry):
+    """A spec entry as mesh axes: None, or a tuple of axis names."""
+    if entry is None:
+        return None
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def cut_block(t: torch.Tensor, axes_spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor t at layout `axes_spec`."""
+    for dim, axes in enumerate(axes_spec):
+        if axes:
+            n = mesh.size(axes)
+            size = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(axes) * size, size)
+    return t
+
+
+def param_layouts(model: nn.Module, *, mesh_shape, fsdp: bool,
+                  batch_axes: tuple) -> dict:
+    """{parameter name: its layout (per dim None or the mesh axes it is
+    split over)} of a model held whole, from `param_spec`."""
+    stacks = reference_stacks(model)
+    return {name: tuple(_mesh_axes(e) for e in param_spec(
+        name, p.shape, mesh_shape=mesh_shape, fsdp=fsdp,
+        batch_axes=batch_axes, stacked=stacks[name]))
+        for name, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def assign_param_shardings(model: nn.Module, *, mesh, fsdp: bool,
+                           batch_axes: tuple, opt_state: dict | None = None
+                           ) -> nn.Module:
+    """Place, in place, every parameter of `model` (held whole) at its
+    `param_spec` on `mesh`: each becomes a new parameter holding only this
+    rank's block, the whole one freed, its layout on it
+    (`spmd.placement`).  `opt_state` ({"mu", "nu"} lists in parameter
+    order, whole) has its moments cut the same way.  Returns the model."""
+    layouts = param_layouts(model, mesh_shape=mesh.shape, fsdp=fsdp,
+                            batch_axes=batch_axes)
+    named = list(model.named_parameters())
+    for i, (name, p) in enumerate(named):
+        axes_spec = layouts[name]
+        module_name, _, leaf = name.rpartition(".")
+        module = model.get_submodule(module_name) if module_name else model
+        block = nn.Parameter(cut_block(p.data, axes_spec, mesh).clone(),
+                             requires_grad=p.requires_grad)
+        setattr(module, leaf, spmd.set_placement(block, axes_spec))
+        if opt_state is not None:
+            for key in ("mu", "nu"):
+                opt_state[key][i] = spmd.set_placement(
+                    cut_block(opt_state[key][i], axes_spec, mesh).clone(),
+                    axes_spec)
+    return model
+
+
+def batch_spec(key: str, shape, *, mesh_shape, batch_axes: tuple) -> tuple:
+    """The reference's `batch_spec`: the batch dim (dim 1 of M-RoPE's [3,
+    B, S] positions, else dim 0) on the batch axes where it divides."""
+    bdim = 1 if key == "positions" and len(shape) == 3 else 0
+    spec: list = [None] * len(shape)
+    if shape[bdim] % _axes_size(mesh_shape, batch_axes) == 0:
+        spec[bdim] = tuple(batch_axes)
+    return tuple(spec)
+
+
+def assign_batch_shardings(batch: dict, *, mesh, batch_axes: tuple) -> dict:
+    """This rank's block of every entry of a global batch at its
+    `batch_spec` (the reference's device_put against its shardings).  A
+    batch whose batch dim does not divide stays whole on every rank, as
+    in the reference; the mesh trainer refuses one (ShardingError)."""
+    out = {}
+    for key, v in batch.items():
+        spec = batch_spec(key, v.shape, mesh_shape=mesh.shape,
+                          batch_axes=batch_axes)
+        axes_spec = tuple(_mesh_axes(e) for e in spec)
+        out[key] = spmd.set_placement(cut_block(v, axes_spec, mesh), axes_spec)
+    return out
+
+
+def require_batch_split(batch: dict, *, mesh, batch_axes: tuple) -> None:
+    """Raise ShardingError unless every entry's batch dim divides over the
+    batch axes (the mesh trainer holds the loss's sums per batch shard)."""
+    n = _axes_size(mesh.shape, batch_axes)
+    for key, v in batch.items():
+        spec = batch_spec(key, v.shape, mesh_shape=mesh.shape,
+                          batch_axes=batch_axes)
+        if not any(spec):
+            raise ShardingError(
+                f"batch entry {key!r} of shape {tuple(v.shape)} does not "
+                f"split over the {n} ranks of the batch axes {batch_axes}: "
+                f"use a (micro)batch that is a multiple of {n}")

@@ -23,6 +23,11 @@ D is not padded to the TPU's 128 lanes.  Both directions take a value
 width other than the key width (MLA's expanded form: 192 / 128) and a
 per-batch `kv_len` that masks the keys at or past each row's length, as
 the reference's `_block_mask` does; `kv_len` has no gradient.
+
+On a training mesh the attention layers call it on plain local tensors:
+each rank's block of the heads (`models/attention.py` projects q / k / v
+straight to them), so the kernel and the backward see one rank's heads,
+e.g. 8 query heads over 1 KV head for qwen2.5-3b on a model axis of 2.
 """
 from __future__ import annotations
 

@@ -16,17 +16,29 @@ the ranks' results in rank order.  Under `torchrun --nproc-per-node N`
 the world comes from the environment instead:
 `torch.distributed.init_process_group(backend)`, then `make_tp_group`.
 
-The reference's v5e production mesh and its (data, model) training mesh
-wait for the port's distributed training.
+Training runs on a named mesh of the world's ranks, the reference's
+`jax.make_mesh`: `make_mesh((2, 2), ("data", "model"), device_type=...)`
+over an initialised world (row-major: rank = data * M + model), its
+`TrainMesh` holding the `DeviceMesh` and a process group for every set
+of its axes; `make_test_mesh` the (2, 2) host mesh of the tests;
+`make_production_mesh` the reference's v5e pod geometry, (data 16, model
+16) or (pod 2, data 16, model 16), on a world of exactly 256 / 512 ranks.
+The reference's `RECOMMENDED_XLA_FLAGS` are TPU compiler flags and have
+no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import math
 import multiprocessing
 import queue
 import time
 import traceback
 
 import torch.distributed as dist
+
+from repro_torch.core.paged.kv_cache import ShardingError
 
 # a rank that has not reported after this long fails the run
 RANK_TIMEOUT_S = 1800.0
@@ -54,6 +66,121 @@ def make_tp_group(tp: int, *, backend: str):
         if start <= dist.get_rank() < start + tp:
             mine = group
     return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """A named mesh of the world's ranks.  `shape` maps each axis to its
+    size (the reference's `Mesh.shape`), `coord` this rank's index along
+    each; `group(axes)` is the process group of the ranks that share this
+    rank's coordinates on every other axis, in row-major order of `axes`
+    (which are given in mesh order)."""
+
+    device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    axis_names: tuple
+    shape: dict
+    coord: dict
+    groups: dict
+
+    def size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over `axes`."""
+        k = 0
+        for a in axes:
+            k = k * self.shape[a] + self.coord[a]
+        return k
+
+    def group(self, axes):
+        return self.groups[tuple(a for a in self.axis_names if a in axes)]
+
+    @property
+    def world(self) -> int:
+        return self.size(self.axis_names)
+
+
+def make_mesh(shape, axes, *, device_type: str) -> TrainMesh:
+    """The mesh of `shape` named `axes` over the initialised world (whose
+    size must be the product of `shape`); every rank calls it, in the same
+    order (`new_group` is collective).  `device_type` is that of the
+    ranks' tensors ("cuda" or "cpu")."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if not dist.is_initialized():
+        raise ShardingError(
+            f"a {'x'.join(map(str, shape))} mesh needs an initialised "
+            f"torch.distributed world of {math.prod(shape)} ranks: start "
+            f"them with `torchrun --nproc-per-node {math.prod(shape)}` "
+            f"(then init_process_group(backend)) or with spawn_ranks")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ShardingError(f"a {shape} mesh over {axes} needs "
+                            f"{math.prod(shape)} ranks; the world has "
+                            f"{world}")
+    rank = dist.get_rank()
+    coord, r = {}, rank
+    for a, n in reversed(list(zip(axes, shape))):
+        coord[a], r = r % n, r // n
+    coord = {a: coord[a] for a in axes}  # in mesh order
+    sizes = dict(zip(axes, shape))
+    device_mesh = init_device_mesh(device_type, shape,
+                                   mesh_dim_names=axes)
+    groups = {(a,): device_mesh.get_group(a) for a in axes}
+    # the multi-axis groups, subsets in a fixed order on every rank
+    for k in range(2, len(axes) + 1):
+        for sub in itertools.combinations(axes, k):
+            if k == len(axes):
+                groups[sub] = dist.group.WORLD
+                continue
+            rest = [a for a in axes if a not in sub]
+            for fixed in itertools.product(*(range(sizes[a])
+                                             for a in rest)):
+                where = dict(zip(rest, fixed))
+                ranks = [_rank_of({**where, **dict(zip(sub, c))}, axes,
+                                  sizes)
+                         for c in itertools.product(*(range(sizes[a])
+                                                      for a in sub))]
+                group = dist.new_group(sorted(ranks))
+                if all(coord[a] == where[a] for a in rest):
+                    groups[sub] = group
+    return TrainMesh(device_mesh, axes, sizes, coord, groups)
+
+
+def _rank_of(coord: dict, axes, sizes) -> int:
+    r = 0
+    for a in axes:
+        r = r * sizes[a] + coord[a]
+    return r
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,
+                   device_type: str = "cpu") -> TrainMesh:
+    """A small mesh for host-rank tests (a world of prod(shape) ranks)."""
+    return make_mesh(shape, axes, device_type=device_type)
+
+
+def production_mesh_shape(multi_pod: bool = False):
+    """(shape, axes) of the reference's v5e production mesh: one 16 x 16
+    pod, or two of them on a 'pod' axis that carries only data-parallel
+    traffic."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> TrainMesh:
+    """The production mesh over a world of exactly 256 (512 with
+    `multi_pod`) ranks; any other world raises ShardingError."""
+    shape, axes = production_mesh_shape(multi_pod)
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ShardingError(f"the production mesh {shape} over {axes} "
+                            f"needs {n} ranks; the world has {world}")
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def _rank_main(rank: int, world: int, backend: str, init_file: str, inbox,

@@ -37,6 +37,23 @@ attention run on the rank's pool of Hkv / tp heads, and one all-gather
 of the attention output on the head axis reassembles the full head set
 before the replicated `wo`.  Every other mode, and MLA, raises
 `ShardingError` under a split.
+
+Training on a (data, model) mesh (`sharding.use_rules`; the reference's
+GSPMD step): `forward_train` takes this rank's batch rows over the whole
+sequence and returns its block of the residual stream's layout
+(`constrain(out, "batch", "seq_sp", "embed")`).  The rules decide which
+heads a rank computes (`constrain(q, ..., "heads", ...)`: Hq / M heads
+where M divides Hq, else all), and q / k / v are projected straight to
+them: the rank's column block of `wq` / `wk` / `wv` where the layout
+splits them on head boundaries, else the columns of its heads taken from
+the gathered weight (a `wk` of one 64-wide head split over 2 ranks, or a
+fused `wqkv`, whose columns interleave q | k | v).  KV heads the rules
+cannot split (`kv_heads` not divisible) are computed whole and each rank
+reads the ones its query heads use.  The flash forward and its backward
+run on these local heads; `wo` is row-parallel over them and the output
+a pending sum over 'model', reduce-scattered onto the sequence.  Without
+a mesh the same code runs on one device: every layout is whole, a rank's
+heads are all of them and each `constrain` is the identity.
 """
 from __future__ import annotations
 
@@ -46,7 +63,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import backend as attn_backend
 from repro_torch.core.paged.kv_cache import ShardingError, scatter_kv
-from repro_torch.distributed.sharding import all_gather_heads
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (
+    all_gather_heads, constrain, resolve, spec,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 
@@ -90,6 +110,37 @@ def _refuse_split(shard, mode: str) -> None:
         raise ShardingError(
             f"the mesh executor only runs the packed unified step; "
             f"attention mode={mode!r} cannot run under tp={shard.size}")
+
+
+def mesh_heads(b: int, s: int, h: int, d: int, kv: bool = False):
+    """On a training mesh: (the layout the rules give [B, S, H, D] heads of
+    this rank's b batch rows, this rank's heads [lo, hi))."""
+    batch = spec("batch")[0]
+    held = resolve((b * spmd.axes_size(batch), s, h, d), "batch",
+                   "seq", "kv_heads" if kv else "heads", "head_dim")
+    return held, spmd.rank_range(h, held[2])
+
+
+def residual(out: torch.Tensor, split: bool) -> torch.Tensor:
+    """A block's output [b, S, d] (a pending sum over 'model' where
+    `split`) at the residual stream's layout (the reference's
+    `constrain(out, "batch", "seq_sp", "embed")`)."""
+    return constrain(out, "batch", "seq_sp", "embed",
+                     held=(spec("batch")[0], None, None),
+                     partial=("model",) if split else ())
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, hq: int, hkv: int,
+                 lo: int, hi: int):
+    """Of whole K / V [b, S, Hkv, D], the KV heads query heads [lo, hi)
+    read (query head i reads KV head i // (Hq / Hkv)), as a GQA group the
+    flash kernel takes."""
+    g = hq // hkv
+    klo, khi = lo // g, (hi - 1) // g + 1
+    if not (khi - klo == 1 or (lo % g == 0 and (hi - lo) % g == 0)):
+        raise ShardingError(f"query heads [{lo}, {hi}) of {hq} over {hkv} "
+                            f"KV heads do not form whole GQA groups")
+    return k[:, :, klo:khi], v[:, :, klo:khi]
 
 
 def rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -227,12 +278,36 @@ class Attention(nn.Module):
     def forward_train(self, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
         """x [B, S, d]; positions [B, S].  Causal self-attention over the
-        sequence (the reference's mode="train").  Returns [B, S, d]."""
+        sequence (the reference's mode="train").  Returns [B, S, d]; on a
+        training mesh this rank's heads (all of them without one) and the
+        residual stream's layout (module docstring)."""
+        cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self.qkv(x, positions)
-        o = flash_attention(q, k, v, causal=True,
-                            scale=self.cfg.resolved_head_dim ** -0.5)
-        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+        dh = cfg.resolved_head_dim
+        hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+        q_held, (lo, hi) = mesh_heads(b, s, hq, dh)
+        k_held, (klo, khi) = mesh_heads(b, s, hkv, dh, kv=True)
+        if cfg.fused_qkv:  # q | k | v interleave: the gathered weight's
+            q, k, v = self.wqkv.columns(x, (
+                (lo * dh, hi * dh), ((hq + klo) * dh, (hq + khi) * dh),
+                ((hq + hkv + klo) * dh, (hq + hkv + khi) * dh)))
+        else:
+            q = self.wq.block(x, lo * dh, hi * dh)
+            k = self.wk.block(x, klo * dh, khi * dh)
+            v = self.wv.block(x, klo * dh, khi * dh)
+        q = rope(cfg, q.reshape(b, s, -1, dh), positions)
+        k = rope(cfg, k.reshape(b, s, -1, dh), positions)
+        v = v.reshape(b, s, -1, dh)
+        q = constrain(q, "batch", "seq", "heads", "head_dim", held=q_held)
+        k = constrain(k, "batch", "seq", "kv_heads", "head_dim", held=k_held)
+        v = constrain(v, "batch", "seq", "kv_heads", "head_dim", held=k_held)
+        if q_held[2] and not k_held[2]:  # whole KV heads: this rank's ones
+            k, v = kv_for_heads(k, v, hq, hkv, lo, hi)
+        o = flash_attention(q, k, v, causal=True, scale=dh ** -0.5)
+        o = constrain(o, "batch", "seq", "heads", "head_dim", held=q_held)
+        o = o.reshape(b, s, -1).to(x.dtype)
+        out = o @ spmd.local_block(self.wo.w, 0, lo * dh, hi * dh)
+        return residual(out, q_held[2] is not None)
 
 
 class MLAAttention(nn.Module):
@@ -372,10 +447,34 @@ class MLAAttention(nn.Module):
         """Causal self-attention over the sequence in the expanded form
         (the reference's mode="train"): `forward_prefill` without the
         cache write or the key-length mask.  x [B, S, d]; positions
-        [B, S].  Returns [B, S, d]."""
+        [B, S].  Returns [B, S, d]; on a training mesh the residual
+        stream's layout, each rank on its block of the heads (all of them
+        without a mesh): its columns
+        of `wq_b` (or `wq`), `wk_b` and `wv_b`, its rows of `wo`; the
+        latent and the q LoRA rank are computed whole."""
         b, s, _ = x.shape
-        q_nope, q_rope = self.q(x, positions)
+        m = self.cfg.mla
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        held, (lo, hi) = mesh_heads(b, s, self.cfg.num_q_heads, qk)
+        h = hi - lo
+        wq = self.wq_b if self.q_lora else self.wq
+        xq = self.q_norm(self.wq_a(x)) if self.q_lora else x
+        q = wq.block(xq, lo * qk, hi * qk).reshape(b, s, h, qk)
+        q = torch.cat([q[..., :m.qk_nope_dim], rope(
+            self.cfg, q[..., m.qk_nope_dim:], positions)], dim=-1)
         latent, k_rope = self.latent(x, positions)
-        q, k, v = self._expand(q_nope, q_rope, latent, k_rope)
+        k_nope = self.wk_b.block(latent, lo * m.qk_nope_dim,
+                                 hi * m.qk_nope_dim).reshape(
+                                     b, s, h, m.qk_nope_dim)
+        v = self.wv_b.block(latent, lo * m.v_head_dim,
+                            hi * m.v_head_dim).reshape(b, s, h, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_dim)], dim=-1)
+        q = constrain(q, "batch", "seq", "heads", "head_dim", held=held)
+        k = constrain(k, "batch", "seq", "heads", "head_dim", held=held)
+        v = constrain(v, "batch", "seq", "heads", "head_dim", held=held)
         o = flash_attention(q, k, v, causal=True, scale=self.scale)
-        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+        o = o.reshape(b, s, -1).to(x.dtype)
+        out = o @ spmd.local_block(self.wo.w, 0, lo * m.v_head_dim,
+                                   hi * m.v_head_dim)
+        return residual(out, held[2] is not None)

@@ -3,6 +3,12 @@
 Linear weights keep the JAX reference's layout, `w [d_in, d_out]` with
 `y = x @ w`, so `weights.from_jax_params` copies them without a transpose.
 Norms, RoPE and the output logits run in fp32, as in the reference.
+
+On a training mesh a parameter may hold only this rank's block
+(`param_sharding.assign_param_shardings`): `Linear` and `RMSNorm` use it
+whole (`spmd.full`, an all-gather where it is split), and the training
+forward `MLP.forward_partial` runs tensor-parallel on this rank's block
+of the ff axis (all of it without a mesh).
 """
 from __future__ import annotations
 
@@ -11,6 +17,8 @@ import itertools
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import sharding, spmd
 
 
 class Linear(nn.Module):
@@ -25,10 +33,35 @@ class Linear(nn.Module):
                                requires_grad=False) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
+        y = x @ spmd.full(self.w)
         if self.b is not None:
-            y = y + self.b
+            y = y + spmd.full(self.b)
         return y
+
+    def block(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """Output columns [lo, hi) of this layer (column-parallel)."""
+        y = x @ spmd.local_block(self.w, 1, lo, hi)
+        if self.b is not None:
+            y = y + spmd.local_block(self.b, 0, lo, hi)
+        return y
+
+    def columns(self, x: torch.Tensor, spans) -> tuple:
+        """The outputs of column spans [(lo, hi), ...] of the whole layer,
+        from one product: by the whole weight where the spans tile it in
+        order, else by their columns of it (a fused layout's blocks: its
+        columns interleave q | k | v or gate | up, so a rank's heads or ff
+        block are not one block of the weight)."""
+        w = spmd.full(self.w)
+        b = None if self.b is None else spmd.full(self.b)
+        ends = [0] + [hi for _, hi in spans]
+        if [lo for lo, _ in spans] != ends[:-1] or ends[-1] != w.shape[1]:
+            w = torch.cat([w[:, lo:hi] for lo, hi in spans], dim=1)
+            if b is not None:
+                b = torch.cat([b[lo:hi] for lo, hi in spans])
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y.split([hi - lo for lo, hi in spans], dim=-1)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -48,7 +81,7 @@ class RMSNorm(nn.Module):
                                   requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.scale, self.eps)
+        return rms_norm(x, spmd.full(self.scale), self.eps)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -122,6 +155,7 @@ class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, *, dtype: torch.dtype, device=None,
                  fused: bool = False):
         super().__init__()
+        self.d_ff = d_ff
         if fused:
             self.gate_up = Linear(d, 2 * d_ff, dtype=dtype, device=device)
         else:
@@ -134,6 +168,24 @@ class MLP(nn.Module):
             gate, up = self.gate_up(x).chunk(2, dim=-1)
             return self.down(F.silu(gate) * up)
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+    def forward_partial(self, x: torch.Tensor):
+        """The training forward: (y, split).  Where the rules split the ff
+        axis (a training mesh), this rank computes its block [lo, hi) of
+        it (gate / up column-parallel, `down` row-parallel) and y is its
+        pending share of the sum over 'model' (split True); else y is the
+        whole output.  A fused `gate_up` splits [gate | up] as one axis,
+        so a rank's block of it is not a block of gate and up: it is
+        gathered whole and the rank takes columns [lo, hi) of each half."""
+        ff = self.d_ff
+        axes = sharding.resolve((ff,), "ff")[0]
+        lo, hi = spmd.rank_range(ff, axes)
+        if hasattr(self, "gate_up"):
+            gate, up = self.gate_up.columns(x, ((lo, hi), (ff + lo, ff + hi)))
+        else:
+            gate, up = self.gate.block(x, lo, hi), self.up.block(x, lo, hi)
+        h = F.silu(gate) * up
+        return h @ spmd.local_block(self.down.w, 0, lo, hi), axes is not None
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

@@ -59,16 +59,37 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged.kv_cache import (
     make_kv_cache, physical_slots, write_index,
 )
-from repro_torch.distributed.sharding import expert_group
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (
+    active, checkpoint_contexts, constrain, expert_group, resolve, spec,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import (Attention, MLAAttention,
-                                          kv_cache_dims, temporal)
+                                          kv_cache_dims, residual, temporal)
 from repro_torch.models.moe import MoE, moe_ffn_dropless_ep
 from repro_torch.models.ssm_blocks import (
     Mamba2Block, MLSTMBlock, SLSTMBlock, mamba2_cache_specs,
     mlstm_cache_specs, slstm_cache_specs,
 )
+
+
+def residual_layout(b: int, s: int, d: int) -> tuple:
+    """On a training mesh: the layout of the residual stream [b, S, d] of
+    this rank's b batch rows (`constrain(x, "batch", "seq_sp", "embed")`:
+    the sequence on 'model' under sequence parallelism where it
+    divides)."""
+    batch = spec("batch")[0]
+    return resolve((b * spmd.axes_size(batch), s, d), "batch", "seq_sp",
+                   "embed")
+
+
+def whole_seq(x: torch.Tensor, s: int) -> torch.Tensor:
+    """This rank's batch rows of the residual stream over the whole
+    sequence of length s (an all-gather on 'model' under sequence
+    parallelism)."""
+    held = residual_layout(x.shape[0], s, x.shape[-1])
+    return constrain(x, "batch", "seq", "embed", held=held)
 
 
 class Block(nn.Module):
@@ -105,13 +126,20 @@ class Block(nn.Module):
 
     def forward_train(self, x: torch.Tensor, positions: torch.Tensor):
         """(x after the block, the MoE's load-balance aux fp32 0-d, or
-        None for a dense block)."""
-        x = x + self.attn.forward_train(self.ln1(x), positions)
-        h = self.ln2(x)
+        None for a dense block).  On a training mesh x is this rank's block
+        of the residual stream's layout (`residual_layout`): each norm runs
+        on its rows, whose sequence is all-gathered for attention and the
+        FFN, whose outputs return to the layout (reduce-scattered where
+        they are pending sums over 'model').  Without a mesh each of these
+        moves is the identity."""
+        s = positions.shape[-1]
+        x = x + self.attn.forward_train(whole_seq(self.ln1(x), s),
+                                        positions)
+        h = whole_seq(self.ln2(x), s)
         if hasattr(self, "moe"):
             y, aux = self.moe(h, mode="train")
-            return x + y, aux
-        return x + self.mlp(h), None
+            return x + residual(y, False), aux
+        return x + residual(*self.mlp.forward_partial(h)), None
 
     def forward_serve(self, x: torch.Tensor, positions: torch.Tensor,
                       k_pages: torch.Tensor, v_pages: torch.Tensor | None,
@@ -598,6 +626,68 @@ def _recurrent_train(model: Model, x: torch.Tensor,
     return x
 
 
+def _embed_train(model: Model, inputs: torch.Tensor) -> torch.Tensor:
+    """The training embedding at the residual stream's layout (the
+    reference's `constrain(x, "batch", "seq_sp", "embed")`).  On a mesh
+    token ids look up this rank's block of the vocabulary-split table,
+    zero outside it, and the rows are a pending sum over 'model' (vocab
+    parallelism); without one, the whole table."""
+    cfg = model.cfg
+    batch = spec("batch")[0]
+    if cfg.input_kind == "embeds" and inputs.ndim == 3:
+        x, split = inputs.to(cfg.param_dtype), False
+    else:
+        v_axes = resolve((cfg.vocab_size,), "vocab")[0]
+        lo, hi = spmd.rank_range(cfg.vocab_size, v_axes)
+        table = spmd.local_block(model.embed, 0, lo, hi)
+        ids = inputs.long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        x = L.embed(table, torch.where(mine, ids, 0))
+        x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        split = v_axes is not None
+    return constrain(x, "batch", "seq_sp", "embed", held=(batch, None, None),
+                     partial=("model",) if split else ())
+
+
+def _loss(model: Model, x: torch.Tensor, labels: torch.Tensor):
+    """(ce, token count) of the training logits: the head on this rank's
+    block of the vocabulary ([b, S, V / M] fp32, the reference's
+    `constrain(logits, "batch", "seq", "vocab")`; all of it without a
+    mesh), the log-softmax over the whole vocabulary (by sums over
+    'model' where it is split), and the reference's ce -sum(ll * mask) /
+    max(sum(mask), 1) with both sums over the whole batch."""
+    cfg = model.cfg
+    batch = spec("batch")[0]
+    v_axes = resolve((cfg.vocab_size,), "vocab")[0]
+    lo, hi = spmd.rank_range(cfg.vocab_size, v_axes)
+    x = whole_seq(model.ln_f(x), labels.shape[1])
+    if model.lm_head is None:
+        table = spmd.local_block(model.embed, 0, lo, hi)
+        logits = L.unembed(table, x)
+    else:
+        logits = model.lm_head.block(x, lo, hi).float()
+    logits = constrain(logits, "batch", "seq", "vocab",
+                       held=(batch, None, v_axes))
+    if v_axes is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, torch.clamp(labels, min=0).long()[
+            ..., None])[..., 0]
+    else:
+        m = spmd.all_reduce_max(logits.max(-1).values, v_axes)
+        lse = m + torch.log(spmd.all_reduce(
+            torch.exp(logits - m[..., None]).sum(-1), v_axes))
+        ids = torch.clamp(labels, min=0).long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        picked = torch.gather(logits, -1, torch.where(mine, ids, 0)[
+            ..., None])[..., 0]
+        ll = spmd.all_reduce(torch.where(mine, picked, 0.0), v_axes) - lse
+    mask = (labels >= 0).float()
+    tokens = spmd.all_reduce(mask.sum(), batch).detach()
+    ce = -spmd.all_reduce(torch.sum(ll * mask), batch) \
+        / torch.clamp(tokens, min=1.0)
+    return ce, tokens
+
+
 def apply_train(model: Model, batch: dict):
     """batch: {'inputs': [B, S] ids or [B, S, d] embeddings (`input_kind`
     "embeds"), 'labels': [B, S] (< 0: ignored), 'positions'?: [B, S], or
@@ -608,28 +698,30 @@ def apply_train(model: Model, batch: dict):
     residual); the hybrid's shared attention block and the sLSTM blocks
     keep their activations, as in the reference.  Returns (loss, {"ce",
     "aux", "tokens"}): loss = ce + aux, aux the MoE blocks' load-balance
-    losses summed in block order (0 for every other family)."""
+    losses summed in block order (0 for every other family).  Inside
+    `sharding.use_rules` (a training mesh; the dense, audio, vlm and moe
+    families) inputs, labels and positions are this rank's batch rows, and
+    the loss, ce and aux are the whole batch's, equal on every rank."""
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(model.cfg, b, s, labels.device)
-    x = model.embed_inputs(inputs)
+    if active() and model.cfg.family not in DECODER_FAMILIES:
+        raise NotImplementedError(
+            f"training the {model.cfg.family} family ({model.cfg.name}) on a "
+            f"mesh waits for the next slice of the port (the Mamba2 / "
+            f"mLSTM / sLSTM blocks' tensor-parallel split)")
+    x = _embed_train(model, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=labels.device)
     if model.cfg.family in ("hybrid", "ssm"):
         x = _recurrent_train(model, x, positions)
     else:
         for blk in model.decoder_blocks():
             x, a = checkpoint(blk.forward_train, x, positions,
-                              use_reentrant=False)
+                              use_reentrant=False,
+                              context_fn=checkpoint_contexts)
             if a is not None:
                 aux = aux + a
-    logp = torch.log_softmax(model.head(x), dim=-1)
-    mask = (labels >= 0).float()
-    ll = torch.gather(logp, -1,
-                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = -torch.sum(ll * mask) / denom
-    loss = ce + aux
-    return loss, {"ce": ce, "aux": aux,
-                  "tokens": mask.sum().to(torch.int32)}
+    ce, tokens = _loss(model, x, labels)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": tokens.to(torch.int32)}

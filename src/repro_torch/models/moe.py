@@ -76,6 +76,10 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import (
+    active_mesh, constrain, resolve, spec,
+)
 from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.models import layers as L
 
@@ -119,7 +123,7 @@ class MoE(nn.Module):
 
     def probs(self, xt: torch.Tensor) -> torch.Tensor:
         """xt [T, d] -> the router's fp32 softmax [T, E]."""
-        return torch.softmax(xt.float() @ self.router.w, dim=-1)
+        return torch.softmax(xt.float() @ spmd.full(self.router.w), dim=-1)
 
     def route(self, xt: torch.Tensor, probs: torch.Tensor | None = None):
         """xt [T, d] (or its router `probs`) -> (weights [T, k] fp32
@@ -138,7 +142,7 @@ class MoE(nn.Module):
         `moe_ffn` takes them: choice j after every kept choice < j, in
         token order within it; a position >= C is dropped."""
         g, _, k = topi.shape
-        e = self.w_gate.shape[0]
+        e = self.num_experts
         counts = torch.zeros((g, 1, e), dtype=torch.int64,
                              device=topi.device)
         group = torch.arange(g, device=topi.device)[:, None]
@@ -158,13 +162,13 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, *, mode: str = "serve"):
         """x [..., d] -> (y in x's dtype, aux fp32 0-d): mode "serve" the
         dropless path (aux 0), "train" the capacity dispatch."""
+        if mode == "train":
+            return self.forward_train(x)
         if self.w_gate.shape[0] != self.num_experts:
             raise ValueError(
                 f"this MoE layer holds {self.w_gate.shape[0]} of its "
                 f"{self.num_experts} experts (shard_experts): it runs only "
                 f"expert parallel, inside use_expert_group")
-        if mode == "train":
-            return self.forward_train(x)
         d = x.shape[-1]
         xt = x.reshape(-1, d)
         t, k = xt.shape[0], self.top_k
@@ -192,42 +196,96 @@ class MoE(nn.Module):
 
     def forward_train(self, x: torch.Tensor):
         """The GShard capacity dispatch (`moe_ffn`): x [..., d] -> (y in
-        x's dtype, the load-balance aux fp32 0-d)."""
+        x's dtype, the load-balance aux fp32 0-d).
+
+        On a training mesh x is this rank's batch rows (whole over
+        'model') and so is y.  The group size and capacity follow the
+        global token count (B S of the whole batch), and the groups lie on
+        the batch axes where they divide over them; where they do not, the
+        tokens are all-gathered and every rank routes every group (the
+        reference's replicated fallback), then keeps its own rows of y.
+        Each rank runs its block of the experts on the rows routed to
+        them; the combine is a pending sum over 'model', summed in fp32
+        before the reference's rounding.  The aux takes the global means
+        of the top-1 one-hot and the router probabilities (a product of
+        means, not a mean of products)."""
         d = x.shape[-1]
         xt = x.reshape(-1, d)
-        t, k = xt.shape[0], self.top_k
-        e = self.w_gate.shape[0]
-        sg, g, cap = capacity_layout(t, e, k, self.capacity_factor)
+        t_loc, k = xt.shape[0], self.top_k
+        e = self.num_experts
+        batch = spec("batch")[0]
+        nb = spmd.axes_size(batch)
+        sg, g, cap = capacity_layout(t_loc * nb, e, k, self.capacity_factor)
+        xg_held = resolve((g, sg, d), "batch", None, "embed")
+        e_axes = resolve((e,), "experts")[0]
+        if xg_held[0] is None and nb > 1:  # every rank routes every group
+            xt = spmd.all_gather(xt, 0, batch)
+        g_loc = xt.shape[0] // sg
+        xg = constrain(xt.reshape(g_loc, sg, d), "batch", None, "embed",
+                       held=xg_held)
+        xt = xg.reshape(-1, d)
+        t = xt.shape[0]
         probs = self.probs(xt)
         topw, topi = self.route(xt, probs)
-        slot, kept = self.capacity_slots(topi.reshape(g, sg, k), cap)
+        slot, kept = self.capacity_slots(topi.reshape(g_loc, sg, k), cap)
+        # the reference's dispatch / combine one-hots [G, Sg, E, C] are
+        # these slots and flags [G, Sg, k]
+        slot = constrain(slot, "batch", None, None, held=xg_held)
+        kept = constrain(kept, "batch", None, None, held=xg_held)
+        e_lo, e_hi = spmd.rank_range(e, e_axes)
+        e_loc = e_hi - e_lo
         slot, kept = slot.reshape(t * k), kept.reshape(t * k)
-        n = e * g * cap  # slot n: the dropped rows' trash row
-        slot = torch.where(kept, slot, n)
+        mine = kept
+        if e_loc < e:  # this rank's experts only
+            ids = topi.reshape(t * k)
+            mine = kept & (ids >= e_lo) & (ids < e_hi)
+        n = e_loc * g_loc * cap  # slot n: the dropped rows' trash row
+        slot = torch.where(mine, slot - e_lo * g_loc * cap, n)
         # the dispatch einsum's bf16 rounding, forward and backward: the
         # buffer holds bf16 values in fp32, so a token's k gradient rows
         # are summed in fp32 and rounded to bf16 once, as XLA's dot does
         xr = xt.to(DISPATCH_DTYPE).float()
         src = xr.repeat_interleave(k, dim=0)  # row t * k + j
         buf = src.new_zeros((n + 1, d)).index_copy(0, slot, src)
-        xe = buf[:n].reshape(e, g * cap, d).to(DISPATCH_DTYPE)
+        xe = buf[:n].reshape(e_loc, g_loc * cap, d).to(DISPATCH_DTYPE)
+        ex_held = (e_axes, xg_held[0], None, None)
+        xe = constrain(xe.view(e_loc, g_loc, cap, d), "experts", "batch",
+                       "expert_cap", "embed", held=ex_held).flatten(1, 2)
+        wg, wu, wd = (spmd.local_block(w, 0, e_lo, e_hi)
+                      for w in (self.w_gate, self.w_up, self.w_down))
         # each expert einsum promotes xe to the param dtype on its own, so
         # its two gradients are rounded to bf16 before they are added
-        h = torch.nn.functional.silu(
-            torch.bmm(xe.to(self.w_gate.dtype), self.w_gate)) \
-            * torch.bmm(xe.to(self.w_up.dtype), self.w_up)
-        ye = torch.bmm(h, self.w_down).reshape(n, d)
+        h = torch.nn.functional.silu(torch.bmm(xe.to(wg.dtype), wg)) \
+            * torch.bmm(xe.to(wu.dtype), wu)
+        h = constrain(h.view(e_loc, g_loc, cap, -1), "experts", "batch",
+                      "expert_cap", None, held=ex_held).flatten(1, 2)
+        ye = torch.bmm(h, wd)
+        ye = constrain(ye.view(e_loc, g_loc, cap, d), "experts", "batch",
+                       "expert_cap", "embed", held=ex_held).reshape(n, d)
         ye = torch.cat([ye, ye.new_zeros((1, d))])
         rows = ye.index_select(0, slot).float().reshape(t, k, d)
-        w = (topw.to(ye.dtype).float() * kept.reshape(t, k))[..., None]
+        w = (topw.to(ye.dtype).float() * mine.reshape(t, k))[..., None]
         y = w[:, 0] * rows[:, 0]
         for j in range(1, k):
             y = y + w[:, j] * rows[:, j]
+        if e_loc < e:  # the other ranks' experts' rows
+            y = spmd.all_reduce(y, e_axes)
         y = y.to(ye.dtype)
         if self.shared is not None:
-            y = y + self.shared(xt).to(y.dtype)
+            ys, split = self.shared.forward_partial(xt)
+            if split:
+                ys = spmd.all_reduce(ys, ("model",))
+            y = y + ys.to(y.dtype)
         top1 = torch.nn.functional.one_hot(topi[:, 0], e).float()
-        aux = e * torch.sum(top1.mean(0) * probs.mean(0)) * self.aux_coef
+        if xg_held[0] is None:  # every token is here
+            frac_tokens, frac_probs = top1.mean(0), probs.mean(0)
+        else:  # the means over the whole batch
+            total = t * nb
+            frac_tokens = spmd.all_reduce(top1.sum(0), batch) / total
+            frac_probs = spmd.all_reduce(probs.sum(0), batch) / total
+        aux = e * torch.sum(frac_tokens * frac_probs) * self.aux_coef
+        if t != t_loc:  # this rank's own rows of the gathered tokens
+            y = y.narrow(0, active_mesh().index(batch) * t_loc, t_loc)
         return y.to(x.dtype).reshape(x.shape), aux
 
 

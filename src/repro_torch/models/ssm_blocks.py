@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.mamba2 import ops as m2
 from repro_torch.kernels.mlstm import ops as mlk
 from repro_torch.models import layers as L
@@ -129,7 +130,11 @@ class Mamba2Block(nn.Module):
         """The gated RMSNorm and out_proj of the scan's y [B, S, H, P]."""
         b, slen = z.shape[:2]
         y = y.reshape(b, slen, -1)
-        return self.out_proj(self.norm(y * F.silu(z)))
+        # the reference's site; training these blocks on a mesh waits for
+        # the next slice (apply_train refuses it), so without rules this is
+        # the identity
+        return constrain(self.out_proj(self.norm(y * F.silu(z))), "batch",
+                         "seq_sp", "embed")
 
     def forward(self, u: torch.Tensor, *, mode: str, conv_state: torch.Tensor,
                 ssm_state: torch.Tensor, valid: torch.Tensor | None = None,
@@ -255,7 +260,8 @@ class MLSTMBlock(nn.Module):
         """RMSNorm(h) * SiLU(z) and out_proj of h [B, S, H, P]."""
         b, slen = z.shape[:2]
         h = h.reshape(b, slen, -1).to(z.dtype)
-        return self.out_proj(self.norm(h) * F.silu(z))
+        return constrain(self.out_proj(self.norm(h) * F.silu(z)), "batch",
+                         "seq_sp", "embed")
 
     def forward(self, u: torch.Tensor, *, mode: str,
                 cache: dict[str, torch.Tensor],
@@ -341,8 +347,9 @@ class SLSTMBlock(nn.Module):
         y = self.norm(torch.stack(hs, 1).to(dtype))
         gu = self.up(y)
         d = gu.shape[-1] // 2
-        return self.down(F.gelu(gu[..., :d], approximate="tanh")
-                         * gu[..., d:])
+        return constrain(self.down(F.gelu(gu[..., :d], approximate="tanh")
+                                   * gu[..., d:]), "batch", "seq_sp",
+                         "embed")
 
     def _scan(self, u: torch.Tensor, st, valid=None):
         """The per-token recurrence of u [B, S, d] from st = (h, c, n, m)

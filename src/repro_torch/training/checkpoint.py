@@ -9,7 +9,12 @@ Layout: <dir>/step_<N>/
     corrupts the latest valid checkpoint, and a leftover .tmp is ignored;
   * async: `AsyncCheckpointer.save_async` copies the state to the host on
     the caller's thread and writes it on a background thread;
-  * keep_last_n garbage collection.
+  * keep_last_n garbage collection;
+  * elastic restore: a mesh run saves whole tensors (every rank gathers
+    its blocks, `trainer.whole_state_tensors`; one rank writes), so a
+    checkpoint restores onto one device (`trainer.load_state_tensors`)
+    or onto any mesh (then `trainer.place_train_state` cuts each rank's
+    blocks), the reference's elastic restore.
 """
 from __future__ import annotations
 

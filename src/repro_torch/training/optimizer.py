@@ -20,14 +20,22 @@ import math
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.utils.misc import global_norm
 
 
 def adamw_init(params: list[torch.Tensor]) -> dict:
-    """{"mu": [...], "nu": [...]} fp32 zeros like `params`, "count" 0."""
+    """{"mu": [...], "nu": [...]} fp32 zeros like `params`, "count" 0.  On
+    a training mesh each moment holds its parameter's block and carries
+    its layout (`spmd.placement`)."""
     def zeros():
-        return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in params]
+        out = []
+        for p in params:
+            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            if spmd.placement(p) is not None:
+                spmd.set_placement(z, spmd.placement(p))
+            out.append(z)
+        return out
 
     dev = params[0].device if params else "cpu"
     return {"mu": zeros(), "nu": zeros(),
@@ -55,11 +63,15 @@ def _slices(t: torch.Tensor):
 
 
 def adamw_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, clip_norm=1.0):
+                 weight_decay=0.1, clip_norm=1.0, gnorm=None):
     """Updates `params` and the moments of `opt_state` in place and returns
     (params, opt_state with the new count, metrics).  Grad-norm clipping
-    is global and computed first; weight decay is decoupled (AdamW)."""
-    gnorm = global_norm(grads)
+    is global and computed first (`gnorm`, the gradients' global norm:
+    given by a mesh trainer whose ranks hold blocks of them, else computed
+    here); weight decay is decoupled (AdamW), elementwise, so a rank
+    updates its blocks alone."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = opt_state["count"] + 1
     cf = count.to(torch.float32)

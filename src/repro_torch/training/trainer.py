@@ -1,5 +1,18 @@
 """Train step: loss -> grads -> AdamW, with optional gradient accumulation
-over microbatches.  The port of `repro.training.trainer` on one device.
+over microbatches.  The port of `repro.training.trainer`, on one device
+or on a training mesh.
+
+On a mesh (inside `sharding.use_rules`, the parameters placed by
+`param_sharding.assign_param_shardings`) the step takes the *global*
+batch, as the reference's jitted step does, and each rank keeps its block
+of every microbatch (`assign_batch_shardings`: microbatch i is the
+reference's i-th slice of the whole batch, then split over the batch
+axes).  Every rank computes the whole batch's loss; each backpropagates
+1 / N of it (N ranks), so a gradient it holds is its share of a sum
+(`distributed/spmd.py`), completed over the axes a parameter is
+replicated on (`spmd.reduce_grads`).  The clip's global norm is that of
+the whole gradients (each block counted once), and AdamW updates each
+rank's blocks.
 
 The parameters live in the `Model` and are updated in place by
 `adamw_update` (no second parameter list is made); the train state holds
@@ -12,10 +25,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import param_sharding as PS
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import active_mesh, spec
 from repro_torch.models.model import Model, apply_train
 from repro_torch.training.optimizer import (
     adamw_init, adamw_update, cosine_schedule,
 )
+from repro_torch.utils.misc import sum_squares
 
 
 def make_train_state(model: Model) -> dict:
@@ -29,11 +46,18 @@ def make_train_state(model: Model) -> dict:
 def _value_and_grad(model: Model, params, batch):
     """(loss, metrics, grads); a parameter the loss does not reach (the
     embedding table of a model fed embeddings) gets a zero gradient, as
-    `jax.grad` gives it."""
+    `jax.grad` gives it.  On a mesh `batch` is the global (micro)batch:
+    this rank takes its block, and its grads are its shares."""
     for p in params:
         p.grad = None
+    mesh = active_mesh()
+    if mesh is not None:
+        batch_axes = spec("batch")[0]
+        PS.require_batch_split(batch, mesh=mesh, batch_axes=batch_axes)
+        batch = PS.assign_batch_shardings(batch, mesh=mesh,
+                                          batch_axes=batch_axes)
     loss, metrics = apply_train(model, batch)
-    loss.backward()
+    (loss if mesh is None else loss / mesh.world).backward()
     return loss.detach(), metrics, [
         torch.zeros_like(p) if p.grad is None else p.grad for p in params]
 
@@ -75,16 +99,44 @@ def train_step(model: Model, state: dict, batch: dict, *,
             aux = aux + m["aux"].detach()
         grads = [g / microbatches for g in gsum]
         loss, ce, aux = (x / microbatches for x in (loss, ce, aux))
+    gnorm = None
+    mesh = active_mesh()
+    if mesh is not None:
+        specs = [spmd.placement(p) for p in params]
+        spmd.reduce_grads(grads, specs, mesh)
+        gnorm = spmd.global_norm(grads, specs, mesh, sum_squares)
     lr = cosine_schedule(state["step"], base_lr=base_lr, warmup=warmup,
                          total=total_steps)
     _, new_opt, opt_metrics = adamw_update(
         grads, state["opt"], params, lr=lr, weight_decay=weight_decay,
-        clip_norm=clip_norm)
+        clip_norm=clip_norm, gnorm=gnorm)
     del grads
     for p in params:
         p.grad = None
     return ({"opt": new_opt, "step": state["step"] + 1},
             {"loss": loss, **opt_metrics, "ce": ce, "aux": aux})
+
+
+def place_train_state(model: Model, state: dict, *, mesh, fsdp: bool,
+                      batch_axes: tuple) -> dict:
+    """Place a whole model and its train state on `mesh`
+    (`assign_param_shardings`, the moments cut with their parameters);
+    returns the state."""
+    PS.assign_param_shardings(model, mesh=mesh, fsdp=fsdp,
+                              batch_axes=batch_axes, opt_state=state["opt"])
+    return state
+
+
+@torch.no_grad()
+def whole_state_tensors(model: Model, state: dict) -> dict[str, torch.Tensor]:
+    """`state_tensors` with every placed block all-gathered whole (every
+    rank of the mesh calls it, in the same order): what a checkpoint of a
+    mesh run stores, so that it restores onto any mesh."""
+    out = {}
+    for name, t in state_tensors(model, state).items():
+        out[name] = (spmd.full(t) if spmd.placement(t) is not None
+                     else t).detach()
+    return out
 
 
 def state_tensors(model: Model, state: dict) -> dict[str, torch.Tensor]:

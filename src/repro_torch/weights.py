@@ -223,7 +223,8 @@ _PIECE = 1 << 25
 
 
 @torch.no_grad()
-def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
+def init_random(cfg: ModelConfig, seed: int, device="cuda", *,
+                on_device: bool | None = None) -> Model:
     """Random weights drawn like the reference's `M.init`: matrices (and
     the conv kernel) truncated normal at +-2 std with std = d_in ** -0.5
     (the embedding: d_model ** -0.5; the sLSTM's recurrent blocks `r`:
@@ -245,9 +246,15 @@ def init_random(cfg: ModelConfig, seed: int, device="cuda") -> Model:
         the host.  The values differ between a CPU and a card build from
         one seed: a comparison across devices moves one model to the
         other device.
+
+    `on_device` overrides that choice (True: a dense model drawn on the
+    device too, as a MoE model is, so that ranks of one card build the
+    same full-size model in seconds; the values then differ from a CPU
+    draw of the same seed).
     """
     dev = torch.device(device)
-    on_device = cfg.family == "moe"
+    if on_device is None:
+        on_device = cfg.family == "moe"
     gen = torch.Generator(device=dev if on_device else "cpu")
     gen.manual_seed(seed)
     model = Model(cfg, device=dev)
