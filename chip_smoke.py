@@ -462,6 +462,22 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               `pipeline_apply` over the 4 ranks on CUDA tensors against
               the sequential product (1e-5).  Any rank's failure fails
               the run
+ 28. dryrun   the dry run (`launch.dryrun`): (a) smollm-135m train_4k,
+              deepseek-v2-236b decode_32k and zamba2-1.2b prefill_32k on
+              meta tensors at rank 0 of a fake world of 256, each
+              record's summary line; (b) smollm-135m cut to 4 layers,
+              bf16, train (8 x 2048) and decode (32 at 4096) at a world
+              of 1, counted on meta and run on the card: counted FLOPs
+              equal, meta's peak memory within 0.75-1.25 of
+              `max_memory_allocated`, the step over max(compute, memory)
+              printed, a step faster than its compute term a fault; (c)
+              the SSD and mLSTM kernels at one rank's heads against
+              their plain versions, timed; zamba2 (6 layers) and xlstm
+              (8), fp32, 4 x 256, 2 steps on the (data 2, model 2) mesh
+              of 4 gloo ranks against one device in every rank: losses
+              1e-5, grad norms 1e-4, every gradient leaf within
+              DRY_MESH_PARAM_TOL (1e-3) of its largest element, the SSD,
+              mLSTM and flash kernels launched on the mesh
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -861,6 +877,35 @@ MESH_FLASH = f"{FLASH}[{MESH_ARCH} mesh 2x2: 8 / 1 heads a rank]"
 MESH_MOE = dict(arch="deepseek-v2-236b", batch=2, seq=16,
                 capacity_factor=0.5)
 MESH_PIPE = (8, 6, 2, 16)  # layers, microbatches, rows a microbatch, width
+# phase 28: the dry run (`repro_torch.launch.dryrun`): (a) cells on meta
+# tensors at rank 0 of a fake world of 256; (b) one cell the card holds, at
+# a world of 1, counted on meta and on the card; (c) the hybrid and ssm
+# families' mesh step in 4 gloo ranks sharing the card
+DRY_CELLS = (("smollm-135m", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+             ("zamba2-1.2b", "prefill_32k"))
+DRY_ARCH, DRY_LAYERS = "smollm-135m", 4  # of its 30 layers
+DRY_CARD_SHAPES = (("train", 2048, 8), ("decode", 4096, 32))  # kind, S, B
+DRY_MEM_BAND = (0.75, 1.25)  # meta's peak memory over the card's
+DRY_TIMED = 3  # timed steps after the counted one
+# (c): arch -> (layers, global batch, seq); fp32, FSDP + sp, 2 steps
+DRY_MESH = {"zamba2-1.2b": (6, 4, 256), "xlstm-350m": (8, 4, 256)}
+# every gradient leaf of (c) within this share of its largest element of
+# one device's.  The mesh sums the batch in halves and the row-parallel
+# products in parts; one device that only splits its batch into 2 or 4
+# microbatches moves the same leaves as far (tools/mesh_rounding_probe.py
+# on the card, fp32, 4 x 256, 8 layers: xlstm 1.28e-4 / 1.01e-4 against
+# the mesh's 9.51e-5, on embed, mlstm.0.out_proj.w and mlstm.*.wq.w;
+# zamba2 3.24e-5 / 6.64e-5 against 5.85e-5; both near 1e-5 at 2 layers):
+# fp32 rounding that grows with depth.  A broken split (the gated
+# RMSNorm's sum of squares from the rank's half alone, doubled; reduced
+# widths on the CPU) reads 2.0 to 5.5 times the leaf's largest element.  The
+# bound sits 7.8x above the largest sound reading
+DRY_MESH_PARAM_TOL = 1e-3
+# the SSD / mLSTM launches at one rank's heads of (c): B 4 / data 2
+DRY_SSD_CASE = (2, 256, 16, 128, 64, 1, 128)
+DRY_MLSTM_CASE = (2, 256, 2, 512, 64, "normal", "empty")
+DRY_SSD = f"{SSD}[zamba2-1.2b mesh 2x2: 16 heads a rank, fp32]"
+DRY_MLSTM = f"{MLSTM}[xlstm-350m mesh 2x2: 2 heads a rank, fp32]"
 
 
 def log(msg: str) -> None:
@@ -1155,43 +1200,20 @@ def host_us(torch, fn, iters=20):
 def bounds(name, x, dtype_name):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and FLOPs /
     peak, counting each input read once, each output written once, and
-    only the K/V this run's contexts need."""
-    e = 2 if dtype_name == "bfloat16" else 4
-    q, pt, ctx, tile = x["q"], x["pt"], x["ctx"], x["tile"]
+    only the K/V this run's contexts need (`roofline.analysis.paged_work`,
+    the formulas the kernel wrappers record their work with)."""
+    from repro_torch.roofline import analysis as RA
+
+    q, pt, ctx = x["q"], x["pt"], x["ctx"]
     s, hq, d = q.shape
-    hkv = x["kp"].shape[0]
-    ctx_l = [int(c) for c in ctx.tolist()]
-    live_kv = sum(-(-c // tile) * tile for c in ctx_l)
-    meta = pt.numel() * 4 + ctx.numel() * 4
-    nseg = x["nseg"]
-    m = hq // hkv
-    seg_out = s * hkv * nseg * (m * d + 2 * m) * 4
-    if name == "paged_decode":
-        nbytes = 2 * q.numel() * e + 2 * live_kv * hkv * d * e + meta
-        flops = 4 * hq * d * sum(ctx_l)
-    elif name == "paged_decode_segmented":
-        nbytes = q.numel() * e + 2 * live_kv * hkv * d * e + meta + seg_out
-        flops = 4 * hq * d * sum(ctx_l)
-    elif name == "segment_reduce":
-        nbytes = seg_out + q.numel() * e
-        flops = 3 * s * hkv * nseg * m * d
-    elif name in (MERGED, PAIR):  # the partials are workspace
-        nbytes = 2 * q.numel() * e + 2 * live_kv * hkv * d * e + meta
-        flops = 4 * hq * d * sum(ctx_l) + 3 * s * hkv * nseg * m * d
-    else:  # paged_prefill_qblock
+    kw = dict(s=s, hq=hq, hkv=x["kp"].shape[0], d=d,
+              e=RA.elem_size(dtype_name), ctx=ctx.tolist(), tile=x["tile"],
+              pt_numel=pt.numel(), ctx_numel=ctx.numel(), nseg=x["nseg"])
+    if name == "paged_prefill_qblock":
         pf = x["pf"]
-        pctx = [int(c) for c in pf["ctx"].tolist()]
-        live = sum(-(-c // tile) * tile for c in pctx)
-        nbytes = (2 * pf["q_packed"].numel() * e + 2 * live * hkv * d * e
-                  + pf["pt"].numel() * 4 + 2 * pf["qb_seq"].numel() * 4)
-        keys = 0  # causal keys per live query row
-        for c, ql in zip(pctx, pf["qlens"]):
-            start = c - ql
-            keys += sum(start + i + 1 for i in range(ql))
-        flops = 4 * hq * d * keys
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        kw["prefill"] = (pf["q_packed"].numel(), pf["ctx"].tolist(),
+                         pf["qlens"], pf["pt"].numel(), pf["qb_seq"].numel())
+    return RA.bound_ms(*RA.paged_work(name, **kw), PEAK_FLOPS[dtype_name])
 
 
 def library_calls(torch, x):
@@ -2269,15 +2291,14 @@ def phase_flash_check(torch, FK):
 
 def flash_bound(case):
     """(bound_ms, bound_by): causal FLOPs 4*B*Hq*D*S(S+1)/2 at the bf16
-    peak vs q, k, v, o and the fp32 lse moved once at the HBM rate."""
+    peak vs q, k, v, o and the fp32 lse moved once at the HBM rate
+    (`roofline.analysis.flash_work`)."""
+    from repro_torch.roofline import analysis as RA
+
     b, sq, skv, hq, hkv, d, causal, _, dtype_name = case
-    e = 2 if dtype_name == "bfloat16" else 4
-    pairs = sq * (sq + 1) // 2 if causal else sq * skv
-    flops = 4 * b * hq * d * pairs
-    nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * e + 4 * b * sq * hq
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return RA.bound_ms(*RA.flash_work(
+        b=b, sq=sq, skv=skv, hq=hq, hkv=hkv, dk=d, dv=d, causal=causal,
+        e=RA.elem_size(dtype_name)), PEAK_FLOPS[dtype_name])
 
 
 def phase_flash_time(torch, FK, iters=20):
@@ -2480,16 +2501,13 @@ def ssd_bound(case, dtype_name):
     """(bound_ms, bound_by): FLOPs B*H*nc*(2Q^2(N+P) + 4QNP) at the peak
     for the inputs' type vs the bytes of every input read once (x, B, C in
     the inputs' type; dt, a_cum, s0 fp32) and y (fp32) plus the final
-    state written once."""
+    state written once (`roofline.analysis.ssd_work`)."""
+    from repro_torch.roofline import analysis as RA
+
     bsz, l, h, p, n, grp, q = case
-    e = 2 if dtype_name == "bfloat16" else 4
-    flops = bsz * h * (l // q) * (2 * q * q * (n + p) + 4 * q * n * p)
-    nbytes = (bsz * l * h * p * e + 2 * bsz * l * grp * n * e
-              + 2 * bsz * l * h * 4 + 2 * bsz * h * n * p * 4
-              + bsz * l * h * p * 4)
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return RA.bound_ms(*RA.ssd_work(bsz=bsz, l=l, h=h, p=p, n=n, grp=grp,
+                                    q=q, e=RA.elem_size(dtype_name)),
+                       PEAK_FLOPS[dtype_name])
 
 
 def phase_ssd_time(torch, SK, dtype_name="bfloat16", iters=20):
@@ -2697,15 +2715,14 @@ def mlstm_bound(case, dtype_name):
     the decayed sum of k within the chunk; q C and the k^T v update) at
     the peak for the inputs' type vs the bytes of q, k, v (the inputs'
     type), the fp32 gates ig, bcum, g and the initial state read once, h
-    (the inputs' type) and the final state written once."""
+    (the inputs' type) and the final state written once
+    (`roofline.analysis.mlstm_work`)."""
+    from repro_torch.roofline import analysis as RA
+
     bsz, l, h, p, q = case[:5]
-    e = 2 if dtype_name == "bfloat16" else 4
-    flops = bsz * h * (l // q) * (6 * q * q * p + 4 * q * p * p)
-    state = bsz * h * (p * p + p + 1) * 4
-    nbytes = 4 * bsz * l * h * p * e + 3 * bsz * l * h * 4 + 2 * state
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return RA.bound_ms(*RA.mlstm_work(bsz=bsz, l=l, h=h, p=p, q=q,
+                                      e=RA.elem_size(dtype_name)),
+                       PEAK_FLOPS[dtype_name])
 
 
 def phase_mlstm_time(torch, MK, dtype_name="bfloat16", iters=20):
@@ -3488,12 +3505,12 @@ def phase_moe_check(torch, GK):
 def moe_bound(rows, touched, d, ff, dtype_name):
     """(bound_ms, bound_by) of the grouped GEMM pair: the touched experts'
     three weight matrices, xs read and ys written once, against 2 x rows x
-    3 x d x ff operations."""
-    e = 2 if dtype_name == "bfloat16" else 4
-    nbytes = touched * 3 * d * ff * e + 2 * rows * d * e
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * rows * 3 * d * ff / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    3 x d x ff operations (`roofline.analysis.moe_pair_work`)."""
+    from repro_torch.roofline import analysis as RA
+
+    return RA.bound_ms(*RA.moe_pair_work(rows=rows, touched=touched, d=d,
+                                         ff=ff, e=RA.elem_size(dtype_name)),
+                       PEAK_FLOPS[dtype_name])
 
 
 def phase_moe_time(torch, GK, GO, kept, iters=20):
@@ -3762,15 +3779,12 @@ def mla_decode_inputs(torch, dtype, ctx, g, ps=16, h=128, r=512, rope=64):
 def mla_decode_bound(ctx, h, r, rope, dtype_name):
     """(bound_ms, bound_by) of the latent decode: each live cached row read
     once (for both products), q read and o_lat written once; 2 x H x (D +
-    r) operations a live row."""
-    e = 2 if dtype_name == "bfloat16" else 4
-    d = r + rope
-    live = sum(ctx)
-    nbytes = live * d * e + len(ctx) * h * (d + r) * e + 8 * len(ctx)
-    flops = live * h * 2 * (d + r)
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    r) operations a live row (`roofline.analysis.mla_decode_work`)."""
+    from repro_torch.roofline import analysis as RA
+
+    return RA.bound_ms(*RA.mla_decode_work(ctx=ctx, h=h, r=r, rope=rope,
+                                           e=RA.elem_size(dtype_name)),
+                       PEAK_FLOPS[dtype_name])
 
 
 def phase_mla_check(torch, AK, AO, ptxas=(), iters=20):
@@ -3890,16 +3904,13 @@ def mla_flash_bound(b, s, h, kvl, dtype_name):
     """(bound_ms, bound_by): q read and o and lse written once for every
     row, k and v read once for the live keys only (the kernel loads no key
     at or past kv_len); 2 x (192 + 128) operations a (query, key) pair a
-    head, each query row over min(row + 1, kv_len) keys."""
-    e = 2 if dtype_name == "bfloat16" else 4
-    rows = b * h * s
-    live = h * sum(kvl)
-    nbytes = rows * (192 + 128) * e + rows * 4 + live * (192 + 128) * e
-    pairs = sum(sum(min(i + 1, n) for i in range(s)) for n in kvl)
-    flops = h * pairs * 2 * (192 + 128)
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    head, each query row over min(row + 1, kv_len) keys
+    (`roofline.analysis.flash_work`)."""
+    from repro_torch.roofline import analysis as RA
+
+    return RA.bound_ms(*RA.flash_work(
+        b=b, sq=s, skv=s, hq=h, hkv=h, dk=192, dv=128, causal=True,
+        e=RA.elem_size(dtype_name), kv_len=kvl), PEAK_FLOPS[dtype_name])
 
 
 def phase_mla_flash(torch, FK, kvl_serve, iters=10):
@@ -6138,12 +6149,16 @@ def mesh_timed_collectives(torch, spmd_mod, dist, events):
     return undo
 
 
-def mesh_fp32_leg(torch, mesh):
-    """27 (a) in one rank: full-width qwen2.5-3b cut to MESH_FP32_LAYERS
-    layers, fp32, 2 steps on one device (this rank, the whole model)
-    then on the mesh with FSDP: losses and grad norms, and each gradient
-    leaf of both steps on this rank's blocks against the one-device
-    leaf's largest element."""
+def mesh_fp32_leg(torch, mesh, arch=MESH_ARCH, layers=MESH_FP32_LAYERS,
+                  batch=MESH_FP32_BATCH, seq=MESH_FP32_SEQ,
+                  at_once=MESH_REF_AT_ONCE, kernel_modules=()):
+    """27 (a) in one rank: full-width `arch` (qwen2.5-3b) cut to `layers`
+    layers, fp32, 2 steps on one device (this rank, the whole model; `at_once`
+    ranks at a time) then on the mesh with FSDP: losses and grad norms,
+    and each gradient leaf of both steps on this rank's blocks against the
+    one-device leaf's largest element.  With `kernel_modules`, "launches"
+    holds the mesh run's launches by device kernel (their
+    `KERNEL_LAUNCHES`)."""
     from repro_torch import weights
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import param_sharding as PS
@@ -6154,15 +6169,14 @@ def mesh_fp32_leg(torch, mesh):
 
     import torch.distributed as dist
 
-    cfg = ARCHS[MESH_ARCH].replace(num_layers=MESH_FP32_LAYERS,
-                                   dtype="float32")
-    batches = mesh_batches(cfg, 2, MESH_FP32_BATCH, MESH_FP32_SEQ)
+    cfg = ARCHS[arch].replace(num_layers=layers, dtype="float32")
+    batches = mesh_batches(cfg, 2, batch, seq)
     rules = SH.make_rules(fsdp=True, sp=True)
     ref = {}  # this rank's blocks of the one-device gradients, each max
-    # the one-device run (~19 GB at its peak) in every rank, two ranks at
-    # a time: four at once do not fit the card
-    for turn in range(0, dist.get_world_size(), MESH_REF_AT_ONCE):
-        if turn <= dist.get_rank() < turn + MESH_REF_AT_ONCE:
+    # the one-device run (~19 GB at its peak for qwen2.5-3b) in every rank,
+    # `at_once` ranks at a time: four at once do not fit the card
+    for turn in range(0, dist.get_world_size(), at_once):
+        if turn <= dist.get_rank() < turn + at_once:
             model = weights.init_random(cfg, SEED, device=DEVICE,
                                         on_device=True)
             names = [n for n, _ in model.named_parameters()]
@@ -6193,14 +6207,20 @@ def mesh_fp32_leg(torch, mesh):
             worst[name] = max(worst.get(name, 0.0), err)
 
     state = T.make_train_state(model)
+    before = [dict(m.KERNEL_LAUNCHES) for m in kernel_modules]
     with SH.use_rules(mesh, rules):
         _, got, _ = mesh_steps(torch, model, state, batches, compare)
+    launches = {}
+    for m, was in zip(kernel_modules, before):
+        for k, n in m.KERNEL_LAUNCHES.items():
+            if n - was.get(k, 0):
+                launches[k] = n - was.get(k, 0)
     ref.clear()
     del model, state
     gc.collect()
     torch.cuda.empty_cache()
     return dict(one=one, mesh=got, worst_grad=max(worst.values()),
-                worst_leaf=max(worst, key=worst.get))
+                worst_leaf=max(worst, key=worst.get), launches=launches)
 
 
 def mesh_moe_leg(torch, mesh):
@@ -6547,6 +6567,262 @@ def phase_mesh(torch, FK):
                                / sum(timed))
 
 
+def dry_batch(torch, cfg, shape):
+    """A global batch of `input_specs`' keys, shapes and dtypes on the
+    card (token ids from a seeded generator, positions from 0, each row's
+    pages its own, decode rows at the context their page table holds)."""
+    from repro_torch.configs import input_specs
+    from repro_torch.launch import dryrun as D
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 28)
+    _, _, np_ = D._pool_layout(cfg, shape, 1)
+    specs = input_specs(cfg, shape, pages_per_seq=None if shape.kind ==
+                        "train" else np_)
+    b, s = shape.global_batch, shape.seq_len
+    ctx = s if shape.kind != "decode" else np_ * cfg.page_size
+    out = {}
+    for key, spec in specs.items():
+        if key in ("inputs", "labels"):
+            v = torch.randint(0, cfg.vocab_size, tuple(spec.shape),
+                              generator=g, dtype=torch.int32)
+        elif key == "page_table":
+            v = 1 + torch.arange(b)[:, None] * np_ + torch.arange(np_)[None]
+        elif key in ("context_lens", "query_lens"):
+            v = torch.full((b,), ctx)
+        else:  # positions
+            v = (torch.full((b, 1), ctx - 1) if shape.kind == "decode"
+                 else torch.arange(s)[None].expand(b, s))
+        out[key] = v.to(spec.dtype).contiguous().to(DEVICE)
+    return out
+
+
+def dry_card_leg(torch, kind, s, b):
+    """28 (b) for one cell: smollm-135m at DRY_LAYERS layers (bf16), one
+    step counted on meta and one counted on the card (a world of 1, no
+    mesh): FLOPs equal, meta's peak memory (arguments + the storages the
+    step makes) within DRY_MEM_BAND of `torch.cuda.max_memory_allocated`
+    over the step (less what was allocated before its arguments), then
+    DRY_TIMED uncounted steps timed with CUDA events against the count's
+    roofline terms.  Returns the numbers."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import analysis as RA
+
+    cfg = ARCHS[DRY_ARCH].replace(num_layers=DRY_LAYERS)
+    shape = InputShape(f"card_{kind}", s, b, kind)
+    meta = D.count_cell(cfg, shape, None, multi_pod=False, device="meta")
+    meta_total = meta["argument_bytes"] + meta["peak_bytes"]
+    mc = meta["count"]
+    del meta
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    step, _ = D.build_cell(cfg, shape, None, multi_pod=False, device=DEVICE,
+                           batch=dry_batch(torch, cfg, shape))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RA.StepCounter() as counter:
+        out = step()
+    torch.cuda.synchronize()
+    card_total = torch.cuda.max_memory_allocated() - base
+    cc = counter.snapshot()
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        [out[1]["loss"]] if kind == "train" else [out[0]]))
+    del out
+    walls = []
+    for _ in range(DRY_TIMED):
+        x = torch.cuda.Event(enable_timing=True)
+        y = torch.cuda.Event(enable_timing=True)
+        x.record()
+        step()
+        y.record()
+        torch.cuda.synchronize()
+        walls.append(x.elapsed_time(y) / 1e3)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    terms = cc.cost().terms()
+    step_s = statistics.median(walls)
+    floor_s = max(terms["compute_s"], terms["memory_s"])
+    ratio = meta_total / card_total
+    log(f"dryrun card {DRY_ARCH} {DRY_LAYERS} layers bf16 {kind} B {b} S "
+        f"{s}: flops meta {mc.flops} card {cc.flops} (aten {cc.aten_flops},"
+        f" kernels {cc.kernel_flops}: {sorted(cc.kernels)}); bytes meta "
+        f"{mc.total_bytes} card {cc.total_bytes}; peak memory meta "
+        f"{meta_total / 2**30:.3f} GiB card {card_total / 2**30:.3f} GiB "
+        f"(ratio {ratio:.3f}, band {DRY_MEM_BAND}); step {step_s * 1e3:.3f} "
+        f"ms (walls {[round(w * 1e3, 3) for w in walls]}) over max(compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms) = {step_s / floor_s:.2f}")
+    if not finite:
+        raise AssertionError(f"dryrun card {kind}: non-finite output")
+    if cc.flops != mc.flops:
+        raise AssertionError(f"dryrun card {kind}: counted FLOPs differ, "
+                             f"meta {mc.flops} card {cc.flops}")
+    if not DRY_MEM_BAND[0] <= ratio <= DRY_MEM_BAND[1]:
+        raise AssertionError(f"dryrun card {kind}: meta peak memory "
+                             f"{meta_total} vs the card's {card_total}")
+    if step_s < terms["compute_s"]:
+        raise AssertionError(f"dryrun card {kind}: a step of {step_s} s is "
+                             f"faster than its compute term "
+                             f"{terms['compute_s']} s")
+    return dict(flops=cc.flops, ratio=ratio, step_s=step_s,
+                roofline_share=floor_s / step_s)
+
+
+def dry_mesh_rank(rank, world):
+    """28 (c) in one rank of the 4-rank gloo world on the card: zamba2 and
+    xlstm cut to DRY_MESH's depths, fp32, on the (data 2, model 2) mesh
+    against one device (27 (a)'s leg), with the mesh run's launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.mamba2 import kernel as SK
+    from repro_torch.kernels.mlstm import kernel as MK
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device_type="cuda")
+    out = {"coord": dict(mesh.coord)}
+    for arch, (layers, b, s) in DRY_MESH.items():
+        t0 = time.perf_counter()
+        out[arch] = mesh_fp32_leg(torch, mesh, arch=arch, layers=layers,
+                                  batch=b, seq=s, at_once=MESH_RANKS,
+                                  kernel_modules=(SK, MK, FK))
+        out[arch]["s"] = time.perf_counter() - t0
+    return out
+
+
+def dry_rank_shape_rows(torch, SK, MK, iters=20):
+    """The SSD and mLSTM kernels at one rank's heads of 28 (c) (fp32)
+    against their plain versions, timed beside them and their bounds.
+    Returns {row name: (max abs error, the row's numbers)}."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    rows = {}
+    case = DRY_SSD_CASE
+    args = ssd_inputs(torch, case, "float32")
+    got = SK.ssd_chunked_fwd(*args, chunk=case[-1])
+    want = SK.ssd_chunked_fwd_plain(*args, chunk=case[-1])
+    torch.cuda.synchronize()
+    err, bound, abs_err = ssd_err(torch, got, want, "float32")
+    if not err <= bound:
+        raise AssertionError(f"dryrun: the SSD kernel disagrees with its "
+                             f"plain version at {case}")
+    ms = time_ms(torch, lambda: SK.ssd_chunked_fwd(*args, chunk=case[-1]),
+                 iters, flush)
+    plain_ms = time_ms(torch, lambda: SK.ssd_chunked_fwd_plain(
+        *args, chunk=case[-1]), 3, flush)
+    bound_ms, bound_by = ssd_bound(case, "float32")
+    rows[DRY_SSD] = (abs_err, dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                   bound_ms=bound_ms, bound_by=bound_by))
+    case = DRY_MLSTM_CASE
+    args = mlstm_inputs(torch, case, "float32")
+    kw = dict(chunk=case[4], scale=case[3] ** -0.5)
+    got = MK.mlstm_chunked_fwd(*args, **kw)
+    want = MK.mlstm_chunked_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    top = max(1.0, max(float(b.abs().max()) for b in want))
+    if not abs_err <= MLSTM_FP32_RTOL * top:
+        raise AssertionError(f"dryrun: the mLSTM kernel disagrees with its "
+                             f"plain version at {case}")
+    ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd(*args, **kw), iters,
+                 flush)
+    plain_ms = time_ms(torch, lambda: MK.mlstm_chunked_fwd_plain(*args, **kw),
+                       3, flush)
+    bound_ms, bound_by = mlstm_bound(case, "float32")
+    rows[DRY_MLSTM] = (abs_err, dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, bound_ms=bound_ms,
+                                     bound_by=bound_by))
+    for name, (e, row) in rows.items():
+        log(f"time  {name} kernel_ms {row['ms']:.4f}  plain_ms "
+            f"{row['plain_ms']:.4f}  library_ms null (no single PyTorch call "
+            f"computes it)  bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']})  max_abs_err {e:.3e}")
+    return rows
+
+
+def phase_dryrun(torch, SK, MK):
+    """28: (a) DRY_CELLS through `launch.dryrun.run_cell` on meta tensors
+    at rank 0 of a fake world of 256 (their summary lines); (b)
+    `dry_card_leg` for train and decode; (c) the SSD / mLSTM kernels at
+    one rank's heads, then zamba2 and xlstm on the (data 2, model 2) mesh
+    in 4 gloo ranks on the card: every rank's losses (1e-5 relative) and
+    grad norms (1e-4) of both steps equal one device's, every gradient
+    leaf within DRY_MESH_PARAM_TOL of its largest element, and the mesh
+    run launched
+    the SSD, mLSTM and flash kernels.  Returns (kernel rows {name: (err,
+    numbers, launches)}, the (b) numbers)."""
+    import shutil
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import spawn_ranks
+
+    # (a)
+    out_dir = ROOT / "build" / "dryrun"
+    for arch, shape in DRY_CELLS:
+        rec = D.run_cell(arch, shape, "single", out_dir=str(out_dir))
+        log(f"dryrun {D.summary(rec)} kv_layout {rec.get('kv_layout')}")
+        r = rec.get("roofline", {})
+        if rec["status"] != "ok" or not r.get("flops_per_device", 0) > 0:
+            raise AssertionError(f"dryrun: {arch} {shape} did not count")
+    # (b)
+    card = {kind: dry_card_leg(torch, kind, s, b)
+            for kind, s, b in DRY_CARD_SHAPES}
+    # (c)
+    rows = dry_rank_shape_rows(torch, SK, MK)
+    store = ROOT / "build" / "dry_mesh"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = spawn_ranks(dry_mesh_rank, MESH_RANKS, backend="gloo",
+                      init_file=str(store / "store"))
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"dryrun mesh ranks: {MESH_RANKS} processes over gloo on the one "
+        f"card, {time.perf_counter() - t0:.1f}s")
+    want_kernels = {"zamba2-1.2b": ("ssd_fwd_kernel", "flash_fwd_kernel"),
+                    "xlstm-350m": ("mlstm_fwd_kernel",)}
+    for arch, (layers, b, s) in DRY_MESH.items():
+        for r, out in enumerate(res):
+            a = out[arch]
+            for i, (one, got) in enumerate(zip(a["one"], a["mesh"])):
+                dl = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+                dg = abs(got["grad_norm"] - one["grad_norm"]) \
+                    / one["grad_norm"]
+                if r == 0:
+                    log(f"dryrun mesh {arch} {layers} layers fp32 {b} x {s} "
+                        f"step {i}: loss {got['loss']:.7f} (one device "
+                        f"{one['loss']:.7f}, rel {dl:.2e}) grad_norm "
+                        f"{got['grad_norm']:.6f} (rel {dg:.2e})")
+                if not (dl <= MESH_LOSS_RTOL and dg <= MESH_GNORM_RTOL):
+                    raise AssertionError(f"dryrun mesh {arch}: rank {r} step "
+                                         f"{i} differs from one device")
+            log(f"dryrun mesh {arch} rank {r} {out['coord']}: gradient "
+                f"leaves within {a['worst_grad']:.2e} of each leaf's largest"
+                f" (worst {a['worst_leaf']}; bound {DRY_MESH_PARAM_TOL:g}); "
+                f"launches {a['launches']} ({a['s']:.1f}s)")
+            if not a["worst_grad"] <= DRY_MESH_PARAM_TOL:
+                raise AssertionError(f"dryrun mesh {arch}: rank {r}'s "
+                                     f"gradient blocks differ")
+            missing = [k for k in want_kernels[arch]
+                       if not a["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"dryrun mesh {arch}: rank {r} launched "
+                                     f"no {missing}")
+    launched = {DRY_SSD: res[0]["zamba2-1.2b"]["launches"]["ssd_fwd_kernel"],
+                DRY_MLSTM: res[0]["xlstm-350m"]["launches"][
+                    "mlstm_fwd_kernel"]}
+    return {name: (err, row, launched[name])
+            for name, (err, row) in rows.items()}, card
+
+
 def main() -> int:
     import torch
 
@@ -6815,6 +7091,19 @@ def main() -> int:
     kernels.append(dict(name=MESH_FLASH, route="cuda", source=FLASH_SOURCE,
                         replaces=FLASH_REPLACES, launches=mesh_launches,
                         **mesh_row))
+    # 28. the dry run: (a) cells on meta tensors at rank 0 of a fake world
+    # of 256; (b) meta against the card at a world of 1 (FLOPs, peak
+    # memory, the step against its roofline); (c) zamba2 and xlstm on the
+    # (data 2, model 2) mesh in 4 gloo ranks on the card
+    dry_rows, _ = phase_dryrun(torch, SK, MK)
+    lap("28 dryrun")
+    for name, source, replaces in ((DRY_SSD, SSD_SOURCE, SSD_REPLACES),
+                                   (DRY_MLSTM, MLSTM_SOURCE,
+                                    MLSTM_REPLACES)):
+        err, row, launched = dry_rows[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launched,
+                            max_abs_err=err, **row))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -94,3 +94,72 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applies(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """(applies?, reason-if-not).  long_500k only for sub-quadratic
+    architectures."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "SKIP(long_500k: pure full-attention arch)"
+    return True, ""
+
+
+def _abstract(shape, dtype) -> torch.Tensor:
+    """The port's abstract value: a meta tensor (shape and dtype, no
+    storage)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def positions_spec(cfg: ModelConfig, b: int, s: int) -> torch.Tensor:
+    """[B, S] int32 positions; [3, B, S] for M-RoPE."""
+    if cfg.rope_style == "mrope":
+        return _abstract((3, b, s), torch.int32)
+    return _abstract((b, s), torch.int32)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, *,
+                pages_per_seq: int | None = None) -> dict:
+    """Meta-tensor stand-ins for every model input of a cell (the
+    reference's ShapeDtypeStructs, key for key).
+
+    train:   tokens / embeds + labels + positions
+    prefill: tokens / embeds + positions + query_lens + paged metadata
+    decode:  one new token a sequence (token ids also for an embeddings
+             model) + positions + paged metadata; the KV cache is passed
+             beside the batch (`models.model.make_cache`)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    tok = torch.int32
+
+    def inputs():
+        if cfg.input_kind == "embeds":
+            return _abstract((b, s, cfg.d_model), cfg.param_dtype)
+        return _abstract((b, s), tok)
+
+    if shape.kind == "train":
+        return {"inputs": inputs(), "labels": _abstract((b, s), tok),
+                "positions": positions_spec(cfg, b, s)}
+    np_ = pages_per_seq or -(-s // cfg.page_size)
+    meta = {"page_table": _abstract((b, np_), tok),
+            "context_lens": _abstract((b,), tok)}
+    if shape.kind == "prefill":
+        return {"inputs": inputs(), "positions": positions_spec(cfg, b, s),
+                "query_lens": _abstract((b,), tok), **meta}
+    return {"inputs": _abstract((b, 1), tok),
+            "positions": positions_spec(cfg, b, 1), **meta}

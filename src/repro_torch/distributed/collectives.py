@@ -22,13 +22,15 @@ import torch.distributed as dist
 from torch.utils import _pytree
 
 from repro_torch.distributed.sharding import gather_ranks
+from repro_torch.roofline.analysis import collective
 
 
 def bf16_psum(tree, group=None):
     """The sum over `group` of every leaf, reduced in bf16."""
     def one(g: torch.Tensor) -> torch.Tensor:
         b = g.to(torch.bfloat16)
-        dist.all_reduce(b, group=group)
+        with collective("all-reduce", b.numel() * b.element_size()):
+            dist.all_reduce(b, group=group)
         return b.to(g.dtype)
     return _pytree.tree_map(one, tree)
 

@@ -36,6 +36,17 @@ takes the generic rule on (L, n); the port holds the leaf unstacked and
 takes the reference's spec less its [L] entry (`stacked=L`).  The AdamW
 moments inherit their parameter's layout.  A spec is the reference's
 PartitionSpec as a tuple: per dim None, "model", or the batch axes.
+
+The serving cache on that mesh (`cache_spec`, the reference's): KV pages
+[L, Hkv, pools, P, ps, D] with the pools on the batch axes (a pool a
+data-parallel shard) and Hkv on 'model' where it divides; state caches
+[L, B, ...] with B on the batch axes and dim 2 on 'model' where they
+divide.  One deliberate difference: where Hkv does not divide 'model'
+the reference splits the pages' head_dim (`KV_HEADDIM_SHARD`), which
+puts a partial sum inside the attention scores that the paged kernels'
+fused softmax cannot take; the port keeps those pages whole within the
+pool, the reference's own named alternative (`KV_HEADDIM_SHARD =
+False`; `kv_layout` says which a cell has).
 """
 from __future__ import annotations
 
@@ -278,3 +289,63 @@ def require_batch_split(batch: dict, *, mesh, batch_axes: tuple) -> None:
                 f"batch entry {key!r} of shape {tuple(v.shape)} does not "
                 f"split over the {n} ranks of the batch axes {batch_axes}: "
                 f"use a (micro)batch that is a multiple of {n}")
+
+
+# ---------------------------------------------------------------------------
+# The serving cache on the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def kv_layout(num_kv_heads: int, model_n: int) -> str:
+    """How the KV pages split over 'model': "heads" (whole KV heads a
+    rank) or "whole" (every rank of 'model' holds every KV head of its
+    pool, where the reference splits head_dim)."""
+    return "heads" if num_kv_heads % model_n == 0 else "whole"
+
+
+def cache_spec(path: str, shape, *, mesh_shape, batch_axes: tuple,
+               model_axis: str = "model") -> tuple:
+    """The reference's `cache_spec` of the port's cache leaf `path`
+    ("attn.k_pages", "mamba.ssm", ...) of global `shape`: for each dim
+    None, `model_axis` or the batch axes.  KV pages [L, Hkv, pools, P, ps,
+    D]: the pools on the batch axes where they divide, Hkv on the model
+    axis where it divides, else the pages whole (the reference splits
+    their head_dim: module docstring);
+    state caches [L, B, ...]: B on the batch axes, dim 2 on the model axis
+    where each divides."""
+    ndim = len(shape)
+    model_n = mesh_shape[model_axis]
+    data_n = _axes_size(mesh_shape, batch_axes)
+    spec: list = [None] * ndim
+    leaf = path.rsplit(".", 1)[-1]
+    if leaf in ("k_pages", "v_pages"):
+        if batch_axes and shape[2] % data_n == 0:
+            spec[2] = tuple(batch_axes)
+        if shape[1] % model_n == 0:
+            spec[1] = model_axis
+        return tuple(spec)
+    if ndim >= 2 and batch_axes and shape[1] % data_n == 0:
+        spec[1] = tuple(batch_axes)
+    if ndim >= 3 and shape[2] % model_n == 0:
+        spec[2] = model_axis
+    return tuple(spec)
+
+
+@torch.no_grad()
+def assign_cache_shardings(cache: dict, *, mesh, batch_axes: tuple,
+                           model_axis: str = "model") -> dict:
+    """This rank's block of every leaf of a whole serving cache at its
+    `cache_spec`, a new tensor carrying its layout (`spmd.placement`); the
+    whole leaves are left to be freed.  The serving steps read and write
+    these blocks in place: a layer's pages [Hkv / M or Hkv, 1, P, ps, D]
+    (one pool a rank where the pools divide over the batch axes), its
+    state rows the rank's batch rows."""
+    out = {}
+    for g, leaves in cache.items():
+        out[g] = {}
+        for k, t in leaves.items():
+            layout = tuple(_mesh_axes(e) for e in cache_spec(
+                f"{g}.{k}", t.shape, mesh_shape=mesh.shape,
+                batch_axes=batch_axes, model_axis=model_axis))
+            out[g][k] = spmd.set_placement(
+                cut_block(t, layout, mesh).clone(), layout)
+    return out

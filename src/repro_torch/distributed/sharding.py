@@ -44,6 +44,8 @@ import threading
 import torch
 import torch.distributed as dist
 
+from repro_torch.roofline.analysis import collective
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
@@ -67,7 +69,8 @@ def gather_ranks(x: torch.Tensor, size: int, group) -> torch.Tensor:
     out = x1.new_empty((size,) + tuple(x.shape))
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
-    gather(out, x1, group=group)
+    with collective("all-gather", out.numel() * out.element_size()):
+        gather(out, x1, group=group)
     return out
 
 
@@ -112,6 +115,18 @@ def _rules() -> dict | None:
 
 def _mesh():
     return getattr(_state, "mesh", None)
+
+
+# the architectures the reference trains and serves with their weights
+# also split over the data axes (ZeRO-3; the reference's `FSDP_ARCHS`)
+FSDP_ARCHS = {"llama3-405b", "llama4-maverick-400b-a17b", "deepseek-v2-236b"}
+
+
+def uses_fsdp(cfg) -> bool:
+    """Whether a config (a registry architecture or its "-reduced" cut)
+    splits its weights over the data axes: its parameters' placement and
+    its rules' `fsdp` both read this."""
+    return cfg.name.split("-reduced")[0] in FSDP_ARCHS
 
 
 # logical axis -> mesh axes (None = replicated)

@@ -28,6 +28,10 @@ that lands each gradient on the rank holding its block.
 gloo is the backend for ranks on the CPU and for ranks sharing one card.
 It has no reduce-scatter for CUDA tensors, so there the reduce-scatter is
 an all-reduce followed by this rank's block (twice the bytes).
+
+Each collective records the bytes of its result with the roofline
+counter (`roofline.analysis.record_collective`): the reference's
+convention, and what the dry run's collective term reads.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import active_mesh, gather_ranks
+from repro_torch.roofline.analysis import collective
 
 
 def _mesh():
@@ -55,20 +60,24 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int,
                     k: int) -> torch.Tensor:
     """Block k of the sum over `group` of x, along `dim`."""
     size = x.shape[dim] // n
+    nbytes = x.numel() // n * x.element_size()
     if x.is_cuda and dist.get_backend(group) == "gloo":
         total = x.contiguous().clone()
-        dist.all_reduce(total, group=group)
+        with collective("reduce-scatter", nbytes):
+            dist.all_reduce(total, group=group)
         return total.narrow(dim, k * size, size).contiguous()
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((size,) + tuple(src.shape[1:]))
-    dist.reduce_scatter_tensor(out, src, group=group)
+    with collective("reduce-scatter", nbytes):
+        dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of x over `group` (a 0-d x travels as [1])."""
     out = x.reshape(-1).clone()
-    dist.all_reduce(out, group=group)
+    with collective("all-reduce", out.numel() * out.element_size()):
+        dist.all_reduce(out, group=group)
     return out.view(x.shape)
 
 
@@ -149,7 +158,9 @@ def all_reduce_max(x: torch.Tensor, axes) -> torch.Tensor:
     if _one(axes):
         return x.detach()
     out = x.detach().contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_mesh().group(axes))
+    with collective("all-reduce", out.numel() * out.element_size()):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=_mesh().group(axes))
     return out
 
 
@@ -255,7 +266,9 @@ def reduce_grads(grads: list[torch.Tensor], specs: list, mesh) -> None:
                 end += 1
             bucket = members[start:end]
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat, group=mesh.group(axes))
+            with collective("all-reduce",
+                            flat.numel() * flat.element_size()):
+                dist.all_reduce(flat, group=mesh.group(axes))
             for g, piece in zip(bucket, flat.split(
                     [g.numel() for g in bucket])):
                 g.copy_(piece.view_as(g))
@@ -275,6 +288,7 @@ def global_norm(tensors: list[torch.Tensor], specs: list, mesh,
     for axes, parts in by_axes.items():
         s = torch.sum(torch.stack(parts)).reshape(1)
         if axes and mesh.size(axes) > 1:
-            dist.all_reduce(s, group=mesh.group(axes))
+            with collective("all-reduce", s.numel() * s.element_size()):
+                dist.all_reduce(s, group=mesh.group(axes))
         total = s if total is None else total + s
     return torch.sqrt(total)[0]

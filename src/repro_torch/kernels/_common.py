@@ -6,12 +6,19 @@ and the recompute backward of the scans' trainable Functions.
 
 A wrapper given CUDA tensors launches its kernel on the current stream
 and raises when the launch fails; given CPU tensors it runs its plain
-version.  `_tile_update` is the Pallas kernels' `_flash_tile_update` in
+version; given meta tensors (the dry run: shapes, no data) it returns
+empty meta outputs of the kernel's shapes and dtypes, and never runs the
+plain version.  On every route it records the kernel's work, (FLOPs,
+bytes) from its shapes, with the active `roofline.analysis` counter, and
+the plain version runs uncounted, so a CPU rank counts what a card or
+meta rank counts.  `_tile_update` is the Pallas kernels' `_flash_tile_update` in
 PyTorch ops, with the same masking constants.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.roofline import analysis
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # head dims of the bf16 tensor-core attention kernels (flash forward, paged
@@ -40,19 +47,32 @@ def _raise_on(rc: int, name: str) -> None:
                            f"cudaError_t {rc}")
 
 
-def _on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); raises on mixed or other devices."""
+def _route(name: str, *tensors: torch.Tensor) -> str:
+    """"cuda" (launch the kernel), "cpu" (run the plain version) or
+    "meta" (empty outputs of the kernel's shapes); raises on mixed or
+    other devices."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one device, "
                              f"got {t.device} and {dev}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
+    if dev.type in ("cuda", "cpu", "meta"):
+        return dev.type
     raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _record(name: str, work, *args, **kwargs) -> None:
+    """One launch of kernel `name` doing `work(*args, **kwargs)` = (FLOPs,
+    bytes), into the active counter (`roofline.analysis.record_kernel`);
+    the formula is not evaluated when nothing is counting."""
+    if analysis.counting():
+        analysis.record_kernel(name, *work(*args, **kwargs))
+
+
+def _plain(fn, *args, **kwargs):
+    """The plain version, run uncounted (its kernel's work is recorded)."""
+    with analysis.uncounted():
+        return fn(*args, **kwargs)
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:

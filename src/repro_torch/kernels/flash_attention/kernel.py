@@ -29,8 +29,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
     NEG_INF, LaunchLimitError, _check_aligned, _check_mma, _finalize,
-    _init_state, _on_card, _ptr, _raise_on, _stream, _tile_update,
+    _init_state, _plain, _ptr, _raise_on, _record, _route, _stream,
+    _tile_update,
 )
+from repro_torch.roofline import analysis
 from repro_torch.utils.misc import cdiv
 
 MAX_ROWS = 64  # block_q * group rows of one thread block
@@ -144,13 +146,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset must be >= 0, got {q_offset}")
     tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
-    if not _on_card(name, *tensors):
-        return flash_attention_fwd_plain(q, k, v, block_q=block_q,
-                                         group=group, scale=scale,
-                                         causal=causal, q_offset=q_offset,
-                                         kv_len=kv_len)
+    route = _route(name, *tensors)
     bh, nq, bm, d = q.shape
     dv = v.shape[2]
+    # from the shapes: every key below kv_len's bound (Skv) live
+    _record(name, analysis.flash_work, b=bh, sq=nq * block_q,
+            skv=k.shape[1], hq=group, hkv=1, dk=d, dv=dv, causal=causal,
+            e=q.element_size(), q_offset=q_offset)
+    if route == "meta":
+        return (torch.empty((bh, nq, bm, dv), dtype=q.dtype, device=q.device),
+                torch.empty((bh, nq, bm), dtype=torch.float32,
+                            device=q.device))
+    if route == "cpu":
+        return _plain(flash_attention_fwd_plain, q, k, v, block_q=block_q,
+                      group=group, scale=scale, causal=causal,
+                      q_offset=q_offset, kv_len=kv_len)
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "

@@ -24,8 +24,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (_check_aligned, _on_card, _ptr,
-                                         _raise_on, _stream)
+from repro_torch.kernels._common import (_check_aligned, _plain, _ptr,
+                                         _raise_on, _record, _route, _stream)
+from repro_torch.roofline import analysis
 
 MAX_CHUNK = 128  # tokens per chunk (rows of the in-block score tile)
 MAX_STATE = 64   # state size N
@@ -128,8 +129,15 @@ def ssd_chunked_fwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                          f"[{bsz}, {h}, {n}, {p}]")
     if chunk <= 0 or l % chunk:
         raise ValueError(f"{name}: chunk {chunk} must divide L = {l}")
-    if not _on_card(name, x, dt, b, c, a_cum, s0):
-        return ssd_chunked_fwd_plain(x, dt, b, c, a_cum, s0, chunk=chunk)
+    route = _route(name, x, dt, b, c, a_cum, s0)
+    _record(name, analysis.ssd_work, bsz=bsz, l=l, h=h, p=p, n=n,
+            grp=b.shape[2], q=chunk, e=x.element_size())
+    if route == "meta":
+        return (torch.empty(x.shape, dtype=torch.float32, device=x.device),
+                torch.empty_like(s0))
+    if route == "cpu":
+        return _plain(ssd_chunked_fwd_plain, x, dt, b, c, a_cum, s0,
+                      chunk=chunk)
     for t in (x, dt, b, c, a_cum, s0):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "

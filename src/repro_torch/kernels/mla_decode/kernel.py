@@ -33,9 +33,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    LaunchLimitError, _check_aligned, _finalize, _init_state, _on_card, _ptr,
-    _raise_on, _stream, _tile_update,
+    LaunchLimitError, _check_aligned, _finalize, _init_state, _plain, _ptr,
+    _raise_on, _record, _route, _stream, _tile_update,
 )
+from repro_torch.roofline import analysis
 from repro_torch.utils.misc import cdiv
 
 NAME = "mla_decode"
@@ -140,9 +141,15 @@ def mla_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{NAME}: {num_segments} segments of {seg_keys} "
                          f"keys must cover Np * ps = {keys} keys, seg_keys a "
                          f"multiple of {SEG_ALIGN}")
-    if not _on_card(NAME, q, k_pages, page_table, context_lens):
-        return mla_decode_plain(q, k_pages, page_table, context_lens,
-                                v_dim=v_dim, scale=scale)
+    route = _route(NAME, q, k_pages, page_table, context_lens)
+    # from the shapes: every row's page-table pages live
+    _record(NAME, analysis.mla_decode_work, ctx=[keys] * s_, h=h, r=v_dim,
+            rope=d - v_dim, e=q.element_size())
+    if route == "meta":
+        return torch.empty((s_, h, v_dim), dtype=q.dtype, device=q.device)
+    if route == "cpu":
+        return _plain(mla_decode_plain, q, k_pages, page_table,
+                      context_lens, v_dim=v_dim, scale=scale)
     for t in (q, k_pages, page_table, context_lens):
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: the CUDA kernel needs contiguous "

@@ -28,8 +28,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (_check_aligned, _on_card, _ptr,
-                                         _raise_on, _stream)
+from repro_torch.kernels._common import (_check_aligned, _plain, _ptr,
+                                         _raise_on, _record, _route, _stream)
+from repro_torch.roofline import analysis
 
 MAX_CHUNK = 64  # tokens per chunk (rows of the in-block score tile)
 MAX_HEAD_DIM = 512  # P: a block's C tile [P, 64] (shared memory or registers)
@@ -153,8 +154,15 @@ def mlstm_chunked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk <= 0 or l % chunk:
         raise ValueError(f"{name}: chunk {chunk} must divide L = {l}")
     args = (q, k, v, ig, bcum, g, c0, n0, m0)
-    if not _on_card(name, *args):
-        return mlstm_chunked_fwd_plain(*args, chunk=chunk, scale=scale)
+    route = _route(name, *args)
+    _record(name, analysis.mlstm_work, bsz=bsz, l=l, h=h, p=p, q=chunk,
+            e=q.element_size())
+    if route == "meta":
+        return (torch.empty_like(q),
+                *(torch.empty_like(t) for t in (c0, n0, m0)))
+    if route == "cpu":
+        return _plain(mlstm_chunked_fwd_plain, *args, chunk=chunk,
+                      scale=scale)
     for t in args:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous "

@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import (_check_aligned, _on_card, _ptr,
-                                         _raise_on, _stream)
+from repro_torch.kernels._common import (_check_aligned, _plain, _ptr,
+                                         _raise_on, _record, _route, _stream)
+from repro_torch.roofline import analysis
 
 NAME = "moe_grouped_gemm"
 _LIB_NAME = "moe_grouped_gemm"
@@ -100,11 +101,14 @@ def grouped_gemm_plain(xs: torch.Tensor, w0: torch.Tensor,
 
 def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
                  w1: torch.Tensor | None = None, *,
-                 tail: bool = False) -> torch.Tensor:
+                 tail: bool = False,
+                 routed_rows: int | None = None) -> torch.Tensor:
     """xs [R, K] sorted by expert; w0 (and w1) [E, K, N] in xs's dtype;
     offsets [E + 1] int32.  Returns [R, N] in xs's dtype:
     xs . w0[e], or silu(xs . w0[e]) * (xs . w1[e]) with `w1`; with `tail`
-    zeros on the rows past offsets[E]."""
+    zeros on the rows past offsets[E].  The recorded work counts
+    `routed_rows` rows (default R: every row; the offsets stay on the
+    device, so the rows a tail leaves alone are the caller's estimate)."""
     if xs.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{NAME}: xs must be float32 or bfloat16, got "
                         f"{xs.dtype}")
@@ -127,8 +131,14 @@ def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
     if offsets.shape != (e + 1,):
         raise ValueError(f"{NAME}: offsets {tuple(offsets.shape)} must be "
                          f"[E + 1 = {e + 1}]")
-    if not _on_card(NAME, xs, offsets, *ws):
-        return grouped_gemm_plain(xs, w0, offsets, w1, tail=tail)
+    route = _route(NAME, xs, offsets, *ws)
+    _record(NAME, analysis.grouped_gemm_work,
+            rows=r if routed_rows is None else routed_rows, touched=e, k=k,
+            n=n, n_w=len(ws), e=xs.element_size())
+    if route == "meta":
+        return torch.empty((r, n), dtype=xs.dtype, device=xs.device)
+    if route == "cpu":
+        return _plain(grouped_gemm_plain, xs, w0, offsets, w1, tail=tail)
     for t in (xs, offsets, *ws):
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: the CUDA kernel needs contiguous "

@@ -15,7 +15,9 @@ serving path's C3 decode).  The wrappers take the Pallas kernels' inputs
 by `ops.py`) and give the same outputs.  A CUDA tensor launches the
 hand-written kernel on the current stream (or raises); a CPU tensor runs
 the plain version below, which is what the CPU tests hold against the JAX
-kernels.  Each launch of a CUDA kernel adds one to `LAUNCHES[name]` for
+kernels; a meta tensor returns empty outputs of the kernel's shapes.
+Each records its work from its shapes (`_work`: every page of the page
+table live, the Q blocks of a prefill split evenly over its sequences).  Each launch of a CUDA kernel adds one to `LAUNCHES[name]` for
 each Pallas function it computes (the merged launch counts both of C3's)
 and one to `KERNEL_LAUNCHES` of the device kernel it ran, so a run can
 show that its main path went through the kernels, and through which.
@@ -28,9 +30,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    NEG_INF, LaunchLimitError, _check_mma, _finalize, _init_state, _on_card,
-    _ptr, _raise_on, _stream, _tile_update,
+    NEG_INF, LaunchLimitError, _check_mma, _finalize, _init_state, _plain,
+    _ptr, _raise_on, _record, _route, _stream, _tile_update,
 )
+from repro_torch.roofline import analysis
 from repro_torch.utils.misc import cdiv
 
 MAX_HEAD_DIM = 256
@@ -317,6 +320,30 @@ def paged_prefill_qblock_plain(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
 # ---------------------------------------------------------------------------
 
 
+def _work(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+          page_table: torch.Tensor, context_lens: torch.Tensor, *,
+          hq: int, nseg: int = 1, block_q: int = 0) -> tuple[int, int]:
+    """The kernel's (FLOPs, bytes) from the shapes alone (a meta tensor
+    has no data): every row's page-table pages live, so its context is
+    Np * page_size; a prefill's Q blocks, less one dead block a sequence
+    (`ops.paged_attention_prefill`'s static count), split evenly over its
+    sequences, each chunk ending at its context."""
+    _, _, tpp, tile, d = k_pages.shape
+    b, np_ = page_table.shape
+    keys = np_ * tpp * tile
+    kw = dict(hq=hq, hkv=k_pages.shape[0], d=d, e=q.element_size(),
+              tile=tile, pt_numel=page_table.numel(),
+              ctx_numel=context_lens.numel())
+    if name != "paged_prefill_qblock":
+        return analysis.paged_work(name, s=q.shape[0], ctx=[keys] * b,
+                                   nseg=nseg, **kw)
+    nqb = q.shape[0]
+    qlen = min(keys, max(nqb - b, 0) * block_q // max(b, 1))
+    return analysis.paged_work(
+        name, s=0, ctx=(), prefill=(q.numel(), [keys] * b, [qlen] * b,
+                                    page_table.numel(), nqb), **kw)
+
+
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, page_table: torch.Tensor,
                  context_lens: torch.Tensor, *, cells_per_kv: int,
@@ -335,10 +362,14 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          f"cells_per_kv = {k_pages.shape[0] * cells_per_kv}"
                          f", M, D]")
     _check_table(name, page_table, context_lens, q.shape[0])
-    if not _on_card(name, q, k_pages, v_pages, page_table, context_lens):
-        return paged_decode_plain(q, k_pages, v_pages, page_table,
-                                  context_lens, cells_per_kv=cells_per_kv,
-                                  scale=scale)
+    route = _route(name, q, k_pages, v_pages, page_table, context_lens)
+    _record(name, _work, name, q, k_pages, page_table, context_lens,
+            hq=q.shape[1] * q.shape[2])
+    if route == "meta":
+        return torch.empty_like(q)
+    if route == "cpu":
+        return _plain(paged_decode_plain, q, k_pages, v_pages, page_table,
+                      context_lens, cells_per_kv=cells_per_kv, scale=scale)
     s_, n_cells, m, d = q.shape
     _, _, tpp, tile, _ = k_pages.shape
     _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
@@ -369,16 +400,23 @@ def paged_decode_segmented(q, k_pages, v_pages, page_table, context_lens, *,
     name = "paged_decode_segmented"
     _check_segmented(name, q, k_pages, v_pages, page_table, context_lens,
                      num_segments, tiles_per_segment)
-    if not _on_card(name, q, k_pages, v_pages, page_table, context_lens):
-        return paged_decode_segmented_plain(
-            q, k_pages, v_pages, page_table, context_lens,
-            num_segments=num_segments, tiles_per_segment=tiles_per_segment,
-            scale=scale)
+    route = _route(name, q, k_pages, v_pages, page_table, context_lens)
+    _record(name, _work, name, q, k_pages, page_table, context_lens,
+            hq=q.shape[1] * q.shape[2], nseg=num_segments)
+    if route == "cpu":
+        return _plain(paged_decode_segmented_plain,
+                      q, k_pages, v_pages, page_table, context_lens,
+                      num_segments=num_segments,
+                      tiles_per_segment=tiles_per_segment, scale=scale)
     s_, hkv, m, d = q.shape
     _, _, tpp, tile, _ = k_pages.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if route == "meta":
+        return (torch.empty((s_, hkv, num_segments, m, d), **f32),
+                torch.empty((s_, hkv, num_segments, m), **f32),
+                torch.empty((s_, hkv, num_segments, m), **f32))
     _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
                   vectors=(k_pages, v_pages))
-    f32 = dict(dtype=torch.float32, device=q.device)
     o_seg = torch.empty((s_, hkv, num_segments, m, d), **f32)
     m_seg = torch.empty((s_, hkv, num_segments, m), **f32)
     l_seg = torch.empty((s_, hkv, num_segments, m), **f32)
@@ -409,11 +447,16 @@ def paged_decode_segmented_merged(q, k_pages, v_pages, page_table,
     name = "paged_decode_segmented_merged"
     _check_segmented(name, q, k_pages, v_pages, page_table, context_lens,
                      num_segments, tiles_per_segment)
-    if not _on_card(name, q, k_pages, v_pages, page_table, context_lens):
-        return paged_decode_segmented_merged_plain(
-            q, k_pages, v_pages, page_table, context_lens,
-            num_segments=num_segments, tiles_per_segment=tiles_per_segment,
-            scale=scale)
+    route = _route(name, q, k_pages, v_pages, page_table, context_lens)
+    _record(name, _work, name, q, k_pages, page_table, context_lens,
+            hq=q.shape[1] * q.shape[2], nseg=num_segments)
+    if route == "meta":
+        return torch.empty_like(q)
+    if route == "cpu":
+        return _plain(paged_decode_segmented_merged_plain,
+                      q, k_pages, v_pages, page_table, context_lens,
+                      num_segments=num_segments,
+                      tiles_per_segment=tiles_per_segment, scale=scale)
     s_, hkv, m, d = q.shape
     _, _, tpp, tile, _ = k_pages.shape
     _check_kernel(name, d, q, k_pages, v_pages, page_table, context_lens,
@@ -455,9 +498,16 @@ def segment_reduce(o_seg: torch.Tensor, m_seg: torch.Tensor,
             or l_seg.shape != m_seg.shape:
         raise ValueError(f"{name}: shapes {tuple(o_seg.shape)}, "
                          f"{tuple(m_seg.shape)}, {tuple(l_seg.shape)}")
-    if not _on_card(name, o_seg, m_seg, l_seg):
-        return segment_reduce_plain(o_seg, m_seg, l_seg, out_dtype)
+    route = _route(name, o_seg, m_seg, l_seg)
     s_, hkv, nseg, m, d = o_seg.shape
+    _record(name, analysis.paged_work, name, s=s_, hq=hkv * m, hkv=hkv, d=d,
+            e=analysis.elem_size(out_dtype), ctx=(), tile=1, pt_numel=0,
+            ctx_numel=0, nseg=nseg)
+    if route == "meta":
+        return torch.empty((s_, hkv, m, d), dtype=out_dtype,
+                           device=o_seg.device)
+    if route == "cpu":
+        return _plain(segment_reduce_plain, o_seg, m_seg, l_seg, out_dtype)
     _check_kernel(name, d, o_seg, m_seg, l_seg)
     out = torch.empty((s_, hkv, m, d), dtype=out_dtype, device=o_seg.device)
     with torch.cuda.device(o_seg.device):
@@ -491,11 +541,17 @@ def paged_prefill_qblock(q_packed, k_pages, v_pages, qb_seq, qb_pos0,
         raise ValueError(f"{name}: qb_seq / qb_pos0 must be [NQB="
                          f"{q_packed.shape[0]}]")
     _check_table(name, page_table, context_lens, None)
-    if not _on_card(name, q_packed, k_pages, v_pages, qb_seq, qb_pos0,
-                    page_table, context_lens):
-        return paged_prefill_qblock_plain(
-            q_packed, k_pages, v_pages, qb_seq, qb_pos0, page_table,
-            context_lens, block_q=block_q, group=group, scale=scale)
+    route = _route(name, q_packed, k_pages, v_pages, qb_seq, qb_pos0,
+                   page_table, context_lens)
+    _record(name, _work, name, q_packed, k_pages, page_table, context_lens,
+            hq=k_pages.shape[0] * group, block_q=block_q)
+    if route == "meta":
+        return torch.empty_like(q_packed)
+    if route == "cpu":
+        return _plain(paged_prefill_qblock_plain,
+                      q_packed, k_pages, v_pages, qb_seq, qb_pos0,
+                      page_table, context_lens, block_q=block_q,
+                      group=group, scale=scale)
     nqb, hkv, bm, d = q_packed.shape
     _, _, tpp, tile, _ = k_pages.shape
     bf16 = q_packed.dtype == torch.bfloat16

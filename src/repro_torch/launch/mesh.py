@@ -25,9 +25,16 @@ of its axes; `make_test_mesh` the (2, 2) host mesh of the tests;
 16) or (pod 2, data 16, model 16), on a world of exactly 256 / 512 ranks.
 The reference's `RECOMMENDED_XLA_FLAGS` are TPU compiler flags and have
 no counterpart here.
+
+`fake_world(n)` makes this process rank 0 of a world of n ranks that
+exist in name only (torch's "fake" process-group backend: every
+collective returns at once, its output untouched): the dry run builds
+the production mesh over it with `device_type="cpu"` and runs one rank's
+step on meta tensors, whose collectives move no data.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -181,6 +188,25 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise ShardingError(f"the production mesh {shape} over {axes} "
                             f"needs {n} ranks; the world has {world}")
     return make_mesh(shape, axes, device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """This process as rank `rank` of a world of `world` ranks over the
+    "fake" backend (no other process exists; collectives return at once
+    and leave their outputs as they are), for the calls inside; the world
+    is destroyed after them.  Raises where a world is already up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a torch.distributed world is "
+                           "already initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(rank: int, world: int, backend: str, init_file: str, inbox,

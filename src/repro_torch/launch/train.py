@@ -21,7 +21,7 @@ kernel and the device's idle share of the unprofiled step time.
 
 `--mesh DxM` (default 1x1: the one-device path above) trains on a
 (data D, model M) mesh of D x M ranks, as the reference's launcher
-does: the rules `make_rules(fsdp=arch in FSDP_ARCHS, sp=True)`,
+does: the rules `make_rules(fsdp=SH.uses_fsdp(cfg), sp=True)`,
 every parameter and its moments placed by `param_spec`, the global batch
 split by `batch_spec`.  `--multi-pod` takes the reference's (pod 2, data
 16, model 16) production mesh instead (512 ranks).  The ranks come from
@@ -68,8 +68,6 @@ from repro_torch.training.trainer import (
 )
 
 SEED = 0
-# the architectures the reference trains with ZeRO-3 weight sharding
-FSDP_ARCHS = {"llama3-405b", "llama4-maverick-400b-a17b", "deepseek-v2-236b"}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -113,7 +111,7 @@ def main(argv: list[str] | None = None) -> None:
     dev = _mesh_world(args) if on_mesh else torch.device(args.device)
     rank = dist.get_rank() if on_mesh else 0
     mesh = rules = None
-    fsdp = cfg.name in FSDP_ARCHS
+    fsdp = SH.uses_fsdp(cfg)
     if on_mesh:
         if args.multi_pod:
             mesh = mesh_mod.make_production_mesh(multi_pod=True,

@@ -54,6 +54,17 @@ run on these local heads; `wo` is row-parallel over them and the output
 a pending sum over 'model', reduce-scattered onto the sequence.  Without
 a mesh the same code runs on one device: every layout is whole, a rank's
 heads are all of them and each `constrain` is the identity.
+
+The padded serving modes take the same code (one device, or a mesh's
+rules in the dry run's prefill and decode cells; the reference's `_qkv`
+constrains heads in every mode): `forward_prefill` / `forward_decode`
+project this rank's heads as training does, write the rank's block of the pages (its KV heads where
+the rules split them, else every KV head: the pool is then held whole on
+each rank of 'model', where the reference splits the pages' head_dim, a
+layout whose partial scores the fused softmax of the paged kernels cannot
+take), attend over the pages of the KV heads its query heads read, and
+close with the row-parallel `wo` and its all-reduce; MLA likewise on its
+heads over the whole latent pool.
 """
 from __future__ import annotations
 
@@ -130,16 +141,23 @@ def residual(out: torch.Tensor, split: bool) -> torch.Tensor:
                      partial=("model",) if split else ())
 
 
-def kv_for_heads(k: torch.Tensor, v: torch.Tensor, hq: int, hkv: int,
-                 lo: int, hi: int):
-    """Of whole K / V [b, S, Hkv, D], the KV heads query heads [lo, hi)
-    read (query head i reads KV head i // (Hq / Hkv)), as a GQA group the
-    flash kernel takes."""
+def kv_range(hq: int, hkv: int, lo: int, hi: int) -> tuple[int, int]:
+    """[klo, khi): the KV heads query heads [lo, hi) read (query head i
+    reads KV head i // (Hq / Hkv)), which must form a GQA group the
+    kernels take."""
     g = hq // hkv
     klo, khi = lo // g, (hi - 1) // g + 1
     if not (khi - klo == 1 or (lo % g == 0 and (hi - lo) % g == 0)):
         raise ShardingError(f"query heads [{lo}, {hi}) of {hq} over {hkv} "
                             f"KV heads do not form whole GQA groups")
+    return klo, khi
+
+
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, hq: int, hkv: int,
+                 lo: int, hi: int):
+    """Of whole K / V [b, S, Hkv, D], the KV heads query heads [lo, hi)
+    read, as a GQA group the flash kernel takes."""
+    klo, khi = kv_range(hq, hkv, lo, hi)
     return k[:, :, klo:khi], v[:, :, klo:khi]
 
 
@@ -249,14 +267,8 @@ class Attention(nn.Module):
         chunk).  x [B, S, d]; positions [B, S]; meta: page_table,
         context_lens, query_lens and the write index.  Returns [B, S, d]."""
         _refuse_split(shard, "prefill")
-        b, s, _ = x.shape
-        q, k, v = self.qkv(x, positions)
-        self._write_kv(k, v, k_pages, v_pages, meta)
-        o = attn_backend.prefill_attention_uniform(
-            q, meta["query_lens"], k_pages, v_pages, meta["page_table"],
-            meta["context_lens"], scale=self.cfg.resolved_head_dim ** -0.5,
-            kernel_cfg=kernel_cfg)
-        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+        return self._serve("prefill", x, positions, k_pages, v_pages, meta,
+                           kernel_cfg)
 
     def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
                        k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -266,21 +278,15 @@ class Attention(nn.Module):
         slots); meta: page_table, context_lens (0 on dead slots) and the
         write index.  Returns [B, 1, d]."""
         _refuse_split(shard, "decode")
-        b = x.shape[0]
-        q, k, v = self.qkv(x, positions)
-        self._write_kv(k, v, k_pages, v_pages, meta)
-        o = attn_backend.decode_attention(
-            q[:, 0], k_pages, v_pages, meta["page_table"],
-            meta["context_lens"], scale=self.cfg.resolved_head_dim ** -0.5,
-            kernel_cfg=kernel_cfg)
-        return self.wo(o.reshape(b, 1, -1).to(x.dtype))
+        return self._serve("decode", x, positions, k_pages, v_pages, meta,
+                           kernel_cfg)
 
-    def forward_train(self, x: torch.Tensor,
-                      positions: torch.Tensor) -> torch.Tensor:
-        """x [B, S, d]; positions [B, S].  Causal self-attention over the
-        sequence (the reference's mode="train").  Returns [B, S, d]; on a
-        training mesh this rank's heads (all of them without one) and the
-        residual stream's layout (module docstring)."""
+    def _local_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """This rank's (q, k, v [B, S, h, D], q's layout, k's layout, its
+        query heads (lo, hi)) under the rules (all heads without them):
+        its column block of `wq` / `wk` / `wv`, or its heads' columns of
+        the gathered weight where the layout does not split them on head
+        boundaries (a fused `wqkv`)."""
         cfg = self.cfg
         b, s, _ = x.shape
         dh = cfg.resolved_head_dim
@@ -297,7 +303,55 @@ class Attention(nn.Module):
             v = self.wv.block(x, klo * dh, khi * dh)
         q = rope(cfg, q.reshape(b, s, -1, dh), positions)
         k = rope(cfg, k.reshape(b, s, -1, dh), positions)
-        v = v.reshape(b, s, -1, dh)
+        return q, k, v.reshape(b, s, -1, dh), q_held, k_held, (lo, hi)
+
+    def _serve(self, mode: str, x: torch.Tensor, positions: torch.Tensor,
+               k_pages: torch.Tensor, v_pages: torch.Tensor, meta: dict,
+               kernel_cfg):
+        """A padded serving mode, "prefill" or "decode": x [B, S, d];
+        k/v_pages this layer's pages, [Hkv, 1, P, ps, D] (under a mesh's
+        rules x is this rank's batch rows and the pages its block of them,
+        [Hkv / M or Hkv, 1, P, ps, D]: module docstring).  Returns [B, S,
+        d] at the residual stream's layout."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        dh = cfg.resolved_head_dim
+        hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+        q, k, v, q_held, k_held, (lo, hi) = self._local_qkv(x, positions)
+        if k_pages.shape[0] != k.shape[2]:
+            raise ShardingError(
+                f"this rank computes {k.shape[2]} KV heads but its pages "
+                f"hold {k_pages.shape[0]} (the cache's layout is "
+                f"param_sharding.cache_spec's)")
+        self._write_kv(k, v, k_pages, v_pages, meta)
+        if q_held[2] and not k_held[2]:  # whole pages: this rank's heads'
+            klo, khi = kv_range(hq, hkv, lo, hi)
+            k_pages, v_pages = k_pages[klo:khi], v_pages[klo:khi]
+        if mode == "decode":
+            o = attn_backend.decode_attention(
+                q[:, 0], k_pages, v_pages, meta["page_table"],
+                meta["context_lens"], scale=dh ** -0.5,
+                kernel_cfg=kernel_cfg)
+        else:
+            o = attn_backend.prefill_attention_uniform(
+                q, meta["query_lens"], k_pages, v_pages, meta["page_table"],
+                meta["context_lens"], scale=dh ** -0.5,
+                kernel_cfg=kernel_cfg)
+        o = o.reshape(b, s, -1).to(x.dtype)
+        out = o @ spmd.local_block(self.wo.w, 0, lo * dh, hi * dh)
+        return residual(out, q_held[2] is not None)
+
+    def forward_train(self, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """x [B, S, d]; positions [B, S].  Causal self-attention over the
+        sequence (the reference's mode="train").  Returns [B, S, d]; on a
+        training mesh this rank's heads (all of them without one) and the
+        residual stream's layout (module docstring)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        dh = cfg.resolved_head_dim
+        hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
+        q, k, v, q_held, k_held, (lo, hi) = self._local_qkv(x, positions)
         q = constrain(q, "batch", "seq", "heads", "head_dim", held=q_held)
         k = constrain(k, "batch", "seq", "kv_heads", "head_dim", held=k_held)
         v = constrain(v, "batch", "seq", "kv_heads", "head_dim", held=k_held)
@@ -346,20 +400,25 @@ class MLAAttention(nn.Module):
         self.scale = qk ** -0.5
 
     def q(self, x: torch.Tensor, positions: torch.Tensor):
-        """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated): the
-        reference's `_mla_q`."""
+        """(q_nope [B, S, h, nope], q_rope [B, S, h, rope] rotated, the
+        layout of [B, S, H, qk] heads, this rank's heads (lo, hi)): the
+        reference's `_mla_q` for this rank's h heads under the rules (its
+        columns of `wq_b` or `wq`; the q LoRA rank computed whole), all H
+        without them."""
         b, s, _ = x.shape
         m = self.cfg.mla
-        q = self.wq_b(self.q_norm(self.wq_a(x))) if self.q_lora \
-            else self.wq(x)
-        q = q.reshape(b, s, self.cfg.num_q_heads,
-                      m.qk_nope_dim + m.qk_rope_dim)
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        held, (lo, hi) = mesh_heads(b, s, self.cfg.num_q_heads, qk)
+        wq = self.wq_b if self.q_lora else self.wq
+        xq = self.q_norm(self.wq_a(x)) if self.q_lora else x
+        q = wq.block(xq, lo * qk, hi * qk).reshape(b, s, hi - lo, qk)
         q_rope = rope(self.cfg, q[..., m.qk_nope_dim:], positions)
-        return q[..., :m.qk_nope_dim], q_rope
+        return q[..., :m.qk_nope_dim], q_rope, held, (lo, hi)
 
     def latent(self, x: torch.Tensor, positions: torch.Tensor):
         """(latent [B, S, r] normed, k_rope [B, S, rope] rotated): what the
-        cache holds, the reference's `_mla_latent`."""
+        cache holds, the reference's `_mla_latent` (whole on every
+        rank)."""
         r = self.cfg.mla.kv_lora_rank
         kv = self.wkv_a(x)
         latent = self.kv_norm(kv[..., :r])
@@ -367,16 +426,30 @@ class MLAAttention(nn.Module):
                       positions)[:, :, 0]
         return latent, k_rope
 
-    def _expand(self, q_nope, q_rope, latent, k_rope):
-        """The expanded form's (q, k, v): per-head keys [wk_b . latent |
-        k_rope broadcast over the heads] and values wv_b . latent."""
+    def _expand(self, latent, k_rope, lo: int, hi: int):
+        """The expanded form's keys and values of heads [lo, hi): [wk_b .
+        latent | k_rope broadcast over the heads] and wv_b . latent, by
+        those heads' columns of `wk_b` / `wv_b`."""
         b, s, _ = latent.shape
-        m, h = self.cfg.mla, self.cfg.num_q_heads
-        k_nope = self.wk_b(latent).reshape(b, s, h, m.qk_nope_dim)
-        v = self.wv_b(latent).reshape(b, s, h, m.v_head_dim)
+        m, h = self.cfg.mla, hi - lo
+        k_nope = self.wk_b.block(latent, lo * m.qk_nope_dim,
+                                 hi * m.qk_nope_dim).reshape(
+                                     b, s, h, m.qk_nope_dim)
+        v = self.wv_b.block(latent, lo * m.v_head_dim,
+                            hi * m.v_head_dim).reshape(b, s, h, m.v_head_dim)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_dim)], dim=-1)
-        return torch.cat([q_nope, q_rope], dim=-1), k, v
+        return k, v
+
+    def _wo(self, o: torch.Tensor, dtype, held, lo: int, hi: int):
+        """o [B, S, h, v] of heads [lo, hi) through their rows of `wo`,
+        at the residual stream's layout (a pending sum over 'model' where
+        the heads are split)."""
+        b, s = o.shape[:2]
+        vd = self.cfg.mla.v_head_dim
+        out = o.reshape(b, s, -1).to(dtype) @ spmd.local_block(
+            self.wo.w, 0, lo * vd, hi * vd)
+        return residual(out, held[2] is not None)
 
     def _write_rows(self, latent, k_rope, k_pages, meta) -> None:
         """The step's [latent | k_rope] rows into this layer's pages at the
@@ -407,14 +480,14 @@ class MLAAttention(nn.Module):
         expansion keeps its score buffers small; the flash forward never
         holds one), so it takes this path too.  Returns [B, S, d]."""
         self._refuse_split(shard)
-        b, s, _ = x.shape
-        q_nope, q_rope = self.q(x, positions)
+        q_nope, q_rope, held, (lo, hi) = self.q(x, positions)
         latent, k_rope = self.latent(x, positions)
         self._write_rows(latent, k_rope, k_pages, meta)
-        q, k, v = self._expand(q_nope, q_rope, latent, k_rope)
-        o = flash_attention(q, k, v, causal=True, scale=self.scale,
+        k, v = self._expand(latent, k_rope, lo, hi)
+        o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True, scale=self.scale,
                             kv_len=meta["query_lens"])
-        return self.wo(o.reshape(b, s, -1).to(x.dtype))
+        return self._wo(o, x.dtype, held, lo, hi)
 
     def forward_decode(self, x: torch.Tensor, positions: torch.Tensor,
                        k_pages: torch.Tensor, v_pages, meta: dict,
@@ -425,22 +498,26 @@ class MLAAttention(nn.Module):
         config is not read: the latent decode has one path, as the
         reference's.  Returns [B, 1, d]."""
         self._refuse_split(shard)
-        b = x.shape[0]
-        m, h = self.cfg.mla, self.cfg.num_q_heads
+        m = self.cfg.mla
         r = m.kv_lora_rank
-        q_nope, q_rope = self.q(x, positions)
+        q_nope, q_rope, held, (lo, hi) = self.q(x, positions)
+        h = hi - lo
         latent, k_rope = self.latent(x, positions)
         self._write_rows(latent, k_rope, k_pages, meta)
-        wkb = self.wk_b.w.reshape(r, h, m.qk_nope_dim).permute(1, 2, 0)
-        q_abs = _bmm_f32(q_nope[:, 0].transpose(0, 1), wkb)  # [H, B, r]
+        wkb = spmd.local_block(self.wk_b.w, 1, lo * m.qk_nope_dim,
+                               hi * m.qk_nope_dim)
+        wkb = wkb.reshape(r, h, m.qk_nope_dim).permute(1, 2, 0)
+        q_abs = _bmm_f32(q_nope[:, 0].transpose(0, 1), wkb)  # [h, B, r]
         q_eff = torch.cat([q_abs.transpose(0, 1).to(x.dtype),
                            q_rope[:, 0]], dim=-1)
         o_lat = attn_backend.mla_decode_attention(
             q_eff, k_pages, meta["page_table"], meta["context_lens"],
-            v_dim=r, scale=self.scale)  # [B, H, r]
-        wvb = self.wv_b.w.reshape(r, h, m.v_head_dim).transpose(0, 1)
-        o = _bmm_f32(o_lat.transpose(0, 1), wvb)  # [H, B, v]
-        return self.wo(o.transpose(0, 1).reshape(b, 1, -1).to(x.dtype))
+            v_dim=r, scale=self.scale)  # [B, h, r]
+        wvb = spmd.local_block(self.wv_b.w, 1, lo * m.v_head_dim,
+                               hi * m.v_head_dim)
+        wvb = wvb.reshape(r, h, m.v_head_dim).transpose(0, 1)
+        o = _bmm_f32(o_lat.transpose(0, 1), wvb)  # [h, B, v]
+        return self._wo(o.transpose(0, 1)[:, None], x.dtype, held, lo, hi)
 
     def forward_train(self, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
@@ -452,29 +529,11 @@ class MLAAttention(nn.Module):
         without a mesh): its columns
         of `wq_b` (or `wq`), `wk_b` and `wv_b`, its rows of `wo`; the
         latent and the q LoRA rank are computed whole."""
-        b, s, _ = x.shape
-        m = self.cfg.mla
-        qk = m.qk_nope_dim + m.qk_rope_dim
-        held, (lo, hi) = mesh_heads(b, s, self.cfg.num_q_heads, qk)
-        h = hi - lo
-        wq = self.wq_b if self.q_lora else self.wq
-        xq = self.q_norm(self.wq_a(x)) if self.q_lora else x
-        q = wq.block(xq, lo * qk, hi * qk).reshape(b, s, h, qk)
-        q = torch.cat([q[..., :m.qk_nope_dim], rope(
-            self.cfg, q[..., m.qk_nope_dim:], positions)], dim=-1)
-        latent, k_rope = self.latent(x, positions)
-        k_nope = self.wk_b.block(latent, lo * m.qk_nope_dim,
-                                 hi * m.qk_nope_dim).reshape(
-                                     b, s, h, m.qk_nope_dim)
-        v = self.wv_b.block(latent, lo * m.v_head_dim,
-                            hi * m.v_head_dim).reshape(b, s, h, m.v_head_dim)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            b, s, h, m.qk_rope_dim)], dim=-1)
+        q_nope, q_rope, held, (lo, hi) = self.q(x, positions)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k, v = self._expand(*self.latent(x, positions), lo, hi)
         q = constrain(q, "batch", "seq", "heads", "head_dim", held=held)
         k = constrain(k, "batch", "seq", "heads", "head_dim", held=held)
         v = constrain(v, "batch", "seq", "heads", "head_dim", held=held)
         o = flash_attention(q, k, v, causal=True, scale=self.scale)
-        o = o.reshape(b, s, -1).to(x.dtype)
-        out = o @ spmd.local_block(self.wo.w, 0, lo * m.v_head_dim,
-                                   hi * m.v_head_dim)
-        return residual(out, held[2] is not None)
+        return self._wo(o, x.dtype, held, lo, hi)

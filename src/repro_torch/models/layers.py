@@ -72,6 +72,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float()).to(x.dtype)
 
 
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   axes, width: int) -> torch.Tensor:
+    """`rms_norm` of a tensor whose last dim, `width` wide in all, is
+    split over mesh `axes` (x and scale this rank's block of it): the sum
+    of squares is summed over the ranks (an all-reduce, nothing without
+    axes)."""
+    xf = x.float()
+    ss = spmd.all_reduce(torch.sum(torch.square(xf), dim=-1, keepdim=True),
+                         axes)
+    y = xf * torch.rsqrt(ss / width + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, device=None):

@@ -7,7 +7,7 @@ SwiGLU MLP, both residual) -> `ln_f` -> head (tied to the embedding for
 smollm).  The audio (musicgen-large: no position encoding) and vlm
 (qwen2-vl-2b: M-RoPE over [3, B, S] t / h / w positions) families are
 this dense decoder, as in the reference; they take [B, S, d] embedding
-inputs where the reference does (`Model.embed_inputs`) and decode token
+inputs where the reference does (`_embed`) and decode token
 ids.  Any block may hold the fused `wqkv` / `gate_up` layouts.  MoE
 `Model` (family "moe", llama4-maverick): the same stack,
 `first_k_dense` leading dense blocks (`lead_blocks`) then blocks whose
@@ -41,6 +41,14 @@ Entry points (ports of `repro.models.model`):
                  capacity dispatch, MLA in its expanded form, the SSD and
                  mLSTM on their kernels with the recompute backward)
 
+Under a mesh's rules (`sharding.use_rules`; the dry run's cells) the
+padded serving entries take this rank's batch rows and its block of the
+cache (`param_sharding.assign_cache_shardings`): the embedding is looked
+up vocabulary-parallel, each block computes on the rank's heads (and
+its experts, or its block of the ff axis) and closes with its
+all-reduce over 'model', and the logits are the rank's block of the
+vocabulary, as the reference's vocab-sharded logits.
+
 The serving cache (`make_cache`) is the reference's tree: {"attn":
 {"k_pages", "v_pages"}} for the attention layers (none for xlstm; MLA's
 is {"k_pages"} alone, its [latent | k_rope] rows), for
@@ -61,7 +69,7 @@ from repro_torch.core.paged.kv_cache import (
 )
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (
-    active, checkpoint_contexts, constrain, expert_group, resolve, spec,
+    checkpoint_contexts, constrain, expert_group, resolve, spec,
 )
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
@@ -116,13 +124,16 @@ class Block(nn.Module):
         """The serving FFN: the MLP, or the MoE's dropless path; that path
         expert-parallel over the active expert group
         (`sharding.use_expert_group`) where the config sets
-        `moe_ep_serve`, as the reference's `_decoder_block`."""
+        `moe_ep_serve`, as the reference's `_decoder_block`.  Under a
+        mesh's rules (`sharding.use_rules`) the MLP runs tensor-parallel
+        on the ff axis and the MoE on this rank's experts
+        (`moe_ffn_dropless_mesh`); without them each is whole."""
         if hasattr(self, "moe"):
             group = expert_group()
             if self.moe.ep_serve and group is not None:
                 return moe_ffn_dropless_ep(self.moe, x, group)[0]
             return self.moe(x)[0]
-        return self.mlp(x)
+        return residual(*self.mlp.forward_partial(x))
 
     def forward_train(self, x: torch.Tensor, positions: torch.Tensor):
         """(x after the block, the MoE's load-balance aux fp32 0-d, or
@@ -263,15 +274,6 @@ class Model(nn.Module):
         blocks first), one KV layer each."""
         return [*self.lead_blocks, *self.blocks]
 
-    def embed_inputs(self, inputs: torch.Tensor) -> torch.Tensor:
-        """[B, S, d] embedding inputs (`input_kind` "embeds": the
-        frontend's frame or patch embeddings) cast to the parameter dtype;
-        token ids [B, S] through the table (the reference's
-        `_embed_inputs`)."""
-        if self.cfg.input_kind == "embeds" and inputs.ndim == 3:
-            return inputs.to(self.cfg.param_dtype)
-        return L.embed(self.embed, inputs)
-
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + output projection; fp32 logits."""
         x = self.ln_f(x)
@@ -281,12 +283,15 @@ class Model(nn.Module):
 
 
 def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
-               device, tp: int = 1) -> dict[str, dict[str, torch.Tensor]]:
+               device, tp: int = 1,
+               num_pools: int = 1) -> dict[str, dict[str, torch.Tensor]]:
     """The empty serving cache: {"attn": {"k_pages", "v_pages"}} of
-    [n_attn, Hkv / tp, 1, num_pages, page_size, head_dim] in the param
-    dtype (one pool; at tp > 1 one rank's whole heads of every page, the
-    rank's block of the head axis) when the model has attention layers (MLA:
-    {"k_pages"} of [n_attn, 1, 1, num_pages, page_size, r + rope],
+    [n_attn, Hkv / tp, num_pools, num_pages, page_size, head_dim] in the
+    param dtype (`num_pages` a pool: the reference's `make_cache_specs`,
+    one pool a data-parallel shard; at tp > 1 one rank's whole heads of
+    every page, the rank's block of the head axis) when the model has
+    attention layers (MLA:
+    {"k_pages"} of [n_attn, 1, num_pools, num_pages, page_size, r + rope],
     `kv_cache_dims`); for
     the hybrid family {"mamba": {"conv": [n_mamba, max_seqs, K-1,
     conv_dim] param dtype, "ssm": [n_mamba, max_seqs, H, N, P] fp32}}; for
@@ -298,8 +303,8 @@ def make_cache(cfg: ModelConfig, *, max_seqs: int, num_pages: int,
     if attn_layer_count(cfg):
         hkv, dk, dv = kv_cache_dims(cfg)
         cache["attn"] = make_kv_cache(
-            attn_layer_count(cfg), hkv, 1, num_pages, cfg.page_size, dk, dv,
-            cfg.param_dtype, device, num_devices=tp)
+            attn_layer_count(cfg), hkv, num_pools, num_pages, cfg.page_size,
+            dk, dv, cfg.param_dtype, device, num_devices=tp)
     if cfg.family == "hybrid":
         groups = {"mamba": (hybrid_layout(cfg)[0], mamba2_cache_specs)}
     elif cfg.family == "ssm":
@@ -560,11 +565,23 @@ def _prefill(model: Model, cache: dict, batch: dict, mode: str,
     b, s = inputs.shape[:2]
     valid, _ = _serve_masks(mode, meta, s)
     _add_write_index(meta, cache, positions, valid)
-    x = _serve_forward(model, model.embed_inputs(inputs), positions,
-                       cache, meta, mode=mode, kernel_cfg=kernel_cfg)
+    x = _serve_forward(model, _embed(model, inputs), positions, cache,
+                       meta, mode=mode, kernel_cfg=kernel_cfg)
     # the head is row-wise: it runs on each row's last valid token only
     last = torch.clamp(meta["query_lens"].long() - 1, min=0)
-    return model.head(x[torch.arange(b, device=x.device), last]), cache
+    x = x[torch.arange(b, device=x.device), last]
+    return _logits_block(model, model.ln_f(x)), cache
+
+
+def _logits_block(model: Model, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the normed x [..., d] over this rank's block of the
+    vocabulary where the rules split it (all of it without a mesh)."""
+    cfg = model.cfg
+    lo, hi = spmd.rank_range(cfg.vocab_size,
+                             resolve((cfg.vocab_size,), "vocab")[0])
+    if model.lm_head is None:
+        return L.unembed(spmd.local_block(model.embed, 0, lo, hi), x)
+    return model.lm_head.block(x, lo, hi).float()
 
 
 @torch.no_grad()
@@ -579,10 +596,9 @@ def apply_decode(model: Model, cache: dict, batch: dict, *, kernel_cfg=None):
     positions = batch["positions"]
     valid = (temporal(positions) >= 0) & (meta["context_lens"][:, None] > 0)
     _add_write_index(meta, cache, positions, valid)
-    x = _serve_forward(model, L.embed(model.embed, batch["inputs"]),
-                       positions, cache, meta, mode="decode",
-                       kernel_cfg=kernel_cfg)
-    return model.head(x[:, 0]), cache
+    x = _serve_forward(model, _embed(model, batch["inputs"]), positions,
+                       cache, meta, mode="decode", kernel_cfg=kernel_cfg)
+    return _logits_block(model, model.ln_f(x[:, 0])), cache
 
 
 def default_positions(cfg: ModelConfig, b: int, s: int,
@@ -595,10 +611,12 @@ def default_positions(cfg: ModelConfig, b: int, s: int,
     return pos
 
 
-def _residual_train(blk, ln, x: torch.Tensor) -> torch.Tensor:
+def _residual_train(blk, ln, x: torch.Tensor, s: int) -> torch.Tensor:
     """One pre-normed residual recurrent layer of training: x +
-    blk.forward_train(ln(x))."""
-    return x + blk.forward_train(ln(x))
+    blk.forward_train(ln(x)), the block reading the whole sequence of
+    length s (on a mesh under sequence parallelism an all-gather of the
+    normed rows) and returning the residual stream's layout."""
+    return x + blk.forward_train(whole_seq(ln(x), s))
 
 
 def _recurrent_train(model: Model, x: torch.Tensor,
@@ -615,23 +633,28 @@ def _recurrent_train(model: Model, x: torch.Tensor,
     else:
         order = stack_order(*xlstm_layout(cfg))
         rec, rec_ln = model.mlstm, model.mlstm_ln
+    s = positions.shape[-1]
     for kind, i in order:
         if kind == "rec":
-            x = checkpoint(_residual_train, rec[i], rec_ln[i], x,
-                           use_reentrant=False)
+            x = checkpoint(_residual_train, rec[i], rec_ln[i], x, s,
+                           use_reentrant=False,
+                           context_fn=checkpoint_contexts)
         elif cfg.family == "hybrid":
             x = model.shared.forward_train(x, positions)[0]
         else:
-            x = _residual_train(model.slstm[i], model.slstm_ln[i], x)
+            x = _residual_train(model.slstm[i], model.slstm_ln[i], x, s)
     return x
 
 
-def _embed_train(model: Model, inputs: torch.Tensor) -> torch.Tensor:
-    """The training embedding at the residual stream's layout (the
-    reference's `constrain(x, "batch", "seq_sp", "embed")`).  On a mesh
-    token ids look up this rank's block of the vocabulary-split table,
-    zero outside it, and the rows are a pending sum over 'model' (vocab
-    parallelism); without one, the whole table."""
+def _embed(model: Model, inputs: torch.Tensor) -> torch.Tensor:
+    """The embedding of training and of the padded serving steps at the
+    residual stream's layout (the reference's `constrain(x, "batch",
+    "seq_sp", "embed")`): [B, S, d] embedding inputs (`input_kind`
+    "embeds": the frontend's frame or patch embeddings) cast to the
+    parameter dtype, or token ids [B, S] through the table (the
+    reference's `_embed_inputs`).  On a mesh ids look up this rank's block of the
+    vocabulary-split table, zero outside it, and the rows are a pending
+    sum over 'model' (vocab parallelism); without one, the whole table."""
     cfg = model.cfg
     batch = spec("batch")[0]
     if cfg.input_kind == "embeds" and inputs.ndim == 3:
@@ -661,12 +684,7 @@ def _loss(model: Model, x: torch.Tensor, labels: torch.Tensor):
     v_axes = resolve((cfg.vocab_size,), "vocab")[0]
     lo, hi = spmd.rank_range(cfg.vocab_size, v_axes)
     x = whole_seq(model.ln_f(x), labels.shape[1])
-    if model.lm_head is None:
-        table = spmd.local_block(model.embed, 0, lo, hi)
-        logits = L.unembed(table, x)
-    else:
-        logits = model.lm_head.block(x, lo, hi).float()
-    logits = constrain(logits, "batch", "seq", "vocab",
+    logits = constrain(_logits_block(model, x), "batch", "seq", "vocab",
                        held=(batch, None, v_axes))
     if v_axes is None:
         logp = torch.log_softmax(logits, dim=-1)
@@ -699,20 +717,15 @@ def apply_train(model: Model, batch: dict):
     keep their activations, as in the reference.  Returns (loss, {"ce",
     "aux", "tokens"}): loss = ce + aux, aux the MoE blocks' load-balance
     losses summed in block order (0 for every other family).  Inside
-    `sharding.use_rules` (a training mesh; the dense, audio, vlm and moe
-    families) inputs, labels and positions are this rank's batch rows, and
-    the loss, ce and aux are the whole batch's, equal on every rank."""
+    `sharding.use_rules` (a training mesh; every family) inputs, labels
+    and positions are this rank's batch rows, and the loss, ce and aux are
+    the whole batch's, equal on every rank."""
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = labels.shape
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(model.cfg, b, s, labels.device)
-    if active() and model.cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"training the {model.cfg.family} family ({model.cfg.name}) on a "
-            f"mesh waits for the next slice of the port (the Mamba2 / "
-            f"mLSTM / sLSTM blocks' tensor-parallel split)")
-    x = _embed_train(model, inputs)
+    x = _embed(model, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=labels.device)
     if model.cfg.family in ("hybrid", "ssm"):
         x = _recurrent_train(model, x, positions)

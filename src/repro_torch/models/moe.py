@@ -82,6 +82,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.kernels.moe import ops as moe_ops
 from repro_torch.models import layers as L
+from repro_torch.roofline.analysis import collective
 
 MOE_GROUP_SIZE = 4096  # GShard grouping: the capacity is per group
 DISPATCH_DTYPE = torch.bfloat16  # the reference's dispatch einsum's dtype
@@ -164,35 +165,14 @@ class MoE(nn.Module):
         dropless path (aux 0), "train" the capacity dispatch."""
         if mode == "train":
             return self.forward_train(x)
-        if self.w_gate.shape[0] != self.num_experts:
+        if (spmd.placement(self.w_gate) is None
+                and self.w_gate.shape[0] != self.num_experts):
             raise ValueError(
                 f"this MoE layer holds {self.w_gate.shape[0]} of its "
                 f"{self.num_experts} experts (shard_experts): it runs only "
                 f"expert parallel, inside use_expert_group")
-        d = x.shape[-1]
-        xt = x.reshape(-1, d)
-        t, k = xt.shape[0], self.top_k
-        e = self.w_gate.shape[0]
-        topw, topi = self.route(xt)
-        e_flat = topi.reshape(-1)  # [T k]
-        ids, order = torch.sort(e_flat, stable=True)  # order: sorted -> flat
-        # group g's rows start where the sorted ids first reach g
-        offsets = torch.searchsorted(
-            ids, torch.arange(e + 1, device=x.device), out_int32=True)
-        pos = torch.empty_like(order).scatter_(
-            0, order, torch.arange(t * k, device=x.device))
-        tok_of = order // k
-        xs = xt[tok_of].to(self.w_gate.dtype)
-        ys = moe_ops.expert_ffn(xs, offsets, self.w_gate, self.w_up,
-                                self.w_down)
-        rows = ys[pos].float().reshape(t, k, d)
-        y = topw[:, 0, None] * rows[:, 0]
-        for j in range(1, k):
-            y = y + topw[:, j, None] * rows[:, j]
-        if self.shared is not None:
-            y = y + self.shared(xt).float()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return y.to(x.dtype).reshape(x.shape), aux
+        return moe_ffn_dropless_mesh(self, x), aux
 
     def forward_train(self, x: torch.Tensor):
         """The GShard capacity dispatch (`moe_ffn`): x [..., d] -> (y in
@@ -322,28 +302,67 @@ def moe_ffn_dropless_ep(moe: MoE, x: torch.Tensor, group=None):
             f"moe_ffn_dropless_ep over {n} ranks needs the layer cut to "
             f"its {e_loc} experts a rank (shard_experts), but it holds "
             f"{moe.w_gate.shape[0]}")
-    ws = (moe.w_gate, moe.w_up, moe.w_down)
     d = x.shape[-1]
     xt = x.reshape(-1, d)
-    t, k = xt.shape[0], moe.top_k
+    y = _dropless_local(moe, xt, (moe.w_gate, moe.w_up, moe.w_down),
+                        rank * e_loc)
+    with collective("all-reduce", y.numel() * y.element_size()):
+        dist.all_reduce(y, group=group)
+    if moe.shared is not None:
+        y = y + moe.shared(xt).float()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y.to(x.dtype).reshape(x.shape), aux
+
+
+def _dropless_local(moe: MoE, xt: torch.Tensor, ws, e_lo: int) -> torch.Tensor:
+    """The dropless combine [T, d] fp32 of the rows of xt [T, d] routed to
+    experts [e_lo, e_lo + E_loc), whose stacks `ws` (w_gate, w_up,
+    w_down) hold: every row routed as the dropless path routes it, the
+    rows of other experts (where E_loc < E) sorted to the tail (which the
+    grouped GEMM leaves alone) and weighed by zero.  The launches' recorded work counts
+    the rows balanced routing sends to E_loc of the E experts."""
+    t, k, d = xt.shape[0], moe.top_k, xt.shape[1]
+    e_loc = ws[0].shape[0]
     topw, topi = moe.route(xt)
-    e_flat = topi.reshape(-1) - rank * e_loc  # the local expert id
+    e_flat = topi.reshape(-1) - e_lo  # the local expert id
     local = (e_flat >= 0) & (e_flat < e_loc)
-    key = torch.where(local, e_flat, e_loc)  # other ranks' rows: the tail
+    key = torch.where(local, e_flat, e_loc)  # other experts' rows: the tail
     ids, order = torch.sort(key, stable=True)
     offsets = torch.searchsorted(
-        ids, torch.arange(e_loc + 1, device=x.device), out_int32=True)
+        ids, torch.arange(e_loc + 1, device=xt.device), out_int32=True)
     pos = torch.empty_like(order).scatter_(
-        0, order, torch.arange(t * k, device=x.device))
+        0, order, torch.arange(t * k, device=xt.device))
     xs = xt[order // k].to(ws[0].dtype)
-    ys = moe_ops.expert_ffn(xs, offsets, *ws, tail=True)
+    ys = moe_ops.expert_ffn(xs, offsets, *ws,
+                            tail=e_loc < moe.num_experts,
+                            routed_rows=t * k * e_loc // moe.num_experts)
     rows = ys[pos].float().reshape(t, k, d)
     w = topw * local.reshape(t, k)
     y = w[:, 0, None] * rows[:, 0]
     for j in range(1, k):
         y = y + w[:, j, None] * rows[:, j]
-    dist.all_reduce(y, group=group)
+    return y
+
+
+def moe_ffn_dropless_mesh(moe: MoE, x: torch.Tensor) -> torch.Tensor:
+    """The dropless serving MoE (`MoE.forward`'s serve mode): x [..., d]
+    -> y in x's dtype, every expert on one device without a mesh.  Under
+    a mesh's rules (the dry run's serving cells) x is this rank's batch
+    rows, whole over 'model'.  The expert stacks are split over
+    'model' where E divides it (`param_sharding.param_spec`; under FSDP
+    their d dim is gathered where they are used): the rank routes every
+    row, runs the rows routed to its E / M experts and the combine is
+    summed over 'model'; the shared experts run tensor-parallel."""
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    e_axes = resolve((moe.num_experts,), "experts")[0]
+    e_lo, e_hi = spmd.rank_range(moe.num_experts, e_axes)
+    ws = tuple(spmd.local_block(w, 0, e_lo, e_hi)
+               for w in (moe.w_gate, moe.w_up, moe.w_down))
+    y = spmd.all_reduce(_dropless_local(moe, xt, ws, e_lo), e_axes)
     if moe.shared is not None:
-        y = y + moe.shared(xt).float()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return y.to(x.dtype).reshape(x.shape), aux
+        ys, split = moe.shared.forward_partial(xt)
+        if split:
+            ys = spmd.all_reduce(ys, ("model",))
+        y = y + ys.float()
+    return y.to(x.dtype).reshape(x.shape)

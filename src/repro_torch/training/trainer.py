@@ -43,6 +43,14 @@ def make_train_state(model: Model) -> dict:
                                 device=params[0].device)}
 
 
+def make_train_state_abstract(cfg) -> tuple[Model, dict]:
+    """(the model, its train state) on the meta device: shapes and dtypes,
+    no storage (the reference's `jax.eval_shape` of `make_train_state`;
+    the port's parameters live in the `Model`)."""
+    model = Model(cfg, device="meta")
+    return model, make_train_state(model)
+
+
 def _value_and_grad(model: Model, params, batch):
     """(loss, metrics, grads); a parameter the loss does not reach (the
     embedding table of a model fed embeddings) gets a zero gradient, as

@@ -30,9 +30,15 @@ from `M.init(cfg, jax.random.key(0))` through the bridge, fp32.
       each rank, and the moments are placed as their parameters;
   (f) the whole state saved at (2, 2) after two steps restores on one
       device: its third step's loss equals the mesh's within 1e-6;
-  (g) a wrong world size, the production mesh on 4 ranks, and the hybrid
-      / ssm families on a mesh are refused; `launch.train --mesh 2x2`
-      runs in the ranks and matches `--mesh 1x1`.
+  (g) a wrong world size and the production mesh on 4 ranks are
+      refused; `launch.train --mesh 2x2` runs in the ranks and matches
+      `--mesh 1x1`;
+  (h) reduced zamba2 and xlstm (the hybrid and ssm families, a head of
+      each recurrent block a model rank) with FSDP and sequence
+      parallelism, two steps: loss, ce and grad norm within 1e-5
+      relative, every gradient leaf within 1e-5 of its largest element
+      against the port's one-device step and against the reference's
+      (xlstm: 1e-4, `REF_GRAD_TOL`), the update as in (a).
 
 Parameters after two steps are held in two parts.  AdamW divides each
 gradient element by its own running magnitude, so a gradient that agrees
@@ -79,6 +85,7 @@ from repro_torch.training.trainer import (
 
 STEP_KW = dict(base_lr=1e-2, warmup=5, total_steps=60)
 QWEN, VL, DSV2 = "qwen2.5-3b", "qwen2-vl-2b", "deepseek-v2-236b"
+ZAMBA, XLSTM = "zamba2-1.2b", "xlstm-350m"
 CASES = {  # name: (arch, overrides, batch, seq, steps)
     "qwen": (QWEN, {}, 4, 32, 3),
     "qwen_kv2": (QWEN, {"num_kv_heads": 2}, 4, 32, 2),
@@ -87,7 +94,10 @@ CASES = {  # name: (arch, overrides, batch, seq, steps)
     "dsv2_g16": (DSV2, {}, 2, 16, 2),
     "fused": (QWEN, {"fused_qkv": True, "fused_mlp": True}, 4, 32, 2),
     "qwen_mb2": (QWEN, {}, 4, 32, 2),
+    "zamba2": (ZAMBA, {}, 4, 32, 2),
+    "xlstm": (XLSTM, {}, 4, 32, 2),
 }
+RECURRENT = ("zamba2", "xlstm")
 MICROBATCHES = {"qwen_mb2": 2}  # else 1
 DSV2_MOE = dict(capacity_factor=0.5)  # capacity 8 of 32 pairs an expert
 LAUNCH = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
@@ -155,7 +165,8 @@ def _rank_cases(setup, ckpt):
         cases[name] = dict(
             arch=arch, overrides=over, params=c["params_np"],
             batches=c["batches"], fsdp=True, step_kw=_step_kw(name),
-            record=name in ("qwen", "fused"), layout=name == "qwen",
+            record=name in ("qwen", "fused") + RECURRENT,
+            layout=name == "qwen",
             fp32_dispatch=arch == DSV2, count_drops=arch == DSV2)
         if arch == DSV2:
             cases[name]["overrides"] = {**over, "moe": c["tcfg"].moe}
@@ -205,7 +216,7 @@ def ranks(setup, tmp_path_factory):
                                 LAUNCH + ["--mesh", "2x2"]))
         refs = {}
         with pytest.MonkeyPatch.context() as mp:
-            for name in ("qwen", "qwen_kv2", "vl", "qwen_mb2"):
+            for name in ("qwen", "qwen_kv2", "vl", "qwen_mb2") + RECURRENT:
                 refs[name] = _reference(setup[name], 2,
                                         MICROBATCHES.get(name, 1))
             mp.setattr(JMOE, "jnp", _Fp32Dispatch())
@@ -221,7 +232,7 @@ def _close(got, want, rtol, what):
 
 
 @pytest.mark.parametrize("name", ["qwen", "qwen_kv2", "vl", "dsv2",
-                                  "dsv2_g16", "qwen_mb2"])
+                                  "dsv2_g16", "qwen_mb2", "zamba2", "xlstm"])
 def test_mesh_step_matches_reference(ranks, name):
     """(a)-(c): every rank's loss, ce, aux and grad norm of both steps
     within 1e-5 relative of the reference's one-device step (identical on
@@ -337,6 +348,52 @@ def test_mesh_grads_and_update_match_reference(setup, ranks):
     _check_update(res, names)
 
 
+# gradient leaves against the reference's: zamba2 at 1e-5 of each leaf's
+# largest; xlstm at the one-device bound of test_torch_train_recurrent
+# (1e-4): on this batch the port's one-device gradient of the mLSTM gate
+# bias is itself 1.02e-5 of its largest from the reference's (the chunked
+# mLSTM's fp32 sums in another order), so the mesh's own error is held
+# against the port's one-device step instead, at 1e-5
+REF_GRAD_TOL = {"zamba2": 1e-5, "xlstm": 1e-4}
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_mesh_grads_match_reference(setup, ranks, name):
+    """(h): the hybrid (zamba2: the Mamba2 blocks on a head each of the
+    two model ranks, in_proj's packed output taken by columns, the shared
+    attention block) and ssm (xlstm: the mLSTM and sLSTM blocks on a head
+    each) families: every gradient leaf of both steps within 1e-5 of its
+    largest element against the port's one-device step on the same
+    weights and batches, and against `jax.grad` of the reference's loss
+    within `REF_GRAD_TOL`; the parameters after the last step against
+    one-device AdamW on the mesh's recorded inputs."""
+    c = setup[name]
+    res = ranks["res"][0][name]
+    names = list(res["params"])
+    model = weights.from_jax_params(c["tcfg"], c["params_np"], device="cpu")
+    state = make_train_state(model)
+    local = []
+    with R.patched(T, "adamw_update", _local_recorder(names, local)):
+        for batch in c["batches"]:
+            state, _ = train_step(model, state, R.to_torch(batch),
+                                  **STEP_KW)
+    grad = jax.jit(jax.grad(lambda p, b: JM.apply_train(c["jcfg"], p, b)[0]))
+    for i, rec in enumerate(res["updates"]):
+        for n in names:
+            ref = local[i]["grads"][n]
+            err = np.abs(rec["grads"][n] - ref).max()
+            assert err <= 1e-5 * np.abs(ref).max(), (name, i, n, err)
+        want = grad(c["params"], {k: jnp.asarray(v)
+                                  for k, v in c["batches"][i].items()})
+        got = _tree(c["tcfg"], c["params_np"], rec["grads"])
+        for path, g in jax.tree_util.tree_leaves_with_path(got):
+            ref = np.asarray(_at(want, path))
+            err = np.abs(g - ref).max()
+            assert err <= REF_GRAD_TOL[name] * np.abs(ref).max(), (
+                name, i, jax.tree_util.keystr(path), err)
+    _check_update(res, names)
+
+
 def _tree(tcfg, params_np, named):
     """The reference-layout numpy tree of port parameters `named`."""
     model = weights.from_jax_params(tcfg, params_np, device="cpu")
@@ -429,14 +486,13 @@ def test_checkpoint_restores_on_one_device(setup, ranks):
 
 
 def test_refusals(ranks):
-    """(g): the wrong world, the production mesh on 4 ranks, and the
-    hybrid / ssm families name what they need."""
+    """(g): the wrong world and the production mesh on 4 ranks name what
+    they need (the hybrid and ssm families now train on the mesh: (h))."""
     for res in ranks["res"]:
         ref = res["refusals"]
         assert "needs 8 ranks; the world has 4" in ref["world"]
         assert "(16, 16)" in ref["production"] and "256" in ref["production"]
-        for arch in ("zamba2-1.2b", "xlstm-350m"):
-            assert "next slice" in ref[arch], arch
+        assert set(ref) == {"world", "production"}
 
 
 @pytest.fixture(scope="module")

@@ -154,9 +154,8 @@ def run_case(mesh, case: dict) -> dict:
 
 
 def refusals(mesh) -> dict:
-    """The ShardingError / NotImplementedError messages of a wrong world
-    size, the production mesh on 4 ranks, and the hybrid and ssm families
-    on the mesh."""
+    """The ShardingError messages of a wrong world size and the production
+    mesh on 4 ranks."""
     out = {}
     for what, call in (
             ("world", lambda: mesh_mod.make_mesh((2, 4), ("data", "model"),
@@ -167,19 +166,6 @@ def refusals(mesh) -> dict:
             call()
         except ShardingError as e:
             out[what] = str(e)
-    for arch in ("zamba2-1.2b", "xlstm-350m"):
-        cfg = port_cfg(arch)
-        model = weights.init_random(cfg, 0, device="cpu")
-        state = T.make_train_state(model)
-        T.place_train_state(model, state, mesh=mesh, fsdp=True,
-                            batch_axes=BATCH_AXES)
-        batch = {"inputs": torch.zeros((2, 16), dtype=torch.int32),
-                 "labels": torch.zeros((2, 16), dtype=torch.int32)}
-        with SH.use_rules(mesh, SH.make_rules(fsdp=True, sp=True)):
-            try:
-                T.train_step(model, state, batch)
-            except NotImplementedError as e:
-                out[arch] = str(e)
     return out
 
 
