@@ -255,10 +255,19 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               d 5120, ff 8192, bf16, atol 2e-2) and at a cut size (E 8, d
               512, ff 1024, fp32 with TF32 off, 1e-4), at 8 and 520 rows,
               each with uniform routing, every row on one expert, empty
-              experts and a 150-row group (three 64-row tiles); timed at 8
-              and 520 rows in bf16 beside its plain version, its bound and
-              a per-expert torch.matmul loop over host-known group sizes
-              (the yardstick, never called by the port); (b) full-width
+              experts and a 150-row group (two 128-row tiles); then at
+              deepseek-v2's prefill (E 160, d 5120, ff 1536, bf16, 49,152
+              rows: uniform, one expert, empty experts, a 150-row group,
+              49,095 rows (no multiple of the 128-row tile) and a
+              1,000-row group (eight row tiles)), each element within its
+              own tolerance (`moe_pair_tolerances`) and a kernel one row
+              off per group shown to miss it; timed at 8 and 520 rows
+              (maverick) and at the prefill's 49,152 rows (uniform and one
+              expert) in bf16 beside its plain version, its bound and two
+              yardsticks the port never calls: a per-expert torch.matmul
+              loop over host-known group sizes, and torch._grouped_mm
+              with the offsets on the card (where this PyTorch has it; a
+              refusal is logged); (b) full-width
               llama4-maverick-400b-a17b cut to 2 of its 48 layers (bf16,
               random weights drawn on the card, ~69.3 GB) serves phase 5's
               8 prompts (greedy, 32 new tokens, max_seqs 8, chunked at 512)
@@ -303,7 +312,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               one the tensor-core kernel), no plain version called, no
               kernel-config key; tokens/s, steps, keys, peak memory, the
               decode graph's replay (the latent decode's device time and
-              share in it) and a profiled prefill step logged;
+              share in it) and a profiled prefill step logged (the
+              grouped GEMM's launches in it counted, its device ms and
+              share of the step);
               (d) deepseek-v2's
               attention width with 2 layers (1 dense + 1 MoE), 8 experts
               of ff 1024 top-6 with 2 shared and a vocab of 32768, fp32:
@@ -415,7 +426,8 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               2^-16 of the largest output; the margin and what a kernel
               one row off per group reads logged), each timed with the
               enqueue hidden beside its plain version, a library
-              yardstick and its bound; (b) fp32 (TF32 off) full-width
+              yardstick (the grouped GEMM: two, as in phase 21) and its
+              bound; (b) fp32 (TF32 off) full-width
               smollm-135m on phase 5's trace (8 requests, prompts
               128-1024, 16 new, max_seqs 8, chunked at 512, greedy) at tp
               1 here and at tp 3 in the ranks: tokens identical on every
@@ -737,13 +749,25 @@ MOE_LAYERS = 2
 # the kernel checks (E, d, ff, dtype, atol): maverick's widths in bf16, a
 # cut size in fp32 (TF32 off); rows 8 (a decode step) and 520 (a chunk
 # step), each with uniform routing, every row on one expert, only two
-# experts with rows (the rest empty), and a group of 150 rows (three
-# 64-row tiles) among uniform ones
+# experts with rows (the rest empty), and a group of 150 rows (two
+# 128-row tiles) among uniform ones
 MOE_CHECK_CASES = [(128, 5120, 8192, "bfloat16", 2e-2),
                    (8, 512, 1024, "float32", 1e-4)]
 MOE_ROUTINGS = ("uniform", "one_expert", "empty", "long")
 MOE_ROWS = (8, 520)
 MOE_LONG_GROUP = 150
+# deepseek-v2's experts at its padded prefill (phase 22 (c): 8 x 1024
+# tokens x top-6 rows), checked with per-element tolerances: (rows,
+# routing, the "long" group's rows): phase 21's routings, then rows that
+# are no multiple of the kernel's 128-row tile and a group of eight tiles
+MOE_PREFILL = "deepseek-v2-236b"
+MOE_PREFILL_SHAPE = (160, 5120, 1536)
+MOE_PREFILL_ROWS = 8 * 1024 * 6
+MOE_PREFILL_CASES = [(MOE_PREFILL_ROWS, case, MOE_LONG_GROUP)
+                     for case in MOE_ROUTINGS] + [
+    (MOE_PREFILL_ROWS - 57, "uniform", 0),
+    (MOE_PREFILL_ROWS, "long", 1000)]
+MOE_PREFILL_ROW = f"{MOE}[{MOE_PREFILL} prefill]"
 # (b): phase 5's serve trace (8 requests, prompts 128-1024, 32 new tokens,
 # max_seqs 8, chunked at 512), greedy
 MOE_NEW_TOKENS = 32
@@ -3356,7 +3380,7 @@ def telemetry_cost(torch, cfg, model, eng_kw, requests):
 # ---------------------------------------------------------------------------
 
 
-def moe_routing(torch, case, rows, e, g):
+def moe_routing(torch, case, rows, e, g, long_group=MOE_LONG_GROUP):
     """Sorted expert ids [rows] of a routing case, drawn from `g`."""
     dev = DEVICE
     if case == "uniform":
@@ -3365,9 +3389,9 @@ def moe_routing(torch, case, rows, e, g):
         ids = torch.full((rows,), 3 % e, dtype=torch.long)
     elif case == "empty":  # only the first and the last expert get rows
         ids = torch.randint(0, 2, (rows,), generator=g) * (e - 1)
-    else:  # "long": one group of MOE_LONG_GROUP rows among uniform ones
-        ids = torch.cat([torch.full((MOE_LONG_GROUP,), 1, dtype=torch.long),
-                         torch.randint(0, e, (rows - MOE_LONG_GROUP,),
+    else:  # "long": one group of `long_group` rows among uniform ones
+        ids = torch.cat([torch.full((long_group,), 1, dtype=torch.long),
+                         torch.randint(0, e, (rows - long_group,),
                                        generator=g)])
     return torch.sort(ids).values.to(dev)
 
@@ -3474,9 +3498,12 @@ def moe_pair_check(torch, GK, ws, xs, off, atol, tag, tail=False,
 def phase_moe_check(torch, GK):
     """21 (a): the grouped GEMM (both launches: gate / up fused, then
     down) against its plain version on the same inputs, at every case of
-    MOE_CHECK_CASES x MOE_ROWS x MOE_ROUTINGS; h and ys each within the
-    case's atol.  Returns (the worst error, the bf16 case's weights for
-    the timing)."""
+    MOE_CHECK_CASES x MOE_ROWS x MOE_ROUTINGS, h and ys each within the
+    case's atol; then at deepseek-v2's prefill (MOE_PREFILL_CASES), each
+    element within its own tolerance, a kernel one row off per group
+    shown to miss it.  Returns (the worst error of the first, the bf16
+    case's weights for the timing, the worst error at the prefill, its
+    weights)."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
     gh = torch.Generator(device="cpu").manual_seed(SEED + 21)
     worst, kept = 0.0, None
@@ -3499,7 +3526,22 @@ def phase_moe_check(torch, GK):
         if dtype_name == "bfloat16":
             kept = (wg, wu, wd)
         del wg, wu, wd
-    return worst, kept
+    e, d, ff = MOE_PREFILL_SHAPE
+    ws = moe_weights(torch, e, d, ff, torch.bfloat16, g)
+    worst_prefill = 0.0
+    for rows, case, long_group in MOE_PREFILL_CASES:
+        off = moe_offsets(torch, moe_routing(torch, case, rows, e, gh,
+                                             long_group), e)
+        xs = torch.randn((rows, d), generator=g,
+                         device=DEVICE).to(torch.bfloat16)
+        err, _ = moe_pair_check(
+            torch, GK, ws, xs, off, None,
+            f"{MOE_PREFILL} prefill E {e} d {d} ff {ff} bf16 rows {rows} "
+            f"{case}{f' {long_group}' if case == 'long' else ''}",
+            wrong=True)
+        worst_prefill = max(worst_prefill, err)
+        del xs
+    return worst, kept, worst_prefill, ws
 
 
 def moe_bound(rows, touched, d, ff, dtype_name):
@@ -3513,54 +3555,108 @@ def moe_bound(rows, touched, d, ff, dtype_name):
                        PEAK_FLOPS[dtype_name])
 
 
-def phase_moe_time(torch, GK, GO, kept, iters=20):
-    """21 (a): the grouped GEMM pair at maverick's widths in bf16, at 8
-    decode rows (the JSON row) and at 520 rows of a chunk step, routing
-    drawn uniformly: the kernel (`expert_ffn`, two launches), its plain
-    version, the bound, and a library yardstick the port never calls: one
-    torch.matmul per product over each expert's rows, the group sizes
-    known on the host beforehand."""
+def grouped_mm_pair(torch, xs, off, ws):
+    """The pair through `torch._grouped_mm` (a yardstick the port never
+    calls: three grouped products with the offsets on the card, silu and
+    the product between them), or (None, why) where this PyTorch lacks it
+    or refuses these operands."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is not in this PyTorch"
     F = torch.nn.functional
-    wg, wu, wd = kept
+    wg, wu, wd = ws
+    offs = off[1:].contiguous()
+
+    def call():
+        h = F.silu(fn(xs, wg, offs=offs)) * fn(xs, wu, offs=offs)
+        return fn(h, wd, offs=offs)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - logged as the reason
+        return None, f"torch._grouped_mm refused: {exc!r}"[:300]
+    return call, None
+
+
+def moe_time_row(torch, GK, GO, ws, xs, off, tag, flush, iters, tail=False,
+                 lead=0, live=None):
+    """The pair on rows xs sorted by expert at offsets `off`: the kernel
+    (`expert_ffn`, two launches), its plain version, the bound over the
+    `live` rows (default all) of the touched experts, and two yardsticks
+    the port never calls: one torch.matmul per product over each expert's
+    rows, the group sizes known on the host beforehand, and
+    `grouped_mm_pair`; `lead` hides the enqueue of the kernel and the
+    loop behind a spin.  Returns (the JSON row's numbers, the
+    `torch._grouped_mm` ms or None)."""
+    F = torch.nn.functional
+    wg, wu, wd = ws
     e, d, ff = wg.shape
+    bounds_h = [int(v) for v in off.tolist()]
+    groups = [(x, lo, hi) for x, (lo, hi) in
+              enumerate(zip(bounds_h, bounds_h[1:])) if hi > lo]
+
+    def kernel():
+        return GO.expert_ffn(xs, off, wg, wu, wd, tail=tail)
+
+    def plain():
+        return GK.grouped_gemm_plain(GK.grouped_gemm_plain(
+            xs, wg, off, wu, tail=tail), wd, off, tail=tail)
+
+    def library():
+        outs = []
+        for x, lo, hi in groups:
+            a = xs[lo:hi]
+            h = F.silu(torch.matmul(a, wg[x])) * torch.matmul(a, wu[x])
+            outs.append(torch.matmul(h, wd[x]))
+        return torch.cat(outs)
+
+    ms = time_ms(torch, kernel, iters, flush, lead_cycles=lead)
+    plain_ms = time_ms(torch, plain, 3, flush)
+    lib_ms = time_ms(torch, library, iters, flush, lead_cycles=lead)
+    gmm, why = grouped_mm_pair(torch, xs, off, ws)
+    gmm_ms = None if gmm is None else time_ms(torch, gmm, iters, flush,
+                                              lead_cycles=lead)
+    bound_ms, bound_by = moe_bound(xs.shape[0] if live is None else live,
+                                   len(groups), d, ff, "bfloat16")
+    log(f"time  {MOE:37s} {tag} bf16 experts touched {len(groups)} "
+        f"kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+        f"{lib_ms:.4f}  grouped_mm_ms "
+        f"{'null' if gmm_ms is None else f'{gmm_ms:.4f}'}  bound_ms "
+        f"{bound_ms:.5f} ({bound_by})  of the bound {bound_ms / ms:.3f}  "
+        f"host_us {host_us(torch, kernel):.1f}")
+    if why:
+        log(f"time  {MOE:37s} {why}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by), gmm_ms
+
+
+def phase_moe_time(torch, GK, GO, kept, prefill_ws, iters=20):
+    """21 (a): the grouped GEMM pair in bf16 (`moe_time_row`) at
+    maverick's widths at 8 decode rows (its JSON row) and at 520 rows of
+    a chunk step, routing drawn uniformly; then at deepseek-v2's prefill
+    rows, uniform (its JSON row) and every row on one expert.  Returns
+    (maverick's 8-row numbers, the prefill's uniform numbers)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     g = torch.Generator(device="cpu").manual_seed(SEED + 22)
-    rows_out = {}
-    for rows in MOE_ROWS:
-        ids = moe_routing(torch, "uniform", rows, e, g)
-        off = moe_offsets(torch, ids, e)
-        bounds_h = [int(v) for v in off.tolist()]
-        groups = [(x, lo, hi) for x, (lo, hi) in
-                  enumerate(zip(bounds_h, bounds_h[1:])) if hi > lo]
+    out = {}
+    for ws, arch, rows, case in (
+            [(kept, MOE_ARCH, n, "uniform") for n in MOE_ROWS]
+            + [(prefill_ws, f"{MOE_PREFILL} prefill", MOE_PREFILL_ROWS, c)
+               for c in ("uniform", "one_expert")]):
+        e, d, _ = ws[0].shape
+        off = moe_offsets(torch, moe_routing(torch, case, rows, e, g), e)
         xs = torch.randn((rows, d), generator=g).to(DEVICE, torch.bfloat16)
-
-        def kernel():
-            return GO.expert_ffn(xs, off, wg, wu, wd)
-
-        def plain():
-            return GK.grouped_gemm_plain(GK.grouped_gemm_plain(
-                xs, wg, off, wu), wd, off)
-
-        def library():
-            outs = []
-            for x, lo, hi in groups:
-                a = xs[lo:hi]
-                h = F.silu(torch.matmul(a, wg[x])) * torch.matmul(a, wu[x])
-                outs.append(torch.matmul(h, wd[x]))
-            return torch.cat(outs)
-
-        ms = time_ms(torch, kernel, iters, flush)
-        plain_ms = time_ms(torch, plain, 3, flush)
-        lib_ms = time_ms(torch, library, iters, flush)
-        bound_ms, bound_by = moe_bound(rows, len(groups), d, ff, "bfloat16")
-        log(f"time  {MOE:37s} {MOE_ARCH} bf16 rows {rows} experts touched "
-            f"{len(groups)} kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-            f"library_ms {lib_ms:.4f}  bound_ms {bound_ms:.5f} "
-            f"({bound_by})  of the bound {bound_ms / ms:.3f}  host_us "
-            f"{host_us(torch, kernel):.1f}")
-        rows_out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-    return rows_out[MOE_ROWS[0]]
+        out[arch, rows, case], _ = moe_time_row(
+            torch, GK, GO, ws, xs, off, f"{arch} rows {rows} {case}", flush,
+            iters)
+    prefill = f"{MOE_PREFILL} prefill", MOE_PREFILL_ROWS
+    skew = out[(*prefill, "one_expert")]["ms"] / out[(*prefill, "uniform")][
+        "ms"]
+    log(f"time  {MOE:37s} {MOE_PREFILL} prefill one_expert / uniform "
+        f"{skew:.3f}")
+    return (out[MOE_ARCH, MOE_ROWS[0], "uniform"],
+            out[(*prefill, "uniform")])
 
 
 def phase_moe_serve(torch, kernel_modules):
@@ -3622,7 +3718,7 @@ def phase_moe_serve(torch, kernel_modules):
     check_paged_routes(K, launches, "moe serve", cfg.dtype)
     # two launches (gate / up, down) per MoE layer per device step
     want = 2 * MOE_LAYERS * eng.device_calls["unified"]
-    if GK.LAUNCHES[MOE] != want or GK.KERNEL_LAUNCHES["moe_mma_kernel"] \
+    if GK.LAUNCHES[MOE] != want or GK.KERNEL_LAUNCHES["moe_wgmma_kernel"] \
             != want:
         raise AssertionError(f"moe serve: grouped GEMM launches "
                              f"{GK.KERNEL_LAUNCHES} != {want}")
@@ -3980,13 +4076,14 @@ def phase_mla_flash(torch, FK, kvl_serve, iters=10):
     return worst, row
 
 
-def profile_step(torch, step, tag, top=10):
+def profile_step(torch, step, tag, top=10, focus=()):
     """`step()` under `torch.profiler`, the device activity alone: (its
     result, its wall ms, its kernels' summed device ms); the wall, the
     sum, the idle share and the `top` kernels by device time (with their
-    share of the sum) logged.  The device events are summed from the
-    profiler's raw results (its per-event tables take minutes to build
-    for a step of ~10^5 kernels)."""
+    share of the sum) logged, and the kernels whose names hold a `focus`
+    string summed (ms, launches, share of the wall).  The device events
+    are summed from the profiler's raw results (its per-event tables take
+    minutes to build for a step of ~10^5 kernels)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -4007,13 +4104,20 @@ def profile_step(torch, step, tag, top=10):
     for us, count, name in sorted(rows, reverse=True)[:top]:
         log(f"  {us / 1e3:8.3f} ms  {us / 1e3 / max(busy, 1e-9):6.3f}  "
             f"x{count:5d}  {name[:90]}")
+    for f in focus:
+        hit = [r for r in rows if f in r[2]]
+        ms = sum(r[0] for r in hit) / 1e3
+        log(f"{tag} (profiled): {f} {ms:.3f} ms over "
+            f"{sum(r[1] for r in hit)} launches, {ms / wall:.3f} of the "
+            f"wall")
     return out, wall, busy
 
 
-def prefill_profile(torch, eng, top=10):
+def prefill_profile(torch, eng, top=10, focus=()):
     """The first step of `eng` (a prefill, its requests added) profiled
     (`profile_step`)."""
-    st, wall, busy = profile_step(torch, eng.step, "prefill step", top)
+    st, wall, busy = profile_step(torch, eng.step, "prefill step", top,
+                                  focus)
     if not st["prefill"]:
         raise AssertionError("prefill_profile: the first step did not "
                              "prefill")
@@ -4103,7 +4207,7 @@ def phase_mla_serve(torch, kernel_modules):
             or AK.KERNEL_LAUNCHES["mla_wgmma_kernel"] != want[MLA] \
             or AK.KERNEL_LAUNCHES["mla_merge_kernel"] \
             != want[MLA] * (nseg > 1) \
-            or GK.KERNEL_LAUNCHES["moe_mma_kernel"] != want[MOE]:
+            or GK.KERNEL_LAUNCHES["moe_wgmma_kernel"] != want[MOE]:
         raise AssertionError(f"mla serve: launches {launches} "
                              f"{AK.KERNEL_LAUNCHES} {GK.KERNEL_LAUNCHES} != "
                              f"{want}")
@@ -4136,11 +4240,22 @@ def phase_mla_serve(torch, kernel_modules):
     del run, eng
     peak = torch.cuda.max_memory_allocated()
     # where the prefill step's time goes (warm: the third prefill of the
-    # process)
+    # process), the grouped GEMM's launches in it counted
     prof_eng = Engine(cfg, model, cuda_graphs=False, **eng_kw)
     for r in requests():
         prof_eng.add_request(r)
-    walls |= prefill_profile(torch, prof_eng)
+    GK.reset_launches()
+    walls |= prefill_profile(torch, prof_eng,
+                             focus=("moe_wgmma_kernel<true>",
+                                    "moe_wgmma_kernel<false>"))
+    launches[MOE_PREFILL_ROW] = GK.KERNEL_LAUNCHES["moe_wgmma_kernel"]
+    log(f"mla serve prefill step: grouped GEMM launches "
+        f"{GK.KERNEL_LAUNCHES}")
+    if launches[MOE_PREFILL_ROW] != 2 * n_moe \
+            or GK.LAUNCHES[MOE] != 2 * n_moe:
+        raise AssertionError(f"mla serve: the prefill step's grouped GEMM "
+                             f"launches {GK.KERNEL_LAUNCHES} != "
+                             f"{2 * n_moe}")
     del prof_eng
     log(f"mla serve peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated, of "
@@ -5712,7 +5827,6 @@ def phase_tp_kernels(torch, K, GK, GO, tops, errs, iters=20):
     checked here, each timed with
     the enqueue hidden behind a spin, beside its plain version, a library
     yardstick and its bound.  Returns the JSON rows' numbers by name."""
-    F = torch.nn.functional
     dtype_name = "bfloat16"
     ps = 16
     tile = tops.default_tile(ps)
@@ -5779,37 +5893,10 @@ def phase_tp_kernels(torch, K, GK, GO, tops, errs, iters=20):
         if not tail_zero:
             raise AssertionError(f"{MOE} tail launch wrote the tail rows")
         worst = max(worst, err)
-        bounds_h = [int(v) for v in off.tolist()]
-        groups = [(e, lo, hi) for e, (lo, hi) in
-                  enumerate(zip(bounds_h, bounds_h[1:])) if hi > lo]
-
-        def kernel():
-            return GO.expert_ffn(xs, off, wg, wu, wd, tail=True)
-
-        def plain():
-            return GK.grouped_gemm_plain(GK.grouped_gemm_plain(
-                xs, wg, off, wu, tail=True), wd, off, tail=True)
-
-        def library():
-            outs = []
-            for e, lo, hi in groups:
-                a = xs[lo:hi]
-                hh = F.silu(torch.matmul(a, wg[e])) * torch.matmul(a, wu[e])
-                outs.append(torch.matmul(hh, wd[e]))
-            return torch.cat(outs)
-
-        ms = time_ms(torch, kernel, iters, flush,
-                     lead_cycles=TP_LEAD_CYCLES)
-        plain_ms = time_ms(torch, plain, 3, flush)
-        lib_ms = time_ms(torch, library, iters, flush,
-                         lead_cycles=TP_LEAD_CYCLES)
-        bound_ms, bound_by = moe_bound(live, touched, d, ff, dtype_name)
-        log(f"tp time {MOE} E_loc {e_loc} rows {xs.shape[0]} ({live} "
-            f"local) kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-            f"library_ms {lib_ms:.4f}  bound_ms {bound_ms:.5f} ({bound_by})"
-            f"  of the bound {bound_ms / ms:.3f}")
-        ep_rows[n_rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+        ep_rows[n_rows], _ = moe_time_row(
+            torch, GK, GO, ws, xs, off,
+            f"tp E_loc {e_loc} rows {xs.shape[0]} ({live} local)", flush,
+            iters, tail=True, lead=TP_LEAD_CYCLES, live=live)
     rows[EP_ROW] = dict(ep_rows[EP_ROWS[0]], max_abs_err=worst)
     del ws, wg, wu, wd, h, ys
     torch.cuda.empty_cache()
@@ -6050,7 +6137,7 @@ def phase_tp(torch, kernel_modules, tops, errs):
         if not max(errs_r) <= atol:
             raise AssertionError(f"moe_ffn_dropless_ep differs from "
                                  f"MoE.forward: {errs_r} > {atol}")
-    ep_launches = sum(res[0]["ep"][False, n]["launches"]["moe_mma_kernel"]
+    ep_launches = sum(res[0]["ep"][False, n]["launches"]["moe_wgmma_kernel"]
                       for n in EP_ROWS)
     # (e)
     for rank, r in enumerate(res):
@@ -6965,9 +7052,10 @@ def main() -> int:
     # 21. the MoE family: (a) the grouped expert GEMM against its plain
     # version and timed; (b) full-width llama4-maverick (2 layers) served
     # through the graphed packed step; (c) the card against the CPU
-    moe_err, kept = phase_moe_check(torch, GK)
-    moe_time = phase_moe_time(torch, GK, GO, kept)
-    del kept
+    moe_err, kept, prefill_err, prefill_ws = phase_moe_check(torch, GK)
+    moe_time, prefill_time = phase_moe_time(torch, GK, GO, kept,
+                                            prefill_ws)
+    del kept, prefill_ws
     moe_launches, _ = phase_moe_serve(torch, (K, GK))
     phase_moe_diff(torch)
     lap("21 moe")
@@ -7044,6 +7132,10 @@ def main() -> int:
     kernels.append(dict(name=MOE, route="cuda", source=MOE_SOURCE,
                         replaces=MOE_REPLACES, launches=moe_launches[MOE],
                         max_abs_err=moe_err, **moe_time))
+    kernels.append(dict(name=MOE_PREFILL_ROW, route="cuda",
+                        source=MOE_SOURCE, replaces=MOE_REPLACES,
+                        launches=mla_launches[MOE_PREFILL_ROW],
+                        max_abs_err=prefill_err, **prefill_time))
     kernels.append(dict(name=MLA, route="cuda", source=MLA_SOURCE,
                         replaces=MLA_REPLACES, launches=mla_launches[MLA],
                         max_abs_err=mla_err, **mla_time))

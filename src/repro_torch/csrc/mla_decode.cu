@@ -81,8 +81,8 @@
 //
 // The tensor map is encoded on the host by cuTensorMapEncodeTiled, an
 // entry point looked up at run time (the library links no -lcuda), cached
-// by (pool pointer, page size), and passed by value as a __grid_constant__
-// parameter, so a CUDA graph captures it.  Its page extent is left open:
+// by (pool pointer, page size) in tma_map.cuh, and passed by value as a
+// __grid_constant__ parameter, so a CUDA graph captures it.  Its page extent is left open:
 // the kernel trusts the page table's entries below each context, as the
 // plain version's gather does.
 //
@@ -93,15 +93,14 @@
 // The entry point is a plain C function (device pointers, shapes, the
 // stream) returning cudaGetLastError(), loaded from Python with ctypes.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
-#include <mutex>
 
 #include "mma_bf16.cuh"
+#include "tma_map.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -647,75 +646,19 @@ __global__ void __launch_bounds__(kMergeThreads)
 }
 
 // ---------------------------------------------------------------------------
-// host: the pool's tensor map, cached; the launches
+// host: the pool's tensor map (tma_map.cuh: encoded once, cached); the
+// launches
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-struct MapEntry {
-  const void* pool;
-  int ps, box_rows;
-  CUtensorMap map;
-};
-
-constexpr int kMapCache = 128;  // pools (layers) remembered
-std::mutex g_map_mu;
-MapEntry g_maps[kMapCache];
-int g_n_maps = 0, g_next_map = 0;
-EncodeTiled g_encode = nullptr;
-
 // The tensor map of a pool of bf16 rows [pages, ps, 576]: a box of 64
 // columns x box_rows rows x 1 page, 128-byte swizzle.  The page extent is
 // left open (2^31 - 1): the kernel reads only the pages the table names.
 cudaError_t pool_map(const void* pool, int ps, int box_rows,
                      CUtensorMap* map) {
-  std::lock_guard<std::mutex> lock(g_map_mu);
-  for (int i = 0; i < g_n_maps; ++i)
-    if (g_maps[i].pool == pool && g_maps[i].ps == ps &&
-        g_maps[i].box_rows == box_rows) {
-      *map = g_maps[i].map;
-      return cudaSuccess;
-    }
-  if (g_encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorSymbolNotFound;
-    g_encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)ps, 0x7fffffffull};
   const cuuint64_t strides[2] = {(cuuint64_t)kD * 2,
                                  (cuuint64_t)ps * kD * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  MapEntry& e = g_maps[g_next_map];
-  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-               const_cast<void*>(pool), dims, strides, box, elem,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    e.pool = nullptr;
-    return cudaErrorInvalidValue;
-  }
-  e.pool = pool;
-  e.ps = ps;
-  e.box_rows = box_rows;
-  *map = e.map;
-  g_next_map = (g_next_map + 1) % kMapCache;
-  if (g_n_maps < kMapCache) ++g_n_maps;
-  return cudaSuccess;
+  return tma_map::bf16_sw128(pool, 3, dims, strides, box, map);
 }
 
 int launch_wgmma(const void* q, const void* kp, const int* pt, const int* ctx,

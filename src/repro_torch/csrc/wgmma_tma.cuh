@@ -1,7 +1,8 @@
 // The Hopper-only PTX of this package's warp-specialised kernels (sm_90a):
 // mbarriers, TMA tensor loads, the proxy fence, named barriers, register
 // reallocation (setmaxnreg) and the warpgroup product wgmma with both
-// operands in shared memory.  mla_decode.cu includes it.
+// operands in shared memory.  mla_decode.cu and moe_grouped_gemm.cu
+// include it (tma_map.cuh encodes the maps on the host).
 //
 // Shared-memory operands use the 128-byte swizzle that a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a row of 64 bf16 (128 B) per line,
@@ -82,6 +83,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 // TMA, proxies, barriers, registers
 // ---------------------------------------------------------------------------
+// One box of a 2-D tensor map at coordinates (c0, c1), innermost first;
+// as tma_load_3d
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // One box of a 3-D tensor map (`map`: the address of a __grid_constant__
 // CUtensorMap) at coordinates (c0, c1, c2), innermost first, into shared
 // memory at `dst`; completes `bytes` of `bar`'s transaction count.

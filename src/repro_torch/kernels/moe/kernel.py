@@ -11,19 +11,28 @@ R): the rows past offsets[E] belong to no expert and come out zero, as
 expert-parallel MoE's rows routed to other ranks).  It is the product the reference computes with
 `jax.lax.ragged_dot` in `repro/models/moe.py:moe_ffn_dropless`, outside
 any Pallas kernel: no Pallas kernel is replaced.  The offsets stay on
-the device: the kernel's grid is fixed by (N, E), so the launch reads no
-group size on the host and captures into a CUDA graph.
+the device: the kernel's grid is fixed by the shapes, so the launch
+reads no group size on the host and captures into a CUDA graph.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a
 CPU tensor runs the plain version, a loop over the experts that reads
 the offsets on the host.  bf16 runs the tensor-core kernel
-(`moe_mma_kernel`: operands 16-byte aligned, else ValueError before the
-launch), fp32 the scalar one (`moe_fp32_kernel`).  Each kernel launch
-adds one to `LAUNCHES["moe_grouped_gemm"]` and one to the launched
-kernel's `KERNEL_LAUNCHES` entry.  The wrapper cannot read the device's
-offsets without a host sync, so the kernel checks them (0 <= offsets[e]
-<= offsets[e + 1] <= offsets[E] == R, or <= R with `tail`) and traps on a violation; the
-plain version raises ValueError.
+(`moe_wgmma_kernel`: operands 16-byte aligned, K and N multiples of 8 so
+that TMA's row strides are 16-byte multiples, at most `MAX_EXPERTS`
+experts, else ValueError before the launch), fp32 the scalar one
+(`moe_fp32_kernel`).  Each kernel launch adds one to
+`LAUNCHES["moe_grouped_gemm"]` and one to the launched kernel's
+`KERNEL_LAUNCHES` entry.  The wrapper cannot read the device's offsets
+without a host sync, so the kernel checks them (0 <= offsets[e] <=
+offsets[e + 1] <= offsets[E] == R, or <= R with `tail`) and traps on a
+violation; the plain version raises ValueError.
+
+The bf16 kernel is a persistent grid over the touched experts' tiles:
+`launch_shape` is the host's choice of its tile and grid for (R, E, N)
+and `tile_schedule` the order in which its blocks take the tiles, both
+written here in PyTorch as mirrors of `csrc/moe_grouped_gemm.cu` (the
+CPU tests check the schedule's coverage; the card tests hold
+`launch_shape` to the library's own).
 """
 from __future__ import annotations
 
@@ -42,7 +51,14 @@ _LIB_NAME = "moe_grouped_gemm"
 
 LAUNCHES: dict[str, int] = {NAME: 0}
 # the same launches by CUDA kernel, chosen by dtype (never as a fallback)
-KERNEL_LAUNCHES: dict[str, int] = {"moe_mma_kernel": 0, "moe_fp32_kernel": 0}
+KERNEL_LAUNCHES: dict[str, int] = {"moe_wgmma_kernel": 0,
+                                   "moe_fp32_kernel": 0}
+# the bf16 kernel's tile: rows (two consumer warpgroups of 64) and output
+# columns (gate / up: 128 of each product; down: 256); its shared-memory
+# plan holds the offsets of at most MAX_EXPERTS experts
+TILE_ROWS = 128
+TILE_COLS = {True: 128, False: 256}
+MAX_EXPERTS = 1024
 
 
 def reset_launches() -> None:
@@ -65,6 +81,8 @@ def library() -> ctypes.CDLL:
         f.restype = _I
         lib.moe_grouped_gemm_uses_mma.argtypes = [_I]
         lib.moe_grouped_gemm_uses_mma.restype = _I
+        lib.moe_grouped_gemm_shape.argtypes = [_I] * 4 + [_P] * 3
+        lib.moe_grouped_gemm_shape.restype = None
         _BOUND[id(lib)] = lib
     return lib
 
@@ -79,6 +97,48 @@ def group_bounds(offsets: torch.Tensor, rows: int,
         raise ValueError(f"{NAME}: offsets {bounds} must rise from >= 0 to "
                          f"{'at most ' if tail else ''}R = {rows}")
     return bounds
+
+
+def launch_shape(r: int, e: int, n: int, glu: bool,
+                 sms: int) -> tuple[int, int, int]:
+    """(rows a tile, output columns a tile, grid) of the bf16 kernel for
+    R rows over E experts and N output columns on a card of `sms` SMs:
+    min(sms, an upper bound on the tiles), from the shapes alone (each
+    expert with rows adds at most one partial row tile).  The mirror of
+    `wgmma_grid` in `csrc/moe_grouped_gemm.cu`."""
+    bm, bn = TILE_ROWS, TILE_COLS[bool(glu)]
+    if r <= 0:
+        return bm, bn, 0
+    row_tiles = (r + min(e, r) * (bm - 1)) // bm
+    return bm, bn, min(sms, row_tiles * -(-n // bn))
+
+
+def tile_schedule(offsets: torch.Tensor | list[int], bm: int, bn: int,
+                  n: int, tail: bool = False,
+                  rows: int | None = None) -> torch.Tensor:
+    """The bf16 kernel's tiles in the order its blocks take them (block b
+    takes tile b, then the next id no block has taken): int64 [T, 4] of
+    (expert, first row, live rows, first column).  Experts in order, an
+    expert's tiles n-tile by n-tile, and the row tiles of one (expert,
+    n-tile) next to each other; an expert with no rows gives none, and no
+    tile reaches past offsets[E].  The offsets [E + 1] of R rows (default
+    offsets[E]) are checked as the kernel checks them (`group_bounds`:
+    ending at R, or with `tail` at most at R).  The mirror of `tile_at`
+    in `csrc/moe_grouped_gemm.cu`."""
+    bounds = group_bounds(torch.as_tensor(offsets),
+                          int(offsets[-1]) if rows is None else rows, tail)
+    lo = torch.tensor(bounds[:-1], dtype=torch.int64)
+    count = torch.tensor(bounds[1:], dtype=torch.int64) - lo
+    mt = -(-count // bm)                      # row tiles an expert
+    nt = -(-n // bn)
+    e = torch.repeat_interleave(torch.arange(len(count)), mt * nt)
+    first = torch.repeat_interleave(torch.cumsum(mt * nt, 0) - mt * nt,
+                                    mt * nt)
+    local = torch.arange(int((mt * nt).sum())) - first
+    n_i, m_i = local // mt[e], local % mt[e]
+    r0 = lo[e] + m_i * bm
+    live = torch.minimum(torch.full_like(r0, bm), lo[e] + count[e] - r0)
+    return torch.stack([e, r0, live, n_i * bn], dim=1)
 
 
 def grouped_gemm_plain(xs: torch.Tensor, w0: torch.Tensor,
@@ -144,8 +204,15 @@ def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
             raise ValueError(f"{NAME}: the CUDA kernel needs contiguous "
                              f"tensors (got strides {t.stride()})")
     bf16 = int(xs.dtype == torch.bfloat16)
-    if bf16:  # the tensor-core kernel copies its tiles with cp.async
+    if bf16:  # the tensor-core kernel reads its tiles through TMA
         _check_aligned(NAME, xs, *ws)
+        if k % 8 or n % 8:
+            raise ValueError(f"{NAME}: the bf16 kernel's TMA needs 16-byte "
+                             f"row strides: K {k} and N {n} must be "
+                             f"multiples of 8")
+        if e > MAX_EXPERTS:
+            raise ValueError(f"{NAME}: the bf16 kernel takes at most "
+                             f"{MAX_EXPERTS} experts, got {e}")
     out = (torch.zeros if tail else torch.empty)(
         (r, n), dtype=xs.dtype, device=xs.device)
     with torch.cuda.device(xs.device):
@@ -156,6 +223,6 @@ def grouped_gemm(xs: torch.Tensor, w0: torch.Tensor, offsets: torch.Tensor,
             int(tail), _stream(xs))
     _raise_on(rc, NAME)
     LAUNCHES[NAME] += 1
-    KERNEL_LAUNCHES["moe_mma_kernel" if lib.moe_grouped_gemm_uses_mma(bf16)
+    KERNEL_LAUNCHES["moe_wgmma_kernel" if lib.moe_grouped_gemm_uses_mma(bf16)
                     else "moe_fp32_kernel"] += 1
     return out

@@ -1341,20 +1341,35 @@ def _moe_ids(case, rows, e, g):
                       counts.cumsum(0)]).to(torch.int32)
 
 
+# deepseek-v2's experts (E 160, d 5120, ff 1536) at its padded prefill's
+# 8 x 1024 tokens x top-6 rows
+MOE_PREFILL_SHAPE, MOE_PREFILL_ROWS = (160, 5120, 1536), 49152
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["uniform", "one_expert", "empty", "long"])
-@pytest.mark.parametrize("shape", [(8, 512, 1024), (5, 264, 200)])
+@pytest.mark.parametrize("shape", [(8, 512, 1024), (5, 264, 200),
+                                   MOE_PREFILL_SHAPE])
 def test_grouped_gemm_matches_plain(cuda, dtype, case, shape):
     """Both launches (gate / up fused, then down) against the plain
-    version: 8 and 200 rows (the "long" case: 200 only), and a shape whose
-    K and N are no multiple of the 64-wide tiles."""
+    version: 8 and 200 rows (the "long" case: 200 only), a shape whose K
+    and N are no multiple of the kernel's tiles, and deepseek-v2's
+    prefill shape, also at its 49,152 rows (every routing: the
+    one-expert skew puts them all on one expert).  At that shape the
+    sums run over K 5120 / 1536 (another order than cuBLAS's in fp32;
+    bf16 gate / up products whose rounding flips before silu): each
+    element is also allowed 1e-5 (fp32) or 2^-6 (bf16, two ulps) of its
+    own magnitude."""
     e, d, ff = shape
+    prefill = shape == MOE_PREFILL_SHAPE
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}[dtype] \
+        if prefill else 0
     g = torch.Generator().manual_seed(len(case) + e)
     wg, wu = (torch.randn((e, d, ff), generator=g) * d ** -0.5
               for _ in range(2))
     wd = torch.randn((e, ff, d), generator=g) * ff ** -0.5
     wg, wu, wd = (w.to(cuda, dtype) for w in (wg, wu, wd))
-    for rows in (8, 200):
+    for rows in (8, 200) + ((MOE_PREFILL_ROWS,) if prefill else ()):
         if case == "long" and rows < 150:
             continue
         off = _moe_ids(case, rows, e, g).to(cuda)
@@ -1363,21 +1378,48 @@ def test_grouped_gemm_matches_plain(cuda, dtype, case, shape):
         h = GK.grouped_gemm(xs, wg, off, wu)
         ys = GK.grouped_gemm(h, wd, off)
         torch.cuda.synchronize()
-        kernel = "moe_mma_kernel" if dtype == torch.bfloat16 \
+        kernel = "moe_wgmma_kernel" if dtype == torch.bfloat16 \
             else "moe_fp32_kernel"
         assert GK.KERNEL_LAUNCHES[kernel] == 2
         for got, want in ((h, GK.grouped_gemm_plain(xs, wg, off, wu)),
                           (ys, GK.grouped_gemm_plain(h, wd, off))):
-            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=ATOL[dtype])
 
 
 def test_grouped_gemm_rejects_misaligned_bf16(cuda):
+    """A start off the 16-byte boundary, and row strides that are no
+    multiple of 16 bytes (TMA's): ValueError before any launch."""
     xs = torch.zeros(9 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:]
     w = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=cuda)
     off = torch.tensor([0, 4, 9], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         GK.grouped_gemm(xs.view(9, 64), w, off)
+    GK.reset_launches()
+    for k, n in ((60, 64), (64, 60)):
+        xs = torch.zeros((9, k), dtype=torch.bfloat16, device=cuda)
+        w = torch.zeros((2, k, n), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="16-byte"):
+            GK.grouped_gemm(xs, w, off)
+    assert GK.LAUNCHES["moe_grouped_gemm"] == 0
+
+
+@pytest.mark.parametrize("glu", [True, False])
+def test_grouped_gemm_launch_shape_matches_library(cuda, glu):
+    """The package's mirror of the bf16 kernel's tile and grid
+    (`launch_shape`) gives the library's own at decode, chunk and prefill
+    shapes."""
+    import ctypes
+
+    lib = GK.library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for r, e, n in ((8, 128, 8192), (520, 128, 5120), (48, 40, 1536),
+                    (MOE_PREFILL_ROWS, 160, 1536), (1, 1, 8)):
+        got = [ctypes.c_int() for _ in range(3)]
+        lib.moe_grouped_gemm_shape(r, e, n, int(glu),
+                                   *(ctypes.byref(v) for v in got))
+        assert tuple(v.value for v in got) == GK.launch_shape(r, e, n, glu,
+                                                              sms)
 
 
 def _moe_layer(dev, dtype, top_k=2):
