@@ -67,7 +67,9 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               kernel launch counters are zeroed just before and read just
               after: every paged kernel launched, each C3 decode one
               launch of the folded kernel (`KERNEL_LAUNCHES`: the
-              partial-only kernel and the standalone merge never).  Then
+              partial-only kernel and the standalone merge never), every
+              glue kernel of phase 29 launched (their JSON rows' launches
+              are this run's).  Then
               the same requests eagerly (`cuda_graphs=False`): identical
               tokens, launch counters and `compile_events`, logits bit for
               bit (else within one bf16 ulp of the largest logit), both
@@ -80,7 +82,11 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               `compile_events` and logits launch by launch bit for bit;
               both walls, the replayed steps' mean walls and the capture
               seconds logged, and the decode graph's replay time on the
-              card against its kernels' summed time (`replay_cost`); (b) a
+              card against its kernels' summed time and its top 15
+              kernels (`replay_cost`): per replay add_rms_norm 2 x 30,
+              rope_write_kv 30 and silu_mul 30 launches, at least 1,500
+              kernels fewer than the parent tree's 2,335 (logged beside
+              them); (b) a
               shared-prefix trace (8 requests of one 768-token prefix and
               64-256 own tokens, 32 new each, chunked at 512) through
               `run()` with prefix caching off and on: every request
@@ -396,7 +402,10 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               launched, each C3 decode on the folded kernel, nothing else
               and no plain version; the decode graph's replay against its
               byte bound (every matrix but the embedding table, plus the
-              live rows' KV, at 3.35 TB/s); the flash forward at the
+              live rows' KV, at 3.35 TB/s), its glue launches a replay
+              (2 x layers norms, one rope-and-write and one gate a
+              layer) and its kernel count beside the parent tree's; the
+              flash forward at the
               training attention (B 4, S 2048) against its plain version
               and timed beside SDPA; (b) the served model trained, 1 + 2
               AdamW steps at 4 x 2048 of seeded [B, S, d] bf16
@@ -490,6 +499,22 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               1e-5, grad norms 1e-4, every gradient leaf within
               DRY_MESH_PARAM_TOL (1e-3) of its largest element, the SSD,
               mLSTM and flash kernels launched on the mesh
+ 29. glue     the packed step's per-layer glue (`csrc/layer_glue.cu`):
+              add_rms_norm (with the residual add and alone),
+              rope_write_kv and silu_mul (on gate_up's halves) against
+              their plain versions at smollm-135m's decode (T 8) and a
+              520-row chunk (d 576, Hq 9, Hkv 3, D 64, ff 1536),
+              qwen2-vl-2b's M-RoPE with the qkv bias (d 1536, Hq 12,
+              Hkv 2, D 128, ff 8960) and musicgen-large's "none" (d
+              2048, Hkv 32, D 64, ff 8192), with a dead row at the trash
+              slot, a slot from the pool's end, one below the pool and
+              positions 99991 / 100000, fp32 (TF32 off) and bf16: x_new
+              and both page pools bit for bit, fp32 q bit for bit, the
+              norm within (d / 2 + 4) fp32 ulps (its reduction order),
+              bf16 within one ulp, the gate within two fp32 ulps; then
+              each timed at every shape (kernel, plain, bound, host
+              enqueue; the norm beside `torch.nn.functional.rms_norm`),
+              the smollm decode rows in the kernels' JSON
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -930,6 +955,34 @@ DRY_SSD_CASE = (2, 256, 16, 128, 64, 1, 128)
 DRY_MLSTM_CASE = (2, 256, 2, 512, 64, "normal", "empty")
 DRY_SSD = f"{SSD}[zamba2-1.2b mesh 2x2: 16 heads a rank, fp32]"
 DRY_MLSTM = f"{MLSTM}[xlstm-350m mesh 2x2: 2 heads a rank, fp32]"
+
+# 29. the packed step's per-layer glue (csrc/layer_glue.cu): the three
+# kernels and the reference functions whose fused work each takes over
+GLUE_SOURCE = "src/repro_torch/csrc/layer_glue.cu"
+GLUE_REPLACES = {"add_rms_norm": "src/repro/models/layers.py:37",
+                 "rope_write_kv": "src/repro/models/layers.py:68",
+                 "silu_mul": "src/repro/models/layers.py:131"}
+# tag, T rows, d, Hq, Hkv, D, ff, style, theta, qkv bias: smollm-135m's
+# decode and a 520-row chunk, qwen2-vl-2b's M-RoPE with the bias,
+# musicgen-large's "none" (the registry's widths)
+GLUE_CASES = [("smollm-135m decode", 8, 576, 9, 3, 64, 1536, "rope", 1e4,
+               False),
+              ("smollm-135m chunk", 520, 576, 9, 3, 64, 1536, "rope", 1e4,
+               False),
+              ("qwen2-vl-2b decode", 8, 1536, 12, 2, 128, 8960, "mrope", 1e6,
+               True),
+              ("musicgen-large decode", 8, 2048, 32, 32, 64, 8192, "none",
+               1e4, False)]
+GLUE_SECTIONS = (16, 24, 24)  # qwen2-vl-2b's M-RoPE sections
+GLUE_POOL = (64, 16)  # pages, page size of the checks' one pool
+GLUE_EPS = 1e-5
+# the packed step's decode graph before the glue kernels
+# (tools/decode_replay_probe.py on the tree without them, NVIDIA H100 80GB
+# HBM3, 700.00 W): replay ms, kernels a replay
+DECODE_BEFORE = {"smollm-135m": (5.5905, 2335),
+                 "musicgen-large": (8.1943, 1858),
+                 "qwen2-vl-2b": (8.1374, 2750)}
+DECODE_KERNELS_FALL = 1500  # smollm's decode graph: at least this many fewer
 
 
 def log(msg: str) -> None:
@@ -1501,7 +1554,8 @@ def async_vs_sync(torch, tag, sync, streamed):
                 replayed_ms_step=1e3 * t / max(n, 1))
 
 
-def replay_cost(torch, eng, iters=20, bucket=None, top=0, focus=()):
+def replay_cost(torch, eng, iters=20, bucket=None, top=0, focus=(),
+                expect=None):
     """Where a replayed decode step's time goes on the card: the packed
     step's decode-only graph (token bucket max_seqs, or `bucket`) of a
     finished run, replayed `iters` times back to back on its last inputs
@@ -1511,8 +1565,10 @@ def replay_cost(torch, eng, iters=20, bucket=None, top=0, focus=()):
     the time between the graph's nodes, which no host work can fill.
     `top` > 0 also logs that many kernels by device time; `focus` names
     kernels (substrings) whose device time and share of the replay are
-    logged and returned as `focus_ms`.  On the padded step
-    (`eng._packed` False) the graph is the decode step's."""
+    logged and returned as `focus_ms`; `expect` maps device kernels
+    (`KERNEL_LAUNCHES` names) to the launches one replay must hold (the
+    graph's counts of its capture), and raises otherwise.  On the padded step (`eng._packed` False) the graph is the
+    decode step's."""
     bucket = eng.max_seqs if bucket is None else bucket
     keys = [k for k in eng.compile_events
             if (k[0] == "unified" and k[2] == bucket)
@@ -1560,6 +1616,21 @@ def replay_cost(torch, eng, iters=20, bucket=None, top=0, focus=()):
             f"x{sum(c for _, c in hit) / iters:.0f}), {focus_ms / wall_ms:.4f} "
             f"of the replay, {focus_ms / busy_ms:.4f} of its kernels' sum")
         out["focus_ms"] = focus_ms
+    if expect:
+        # what the graph launches a replay, as its wrappers counted it at
+        # capture (`GraphedStep.delta`); the profiler's count beside it
+        # can miss an event (95.95 of 96 once) and is logged only
+        captured = {}
+        for counts in eng._compiled[keys[-1]].delta:
+            captured.update(counts)
+        got = {k: captured.get(k, 0) for k in expect}
+        seen = {k: sum(count for _, count, name in by_name if k in name)
+                / iters for k in expect}
+        log(f"  launches a replay {got} (expected {expect}; the "
+            f"profiler's {seen})")
+        if got != expect:
+            raise AssertionError(f"the decode graph's launches a replay "
+                                 f"{got} are not {expect}")
     return out
 
 
@@ -1664,6 +1735,7 @@ def sampler_cost(torch, s, v, iters=50):
 def phase_serve(torch, K, FK):
     from repro_torch import weights
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels.layer_glue import kernel as GL
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, State
 
@@ -1693,6 +1765,9 @@ def phase_serve(torch, K, FK):
     run = serve_run(torch, eng, requests(), "serve")
     reqs, steps, wall = run["reqs"], len(run["stats"]), run["wall"]
     launches = dict(K.LAUNCHES)
+    glue = dict(GL.LAUNCHES)
+    if not all(glue.values()):
+        raise AssertionError(f"a glue kernel was never launched: {glue}")
     if not all(r.state is State.FINISHED and len(r.output) == 32
                for r in reqs):
         raise AssertionError("not every request finished")
@@ -1710,7 +1785,7 @@ def phase_serve(torch, K, FK):
         f"{toks}  wall_s {wall:.3f}  new_tok_per_s {toks / wall:.1f}  "
         f"total_tok_per_s {(toks + prompt_toks) / wall:.1f}")
     log(f"serve dispatch_counts {dict(eng.dispatch_counts)}")
-    log(f"serve launches {launches}  launched_token_slots "
+    log(f"serve launches {launches}  glue {glue}  launched_token_slots "
         f"{eng.launched_token_slots}")
     del eng
     # the same requests on the eager step
@@ -1724,7 +1799,16 @@ def phase_serve(torch, K, FK):
     streamed = stream_run(torch, Engine(cfg, model, **eng_kw), requests(),
                           "serve run()")
     walls |= async_vs_sync(torch, "serve", run, streamed)
-    walls |= replay_cost(torch, streamed["eng"])
+    cost = replay_cost(torch, streamed["eng"], top=15,
+                       expect=glue_expect(cfg))
+    before_ms, before_n = DECODE_BEFORE[ARCH]
+    log(f"serve decode graph: {cost['decode_kernels']:.0f} kernels a replay "
+        f"in {cost['decode_replay_ms']:.4f} ms; before the glue kernels "
+        f"{before_n} in {before_ms} ms")
+    if cost["decode_kernels"] > before_n - DECODE_KERNELS_FALL:
+        raise AssertionError(f"the decode graph still holds "
+                             f"{cost['decode_kernels']:.0f} kernels a replay")
+    walls |= cost
     del run, streamed
     # (b) the shared-prefix trace through run(), prefix caching off and on
     shared = shared_prefix_prompts(torch, g, cfg.vocab_size)
@@ -1751,7 +1835,8 @@ def phase_serve(torch, K, FK):
     # (c) speculative decoding
     walls |= phase_spec_serve(torch, K, cfg, model, eng_kw, g)
     return launches, dict(steps=steps, wall_s=wall, new_tokens=toks,
-                          prompt_tokens=prompt_toks, **walls)
+                          prompt_tokens=prompt_toks, glue_launches=glue,
+                          **walls)
 
 
 def draw_prompts(torch, g, vocab, n, lo, hi):
@@ -5355,7 +5440,10 @@ def phase_family_serve(torch, arch, kernel_modules):
         f"new_tok_per_s {toks / wall:.1f}  dispatch "
         f"{dict(eng.dispatch_counts)}  launches {launches}  "
         f"launched_token_slots {eng.launched_token_slots}")
-    cost = replay_cost(torch, eng, top=6)
+    cost = replay_cost(torch, eng, top=6, expect=glue_expect(cfg))
+    log(f"fserve {arch} decode graph: {cost['decode_kernels']:.0f} kernels "
+        f"a replay; before the glue kernels {DECODE_BEFORE[arch][1]} in "
+        f"{DECODE_BEFORE[arch][0]} ms")
     bound_ms, wbytes, kvbytes = decode_graph_bound(eng)
     log(f"fserve {arch} decode graph: replay {cost['decode_replay_ms']:.4f} "
         f"ms against its byte bound {bound_ms:.4f} ms (weights "
@@ -6910,6 +6998,201 @@ def phase_dryrun(torch, SK, MK):
             for name, (err, row) in rows.items()}, card
 
 
+# ---------------------------------------------------------------------------
+# 29. the packed step's per-layer glue: fused residual add + RMSNorm, RoPE /
+# M-RoPE with the KV page write, the SwiGLU gate
+# ---------------------------------------------------------------------------
+
+
+def glue_expect(cfg):
+    """Launches of each glue kernel in one replay of a dense decoder's
+    packed decode graph: the first layer's norm, then a layer's two
+    add-and-norms (the last layer's second add is a plain add before the
+    head), one rope-and-write and one gate."""
+    n = cfg.num_layers
+    return {"add_rms_norm_kernel": 2 * n, "rope_write_kv_kernel": n,
+            "silu_mul_kernel": n}
+
+
+def glue_inputs(torch, case, dtype, seed, edge=True):
+    """One GLUE_CASES row's seeded inputs on the card: the residual x and
+    delta [1, T, d] and the norm's scale; q / k / v as views of one QKV
+    output [T, (Hq + 2 Hkv) D] (a fresh sum where the model has a qkv
+    bias), positions [T] ([3, T] for M-RoPE) and the step's frequencies
+    (None for "none"), both page pools [2, Hkv, 1, P, ps, D], the write
+    index of T distinct live slots off the NULL page; gate_up [1, T, 2 ff].
+    `edge`: row 0 at the trash slot (a dead row), row 1's slot counted
+    from the pool's end, row 2's below the pool (dropped), positions 99991
+    and 100000 at rows 3 and 4."""
+    from repro_torch.core.paged.kv_cache import write_index
+    from repro_torch.models import layers as L
+
+    _, t, d, hq, hkv, dh, ff, style, theta, bias = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g) * scale + shift).to(
+            device=DEVICE, dtype=dtype)
+
+    pages, ps = GLUE_POOL
+    spp = pages * ps
+    slots = torch.randperm(spp - ps, generator=g)[:t] + ps
+    pos = torch.randint(0, 2048, (t,), generator=g)
+    if edge:
+        slots[0], slots[1], slots[2] = spp, slots[1] - spp, -spp - 3
+        pos[3], pos[4] = 99991, 100000
+    positions = torch.stack([pos, pos.flip(0), pos // 3]) \
+        if style == "mrope" else pos
+    qkv = rnd(t, (hq + 2 * hkv) * dh)
+    if bias:
+        qkv = qkv + rnd((hq + 2 * hkv) * dh, scale=0.1)
+    q, k, v = (a.view(t, -1, dh) for a in qkv.split(
+        [hq * dh, hkv * dh, hkv * dh], dim=-1))
+    rope = style != "none"
+    return dict(
+        x=rnd(1, t, d), delta=rnd(1, t, d, scale=2.0),
+        scale=rnd(d, scale=0.1, shift=1.0), q=q, k=k, v=v,
+        positions=positions.to(DEVICE) if rope else None,
+        freqs=L.rope_frequencies(dh, theta, DEVICE) if rope else None,
+        kv=rnd(2, hkv, 1, pages, ps, dh),
+        index=write_index(slots[None].to(DEVICE), spp),
+        gu=rnd(1, t, 2 * ff, scale=3.0))
+
+
+def glue_check(torch, GL, case, dtype_name, seed):
+    """29 (a): each glue kernel against its plain version on the same
+    inputs (`glue_inputs` with the edge rows).  add_rms_norm, with the
+    residual add and alone: x_new bit for bit; h within one bf16 ulp in
+    bf16, in fp32 within (d / 2 + 4) fp32 ulps of its value (the mean of
+    squares is summed in another order: at most d - 1 roundings of the
+    sum, halved by the square root, plus the rsqrt and two products).
+    rope_write_kv: both page pools bit for bit; q bit for bit in fp32,
+    within one ulp in bf16.  silu_mul on gate_up's halves: within one
+    ulp in bf16, two fp32 ulps in fp32.  Logs whether each is bit-equal;
+    returns {kernel: max abs error}."""
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    x = glue_inputs(torch, case, dtype, seed)
+    tag = f"glue {case[0]} {dtype_name}"
+    errs, bits = {}, {}
+
+    def within(name, got, want, fp32_ulps):
+        diff = (got.float() - want.float()).abs()
+        bound = bf16_ulps(torch, want) if bf16 else \
+            want.float().abs() * fp32_ulps * 2.0 ** -24
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"{tag}: {name} off its plain version by "
+                                 f"{float(diff.max()):.3e}")
+        errs[name] = max(errs.get(name, 0.0), float(diff.max()))
+        bits[name] = bits.get(name, True) and same_bits(torch, got, want)
+
+    for delta in (x["delta"], None):
+        h, x_new = GL.add_rms_norm(x["x"], delta, x["scale"], GLUE_EPS)
+        hp, xp = GL.add_rms_norm_plain(x["x"], delta, x["scale"], GLUE_EPS)
+        if not same_bits(torch, x_new, xp):
+            raise AssertionError(f"{tag}: x_new differs from x + delta")
+        within("add_rms_norm", h, hp, case[2] / 2 + 4)
+    kw = dict(style=case[7], sections=GLUE_SECTIONS)
+    args = (x["q"], x["k"], x["v"], x["positions"], x["freqs"])
+    kv, kv_plain = x["kv"], x["kv"].clone()
+    q_rot = GL.rope_write_kv(*args, kv[0], kv[1], x["index"], **kw)
+    q_plain = GL.rope_write_kv_plain(*args, kv_plain[0], kv_plain[1],
+                                     x["index"], **kw)
+    if not same_bits(torch, kv, kv_plain):
+        raise AssertionError(f"{tag}: rope_write_kv's pages differ from "
+                             f"scatter_kv's")
+    if not bf16 and not same_bits(torch, q_rot, q_plain):
+        raise AssertionError(f"{tag}: fp32 rope_write_kv's q is not bit for "
+                             f"bit the plain version's")
+    within("rope_write_kv", q_rot, q_plain, 0)
+    gate, up = x["gu"].chunk(2, dim=-1)
+    within("silu_mul", GL.silu_mul(gate, up), GL.silu_mul_plain(gate, up), 2)
+    log(f"{tag}: " + "  ".join(f"{n} max_abs_err {errs[n]:.3e} bits_equal "
+                               f"{bits[n]}" for n in errs)
+        + "  pages bits_equal True")
+    return errs
+
+
+def phase_glue_time(torch, GL, iters=20):
+    """29 (b): each glue kernel at smollm-135m's decode shape in bf16 (8
+    live rows, the edge rows left out: the main path's JSON rows): median
+    ms over CUDA events with L2 flushed and the host's enqueue hidden
+    behind a spin (`time_ms(lead_cycles=TP_LEAD_CYCLES)`) beside its plain
+    version, a library yardstick (the norm: `torch.nn.functional.rms_norm`
+    on x + delta, which the port never calls; rope and the gate have no
+    one call, null), its bound (`roofline.analysis` work formulas) and
+    the wrapper's host enqueue; then, logged only, each kernel and plain
+    version at the other GLUE_CASES shapes."""
+    from repro_torch.roofline import analysis as RA
+
+    F = torch.nn.functional
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def calls(case, x):
+        _, t, d, hq, hkv, dh, ff, style, _, _ = case
+        kw = dict(style=style, sections=GLUE_SECTIONS)
+        rope = (x["q"], x["k"], x["v"], x["positions"], x["freqs"],
+                x["kv"][0], x["kv"][1], x["index"])
+        src, _, live = x["index"]
+        written = int((live & (src == torch.arange(t, device=DEVICE))).sum())
+        gate, up = x["gu"].chunk(2, dim=-1)
+        x_new = x["x"] + x["delta"]
+        norm = (x["x"], x["delta"], x["scale"], GLUE_EPS)
+        return {
+            "add_rms_norm": (
+                lambda: GL.add_rms_norm(*norm),
+                lambda: GL.add_rms_norm_plain(*norm),
+                lambda: F.rms_norm(x_new, (d,), x["scale"], GLUE_EPS),
+                RA.add_rms_norm_work(rows=t, d=d, e=2, add=True)),
+            "rope_write_kv": (
+                lambda: GL.rope_write_kv(*rope, **kw),
+                lambda: GL.rope_write_kv_plain(*rope, **kw), None,
+                RA.rope_write_kv_work(t=t, hq=hq, hkv=hkv, d=dh, e=2,
+                                      style=style, written=written)),
+            "silu_mul": (
+                lambda: GL.silu_mul(gate, up),
+                lambda: GL.silu_mul_plain(gate, up), None,
+                RA.silu_mul_work(rows=t, ff=ff, e=2))}
+
+    rows = {}
+    for i, case in enumerate(GLUE_CASES):
+        x = glue_inputs(torch, case, torch.bfloat16, SEED + 290 + i,
+                        edge=False)
+        for name, (kfn, pfn, lfn, work) in calls(case, x).items():
+            # the stream spins after the flush, so the CUDA events time
+            # the device work and not the wrappers' host enqueue
+            ms, plain_ms, lib_ms = (
+                None if fn is None else time_ms(torch, fn, iters, flush,
+                                                TP_LEAD_CYCLES)
+                for fn in (kfn, pfn, lfn))
+            bound_ms, bound_by = RA.bound_ms(*work, PEAK_FLOPS["bfloat16"])
+            log(f"time  {name:14s} {case[0]:22s} bfloat16 kernel_ms "
+                f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+                f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
+                f"{bound_ms:.6f} ({bound_by})  host_us "
+                f"{host_us(torch, kfn):.1f}")
+            if i == 0:
+                rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+        del x
+    return rows
+
+
+def phase_glue(torch, GL):
+    """29: the glue kernels against their plain versions at every
+    GLUE_CASES shape in fp32 (TF32 off) and bf16 (`glue_check`), then
+    timed (`phase_glue_time`).  Returns ({kernel: max abs error over
+    every case}, {kernel: its JSON row's times})."""
+    errs = dict.fromkeys(GLUE_REPLACES, 0.0)
+    for i, case in enumerate(GLUE_CASES):
+        for dtype_name in ("float32", "bfloat16"):
+            for name, e in glue_check(torch, GL, case, dtype_name,
+                                      SEED + 29 + i).items():
+                errs[name] = max(errs[name], e)
+    return errs, phase_glue_time(torch, GL)
+
+
 def main() -> int:
     import torch
 
@@ -6947,6 +7230,7 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.layer_glue import kernel as GL
     from repro_torch.kernels.mamba2 import kernel as SK
     from repro_torch.kernels.mla_decode import kernel as AK
     from repro_torch.kernels.mla_decode import ops as AO
@@ -6958,7 +7242,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libraries = (K.library, FK.library, SK.library, MK.library, GK.library,
-                 AK.library)
+                 AK.library, GL.library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -7196,6 +7480,17 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launched,
                             max_abs_err=err, **row))
+    # 29. the packed step's per-layer glue: each kernel against its plain
+    # version at smollm-135m's decode and chunk, qwen2-vl-2b's M-RoPE and
+    # musicgen-large's widths, fp32 and bf16, then timed; the launches
+    # are phase 5's main serve run's
+    glue_errs, glue_times = phase_glue(torch, GL)
+    lap("29 glue")
+    for name, replaces in GLUE_REPLACES.items():
+        kernels.append(dict(name=name, route="cuda", source=GLUE_SOURCE,
+                            replaces=replaces,
+                            launches=serve["glue_launches"][name],
+                            max_abs_err=glue_errs[name], **glue_times[name]))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,10 +3,10 @@ prefill / decode modes over the paged KV cache, and the dense causal
 training mode.
 
 Unified step: QKV projections, packed-position RoPE (each token rotates by
-its own absolute position), the KV page write at the host-computed
+its own absolute position) and the KV page write at the host-computed
 `slot_mapping` (in place; padded tokens aim at the out-of-range trash slot
-and are dropped), one unified attention launch over decode rows and
-prefill chunks, then `wo`.  Padded prefill ([B, S], context 0) and decode
+and are dropped) in one kernel (`layer_glue.rope_write_kv`), one unified
+attention launch over decode rows and prefill chunks, then `wo`.  Padded prefill ([B, S], context 0) and decode
 ([B, 1]): the same write at slots from `kv_cache.physical_slots`, then the
 Q-Block prefill or the C1-C3 decode kernels.  The reference computes those
 slots in every layer; the port computes them once per step (the write
@@ -79,6 +79,8 @@ from repro_torch.distributed.sharding import (
     all_gather_heads, constrain, resolve, spec,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.layer_glue import kernel as GL
+from repro_torch.kernels.layer_glue import ops as glue_ops
 from repro_torch.models import layers as L
 
 
@@ -106,14 +108,14 @@ def _split(shard) -> bool:
 
 
 def _local_heads(x: torch.Tensor, n_local: int, shard) -> torch.Tensor:
-    """This rank's contiguous head block of a [B, S, H, D] projection: x
+    """This rank's contiguous head block of a [T, H, D] projection: x
     itself where the projection's leaves were cut to the local heads,
     else (a replicated fused `wqkv`) block `shard.rank` of the full set.
-    RoPE is per head and position, so slicing after it equals slicing
-    before."""
-    if x.shape[2] == n_local:
+    RoPE is per head and position, so rotating after the slice equals
+    slicing after the rotation."""
+    if x.shape[1] == n_local:
         return x
-    return x[:, :, shard.rank * n_local:(shard.rank + 1) * n_local]
+    return x[:, shard.rank * n_local:(shard.rank + 1) * n_local]
 
 
 def _refuse_split(shard, mode: str) -> None:
@@ -207,8 +209,9 @@ class Attention(nn.Module):
                                dtype=dt, device=device)
         self.wo = L.Linear(hq * dh, cfg.d_model, dtype=dt, device=device)
 
-    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        b, s, _ = x.shape
+    def project(self, x: torch.Tensor):
+        """q [T, Hq, D], k / v [T, Hkv, D] of x [1, T, d], unrotated: views
+        of the projection's output (of the fused `wqkv`'s one product)."""
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_q_heads, cfg.num_kv_heads
@@ -217,9 +220,8 @@ class Attention(nn.Module):
                                          dim=-1)
         else:
             q, k, v = self.wq(x), self.wk(x), self.wv(x)
-        q = rope(cfg, q.reshape(b, s, -1, dh), positions)
-        k = rope(cfg, k.reshape(b, s, -1, dh), positions)
-        return q, k, v.reshape(b, s, -1, dh)
+        t = x.shape[1]
+        return (q.view(t, -1, dh), k.view(t, -1, dh), v.view(t, -1, dh))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 k_pages: torch.Tensor, v_pages: torch.Tensor, meta: dict,
@@ -227,18 +229,26 @@ class Attention(nn.Module):
         """x [1, T, d]; k/v_pages this layer's [Hkv, 1, P, ps, D] cache
         (written in place; under `shard` the rank's Hkv / tp heads).
         meta: page_table, context_lens, query_lens, query_start_loc,
-        num_decode_seqs, and the step's write index `write_index`
-        (`kv_cache.write_index` of slot_mapping).  Returns [1, T, d]."""
+        num_decode_seqs, the step's write index `write_index`
+        (`kv_cache.write_index` of slot_mapping) and its `rope` (token
+        positions, frequencies: `layer_glue.ops.step_rope`, computed here
+        from `positions` where meta lacks it).  RoPE of q
+        and k and the K / V page write are one kernel (`rope_write_kv`).
+        Returns [1, T, d]."""
         b, t, _ = x.shape
-        q, k, v = self.qkv(x, positions)
+        cfg = self.cfg
+        q, k, v = self.project(x)
         if _split(shard):
-            q = _local_heads(q, self.cfg.num_q_heads // shard.size, shard)
-            k = _local_heads(k, self.cfg.num_kv_heads // shard.size, shard)
-            v = _local_heads(v, self.cfg.num_kv_heads // shard.size, shard)
-        scatter_kv(k_pages, k[0].transpose(0, 1), meta["write_index"])
-        scatter_kv(v_pages, v[0].transpose(0, 1), meta["write_index"])
+            q = _local_heads(q, cfg.num_q_heads // shard.size, shard)
+            k = _local_heads(k, cfg.num_kv_heads // shard.size, shard)
+            v = _local_heads(v, cfg.num_kv_heads // shard.size, shard)
+        rope = meta["rope"] if "rope" in meta else \
+            glue_ops.step_rope(cfg, positions)
+        q = GL.rope_write_kv(q, k, v, *rope, k_pages, v_pages,
+                             meta["write_index"], style=cfg.rope_style,
+                             sections=cfg.mrope_sections)
         o = attn_backend.unified_attention(
-            q[0], k_pages, v_pages, meta["page_table"],
+            q, k_pages, v_pages, meta["page_table"],
             meta["context_lens"], meta["query_start_loc"],
             meta["query_lens"], num_decode_seqs=meta["num_decode_seqs"],
             scale=self.cfg.resolved_head_dim ** -0.5, kernel_cfg=kernel_cfg,

@@ -8,7 +8,10 @@ On a training mesh a parameter may hold only this rank's block
 (`param_sharding.assign_param_shardings`): `Linear` and `RMSNorm` use it
 whole (`spmd.full`, an all-gather where it is split), and the training
 forward `MLP.forward_partial` runs tensor-parallel on this rank's block
-of the ff axis (all of it without a mesh).
+of the ff axis (all of it without a mesh).  The packed serving step's
+`MLP.forward_serve` runs the SwiGLU gate in one kernel
+(`kernels/layer_glue`); training keeps these ops, which it
+differentiates.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import sharding, spmd
+from repro_torch.kernels.layer_glue import kernel as GL
 
 
 class Linear(nn.Module):
@@ -117,13 +121,16 @@ def rope_frequencies(head_dim: int, theta: float,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0,
-               rotary_dim: int | None = None) -> torch.Tensor:
+               theta: float = 10000.0, rotary_dim: int | None = None, *,
+               freqs: torch.Tensor | None = None) -> torch.Tensor:
     """x [..., S, H, D]; positions [..., S] (ints). Rotates pairs
-    (x[..., :D/2], x[..., D/2:]) — the llama 'half rotation' convention."""
+    (x[..., :D/2], x[..., D/2:]) — the llama 'half rotation' convention.
+    `freqs` [rd/2]: `rope_frequencies(rd, theta)` computed by the caller
+    (the packed step computes them once a step)."""
     d = x.shape[-1]
     rd = rotary_dim or d
-    freqs = rope_frequencies(rd, theta, x.device)  # [rd/2]
+    if freqs is None:
+        freqs = rope_frequencies(rd, theta, x.device)  # [rd/2]
     angles = positions[..., None].float() * freqs  # [..., S, rd/2]
     cos = torch.cos(angles)[..., None, :]  # [..., S, 1, rd/2]
     sin = torch.sin(angles)[..., None, :]
@@ -135,15 +142,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rot.to(x.dtype)
 
 
-def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-                sections: tuple[int, ...]) -> torch.Tensor:
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                theta: float | None, sections: tuple[int, ...], *,
+                freqs: torch.Tensor | None = None) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE.  x [..., S, H, D]; positions [3, ..., S]
     (t / h / w rows); `sections` split the D/2 frequency pairs across the
     three rows (pair f takes the row of the section it falls in), each
-    pair rotated by the half-rotation convention of `apply_rope`."""
+    pair rotated by the half-rotation convention of `apply_rope`; `freqs`
+    as there (else from `theta`)."""
     d = x.shape[-1]
     assert sum(sections) == d // 2, (sections, d)
-    freqs = rope_frequencies(d, theta, x.device)  # [d/2]
+    if freqs is None:
+        freqs = rope_frequencies(d, theta, x.device)  # [d/2]
     # [d/2] in {0, 1, 2}: device ops on Python ints, so that a CUDA graph
     # capture makes no host-to-device copy
     pair = torch.arange(d // 2, device=x.device)
@@ -181,6 +191,17 @@ class MLP(nn.Module):
             gate, up = self.gate_up(x).chunk(2, dim=-1)
             return self.down(F.silu(gate) * up)
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+    def forward_serve(self, x: torch.Tensor) -> torch.Tensor:
+        """The packed serving step's MLP: the gate and up products (one
+        product where fused, its halves read in place) and the SwiGLU gate
+        in one kernel (`silu_mul`), then down.  Serving only: the kernel
+        has no backward."""
+        if hasattr(self, "gate_up"):
+            gate, up = self.gate_up(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate(x), self.up(x)
+        return self.down(GL.silu_mul(gate, up))
 
     def forward_partial(self, x: torch.Tensor):
         """The training forward: (y, split).  Where the rules split the ff

@@ -71,6 +71,8 @@ from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (
     checkpoint_contexts, constrain, expert_group, resolve, spec,
 )
+from repro_torch.kernels.layer_glue import kernel as GL
+from repro_torch.kernels.layer_glue import ops as glue_ops
 from repro_torch.models import layers as L
 from repro_torch.models import sampling
 from repro_torch.models.attention import (Attention, MLAAttention,
@@ -120,19 +122,23 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype=dt, device=device,
                              fused=cfg.fused_mlp)
 
-    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def ffn(self, x: torch.Tensor, packed: bool = False) -> torch.Tensor:
         """The serving FFN: the MLP, or the MoE's dropless path; that path
         expert-parallel over the active expert group
         (`sharding.use_expert_group`) where the config sets
         `moe_ep_serve`, as the reference's `_decoder_block`.  Under a
         mesh's rules (`sharding.use_rules`) the MLP runs tensor-parallel
         on the ff axis and the MoE on this rank's experts
-        (`moe_ffn_dropless_mesh`); without them each is whole."""
+        (`moe_ffn_dropless_mesh`); without them each is whole.  `packed`
+        (the packed step, never under the rules): the MLP, and the MoE's
+        shared experts, take the SwiGLU gate kernel (`MLP.forward_serve`)."""
         if hasattr(self, "moe"):
             group = expert_group()
             if self.moe.ep_serve and group is not None:
-                return moe_ffn_dropless_ep(self.moe, x, group)[0]
-            return self.moe(x)[0]
+                return moe_ffn_dropless_ep(self.moe, x, group, packed)[0]
+            return self.moe(x, packed=packed)[0]
+        if packed:
+            return self.mlp.forward_serve(x)
         return residual(*self.mlp.forward_partial(x))
 
     def forward_train(self, x: torch.Tensor, positions: torch.Tensor):
@@ -389,12 +395,24 @@ def apply_unified(model: Model, cache: dict, batch: dict, *, kernel_cfg=None,
     meta = {k: batch[k] for k in ("page_table", "context_lens", "query_lens",
                                   "query_start_loc")}
     meta.update(num_decode_seqs=num_decode_seqs, write_index=write_index(
-        batch["slot_mapping"], kp.shape[3] * kp.shape[4]))
+        batch["slot_mapping"], kp.shape[3] * kp.shape[4]),
+        rope=glue_ops.step_rope(cfg, positions))
     x = L.embed(model.embed, inputs)  # [1, T, d]
-    for i, blk in enumerate(model.decoder_blocks()):
-        x = x + blk.attn(blk.ln1(x), positions, kp[i], vp[i], meta,
-                         kernel_cfg=kernel_cfg, shard=shard)
-        x = x + blk.ffn(blk.ln2(x))
+    # each residual add is one kernel with the norm after it; the last
+    # layer's add stays a plain add before the head
+    blocks = model.decoder_blocks()
+    h, x = GL.add_rms_norm(x, None, spmd.full(blocks[0].ln1.scale),
+                           blocks[0].ln1.eps)
+    for i, blk in enumerate(blocks):
+        a = blk.attn(h, positions, kp[i], vp[i], meta,
+                     kernel_cfg=kernel_cfg, shard=shard)
+        h, x = GL.add_rms_norm(x, a, spmd.full(blk.ln2.scale), blk.ln2.eps)
+        f = blk.ffn(h, packed=True)
+        if i + 1 == len(blocks):
+            x = x + f
+        else:
+            nxt = blocks[i + 1].ln1
+            h, x = GL.add_rms_norm(x, f, spmd.full(nxt.scale), nxt.eps)
     # per-sequence last-token rows of the packed stream; the head is
     # row-wise, so it runs on these [S] rows instead of all T
     qsl, qlens = batch["query_start_loc"], batch["query_lens"]

@@ -160,9 +160,11 @@ class MoE(nn.Module):
             kept.append(keep)
         return torch.stack(slots, -1), torch.stack(kept, -1)
 
-    def forward(self, x: torch.Tensor, *, mode: str = "serve"):
+    def forward(self, x: torch.Tensor, *, mode: str = "serve",
+                packed: bool = False):
         """x [..., d] -> (y in x's dtype, aux fp32 0-d): mode "serve" the
-        dropless path (aux 0), "train" the capacity dispatch."""
+        dropless path (aux 0; `packed`: the packed step's, its shared
+        experts on `MLP.forward_serve`), "train" the capacity dispatch."""
         if mode == "train":
             return self.forward_train(x)
         if (spmd.placement(self.w_gate) is None
@@ -172,7 +174,7 @@ class MoE(nn.Module):
                 f"{self.num_experts} experts (shard_experts): it runs only "
                 f"expert parallel, inside use_expert_group")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return moe_ffn_dropless_mesh(self, x), aux
+        return moe_ffn_dropless_mesh(self, x, packed=packed), aux
 
     def forward_train(self, x: torch.Tensor):
         """The GShard capacity dispatch (`moe_ffn`): x [..., d] -> (y in
@@ -284,18 +286,20 @@ def shard_experts(moe: MoE, n: int, rank: int) -> MoE:
     return moe
 
 
-def moe_ffn_dropless_ep(moe: MoE, x: torch.Tensor, group=None):
+def moe_ffn_dropless_ep(moe: MoE, x: torch.Tensor, group=None,
+                        packed: bool = False):
     """The expert-parallel dropless MoE over process group `group` (None:
     the default group), the reference's `moe_ffn_dropless_ep`: x [..., d]
     replicated on every rank -> (y in x's dtype, replicated; aux fp32 0,
     as serving's).  `moe` holds this rank's E / n experts (`shard_experts`,
     placed once with the parameters).  Falls back to the plain dropless
-    form when E does not divide over the ranks."""
+    form when E does not divide over the ranks.  `packed`: the packed
+    step's, its shared experts on `MLP.forward_serve`."""
     n = dist.get_world_size(group)
     rank = dist.get_rank(group)
     e = moe.num_experts
     if e % n:
-        return moe(x)
+        return moe(x, packed=packed)
     e_loc = e // n
     if moe.w_gate.shape[0] != e_loc:
         raise ValueError(
@@ -309,7 +313,8 @@ def moe_ffn_dropless_ep(moe: MoE, x: torch.Tensor, group=None):
     with collective("all-reduce", y.numel() * y.element_size()):
         dist.all_reduce(y, group=group)
     if moe.shared is not None:
-        y = y + moe.shared(xt).float()
+        shared = moe.shared.forward_serve if packed else moe.shared
+        y = y + shared(xt).float()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return y.to(x.dtype).reshape(x.shape), aux
 
@@ -344,7 +349,8 @@ def _dropless_local(moe: MoE, xt: torch.Tensor, ws, e_lo: int) -> torch.Tensor:
     return y
 
 
-def moe_ffn_dropless_mesh(moe: MoE, x: torch.Tensor) -> torch.Tensor:
+def moe_ffn_dropless_mesh(moe: MoE, x: torch.Tensor, *,
+                          packed: bool = False) -> torch.Tensor:
     """The dropless serving MoE (`MoE.forward`'s serve mode): x [..., d]
     -> y in x's dtype, every expert on one device without a mesh.  Under
     a mesh's rules (the dry run's serving cells) x is this rank's batch
@@ -352,7 +358,8 @@ def moe_ffn_dropless_mesh(moe: MoE, x: torch.Tensor) -> torch.Tensor:
     'model' where E divides it (`param_sharding.param_spec`; under FSDP
     their d dim is gathered where they are used): the rank routes every
     row, runs the rows routed to its E / M experts and the combine is
-    summed over 'model'; the shared experts run tensor-parallel."""
+    summed over 'model'; the shared experts run tensor-parallel (whole,
+    on `MLP.forward_serve`, in the packed step: `packed`)."""
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     e_axes = resolve((moe.num_experts,), "experts")[0]
@@ -361,7 +368,8 @@ def moe_ffn_dropless_mesh(moe: MoE, x: torch.Tensor) -> torch.Tensor:
                for w in (moe.w_gate, moe.w_up, moe.w_down))
     y = spmd.all_reduce(_dropless_local(moe, xt, ws, e_lo), e_axes)
     if moe.shared is not None:
-        ys, split = moe.shared.forward_partial(xt)
+        ys, split = ((moe.shared.forward_serve(xt), False) if packed
+                     else moe.shared.forward_partial(xt))
         if split:
             ys = spmd.all_reduce(ys, ("model",))
         y = y + ys.float()

@@ -198,6 +198,37 @@ def mla_decode_work(*, ctx, h: int, r: int, rope: int,
     return live * h * 2 * (d + r), nbytes
 
 
+def add_rms_norm_work(*, rows: int, d: int, e: int,
+                      add: bool) -> tuple[int, int]:
+    """The residual add and RMSNorm of `rows` rows of width d: x (and
+    delta) read, h (and x_new) written, the scale read once; the add,
+    the square-sum and the two products, 5 (4 without the add) FLOPs an
+    element."""
+    n = rows * d
+    return (5 if add else 4) * n, (4 if add else 2) * n * e + d * e
+
+
+def rope_write_kv_work(*, t: int, hq: int, hkv: int, d: int, e: int,
+                       style: str, written: int) -> tuple[int, int]:
+    """RoPE / M-RoPE of q and k and the K / V page write of t tokens, of
+    which `written` write the pages: q read and written, each written
+    row's k and v read and written, the positions (3 rows for M-RoPE),
+    the frequencies and the write index (two int64 and a bool a token)
+    read; 3 FLOPs an element rotated (4 products and 2 sums a pair), the
+    cos / sin not counted."""
+    rot = 0 if style == "none" else 3 * d * (t * hq + written * hkv)
+    pos = {"rope": 8 * t + 2 * d, "mrope": 24 * t + 2 * d}.get(style, 0)
+    return rot, 2 * t * hq * d * e + 4 * written * hkv * d * e + pos + 17 * t
+
+
+def silu_mul_work(*, rows: int, ff: int, e: int) -> tuple[int, int]:
+    """The SwiGLU gate silu(g) * u of rows x ff elements: g and u read, h
+    written; 5 FLOPs an element (the negation, exp, sum, quotient and
+    product)."""
+    n = rows * ff
+    return 5 * n, 3 * n * e
+
+
 # ---------------------------------------------------------------------------
 # the counter
 # ---------------------------------------------------------------------------

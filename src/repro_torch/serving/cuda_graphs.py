@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.layer_glue import kernel as GL
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mla_decode import kernel as AK
 from repro_torch.kernels.mlstm import kernel as MK
@@ -63,7 +64,8 @@ def kernel_counters() -> Counts:
     """Every launch counter of the kernel wrappers."""
     return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, FK.KERNEL_LAUNCHES,
             SK.LAUNCHES, SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES,
-            GK.LAUNCHES, GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES]
+            GK.LAUNCHES, GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES,
+            GL.LAUNCHES, GL.KERNEL_LAUNCHES]
 
 
 def counted(fn: Callable, counters: Counts | None = None):

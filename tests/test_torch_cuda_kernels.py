@@ -41,11 +41,13 @@ import torch
 
 from repro_torch import weights
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.core.paged.kv_cache import write_index
 from repro_torch.kernels._common import (
     MMA_HEAD_DIMS, NEG_INF, LaunchLimitError, chunk_cumsum,
 )
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.layer_glue import kernel as GL
 from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mamba2 import ops as sops
 from repro_torch.kernels.mla_decode import kernel as AK
@@ -55,6 +57,7 @@ from repro_torch.kernels.mlstm import ops as mops
 from repro_torch.kernels.moe import kernel as GK
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention import ops
+from repro_torch.models import layers as TL
 from repro_torch.serving import cuda_graphs
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request
@@ -1922,3 +1925,159 @@ def test_trainable_bf16_forward_is_the_op_one_launch(cuda, which):
     assert sum(mod.KERNEL_LAUNCHES.values()) == 1
     assert all(x.grad is not None and x.grad.dtype == x.dtype
                and torch.isfinite(x.grad.float()).all() for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# the packed step's per-layer glue (csrc/layer_glue.cu): each kernel against
+# its plain version.  The norm sums the squares in another order (fp32:
+# within (d / 2 + 4) ulps of each value; bf16: one ulp); the rotation, the
+# page write and the gate round where the plain ops round (q and the pages
+# bit for bit in fp32, the pages in bf16 too; bf16 q and h within one ulp).
+# ---------------------------------------------------------------------------
+
+GLUE_NORM_WIDTHS = [576, 1536, 16384, 100]  # 100: the one-element path
+# Hq, Hkv, D, style (M-RoPE at qwen2-vl-2b's sections)
+GLUE_ROPE_CASES = [(9, 3, 64, "rope"), (12, 2, 128, "mrope"),
+                   (32, 32, 64, "none"), (4, 4, 256, "rope")]
+GLUE_POOL = (8, 16)  # pages, page size
+
+
+def _ulps(x, dtype, n=1):
+    """n ulps of dtype at each element's magnitude."""
+    mant = 7 if dtype == torch.bfloat16 else 23
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return n * torch.exp2(torch.floor(torch.log2(a)) - mant)
+
+
+def _rope_case(dev, dtype, case, seed=0):
+    hq, hkv, d, style = case
+    g = torch.Generator().manual_seed(seed)
+    t = 11
+    pages, ps = GLUE_POOL
+    spp = pages * ps
+    slots = torch.randperm(spp - ps, generator=g)[:t] + ps
+    # a dead row (the trash slot), a slot from the pool's end, one below
+    slots[0], slots[1], slots[2] = spp, slots[1] - spp, -spp - 1
+    pos = torch.randint(0, 4096, (t,), generator=g)
+    pos[3], pos[4] = 99991, 100000
+    positions = torch.stack([pos, pos.flip(0), pos // 3]) \
+        if style == "mrope" else pos
+    qkv = torch.randn(t, (hq + 2 * hkv) * d, generator=g).to(dev, dtype)
+    q, k, v = (a.view(t, -1, d) for a in qkv.split(
+        [hq * d, hkv * d, hkv * d], dim=-1))
+    rope = style != "none"
+    args = (q, k, v, positions.to(dev) if rope else None,
+            TL.rope_frequencies(d, 1e6, dev) if rope else None)
+    kv = torch.randn(2, hkv, 1, pages, ps, d, generator=g).to(dev, dtype)
+    return args, kv, write_index(slots[None].to(dev), spp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", GLUE_NORM_WIDTHS)
+@pytest.mark.parametrize("add", [True, False])
+def test_add_rms_norm_kernel_matches_plain(cuda, dtype, d, add):
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(1, 9, d, generator=g).to(cuda, dtype)
+    delta = (torch.randn(1, 9, d, generator=g) * 2).to(cuda, dtype) \
+        if add else None
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(cuda, dtype)
+    GL.reset_launches()
+    h, x_new = GL.add_rms_norm(x, delta, scale, 1e-5)
+    hp, xp = GL.add_rms_norm_plain(x, delta, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert GL.KERNEL_LAUNCHES["add_rms_norm_kernel"] == 1
+    assert torch.equal(x_new, xp) and (add or x_new is x)
+    bound = _ulps(hp, dtype) if dtype == torch.bfloat16 \
+        else _ulps(hp, dtype, d / 2 + 4)
+    assert bool(((h.float() - hp.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GLUE_ROPE_CASES)
+def test_rope_write_kv_kernel_matches_plain(cuda, dtype, case):
+    args, kv, index = _rope_case(cuda, dtype, case)
+    kv_plain = kv.clone()
+    kw = dict(style=case[3], sections=(16, 24, 24))
+    GL.reset_launches()
+    q_rot = GL.rope_write_kv(*args, kv[0], kv[1], index, **kw)
+    q_plain = GL.rope_write_kv_plain(*args, kv_plain[0], kv_plain[1], index,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert GL.KERNEL_LAUNCHES["rope_write_kv_kernel"] == 1
+    assert torch.equal(kv, kv_plain)
+    if dtype == torch.float32:
+        assert torch.equal(q_rot, q_plain)
+    else:
+        assert bool(((q_rot.float() - q_plain.float()).abs()
+                     <= _ulps(q_plain, dtype)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ff", [1536, 8960, 37])  # 37: the one-element path
+@pytest.mark.parametrize("fused", [True, False])
+def test_silu_mul_kernel_matches_plain(cuda, dtype, ff, fused):
+    g = torch.Generator().manual_seed(ff)
+    gu = (torch.randn(1, 13, 2 * ff, generator=g) * 4).to(cuda, dtype)
+    gate, up = gu.chunk(2, dim=-1)
+    if not fused:
+        gate, up = gate.contiguous(), up.contiguous()
+    GL.reset_launches()
+    h = GL.silu_mul(gate, up)
+    hp = GL.silu_mul_plain(gate, up)
+    torch.cuda.synchronize()
+    assert GL.KERNEL_LAUNCHES["silu_mul_kernel"] == 1
+    assert h.is_contiguous() and h.shape == hp.shape
+    assert bool(((h.float() - hp.float()).abs()
+                 <= _ulps(hp, dtype, 1 if dtype == torch.bfloat16 else 2))
+                .all())
+
+
+def test_glue_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(64, 8, device=cuda).t()  # not contiguous
+    with pytest.raises(ValueError):
+        GL.add_rms_norm(x, None, torch.ones(64, device=cuda), 1e-5)
+    with pytest.raises(ValueError):  # no unit element stride
+        GL.silu_mul(x, x)
+    args, kv, index = _rope_case(cuda, torch.float32, GLUE_ROPE_CASES[0])
+    q, k, v, pos, freqs = args
+    with pytest.raises(ValueError):  # heads not D contiguous elements
+        GL.rope_write_kv(q.transpose(0, 1).contiguous().transpose(0, 1), k,
+                         v, pos, freqs, kv[0], kv[1], index, style="rope")
+    with pytest.raises(ValueError):  # pages not contiguous
+        GL.rope_write_kv(q, k, v, pos, freqs, kv[0].transpose(3, 4),
+                         kv[1], index, style="rope")
+
+
+def test_glue_kernels_capture_into_a_graph(cuda):
+    """The three launches captured into a CUDA graph: a replay gives the
+    eager call's outputs and pages (no host read, no allocation outside
+    PyTorch's allocator)."""
+    dtype = torch.bfloat16
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 8, 576, generator=g).to(cuda, dtype)
+    delta = torch.randn(1, 8, 576, generator=g).to(cuda, dtype)
+    scale = torch.ones(576, device=cuda, dtype=dtype)
+    gu = torch.randn(1, 8, 3072, generator=g).to(cuda, dtype)
+    args, kv, index = _rope_case(cuda, dtype, GLUE_ROPE_CASES[0])
+
+    def body():
+        h, x_new = GL.add_rms_norm(x, delta, scale, 1e-5)
+        q = GL.rope_write_kv(*args, kv[0], kv[1], index, style="rope")
+        return h, x_new, q, GL.silu_mul(*gu.chunk(2, dim=-1))
+
+    kv_before = kv.clone()
+    want = [t.clone() for t in body()]
+    kv_want = kv.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    kv.copy_(kv_before)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    assert torch.equal(kv, kv_want) and not torch.equal(kv, kv_before)
