@@ -515,6 +515,34 @@ of JAX and nothing of the JAX package.  Phases, each failing the run
               each timed at every shape (kernel, plain, bound, host
               enqueue; the norm beside `torch.nn.functional.rms_norm`),
               the smollm decode rows in the kernels' JSON
+ 30. optim    the optimizer step (`csrc/optimizer.cu`): (a)
+              sum_squares_kernel and adamw_kernel against their plain
+              versions in every (parameter, gradient) dtype pair (bf16 /
+              bf16, fp32 / fp32, bf16 / fp32) on odd sizes, a tensor over
+              several chunks, an empty one and a zero gradient, aligned,
+              as views one element in and with the moments at another
+              offset, at optimizer counts 1 and 4, then on one bf16
+              tensor of 2^31 + 2^20 + 3 elements: AdamW's p, mu and nu
+              bit for bit, the sums within SUMSQ_RTOL of the plain sums
+              and bit for bit across two launches; (b) at deepseek-v2's
+              2-layer parameter list (33 tensors), full-size
+              smollm-135m's (272), zamba2-1.2b's (268), musicgen-large's
+              (435) and qwen2-vl-2b's (339): both checked again on the
+              whole list (the sums of every tensor; AdamW bit for bit on
+              the tensors whose copies fit in half the free memory),
+              then both timed (CUDA events, L2 flushed, the enqueue
+              hidden) there and at the large tensor (the kernels' JSON
+              rows; max_abs_err over every check), beside the plain
+              versions, `torch._foreach_norm` and `torch._fused_adamw_`
+              on fp32 copies (where they fit), the byte bound and the
+              host enqueue.  Phases 9, 10, 23 (b), 24 (c) / (d), 25 (b),
+              27 and 28 (b) / (c) assert one sum_squares launch a train
+              step and one adamw launch per parameter dtype, and no plain
+              optimizer on the card (`optim_launches`); 23's
+              `mtrain_split` times deepseek-v2's step and its AdamW on
+              both the kernels and the plain route, and 9, 24 (c) and
+              25 (b) time smollm's, zamba2's, musicgen's and qwen2-vl's
+              steps on both routes (`optim_route_steps`)
 
 Each phase logs its duration (`phase <n> <name> <s>s`).  The line before
 the last is `nvidia-smi`'s name and power limit, the one before that the
@@ -848,6 +876,7 @@ MTRAIN_DIFF_EXPERTS = dict(num_experts=8, d_ff_expert=1024)
 MTRAIN_DIFF_BATCH, MTRAIN_DIFF_SEQ, MTRAIN_DIFF_STEPS = 2, 128, 2
 # the aux is a mean of fp32 products over 256 tokens: 1e-5 absolute
 MTRAIN_AUX_ATOL = 1e-5
+MTRAIN_ROUTE_STEPS = 2  # mtrain_split's steps a turn on each optimizer route
 # phase 24: training of the recurrent families, zamba2-1.2b at 4 x 2048
 # and xlstm-350m at 4 x 1024, full size (their kernels' rows in the
 # kernels' JSON: the shapes these steps give them)
@@ -984,6 +1013,36 @@ DECODE_BEFORE = {"smollm-135m": (5.5905, 2335),
                  "qwen2-vl-2b": (8.1374, 2750)}
 DECODE_KERNELS_FALL = 1500  # smollm's decode graph: at least this many fewer
 
+# 30. the optimizer step (csrc/optimizer.cu): the two kernels and the
+# reference functions whose fused work each takes over
+OPTIM_SOURCE = "src/repro_torch/csrc/optimizer.cu"
+OPTIM_REPLACES = {"sum_squares_kernel": "src/repro/utils/misc.py:56",
+                  "adamw_kernel": "src/repro/training/optimizer.py:29"}
+# odd sizes, a tensor over several of sum_squares_kernel's chunks, an
+# empty one; each also checked as a view one element in
+OPTIM_CHECK_SHAPES = [(7, 5), (3,), (129, 67), (1,), (3 * (1 << 18) + 77,),
+                      (0,), (4096, 8)]
+OPTIM_BIG = (1 << 31) + (1 << 20) + 3  # one bf16 tensor over 2^31 elements
+# the sum of squares against the plain sums (another order): a sum of n
+# positive fp32 terms added in a chain k deep lies within k x 2^-24 of the
+# exact sum; the kernel's chains are ~530 deep at most (256 vectors a
+# thread lane in fp32, its lanes and trees, 256 chunk partials a warp lane
+# at 2^31 elements), the plain sums' (2^26-element slices, then their
+# stack) are no deeper: the bound is 1024 x 2^-24
+SUMSQ_RTOL = 1024 * 2.0 ** -24
+# the timed parameter lists (each gradient in its parameter's dtype, fp32
+# moments): deepseek-v2-236b at phase 23's 2 layers and the other trained
+# models at their phases' sizes (xlstm-350m's 24-layer list is left out:
+# its step is the sLSTM loop's)
+OPTIM_LISTS = (("deepseek-v2-236b", 2), ("smollm-135m", None),
+               ("zamba2-1.2b", None), ("musicgen-large", None),
+               ("qwen2-vl-2b", None))
+OPTIM_FP32_LIBRARY_MAX = 2e9  # parameters: fp32 copies beside the state fit
+OPTIM_STEP_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+# the spin before each timed optimizer launch (~4.5 ms at 1.755 GHz):
+# longer than the wrappers' host enqueue at 435 tensors (~2 ms), so the
+# CUDA events time the device work; the enqueue is logged apart
+OPTIM_LEAD_CYCLES = 8_000_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2476,16 +2535,18 @@ def phase_train(torch, K, FK):
     K.reset_launches()
     FK.reset_launches()
     losses, gnorms, times = [], [], []
-    for i, batch in enumerate(batches):
-        t0 = time.perf_counter()
-        state, m = train_step(model, state, batch, **TRAIN_KW)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        log(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
-            f"{losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} lr "
-            f"{float(m['lr']):.2e} {times[-1] * 1e3:.1f} ms")
+    with optim_launches(f"train {ARCH}", list(model.parameters()),
+                        steps) as optim:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = train_step(model, state, batch, **TRAIN_KW)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+                f"{losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} lr "
+                f"{float(m['lr']):.2e} {times[-1] * 1e3:.1f} ms")
     launches = FK.LAUNCHES[FLASH]
     paged = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2513,7 +2574,9 @@ def phase_train(torch, K, FK):
                              f"expected {want}")
     if any(paged.values()):
         raise AssertionError(f"training launched serving kernels: {paged}")
-    return launches
+    optim_route_steps(torch, f"train {ARCH}", lambda: train_step(
+        model, state, batches[-1], **TRAIN_KW))
+    return launches, optim
 
 
 def phase_train_diff(torch):
@@ -2527,10 +2590,13 @@ def phase_train_diff(torch):
         model = weights.init_random(cfg, SEED, device=dev)
         state = make_train_state(model)
         out = []
-        for batch in markov_batches(torch, cfg, TDIFF_STEPS, TDIFF_BATCH,
-                                    TDIFF_SEQ, dev):
-            state, m = train_step(model, state, batch, **TRAIN_KW)
-            out.append((float(m["loss"]), float(m["grad_norm"])))
+        with (optim_launches(f"tdiff {dev}", list(model.parameters()),
+                             TDIFF_STEPS) if dev == DEVICE
+              else contextlib.nullcontext()):
+            for batch in markov_batches(torch, cfg, TDIFF_STEPS, TDIFF_BATCH,
+                                        TDIFF_SEQ, dev):
+                state, m = train_step(model, state, batch, **TRAIN_KW)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
         runs.append(out)
         del model, state
     worst_l = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(*runs))
@@ -4507,15 +4573,19 @@ def phase_mtrain_flash(torch, FK, iters=10):
 
 
 def mtrain_split(torch, model, state, batch, step_ms):
-    """Where phase 23 (b)'s step goes: one step profiled, then, each with
-    CUDA events at the train shape (L2 flushed): the AdamW update over
-    this model's gradients (at lr 0, so the parameters keep their values;
-    the phase's last use of the moments), the flash recompute backward
-    alone, the MoE layer's capacity dispatch forward and forward +
-    backward, its three expert `torch.bmm` alone, and the MLA attention's
-    forward and forward + backward.  The step runs each layer's forward
-    twice (remat) and its backward once."""
+    """Where phase 23 (b)'s step goes: one step profiled; the step itself
+    on the optimizer's plain route (eager, a yardstick) and on its kernels,
+    MTRAIN_ROUTE_STEPS steps each in turn (plain, kernels, plain,
+    kernels), host clock to a synchronize; then, each with CUDA events at
+    the train shape (L2 flushed): the AdamW update with its norm over this
+    model's gradients on the kernels and on the plain route (at lr 0, so
+    the parameters keep their values; the phase's last use of the
+    moments), the flash recompute backward alone, the MoE layer's capacity
+    dispatch forward and forward + backward, its three expert `torch.bmm`
+    alone, and the MLA attention's forward and forward + backward.  The
+    step runs each layer's forward twice (remat) and its backward once."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.optimizer import kernel as OK
     from repro_torch.models import moe as TMOE
     from repro_torch.models.model import apply_train
     from repro_torch.training.optimizer import adamw_update
@@ -4523,6 +4593,8 @@ def mtrain_split(torch, model, state, batch, step_ms):
 
     _, wall, busy = profile_step(torch, lambda: train_step(
         model, state, batch, **TRAIN_KW), "mtrain step", top=15)
+    route_ms = optim_route_steps(torch, "mtrain", lambda: train_step(
+        model, state, batch, **TRAIN_KW), MTRAIN_ROUTE_STEPS)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     cfg, blk = model.cfg, model.blocks[0]
     dt = cfg.param_dtype
@@ -4535,9 +4607,11 @@ def mtrain_split(torch, model, state, batch, step_ms):
     params = list(model.parameters())
     apply_train(model, batch)[0].backward()
     grads = [p.grad for p in params]
-    split = {"adamw": time_ms(torch, lambda: adamw_update(
-        grads, state["opt"], params, lr=torch.zeros((), device=DEVICE)),
-        2, flush)}
+    update = lambda: adamw_update(  # noqa: E731
+        grads, state["opt"], params, lr=torch.zeros((), device=DEVICE))
+    split = {"adamw": time_ms(torch, update, 3, flush)}
+    with plain_optimizer(OK):
+        split["adamw_plain"] = time_ms(torch, update, 2, flush)
     del grads
     for p in params:
         p.grad = None
@@ -4588,6 +4662,12 @@ def mtrain_split(torch, model, state, batch, step_ms):
         f"{t}): " + "  ".join(f"{k} {v:.3f} ms" for k, v in split.items())
         + f"; the three expert matrices hold {e_bytes / 1e9:.2f} GB "
         f"({e_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    step_plain = sum(route_ms["plain"]) / len(route_ms["plain"])
+    plain_ms = split["adamw_plain"]
+    log(f"mtrain AdamW with its norm: kernels {split['adamw']:.1f} ms "
+        f"({split['adamw'] / step_ms:.3f} of the step), plain route "
+        f"{plain_ms:.1f} ms ({plain_ms / step_plain:.3f} of the plain "
+        f"route's step {step_plain:.1f} ms)")
     shares = {
         "adamw": split["adamw"],
         "attention (2 layers: 2 forwards + a backward each)": 2 * (
@@ -4599,7 +4679,8 @@ def mtrain_split(torch, model, state, batch, step_ms):
             "moe_bmm3_fwd"]}
     log(f"mtrain step {step_ms:.1f} ms, by part: " + "; ".join(
         f"{k} {v:.1f} ms ({v / step_ms:.3f})" for k, v in shares.items()))
-    return dict(profiled_ms=wall, profiled_kernels_ms=busy, **split)
+    return dict(profiled_ms=wall, profiled_kernels_ms=busy,
+                step_route_ms=route_ms, **split)
 
 
 def phase_mtrain(torch, kernel_modules):
@@ -4678,7 +4759,8 @@ def phase_mtrain(torch, kernel_modules):
     losses, ces, auxes, gnorms, times = [], [], [], [], []
     with counted_plain((FK, "flash_attention_fwd_plain"),
                        (GK, "grouped_gemm_plain"),
-                       (AK, "mla_decode_plain")) as plain_calls:
+                       (AK, "mla_decode_plain")) as plain_calls, \
+            optim_launches(f"mtrain {MLA_ARCH}", params, steps):
         for i, batch in enumerate(batches[:steps]):
             t0 = time.perf_counter()
             state, met = train_step(model, state, batch, **TRAIN_KW)
@@ -5219,7 +5301,8 @@ def phase_rtrain_model(torch, arch, batch_size, seq, kernel_modules):
                        (SK, "ssd_chunked_fwd_plain"),
                        (MK, "mlstm_chunked_fwd_plain"),
                        (GK, "grouped_gemm_plain"),
-                       (AK, "mla_decode_plain")) as plain_calls:
+                       (AK, "mla_decode_plain")) as plain_calls, \
+            optim_launches(f"{tag} {arch}", params, steps):
         for i, batch in enumerate(batches[:steps]):
             t0 = time.perf_counter()
             state, met = train_step(model, state, batch, **TRAIN_KW)
@@ -5261,6 +5344,9 @@ def phase_rtrain_model(torch, arch, batch_size, seq, kernel_modules):
     if stuck:
         raise AssertionError(f"{tag}: parameters did not change: {stuck}")
     del before
+    if tag == "htrain":
+        optim_route_steps(torch, f"{tag} {arch}", lambda: train_step(
+            model, state, batches[steps], **TRAIN_KW))
     numbers = rtrain_parts(torch, model, state, batches[steps], step_ms)
     del model, state, batches, params
     gc.collect()
@@ -5538,7 +5624,8 @@ def phase_family_train(torch, arch, model, kernel_modules):
     losses, ces, gnorms, times = [], [], [], []
     with counted_plain((FK, "flash_attention_fwd_plain"),
                        (K, "paged_prefill_qblock_plain"),
-                       (GK, "grouped_gemm_plain")) as plain_calls:
+                       (GK, "grouped_gemm_plain")) as plain_calls, \
+            optim_launches(f"ftrain {arch}", params, steps):
         for i in range(steps):
             batch = family_batch(torch, cfg, b, s, DEVICE, SEED + 10 + i)
             torch.cuda.synchronize()
@@ -5590,6 +5677,8 @@ def phase_family_train(torch, arch, model, kernel_modules):
                              f"{stuck}")
     del before
     batch = family_batch(torch, cfg, b, s, DEVICE, SEED + 20)
+    optim_route_steps(torch, f"ftrain {arch}", lambda: train_step(
+        model, state, batch, **TRAIN_KW))
     _, wall, busy = profile_step(
         torch, lambda: train_step(model, state, batch, **TRAIN_KW),
         f"ftrain {arch} step", top=8)
@@ -6265,7 +6354,8 @@ def mesh_gpu(torch, batch):
 def mesh_steps(torch, model, state, batches, record=None, kw=None):
     """`train_step` over `batches` (numpy, global) with the schedule `kw`
     (MESH_KW); (state, metrics by step, walls in s).  `record(step,
-    grads)` sees each update's complete gradients before the clip."""
+    grads)` sees each update's complete gradients before the clip.  Every
+    step's optimizer runs on its kernels (`optim_launches`)."""
     from repro_torch.training import trainer as T
 
     inner, metrics, walls = T.adamw_update, [], []
@@ -6275,13 +6365,15 @@ def mesh_steps(torch, model, state, batches, record=None, kw=None):
             return inner(grads, opt_state, params, **kw)
         T.adamw_update = recording
     try:
-        for batch in batches:
-            t0 = time.perf_counter()
-            state, m = T.train_step(model, state, mesh_gpu(torch, batch),
-                                    **(kw or MESH_KW))
-            metrics.append({k: float(v) for k, v in m.items()})
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        with optim_launches("mesh steps", list(model.parameters()),
+                            len(batches)):
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, m = T.train_step(model, state, mesh_gpu(torch, batch),
+                                        **(kw or MESH_KW))
+                metrics.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
     finally:
         T.adamw_update = inner
     return state, metrics, walls
@@ -6795,29 +6887,32 @@ def dry_card_leg(torch, kind, s, b):
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    step, _ = D.build_cell(cfg, shape, None, multi_pod=False, device=DEVICE,
-                           batch=dry_batch(torch, cfg, shape))
+    step, args = D.build_cell(cfg, shape, None, multi_pod=False,
+                              device=DEVICE, batch=dry_batch(torch, cfg,
+                                                             shape))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with RA.StepCounter() as counter:
-        out = step()
-    torch.cuda.synchronize()
-    card_total = torch.cuda.max_memory_allocated() - base
-    cc = counter.snapshot()
-    finite = all(bool(torch.isfinite(t).all()) for t in (
-        [out[1]["loss"]] if kind == "train" else [out[0]]))
-    del out
     walls = []
-    for _ in range(DRY_TIMED):
-        x = torch.cuda.Event(enable_timing=True)
-        y = torch.cuda.Event(enable_timing=True)
-        x.record()
-        step()
-        y.record()
+    with (optim_launches(f"dryrun card {kind}", args[0][0], 1 + DRY_TIMED)
+          if kind == "train" else contextlib.nullcontext()):
+        with RA.StepCounter() as counter:
+            out = step()
         torch.cuda.synchronize()
-        walls.append(x.elapsed_time(y) / 1e3)
-    del step
+        card_total = torch.cuda.max_memory_allocated() - base
+        cc = counter.snapshot()
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            [out[1]["loss"]] if kind == "train" else [out[0]]))
+        del out
+        for _ in range(DRY_TIMED):
+            x = torch.cuda.Event(enable_timing=True)
+            y = torch.cuda.Event(enable_timing=True)
+            x.record()
+            step()
+            y.record()
+            torch.cuda.synchronize()
+            walls.append(x.elapsed_time(y) / 1e3)
+    del step, args
     gc.collect()
     torch.cuda.empty_cache()
     terms = cc.cost().terms()
@@ -7193,6 +7288,344 @@ def phase_glue(torch, GL):
     return errs, phase_glue_time(torch, GL)
 
 
+# ---------------------------------------------------------------------------
+# 30. the optimizer step: the multi-tensor sum of squares and the fused
+# AdamW (csrc/optimizer.cu)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def optim_launches(tag, params, steps):
+    """The optimizer kernels' counters zeroed and their plain versions
+    counted over `steps` train steps of `params` (each gradient in its
+    parameter's dtype): on leaving, asserts one sum_squares launch a step,
+    one adamw launch a step per parameter dtype and no plain call.  Yields
+    a dict that holds the launches by kernel on leaving."""
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    groups = len({p.dtype for p in params})
+    OK.reset_launches()
+    got = {}
+    with counted_plain((OK, "sum_squares_plain"),
+                       (OK, "adamw_plain")) as plain:
+        yield got
+    got.update(OK.KERNEL_LAUNCHES)
+    want = {"sum_squares_kernel": steps, "adamw_kernel": steps * groups}
+    log(f"{tag}: optimizer launches {got} (want {want}: {steps} steps, "
+        f"{groups} dtype group(s)), plain calls {plain}")
+    if got != want or any(plain.values()):
+        raise AssertionError(f"{tag}: the optimizer step did not run on its "
+                             f"kernels: launches {got}, want {want}, plain "
+                             f"{plain}")
+
+
+@contextlib.contextmanager
+def plain_optimizer(OK):
+    """The optimizer wrappers replaced by their plain versions, which then
+    run on CUDA tensors: the eager route, a yardstick timed only."""
+    saved = OK.sum_squares, OK.adamw
+    OK.sum_squares, OK.adamw = OK.sum_squares_plain, OK.adamw_plain
+    try:
+        yield
+    finally:
+        OK.sum_squares, OK.adamw = saved
+
+
+def optim_route_steps(torch, tag, step, n=1):
+    """`step()`, one train step, on the optimizer's plain route (eager, a
+    yardstick) and on its kernels, n steps a turn in turns (plain, kernels,
+    plain, kernels), host clock to a synchronize: the step before and after
+    the kernels in one process.  Logged; returns {route: [ms, ...]}."""
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    route_ms = {"plain": [], "kernels": []}
+    for route in ("plain", "kernels") * 2:
+        with (plain_optimizer(OK) if route == "plain"
+              else contextlib.nullcontext()):
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                route_ms[route].append(1e3 * (time.perf_counter() - t0))
+    log(f"{tag} step by optimizer route (host clock, ms): " + "; ".join(
+        f"{k} {[round(x, 1) for x in v]} mean {sum(v) / len(v):.1f}"
+        for k, v in route_ms.items()))
+    return route_ms
+
+
+def optim_tensors(torch, shapes, pair, g, offset=0, moment_offset=0):
+    """[params, grads, mus, nus] of `shapes` on the card from the CUDA
+    generator g: parameters N(0, 1) in pair[0], gradients 3 N(0, 1) in
+    pair[1], mu 0.1 N(0, 1), nu |0.1 N(0, 1)| in fp32; each a contiguous
+    view `offset` (the moments `moment_offset`) elements into a buffer of
+    its own, so an offset of 1 starts off every 16-byte boundary."""
+    def draw(dtype, scale, off, absolute=False):
+        out = []
+        for s in shapes:
+            buf = torch.randn(math.prod(s) + off, generator=g, device=DEVICE,
+                              dtype=dtype).mul_(scale)
+            out.append((buf.abs_() if absolute else buf)[off:].view(s))
+        return out
+
+    return [draw(pair[0], 1.0, offset), draw(pair[1], 3.0, offset),
+            draw(torch.float32, 0.1, moment_offset),
+            draw(torch.float32, 0.1, moment_offset, absolute=True)]
+
+
+def optim_scalars(torch, sums, count):
+    """The update's 0-d device scalars as `adamw_update` forms them: the
+    clip scale (clip 1) from the sums of squares, both bias corrections at
+    optimizer count `count`, lr 3e-3."""
+    scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(torch.sum(sums)),
+                                          min=1e-9), max=1.0)
+    cf = torch.full((), float(count), device=DEVICE)
+    return dict(scale=scale, bc1=1 - OPTIM_STEP_KW["b1"] ** cf,
+                bc2=1 - OPTIM_STEP_KW["b2"] ** cf,
+                lr=torch.full((), 3e-3, device=DEVICE), **OPTIM_STEP_KW)
+
+
+def max_abs_diff(torch, xs, ys):
+    """The largest |x - y| over pairs of same-shape tensors, in fp32 and in
+    2^26-element slices (no temporary the size of a whole tensor)."""
+    worst = [(a.float() - b.float()).abs().max()
+             for x, y in zip(xs, ys) if x.numel()
+             for a, b in zip(x.reshape(-1).split(1 << 26),
+                             y.reshape(-1).split(1 << 26))]
+    return float(torch.stack(worst).max()) if worst else 0.0
+
+
+def optim_check_list(torch, OK, tag, ts, counts=(1, 4), budget=None):
+    """30 (a) on one list ts = [params, grads, mus, nus]: at each optimizer
+    count, the sums of squares twice (the same bits) and within SUMSQ_RTOL
+    of the plain sums, then AdamW on the whole list and the plain update
+    on copies of the parameters and moments: bit for bit.  With `budget`
+    (bytes), only the smallest tensors whose copies fit in it are copied
+    and compared (they lie all along the launch's table).  Returns the
+    sums' largest (absolute, relative) error, AdamW's largest absolute
+    error over p, mu and nu, and the number of tensors compared."""
+    params, grads, mus, nus = ts
+    checked = list(range(len(params)))
+    if budget is not None:
+        checked, used = [], 0
+        for i in sorted(range(len(params)), key=lambda i: params[i].numel()):
+            used += params[i].numel() * (params[i].element_size() + 8)
+            if used > budget:
+                break
+            checked.append(i)
+        checked.sort()
+    copies = [[xs[i].clone() for i in checked] for xs in (params, mus, nus)]
+    checked_grads = [grads[i] for i in checked]
+    abs_err = rel_err = adamw_err = 0.0
+    for count in counts:
+        sums, again = OK.sum_squares(grads), OK.sum_squares(grads)
+        want = OK.sum_squares_plain(grads)
+        diff = (sums - want).abs()
+        rel = float((diff / want.clamp_min(1e-30)).max())
+        if not same_bits(torch, sums, again):
+            raise AssertionError(f"{tag}: two sum_squares launches differ")
+        if not bool((diff <= SUMSQ_RTOL * want).all()):
+            raise AssertionError(f"{tag}: sum_squares off the plain sums by "
+                                 f"{rel:.3e} relative (bound "
+                                 f"{SUMSQ_RTOL:.3e})")
+        abs_err = max(abs_err, float(diff.max()))
+        rel_err = max(rel_err, rel)
+        kw = optim_scalars(torch, sums, count)
+        OK.adamw(params, grads, mus, nus, **kw)
+        OK.adamw_plain(copies[0], checked_grads, copies[1], copies[2], **kw)
+        torch.cuda.synchronize()
+        for what, xs, want_ in zip(("p", "mu", "nu"), (params, mus, nus),
+                                   copies):
+            got = [xs[i] for i in checked]
+            adamw_err = max(adamw_err, max_abs_diff(torch, got, want_))
+            bad = [i for i, a, b in zip(checked, got, want_)
+                   if not same_bits(torch, a, b)]
+            if bad:
+                raise AssertionError(f"{tag}: adamw's {what} differs from "
+                                     f"the plain update's at count {count}"
+                                     f", tensors {bad[:4]}")
+    return abs_err, rel_err, adamw_err, len(checked)
+
+
+def phase_optim_check(torch, OK):
+    """30 (a): both kernels against their plain versions in every
+    (parameter, gradient) dtype pair on OPTIM_CHECK_SHAPES (one gradient
+    zero: a parameter the loss does not reach), aligned, each tensor a view
+    one element in (the scalar head and tail), and the moments at another
+    offset than p and g (AdamW's scalar path); then one bf16 tensor of
+    OPTIM_BIG > 2^31 elements.  AdamW bit for bit, the sums within
+    SUMSQ_RTOL and deterministic.  Returns {kernel: max abs error}."""
+    import gc
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    abs_err = rel_err = adamw_err = 0.0
+    for pair in OK.PAIRS:
+        for off, m_off in ((0, 0), (1, 1), (1, 2)):
+            tag = (f"optim {str(pair[0])[6:]} / {str(pair[1])[6:]} offsets "
+                   f"{off} / {m_off}")
+            ts = optim_tensors(torch, OPTIM_CHECK_SHAPES, pair, g, off,
+                               m_off)
+            ts[1][1].zero_()
+            a, r, w, _ = optim_check_list(torch, OK, tag, ts)
+            abs_err, rel_err = max(abs_err, a), max(rel_err, r)
+            adamw_err = max(adamw_err, w)
+            log(f"{tag}: adamw bit for bit at counts 1 and 4, sum_squares "
+                f"deterministic, relative error {r:.3e}")
+    t0 = time.perf_counter()
+    ts = optim_tensors(torch, [(OPTIM_BIG,)], OK.PAIRS[0], g)
+    a, r, w, _ = optim_check_list(torch, OK, f"optim bf16 [{OPTIM_BIG}]",
+                                  ts, counts=(1,))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"optim one bf16 tensor of {OPTIM_BIG} elements (> 2^31): adamw bit "
+        f"for bit, sum_squares deterministic, relative error {r:.3e} "
+        f"(bound {SUMSQ_RTOL:.3e}), peak {peak:.1f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_squares_kernel": max(abs_err, a),
+            "adamw_kernel": max(adamw_err, w)}
+
+
+def optim_list_shapes(arch, layers):
+    """The parameter shapes and dtypes of `arch` (cut to `layers`), from
+    the model built on the meta device."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import Model
+
+    cfg = ARCHS[arch] if layers is None else ARCHS[arch].replace(
+        num_layers=layers)
+    return [(tuple(p.shape), p.dtype)
+            for p in Model(cfg, device="meta").parameters()]
+
+
+def optim_row(torch, OK, tag, ts, flush, iters, fp32_library):
+    """30 (b) on one list ts = [params, grads, mus, nus] (bf16 gradients):
+    each kernel with CUDA events after an L2 flush, the enqueue hidden
+    behind a spin; its plain version; its library yardstick, never on the
+    path: `torch._foreach_norm` of the gradients (fp32 norms), and, where
+    `fp32_library`, `torch._fused_adamw_` on fp32 copies of the parameters
+    and gradients with these moments (the same function at fp32
+    parameters, up to rounding); the bounds (`roofline.analysis`, fp32
+    operations at 67 TFLOP/s) and the wrappers' host enqueue.  Returns
+    {kernel: row}."""
+    from repro_torch.roofline import analysis as RA
+
+    params, grads, mus, nus = ts
+    n = sum(p.numel() for p in params)
+    kw = optim_scalars(torch, OK.sum_squares(grads), 4)
+    plain_iters = 2 if n > 1e9 else 5
+    gbytes = sum(x.numel() * x.element_size() for x in grads)
+    calls = {
+        "sum_squares_kernel": (
+            lambda: OK.sum_squares(grads),
+            lambda: OK.sum_squares_plain(grads),
+            lambda: torch._foreach_norm(grads, 2, dtype=torch.float32),
+            RA.sum_squares_work(elems=n, nbytes=gbytes, n=len(grads))),
+        "adamw_kernel": (
+            lambda: OK.adamw(params, grads, mus, nus, **kw),
+            lambda: OK.adamw_plain(params, grads, mus, nus, **kw),
+            None,
+            tuple(map(sum, zip(*(RA.adamw_work(
+                elems=p.numel(), p_bytes=p.element_size(),
+                g_bytes=x.element_size()) for p, x in zip(params, grads))))))}
+    rows = {}
+    for name, (kfn, pfn, lfn, work) in calls.items():
+        ms = time_ms(torch, kfn, iters, flush, OPTIM_LEAD_CYCLES)
+        plain_ms = time_ms(torch, pfn, plain_iters, flush)
+        lib_ms = None if lfn is None else time_ms(torch, lfn, iters, flush)
+        bound_ms, bound_by = RA.bound_ms(*work, PEAK_FLOPS["float32"])
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    if fp32_library:
+        p32 = [p.float() for p in params]
+        g32 = [x.float() for x in grads]
+        steps = [torch.full((), 4.0, device=DEVICE) for _ in params]
+        rows["adamw_kernel"]["library_ms"] = time_ms(
+            torch, lambda: torch._fused_adamw_(
+                p32, g32, mus, nus, [], steps, lr=3e-3, beta1=0.9,
+                beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+                maximize=False), iters, flush)
+        params32 = [p32, g32, mus, nus]
+        rows["adamw_kernel"]["fp32_ms"] = time_ms(
+            torch, lambda: OK.adamw(*params32, **kw), iters, flush,
+            OPTIM_LEAD_CYCLES)
+        del p32, g32, params32
+    for name, fn in (("sum_squares_kernel", calls["sum_squares_kernel"][0]),
+                     ("adamw_kernel", calls["adamw_kernel"][0])):
+        row = rows[name]
+        lib = row["library_ms"]
+        log(f"time  {name:18s} {tag}: kernel_ms {row['ms']:.4f}  plain_ms "
+            f"{row['plain_ms']:.4f}  library_ms "
+            f"{'null' if lib is None else f'{lib:.4f}'}"
+            + (f" (our kernel on the same fp32 tensors {row['fp32_ms']:.4f})"
+               if "fp32_ms" in row else "")
+            + f"  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})  "
+            f"host_us {host_us(torch, fn, iters=5):.1f}")
+        row.pop("fp32_ms", None)
+    return rows
+
+
+def phase_optim_time(torch, OK, errs, iters=5):
+    """30 (b): at each OPTIM_LISTS parameter list (deepseek-v2's 2 layers:
+    5.36 G parameters, 64.3 GB of state, fp32 copies for the fused library
+    call would not fit beside it; smollm-135m's 272 tensors, musicgen's
+    435), both kernels checked against their plain versions on the list
+    (`optim_check_list`, the copies within half the free memory), then
+    timed (`optim_row`); then timed on one bf16 tensor of OPTIM_BIG
+    elements, the kernels' JSON row.  Returns (`errs`, {kernel: max abs
+    error}, raised by the lists' checks, that row by kernel)."""
+    import gc
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    for arch, layers in OPTIM_LISTS:
+        shapes = optim_list_shapes(arch, layers)
+        ts = [[], [], [], []]
+        for shape, dtype in shapes:  # gradients in their parameter's dtype
+            for k, x in enumerate(optim_tensors(torch, [shape],
+                                                (dtype, dtype), g)):
+                ts[k].append(x[0])
+        n = sum(math.prod(s) for s, _ in shapes)
+        tag = (f"{arch}{'' if layers is None else f' {layers} layers'} "
+               f"({len(shapes)} tensors, {n / 1e9:.3f} G)")
+        a, r, w, k = optim_check_list(
+            torch, OK, f"optim {tag}", ts, counts=(4,),
+            budget=torch.cuda.mem_get_info()[0] // 2)
+        errs = {"sum_squares_kernel": max(errs["sum_squares_kernel"], a),
+                "adamw_kernel": max(errs["adamw_kernel"], w)}
+        log(f"optim {tag}: sum_squares of all {len(shapes)} tensors "
+            f"deterministic, relative error {r:.3e} (bound "
+            f"{SUMSQ_RTOL:.3e}); adamw on the whole list, bit for bit with "
+            f"the plain update on the {k} tensors whose copies fit "
+            f"(max_abs_err {w:.3e})")
+        optim_row(torch, OK, tag, ts, flush, iters,
+                  fp32_library=n < OPTIM_FP32_LIBRARY_MAX)
+        del ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    ts = optim_tensors(torch, [(OPTIM_BIG,)], OK.PAIRS[0], g)
+    out = optim_row(torch, OK, f"one bf16 tensor [{OPTIM_BIG}]", ts, flush,
+                    iters, fp32_library=True)
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs, out
+
+
+def phase_optim(torch, OK):
+    """30: the optimizer kernels against their plain versions
+    (`phase_optim_check`), then checked and timed on the real lists
+    (`phase_optim_time`).  Returns ({kernel: max abs error over every
+    check}, {kernel: its JSON row's times})."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return phase_optim_time(torch, OK, phase_optim_check(torch, OK))
+
+
 def main() -> int:
     import torch
 
@@ -7237,12 +7670,13 @@ def main() -> int:
     from repro_torch.kernels.mlstm import kernel as MK
     from repro_torch.kernels.moe import kernel as GK
     from repro_torch.kernels.moe import ops as GO
+    from repro_torch.kernels.optimizer import kernel as OK
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ops as tops
 
     t0 = time.perf_counter()
     libraries = (K.library, FK.library, SK.library, MK.library, GK.library,
-                 AK.library, GL.library)
+                 AK.library, GL.library, OK.library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -7281,7 +7715,7 @@ def main() -> int:
     lap("8 ftime")
 
     # 9. end to end through the port's training path
-    flash_launches = phase_train(torch, K, FK)
+    flash_launches, optim_launched = phase_train(torch, K, FK)
     lap("9 train")
 
     # 10. training on the card (kernel) vs the CPU (plain version), fp32
@@ -7491,6 +7925,17 @@ def main() -> int:
                             replaces=replaces,
                             launches=serve["glue_launches"][name],
                             max_abs_err=glue_errs[name], **glue_times[name]))
+    # 30. the optimizer step: the multi-tensor sum of squares and the fused
+    # AdamW against their plain versions in every dtype pair and on one
+    # tensor over 2^31 elements, then timed at deepseek-v2's 2-layer list,
+    # smollm-135m's and the large tensor; the launches are phase 9's main
+    # training run's
+    optim_errs, optim_times = phase_optim(torch, OK)
+    lap("30 optim")
+    for name, replaces in OPTIM_REPLACES.items():
+        kernels.append(dict(name=name, route="cuda", source=OPTIM_SOURCE,
+                            replaces=replaces, launches=optim_launched[name],
+                            max_abs_err=optim_errs[name], **optim_times[name]))
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -275,15 +275,14 @@ def reduce_grads(grads: list[torch.Tensor], specs: list, mesh) -> None:
             start = end
 
 
-def global_norm(tensors: list[torch.Tensor], specs: list, mesh,
-                sumsq) -> torch.Tensor:
-    """The fp32 L2 norm of the whole tensors whose local blocks (at layouts
-    `specs`) are `tensors`: each tensor's local sum of squares (`sumsq`)
-    summed over the ranks that hold its other blocks, so a block held by
-    several ranks counts once."""
+def global_norm(sums: torch.Tensor, specs: list, mesh) -> torch.Tensor:
+    """The fp32 L2 norm of the whole tensors whose local blocks, at layouts
+    `specs`, have the sums of squares `sums` (fp32 [N], one entry a block):
+    each block's entry summed over the ranks that hold the tensor's other
+    blocks, so a block held by several ranks counts once."""
     by_axes: dict[tuple, list] = {}
-    for t, spec in zip(tensors, specs):
-        by_axes.setdefault(split_axes(mesh, spec), []).append(sumsq(t))
+    for i, spec in enumerate(specs):
+        by_axes.setdefault(split_axes(mesh, spec), []).append(sums[i])
     total = None
     for axes, parts in by_axes.items():
         s = torch.sum(torch.stack(parts)).reshape(1)

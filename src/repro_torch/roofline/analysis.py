@@ -229,6 +229,23 @@ def silu_mul_work(*, rows: int, ff: int, e: int) -> tuple[int, int]:
     return 5 * n, 3 * n * e
 
 
+def sum_squares_work(*, elems: int, nbytes: int, n: int) -> tuple[int, int]:
+    """The sums of squares of n tensors of `elems` elements in `nbytes`
+    bytes: each element read once, squared and added (2 FLOPs), n fp32
+    sums written."""
+    return 2 * elems, nbytes + 4 * n
+
+
+def adamw_work(*, elems: int, p_bytes: int, g_bytes: int) -> tuple[int, int]:
+    """The AdamW update of `elems` parameters of p_bytes each with
+    gradients of g_bytes: the parameter and both fp32 moments read and
+    written, the gradient read; 17 FLOPs an element (the clip product, 3
+    for the first moment, 4 for the second, the two bias-correction
+    quotients, the square root, the eps sum, the quotient, 2 for the
+    weight decay, 2 for the step)."""
+    return 17 * elems, elems * (2 * p_bytes + g_bytes + 16)
+
+
 # ---------------------------------------------------------------------------
 # the counter
 # ---------------------------------------------------------------------------

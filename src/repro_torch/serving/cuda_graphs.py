@@ -55,6 +55,7 @@ from repro_torch.kernels.mamba2 import kernel as SK
 from repro_torch.kernels.mla_decode import kernel as AK
 from repro_torch.kernels.mlstm import kernel as MK
 from repro_torch.kernels.moe import kernel as GK
+from repro_torch.kernels.optimizer import kernel as OK
 from repro_torch.kernels.paged_attention import kernel as K
 
 Counts = list[dict[str, int]]
@@ -65,7 +66,7 @@ def kernel_counters() -> Counts:
     return [K.LAUNCHES, K.KERNEL_LAUNCHES, FK.LAUNCHES, FK.KERNEL_LAUNCHES,
             SK.LAUNCHES, SK.KERNEL_LAUNCHES, MK.LAUNCHES, MK.KERNEL_LAUNCHES,
             GK.LAUNCHES, GK.KERNEL_LAUNCHES, AK.LAUNCHES, AK.KERNEL_LAUNCHES,
-            GL.LAUNCHES, GL.KERNEL_LAUNCHES]
+            GL.LAUNCHES, GL.KERNEL_LAUNCHES, OK.LAUNCHES, OK.KERNEL_LAUNCHES]
 
 
 def counted(fn: Callable, counters: Counts | None = None):

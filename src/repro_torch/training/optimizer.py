@@ -7,12 +7,13 @@ parameter's dtype: no fp32 master copy, as in the reference.
 parameters it computes a different function.
 
 The update is in place, as the reference's jitted update effectively is
-(XLA reuses the donated buffers): each parameter and its two moments are
-written one tensor at a time, in slices of at most `UPDATE_CHUNK`
-elements, so no fp32 temporary outgrows a slice (a whole-tensor form
-makes 5 GB temporaries for each expert matrix of deepseek-v2).  Every
-slice runs the reference's elementwise expressions in its order, so the
-result is bit for bit the whole-tensor form's.
+(XLA reuses the donated buffers), and runs in two hand-written
+multi-tensor kernels (`kernels/optimizer`): one launch for every
+gradient's sum of squares (the clip's global norm), one launch per
+(parameter dtype, gradient dtype) group for the update itself, which
+makes no temporaries.  The clip scale, the bias corrections and the
+learning rate stay 0-d device tensors: nothing of the update is read on
+the host.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import math
 import torch
 
 from repro_torch.distributed import spmd
-from repro_torch.utils.misc import global_norm
+from repro_torch.kernels.optimizer import kernel as OK
 
 
 def adamw_init(params: list[torch.Tensor]) -> dict:
@@ -54,12 +55,11 @@ def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
     return base_lr * warm * cos
 
 
-UPDATE_CHUNK = 1 << 26  # elements a slice: 256 MB of fp32
-
-
-def _slices(t: torch.Tensor):
-    """Views of `t`'s elements, flat, in slices of UPDATE_CHUNK."""
-    return t.view(-1).split(UPDATE_CHUNK)
+def global_norm(tensors) -> torch.Tensor:
+    """fp32 L2 norm over every element of a list of tensors (0-d): the
+    square root of the sum of each tensor's sum of squares, as the
+    reference sums its leaves."""
+    return torch.sqrt(torch.sum(OK.sum_squares(tensors)))
 
 
 def adamw_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
@@ -77,17 +77,9 @@ def adamw_update(grads, opt_state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     cf = count.to(torch.float32)
     bc1 = 1 - b1 ** cf
     bc2 = 1 - b2 ** cf
-    with torch.no_grad():
-        for g, mu, nu, p in zip(grads, opt_state["mu"], opt_state["nu"],
-                                params):
-            for gs, ms, ns, ps in zip(_slices(g), _slices(mu), _slices(nu),
-                                      _slices(p)):
-                gs = gs.to(torch.float32) * scale
-                ms.copy_(b1 * ms + (1 - b1) * gs)
-                ns.copy_(b2 * ns + (1 - b2) * torch.square(gs))
-                step_ = (ms / bc1) / (torch.sqrt(ns / bc2) + eps)
-                step_ = step_ + weight_decay * ps.to(torch.float32)
-                ps.copy_((ps.to(torch.float32) - lr * step_).to(ps.dtype))
+    OK.adamw(params, grads, opt_state["mu"], opt_state["nu"], scale=scale,
+             bc1=bc1, bc2=bc2, lr=lr, b1=b1, b2=b2, eps=eps,
+             weight_decay=weight_decay)
     return (params, {"mu": opt_state["mu"], "nu": opt_state["nu"],
                      "count": count},
             {"grad_norm": gnorm, "lr": torch.as_tensor(lr)})

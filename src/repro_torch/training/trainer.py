@@ -11,8 +11,9 @@ axes).  Every rank computes the whole batch's loss; each backpropagates
 1 / N of it (N ranks), so a gradient it holds is its share of a sum
 (`distributed/spmd.py`), completed over the axes a parameter is
 replicated on (`spmd.reduce_grads`).  The clip's global norm is that of
-the whole gradients (each block counted once), and AdamW updates each
-rank's blocks.
+the whole gradients (each block counted once: the blocks' sums of squares
+from one `sum_squares` launch, summed over the ranks that split each
+tensor), and AdamW updates each rank's blocks.
 
 The parameters live in the `Model` and are updated in place by
 `adamw_update` (no second parameter list is made); the train state holds
@@ -28,11 +29,11 @@ import torch
 from repro_torch.distributed import param_sharding as PS
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import active_mesh, spec
+from repro_torch.kernels.optimizer import kernel as OK
 from repro_torch.models.model import Model, apply_train
 from repro_torch.training.optimizer import (
     adamw_init, adamw_update, cosine_schedule,
 )
-from repro_torch.utils.misc import sum_squares
 
 
 def make_train_state(model: Model) -> dict:
@@ -112,7 +113,7 @@ def train_step(model: Model, state: dict, batch: dict, *,
     if mesh is not None:
         specs = [spmd.placement(p) for p in params]
         spmd.reduce_grads(grads, specs, mesh)
-        gnorm = spmd.global_norm(grads, specs, mesh, sum_squares)
+        gnorm = spmd.global_norm(OK.sum_squares(grads), specs, mesh)
     lr = cosine_schedule(state["step"], base_lr=base_lr, warmup=warmup,
                          total=total_steps)
     _, new_opt, opt_metrics = adamw_update(

@@ -1,6 +1,7 @@
 """The CUDA kernels (paged attention, flash attention, the Mamba2 SSD, the
-chunked mLSTM, the grouped expert GEMM, MLA's latent decode) against
-their plain PyTorch versions on the card, and the port's engines (packed
+chunked mLSTM, the grouped expert GEMM, MLA's latent decode, the layer
+glue, the optimizer step) against their plain PyTorch versions on the
+card, and the port's engines (packed
 smollm and llama4-maverick, padded zamba2, xlstm and deepseek-v2), the
 MoE layer and the flash attention gradient on the card against
 themselves on the CPU.
@@ -2081,3 +2082,173 @@ def test_glue_kernels_capture_into_a_graph(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(outs, want))
     assert torch.equal(kv, kv_want) and not torch.equal(kv, kv_before)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step (csrc/optimizer.cu): AdamW bit for bit against its
+# plain version in every (parameter, gradient) dtype pair; the sum of
+# squares within SUMSQ_RTOL of the plain sums (another order: a sum of
+# positive fp32 terms added in a chain k deep lies within k x 2^-24 of the
+# exact sum, and neither side's chains here reach 512) and bit for bit
+# across launches.
+# ---------------------------------------------------------------------------
+
+SUMSQ_RTOL = 1024 * 2.0 ** -24
+# odd sizes, a tensor over several of sum_squares_kernel's chunks, an
+# empty one
+OPT_SHAPES = [(7, 5), (3,), (129, 67), (1,), (3 * (1 << 18) + 77,), (0,),
+              (4096,)]
+
+
+def _views(dev, dtype, shapes, g, offset=0, scale=1.0):
+    """Seeded tensors of `shapes`, each a contiguous view `offset`
+    elements into a flat buffer of its own (offset 1: no 16-byte start)."""
+    out = []
+    for s in shapes:
+        n = int(np.prod(s))
+        buf = (torch.randn(n + offset, generator=g) * scale).to(dev, dtype)
+        out.append(buf[offset:].view(s))
+    return out
+
+
+@pytest.mark.parametrize("pair", [(torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (1, 2)])
+def test_adamw_kernel_matches_plain_bit_for_bit(cuda, pair, offsets):
+    """p, mu and nu bit for bit after two updates (counts 1 and 4, the
+    clip active), aligned, with every tensor a view one element in (the
+    scalar head and tail), and with the moments at another offset than p
+    and g (the scalar path); one tensor's gradient is zero (a parameter
+    the loss does not reach)."""
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    pd, gd = pair
+    g = torch.Generator().manual_seed(34)
+    po, mo = offsets
+    params = _views(cuda, pd, OPT_SHAPES, g, po)
+    grads = _views(cuda, gd, OPT_SHAPES, g, po, 3.0)
+    grads[1].zero_()
+    mus = _views(cuda, torch.float32, OPT_SHAPES, g, mo, 0.1)
+    nus = [x.abs() for x in _views(cuda, torch.float32, OPT_SHAPES, g, mo,
+                                   0.1)]
+    copies = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+    sums = OK.sum_squares_plain(grads)
+    for count in (1, 4):
+        scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(torch.sum(sums)),
+                                              min=1e-9), max=1.0)
+        cf = torch.tensor(float(count), device=cuda)
+        kw = dict(scale=scale, bc1=1 - 0.9 ** cf, bc2=1 - 0.95 ** cf,
+                  lr=torch.tensor(3e-3, device=cuda), b1=0.9, b2=0.95,
+                  eps=1e-8, weight_decay=0.1)
+        OK.reset_launches()
+        OK.adamw(params, grads, mus, nus, **kw)
+        OK.adamw_plain(copies[0], grads, copies[1], copies[2], **kw)
+        torch.cuda.synchronize()
+        assert OK.KERNEL_LAUNCHES == {"sum_squares_kernel": 0,
+                                      "adamw_kernel": 1}
+        for got, want in zip(params + mus + nus, sum(copies, [])):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+    assert float(scale) < 1.0
+
+
+def test_adamw_kernel_groups_and_scalars(cuda):
+    """A list of all three dtype pairs launches once per pair; a Python
+    float lr and a 0-d device lr give the same bits."""
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    g = torch.Generator().manual_seed(35)
+    pairs = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+    shapes = [(33, 7)] * 4
+
+    def state():
+        g.manual_seed(35)
+        ps = [_views(cuda, pd, [s], g)[0]
+              for (pd, _), s in zip(pairs, shapes)]
+        gs = [_views(cuda, gd, [s], g)[0]
+              for (_, gd), s in zip(pairs, shapes)]
+        ms = _views(cuda, torch.float32, shapes, g, scale=0.1)
+        ns = [x.abs() for x in _views(cuda, torch.float32, shapes, g,
+                                      scale=0.1)]
+        return ps, gs, ms, ns
+
+    kw = dict(scale=torch.tensor(0.5, device=cuda),
+              bc1=torch.tensor(0.1, device=cuda),
+              bc2=torch.tensor(0.05, device=cuda), b1=0.9, b2=0.95, eps=1e-8,
+              weight_decay=0.1)
+    a, b = state(), state()
+    OK.reset_launches()
+    OK.adamw(*a, lr=3e-3, **kw)
+    assert OK.KERNEL_LAUNCHES["adamw_kernel"] == 3
+    OK.adamw(*b, lr=torch.tensor(3e-3, device=cuda), **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(sum(a, []), sum(b, [])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sum_squares_kernel_matches_plain_and_is_deterministic(cuda, offset):
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    g = torch.Generator().manual_seed(36)
+    xs = [t for i, s in enumerate(OPT_SHAPES)
+          for t in _views(cuda, torch.bfloat16 if i % 2 else torch.float32,
+                          [s], g, offset, 4.0)]
+    xs.append(torch.zeros(300, device=cuda))
+    OK.reset_launches()
+    got = OK.sum_squares(xs)
+    again = OK.sum_squares(xs)
+    want = OK.sum_squares_plain(xs)
+    torch.cuda.synchronize()
+    assert OK.KERNEL_LAUNCHES == {"sum_squares_kernel": 2, "adamw_kernel": 0}
+    assert got.shape == (len(xs),) and torch.equal(got, again)
+    assert bool(((got - want).abs() <= SUMSQ_RTOL * want).all())
+    assert float(got[OPT_SHAPES.index((0,))]) == 0.0 and float(got[-1]) == 0.0
+
+
+@pytest.mark.parametrize("pair", [(torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.float32)])
+def test_optimizer_kernels_on_a_long_list(cuda, pair):
+    """A list as long as a model's (300 tensors, ~37 rows for each warp of
+    sum_squares_kernel's last block, adamw_kernel's row search over all of
+    them): mostly small odd sizes, every 23rd tensor over several chunks
+    of both kernels, a few empty, every 7th a view one element in.  AdamW
+    bit for bit, the sums within SUMSQ_RTOL and deterministic."""
+    from repro_torch.kernels.optimizer import kernel as OK
+
+    pd, gd = pair
+    rng = np.random.default_rng(37)
+    shapes = [(0,) if i % 61 == 60 else
+              (3 * OK.SUM_CHUNK + int(rng.integers(1, 999)),) if i % 23 == 5
+              else (int(rng.integers(1, 5000)),) for i in range(300)]
+    g = torch.Generator().manual_seed(37)
+
+    def make(dtype, scale):
+        return [_views(cuda, dtype, [s], g, int(i % 7 == 3), scale)[0]
+                for i, s in enumerate(shapes)]
+
+    params, grads, mus = make(pd, 1.0), make(gd, 3.0), make(torch.float32,
+                                                            0.1)
+    nus = [x.abs() for x in make(torch.float32, 0.1)]
+    grads[2].zero_()
+    copies = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+    OK.reset_launches()
+    sums, again = OK.sum_squares(grads), OK.sum_squares(grads)
+    want = OK.sum_squares_plain(grads)
+    scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(torch.sum(sums)),
+                                          min=1e-9), max=1.0)
+    cf = torch.tensor(3.0, device=cuda)
+    kw = dict(scale=scale, bc1=1 - 0.9 ** cf, bc2=1 - 0.95 ** cf,
+              lr=torch.tensor(3e-3, device=cuda), b1=0.9, b2=0.95, eps=1e-8,
+              weight_decay=0.1)
+    OK.adamw(params, grads, mus, nus, **kw)
+    OK.adamw_plain(copies[0], grads, copies[1], copies[2], **kw)
+    torch.cuda.synchronize()
+    assert OK.KERNEL_LAUNCHES == {"sum_squares_kernel": 2, "adamw_kernel": 1}
+    assert torch.equal(sums, again)
+    assert bool(((sums - want).abs() <= SUMSQ_RTOL * want).all())
+    assert float(sums[2]) == 0.0 and float(scale) < 1.0
+    for got, ref in zip(params + mus + nus, sum(copies, [])):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)

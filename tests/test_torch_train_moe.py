@@ -41,6 +41,7 @@ from repro.training import optimizer as JO
 from repro.training.trainer import make_train_step
 from repro_torch import weights
 from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
+from repro_torch.kernels.optimizer import kernel as OK
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.training import checkpoint as C
@@ -49,7 +50,7 @@ from repro_torch.training.data import DataState, MarkovDataset
 from repro_torch.training.trainer import (
     load_state_tensors, make_train_state, state_tensors, train_step,
 )
-from repro_torch.utils.misc import global_norm
+from repro_torch.training.optimizer import global_norm
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 DSV2, MAV = "deepseek-v2-236b", "llama4-maverick-400b-a17b"
@@ -231,7 +232,7 @@ def test_inplace_adamw_equals_list_form(dtype, chunk, monkeypatch):
     """Slices of 7 elements cut every tensor off its rows; the default
     takes each whole.  Parameters, moments and the grad norm bit for bit,
     the update written into the caller's tensors."""
-    monkeypatch.setattr(TO, "UPDATE_CHUNK", chunk)
+    monkeypatch.setattr(OK, "UPDATE_CHUNK", chunk)
     rng = np.random.default_rng(3)
     shapes = [(8, 5), (3,), (4, 2, 3), (1,)]
     td = getattr(torch, dtype)
@@ -263,14 +264,14 @@ def test_inplace_adamw_equals_list_form(dtype, chunk, monkeypatch):
 
 
 def test_global_norm_sliced_matches_whole(monkeypatch):
-    from repro_torch.utils import misc
+    from repro_torch.kernels.optimizer import kernel as OK
 
     rng = np.random.default_rng(4)
     ts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
           for s in ((30, 7), (5,))]
-    whole = misc.global_norm(ts)
-    monkeypatch.setattr(misc, "NORM_CHUNK", 16)
-    torch.testing.assert_close(misc.global_norm(ts), whole, rtol=1e-6,
+    whole = global_norm(ts)
+    monkeypatch.setattr(OK, "NORM_CHUNK", 16)
+    torch.testing.assert_close(global_norm(ts), whole, rtol=1e-6,
                                atol=0)
 
 
